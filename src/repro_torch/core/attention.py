@@ -1,0 +1,269 @@
+"""Attention with a pluggable score normalizer — the serving branches of the
+reference's ``core/attention.py``.
+
+* ``append_attention`` — chunked append-at-index prefill: a fixed-size
+  chunk at per-slot cache position ``index`` attends ``cache[0:index]`` plus
+  itself. For consmax each KV block's ``p @ v`` partial is final (no
+  running max, no denominator), so the walk's carry is the fp32 output
+  accumulator alone.
+* ``decode_attention`` — one-token decode against the cache, the score row
+  materialized.
+* ``attention_apply`` — the module API: q/k/v projection, RoPE, the
+  in-place cache write, the plain walks above or the ConSmax kernels
+  (``kernels/consmax_prefill``, ``kernels/consmax_decode``), and the output
+  projection.
+
+Layouts as in the reference: q ``(b, s, H, dk)``, caches ``(b, L, hkv, dk)``,
+per-slot ``index`` ``(b,)`` int32. The port writes K/V into the cache tensors
+in place (the reference donates the cache buffer to the same effect).
+
+Not ported yet (they raise ``NotImplementedError``): the whole-prompt /
+training path (``blockwise_attention``), paged KV, cross-attention, and the
+softmax/softermax online walks of chunked prefill.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import normalizers
+from repro_torch.core.consmax import ConSmaxParams
+from repro_torch.kernels.cache_layout import kv_mask
+from repro_torch.nn import layers as L
+from repro_torch.nn import rope as R
+
+
+class Attention(nn.Module):
+    """q/k/v/o projections and the score normalizer's parameters, named as
+    the reference's ``attention_init`` tree."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d, H, hkv, dk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        self.q = L.HeadsProj(d, H, dk, bias=cfg.qkv_bias, device=device)
+        self.k = L.HeadsProj(d, hkv, dk, bias=cfg.qkv_bias, device=device)
+        self.v = L.HeadsProj(d, hkv, dk, bias=cfg.qkv_bias, device=device)
+        self.o = L.HeadsOut(H, dk, d, device=device)
+        self.score_norm = (ConSmaxParams(H, cfg.consmax, device=device)
+                           if cfg.score_norm == "consmax" else nn.Module())
+
+    def reset_parameters(self, generator: torch.Generator):
+        for m in (self.q, self.k, self.v, self.o):
+            m.reset_parameters(generator)
+        if isinstance(self.score_norm, ConSmaxParams):
+            self.score_norm.reset_parameters(generator)
+
+
+# ---------------------------------------------------- cache writes ----
+def _append_cache_write(cache, new, index):
+    """Write ``new``: (b, c, hkv, dk) into ``cache``: (b, L, hkv, dk) at
+    per-slot row ``index``: (b,), in place.
+
+    As the reference's read-modify-write: the c-row window starts at
+    ``clamp(index, 0, L - c)`` and the chunk's rows land at their true
+    positions ``index + i``; rows that would fall past ``L`` (a ragged final
+    chunk near the cache end) are dropped, and window rows below ``index``
+    keep their content. Window rows are distinct, so the scatter is
+    deterministic, and nothing is read back to the host."""
+    b, c = new.shape[:2]
+    L_ = cache.shape[1]
+    ar = torch.arange(c, device=cache.device)
+    start = index.clamp(0, max(L_ - c, 0))
+    off = index - start
+    rows = start[:, None] + ar                               # (b, c)
+    keep = (ar >= off[:, None])[..., None, None]
+    src = (ar - off[:, None]).clamp(min=0)
+    bi = torch.arange(b, device=cache.device)[:, None]
+    win = cache[bi, rows]
+    cache[bi, rows] = torch.where(keep, new.to(cache.dtype)[bi, src], win)
+
+
+def _decode_cache_write(cache, new, index, active):
+    """Write the one-token rows ``new``: (b, 1, hkv, dk) at ``index``
+    (clamped into the cache, as ``dynamic_update_slice`` does), in place;
+    slots where ``active`` is False keep their row."""
+    b = new.shape[0]
+    rows = index.clamp(0, cache.shape[1] - 1)
+    bi = torch.arange(b, device=cache.device)
+    new = new[:, 0].to(cache.dtype)
+    if active is not None:
+        new = torch.where(active[:, None, None], new, cache[bi, rows])
+    cache[bi, rows] = new
+
+
+# ------------------------------------------------------------ plain walks ----
+def _kv_walk(q, index, lengths, k, v, kc, *, norm_kind, norm_params,
+             window=0, softcap=0.0, merged=True):
+    """A (b, c) chunk at per-slot positions index + [0, c) attends cache
+    blocks j = 0..hi of ``kc`` rows, hi bounded by the batch's highest fill.
+    Products in fp32 of the compute-dtype operands, weights cast to the
+    compute dtype before ``p @ v``, fp32 accumulator: the reference's
+    ``preferred_element_type=float32`` einsums."""
+    if norm_kind != "consmax":
+        raise NotImplementedError(
+            f"append walk for score_norm={norm_kind!r}: only the consmax "
+            "walk is ported")
+    b, c, H, dk = q.shape
+    hkv = k.shape[2]
+    g = H // hkv
+    cdt = q.dtype
+    qg = q.reshape(b, c, hkv, g, dk).float()
+    qpos = index[:, None] + torch.arange(c, device=q.device)    # (b, c)
+    kv_len = index + lengths
+    hi = int(((kv_len + kc - 1) // kc).max())                   # host bound
+    acc = torch.zeros((b, c, hkv, g, dk), dtype=torch.float32,
+                      device=q.device)
+    for j in range(hi):
+        k_blk = k[:, j * kc:(j + 1) * kc].to(cdt).float()
+        v_blk = v[:, j * kc:(j + 1) * kc].to(cdt).float()
+        n = k_blk.shape[1]
+        s = torch.einsum("bqhgd,bchd->bhgqc", qg, k_blk)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = j * kc + torch.arange(n, device=q.device)
+        msk = kv_mask(qpos[:, :, None], kpos[None, None, :],
+                      kv_len[:, None, None], window)           # (b, c, n)
+        p = normalizers.apply_norm(
+            "consmax", norm_params, s.reshape(b, H, c, n), msk[:, None],
+            head_axis=1, merged=merged).reshape(b, hkv, g, c, n)
+        acc += torch.einsum("bhgqc,bchd->bqhgd", p.to(cdt).float(), v_blk)
+    return acc.reshape(b, c, H, dk).to(cdt)
+
+
+def append_attention(q, k, v, index, lengths, *, norm_kind, norm_params,
+                     window=0, softcap=0.0, merged=True, kv_chunk=1024):
+    """q: (b, c, H, dk) chunk queries at per-slot positions index + [0, c);
+    k, v: (b, L, hkv, dk) caches *after* the chunk's K/V were written at
+    ``index``; lengths: (b,) real (non-pad) tokens in the chunk. Each query
+    row attends causally to cache rows < index + lengths; rows >= lengths
+    are pad queries whose output the caller ignores."""
+    kc = min(kv_chunk, k.shape[1])
+    return _kv_walk(q, index, lengths, k, v, kc, norm_kind=norm_kind,
+                    norm_params=norm_params, window=window, softcap=softcap,
+                    merged=merged)
+
+
+def decode_attention(q, k, v, index, *, norm_kind, norm_params, window=0,
+                     softcap=0.0, merged=True):
+    """q: (b, 1, H, dk); k, v: (b, L, hkv, dk); index: (b,) current
+    position (its K/V row already written). The score row is materialized."""
+    b, _, H, dk = q.shape
+    L_, hkv = k.shape[1], k.shape[2]
+    g = H // hkv
+    cdt = q.dtype
+    qg = q.reshape(b, hkv, g, dk).float()
+    s = torch.einsum("bhgd,bchd->bhgc", qg, k.to(cdt).float())
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(L_, device=q.device)
+    msk = kv_mask(index[:, None], kpos[None, :], index[:, None] + 1,
+                  window)                                       # (b, L)
+    p = normalizers.apply_norm(norm_kind, norm_params, s.reshape(b, H, 1, L_),
+                               msk[:, None, None, :], head_axis=1,
+                               merged=merged)
+    p = p.reshape(b, hkv, g, L_).to(cdt).float()
+    out = torch.einsum("bhgc,bchd->bhgd", p, v.to(cdt).float())
+    return out.reshape(b, 1, H, dk).to(cdt)
+
+
+# ----------------------------------------------------------- module api ----
+def attention_apply(p: Attention, x, cfg: ModelConfig, *,
+                    kind: str = "global", cache=None, cond=None,
+                    merged=False, kv_chunk: int = 1024,
+                    decode_kernel: bool = False, decode_kv_block: int = 256,
+                    prefill_kernel: bool = False, fill_bound: bool = True,
+                    prefill_append=None, decode_active=None,
+                    page_table=None):
+    """Self-attention over x: (b, s, d) against a per-slot KV cache.
+
+    cache: dict(k, v, index) — K/V are written in place; the returned cache
+    dict holds the same K/V tensors and the advanced index.
+    prefill_append: (b,) int32 real chunk lengths — x is a fixed-size chunk
+    appended at the cache's per-slot ``index``. Pad rows' K/V are zeroed
+    before the write and ``index`` advances by the real count.
+    decode_active: (b,) bool — one-token decode: slots where False keep
+    their cache row and index; their output is garbage to be discarded.
+    decode_kernel / prefill_kernel: route consmax decode / append prefill
+    through the ConSmax kernels (``decode_kv_block`` sizes the decode
+    kernel's KV shards; ``fill_bound`` skips work past each slot's fill).
+    Returns (out, new_cache).
+    """
+    if cond is not None:
+        raise NotImplementedError("cross-attention is not ported yet")
+    if page_table is not None:
+        raise NotImplementedError("paged KV is not ported yet")
+    b, s, _ = x.shape
+    if cache is None or (prefill_append is None and s > 1):
+        raise NotImplementedError(
+            "whole-sequence attention (training / whole-prompt prefill, "
+            "blockwise_attention) is not ported yet: serve through "
+            "prefill_append chunks and one-token decode")
+    H, dk = cfg.n_heads, cfg.head_dim_
+    cdt = cfg.cdtype()
+    window = cfg.window if kind == "local" else 0
+    consmax_kernels = cfg.score_norm == "consmax"
+
+    q = p.q(x, cdt) * torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
+    k = p.k(x, cdt)
+    v = p.v(x, cdt)
+
+    rope_on = cfg.rope_style != "none"
+    interleaved = cfg.rope_style == "interleaved"
+    rot = int(dk * cfg.rope_fraction)
+    if rot % 2:
+        rot -= 1
+    idx = cache["index"]                                     # (b,) int32
+    if rope_on:
+        pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]
+        q = R.apply_rope(q, pos, rotary_dim=rot, theta=cfg.rope_theta,
+                         interleaved=interleaved)
+        k = R.apply_rope(k, pos, rotary_dim=rot, theta=cfg.rope_theta,
+                         interleaved=interleaved)
+    k_cache, v_cache = cache["k"], cache["v"]
+    if consmax_kernels:
+        beta = p.score_norm.beta.float().expand(H).contiguous()
+        gamma = p.score_norm.gamma.float().expand(H).contiguous()
+
+    if prefill_append is not None:
+        lengths = prefill_append.to(torch.int32)
+        # zero pad rows (>= lengths) so they never enter the cache
+        keep = (torch.arange(s, device=x.device)[None, :]
+                < lengths[:, None])[..., None, None]
+        _append_cache_write(k_cache, torch.where(keep, k, 0), idx)
+        _append_cache_write(v_cache, torch.where(keep, v, 0), idx)
+        if prefill_kernel and consmax_kernels:
+            from repro_torch.kernels.consmax_prefill.ops import (
+                consmax_prefill_op)
+            out = consmax_prefill_op(
+                q, k_cache, v_cache, idx, lengths, beta, gamma,
+                window=window, softcap=cfg.attn_softcap, merged=merged,
+                scale=1.0, fill_bound=fill_bound)
+        else:
+            out = append_attention(
+                q, k_cache, v_cache, idx, lengths,
+                norm_kind=cfg.score_norm, norm_params=p.score_norm,
+                window=window, softcap=cfg.attn_softcap, merged=merged,
+                kv_chunk=kv_chunk)
+        new_index = idx + lengths
+    else:
+        _decode_cache_write(k_cache, k, idx, decode_active)
+        _decode_cache_write(v_cache, v, idx, decode_active)
+        if decode_kernel and consmax_kernels:
+            from repro_torch.kernels.consmax_decode.ops import (
+                consmax_decode_op)
+            out = consmax_decode_op(
+                q, k_cache, v_cache, idx, beta, gamma, window=window,
+                softcap=cfg.attn_softcap, merged=merged, scale=1.0,
+                bk=decode_kv_block, fill_bound=fill_bound)
+        else:
+            out = decode_attention(q, k_cache, v_cache, idx,
+                                   norm_kind=cfg.score_norm,
+                                   norm_params=p.score_norm, window=window,
+                                   softcap=cfg.attn_softcap, merged=merged)
+        step = 1 if decode_active is None else decode_active.to(idx.dtype)
+        new_index = idx + step
+    out = p.o(out, cdt)
+    return out, {"k": k_cache, "v": v_cache, "index": new_index}

@@ -1,0 +1,148 @@
+"""Build, load and check the operands of the hand-written CUDA kernels.
+
+Each kernel lives in ``kernels/<name>/csrc/<name>.cu`` with a plain C entry
+point (pointers and the CUDA stream as ``void*``, a returned
+``cudaGetLastError()``). At first use it is compiled with ``nvcc`` for
+Hopper (``sm_90a``) into ``build/kernels/`` at the repo root — a directory
+``.gitignore`` lists — and loaded with ``ctypes``. A library's file name
+carries a hash of its sources and flags, so an edited source rebuilds and an
+unchanged one is reused. ``build`` starts one ``nvcc`` per missing library,
+all at once, and waits for them together.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port, on machines that have neither a card nor ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = _KERNELS_DIR.parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+COMMON_INCLUDE = _KERNELS_DIR / "csrc"
+KERNELS = ("consmax_decode", "consmax_prefill")
+HEAD_DIMS = (32, 64, 128, 256)          # the head_dims the kernels compile
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def _sources(name: str) -> list[Path]:
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; expected one of {KERNELS}")
+    return [_KERNELS_DIR / name / "csrc" / f"{name}.cu",
+            *sorted(COMMON_INCLUDE.glob("*.cuh"))]
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    nvcc = shutil.which("nvcc") or str(home / "bin" / "nvcc")
+    if not Path(nvcc).exists():
+        raise RuntimeError(f"nvcc not found (looked on PATH and in "
+                           f"{home / 'bin'}): the CUDA kernels cannot be "
+                           "built here")
+    return nvcc
+
+
+def build(names=KERNELS) -> dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` each, all in parallel. Returns ``{name: seconds}`` for the
+    libraries compiled by this call; raises with the compiler's output if
+    one fails. The compiler's report (registers, spills) is kept beside
+    each library as ``<library>.log``."""
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{COMMON_INCLUDE}", "-o", str(tmp),
+               str(_sources(name)[0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    seconds, failed = {}, {}
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode:
+            failed[name] = log
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)                 # atomic: readers never see
+                                             # a half-written library
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {n} ---\n{log}" for n, log in failed.items()))
+    return seconds
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library for kernel ``name`` (building it first if
+    needed), loaded once per process."""
+    build((name,))
+    lib = ctypes.CDLL(str(library_path(name)))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict):
+    """Raise unless ``q`` (b, [c,] H, dk) and the caches ``k``/``v``
+    (b, L, hkv, dk) are bf16 and agree, ``slots`` tensors are (b,) and
+    ``heads`` tensors (H,), and every operand lies on ``q``'s device,
+    contiguous and aligned for the kernel's vector loads (16 bytes for
+    q/k/v, 4 for the rest)."""
+    b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel}: {name} must be bfloat16 on CUDA, "
+                            f"got {t.dtype}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dk:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)} does not match "
+                         f"cache {tuple(k.shape)} / {tuple(v.shape)}")
+    if dk not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head_dim {dk} not in {HEAD_DIMS}")
+    if H % k.shape[2]:
+        raise ValueError(f"{kernel}: {H} heads not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    for group, n in ((slots, b), (heads, H)):
+        for name, t in group.items():
+            if t.shape != (n,):
+                raise ValueError(f"{kernel}: {name} must have shape ({n},), "
+                                 f"got {tuple(t.shape)}")
+    for name, t in {"q": q, "k": k, "v": v, **slots, **heads}.items():
+        if t.device != q.device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, q on "
+                             f"{q.device}")
+        align = 16 if name in ("q", "k", "v") else 4
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{kernel}: {name} must be contiguous and "
+                             f"{align}-byte aligned")
+
+
+def check(lib: ctypes.CDLL, err: int, what: str):
+    """Raise if a launch entry point returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.kernel_error_string(err).decode()})")

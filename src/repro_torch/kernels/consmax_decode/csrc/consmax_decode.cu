@@ -1,0 +1,245 @@
+// Split-KV ConSmax decode for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernel src/repro/kernels/consmax_decode/kernel.py:
+// consmax_decode (_folded_kernel with fill_bound, _kernel without).
+//
+// One query token per slot against the contiguous KV cache, read in its
+// stored (b, L, hkv, dk) layout (no transposed or padded copy):
+//   s = q . k * scale;  s = softcap * tanh(s / softcap) (optional)
+//   p = C * exp(s), C = exp(-beta) / gamma (merged)  |  exp(s - beta) / gamma
+//   p = 0 where kv_mask(n - 1, kpos, n, window) is false  (n = index + 1)
+//   o = sum_j p_j v_j
+//
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): decode reads every
+// live K and V row once and does 4 flops per row element per query head,
+// i.e. ~g flops per byte — far below the ~295 flops/byte ridge, so it is
+// bandwidth-bound: about b * fill * hkv * dk * 2 bytes * 2 (K and V) per
+// layer, 33.5 MB ~ 10 us for b = 8, fill = 4096, qwen2-1.5b (hkv 2, dk 128).
+//
+// Design against that bound:
+// * Split-KV: the grid is (KV shard, kv head, slot), so b * hkv = 16 rows of
+//   work still spread over ~ns * 16 blocks and fill the 132 SMs. ConSmax has
+//   no running max and no denominator, so shard partials are independent
+//   and combine by plain addition: each shard writes a (g, dk) fp32 partial,
+//   and a second kernel sums the live shards of each slot in a fixed order
+//   (shard 0, 1, ...). No atomics: results are the same on every run.
+// * Fill bounding without a host sync: a block reads its slot's length on
+//   the device and returns at once when its shard is past the fill or
+//   behind the sliding window (cache_layout.shard_live); the combine skips
+//   the same shards, so dead shards cost one launch slot and no bytes.
+//   Rows past the fill inside a live shard are not read either.
+// * GQA folding: the g query heads sharing a KV head are held in registers
+//   (chunks of up to 8 heads), so each K/V row is read once for all of them.
+// * Loads: a warp reads one K row with 32 lanes x dk/32 contiguous bf16 (one
+//   vector access each); in the p.V pass, threads cover a row in 4-element
+//   vectors. All math is fp32 FMA on CUDA cores: decode does too few flops
+//   per byte for tensor cores to matter.
+// What it leaves for later: cp.async/TMA double buffering of K/V and more
+// rows in flight per warp; the simple version is latency-bound well above
+// the 10 us figure.
+#include "consmax_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeadChunk = 8;  // query heads of one GQA group per pass
+
+template <int DK>
+__global__ void __launch_bounds__(kThreads)
+    decode_partials(const __nv_bfloat16* __restrict__ q,  // (b, H, DK)
+                    const __nv_bfloat16* __restrict__ k,  // (b, L, hkv, DK)
+                    const __nv_bfloat16* __restrict__ v,
+                    const int* __restrict__ lengths,      // (b,)
+                    const float* __restrict__ beta,       // (H,)
+                    const float* __restrict__ gamma,
+                    float* __restrict__ partials,  // (b, hkv, ns, g, DK)
+                    int H, int hkv, int L, int bk, int ns, int window,
+                    float softcap, float scale, int merged, int fill_bound) {
+  constexpr int kPerLane = DK / 32;        // K elements per lane (score pass)
+  constexpr int kQuads = DK / 4;           // 4-element vectors per row
+  constexpr int kRowGroups = kThreads / kQuads;  // rows in flight (p.V pass)
+
+  const int shard = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = H / hkv;
+  const int n = lengths[b];                // valid rows; decode row is n - 1
+  const int start = shard * bk;
+  if (fill_bound && !shard_live(start, bk, n, n - 1, n - 1, window)) return;
+
+  extern __shared__ float smem[];
+  float* p_s = smem;                             // [kHeadChunk][bk]
+  float* red_s = smem + kHeadChunk * bk;         // [kRowGroups][kHeadChunk][DK]
+
+  const int rows = min(bk, L - start);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_stride = static_cast<size_t>(hkv) * DK;
+  const size_t base = (static_cast<size_t>(b) * L + start) * row_stride +
+                      static_cast<size_t>(h) * DK;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+
+  for (int g0 = 0; g0 < g; g0 += kHeadChunk) {
+    const int gc = min(kHeadChunk, g - g0);
+    // this lane's slice of each query head, and each head's constants
+    float qr[kHeadChunk][kPerLane];
+    float bet[kHeadChunk], gam[kHeadChunk];
+#pragma unroll
+    for (int gi = 0; gi < kHeadChunk; ++gi) {
+      const int head = h * g + g0 + min(gi, gc - 1);
+      load_bf16<kPerLane>(q + (static_cast<size_t>(b) * H + head) * DK +
+                              lane * kPerLane,
+                          qr[gi]);
+      bet[gi] = beta[head];
+      gam[gi] = gamma[head];
+    }
+
+    // pass 1: one warp per K row -> weights p_s[gi][j]
+    for (int j = warp; j < rows; j += kWarps) {
+      const int kpos = start + j;
+      const bool valid = kv_mask(n - 1, kpos, n, window);  // warp-uniform
+      float dot[kHeadChunk];
+      if (valid) {
+        float kf[kPerLane];
+        load_bf16<kPerLane>(kb + j * row_stride + lane * kPerLane, kf);
+#pragma unroll
+        for (int gi = 0; gi < kHeadChunk; ++gi) {
+          float t = 0.f;
+#pragma unroll
+          for (int e = 0; e < kPerLane; ++e) t += qr[gi][e] * kf[e];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            t += __shfl_xor_sync(0xffffffffu, t, off);
+          dot[gi] = t;
+        }
+      }
+      if (lane == 0) {
+        for (int gi = 0; gi < gc; ++gi)
+          p_s[gi * bk + j] =
+              valid ? consmax_weight(dot[gi] * scale, bet[gi], gam[gi],
+                                     softcap, merged)
+                    : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // pass 2: o[gi][d] = sum_j p[gi][j] v[j][d], rows split over row groups
+    const int quad = threadIdx.x % kQuads, rg = threadIdx.x / kQuads;
+    float o[kHeadChunk][4];
+#pragma unroll
+    for (int gi = 0; gi < kHeadChunk; ++gi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[gi][e] = 0.f;
+    for (int j = rg; j < rows; j += kRowGroups) {
+      if (!kv_mask(n - 1, start + j, n, window)) continue;  // never read
+      float vf[4];
+      load_bf16<4>(vb + j * row_stride + quad * 4, vf);
+#pragma unroll
+      for (int gi = 0; gi < kHeadChunk; ++gi) {
+        const float p = gi < gc ? p_s[gi * bk + j] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[gi][e] += p * vf[e];
+      }
+    }
+    for (int gi = 0; gi < gc; ++gi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red_s[(rg * kHeadChunk + gi) * DK + quad * 4 + e] = o[gi][e];
+    __syncthreads();
+    // fixed-order sum over the row groups -> this shard's partial
+    for (int i = threadIdx.x; i < gc * DK; i += kThreads) {
+      const int gi = i / DK, d = i % DK;
+      float t = 0.f;
+      for (int r = 0; r < kRowGroups; ++r)
+        t += red_s[(r * kHeadChunk + gi) * DK + d];
+      partials[(((static_cast<size_t>(b) * hkv + h) * ns + shard) * g + g0 +
+                gi) * DK + d] = t;
+    }
+    __syncthreads();  // p_s / red_s are reused by the next head chunk
+  }
+}
+
+// out[b, head, d] = sum over the slot's live shards, in shard order.
+__global__ void decode_combine(const float* __restrict__ partials,
+                               const int* __restrict__ lengths,
+                               __nv_bfloat16* __restrict__ out,  // (b, H, dk)
+                               int b_total, int H, int hkv, int dk, int bk,
+                               int ns, int window, int fill_bound) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(b_total) * H * dk) return;
+  const int d = i % dk;
+  const int head = (i / dk) % H;
+  const int b = i / (static_cast<size_t>(dk) * H);
+  const int g = H / hkv, h = head / g, gi = head % g;
+  const int n = lengths[b];
+  float t = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    if (fill_bound && !shard_live(s * bk, bk, n, n - 1, n - 1, window))
+      continue;  // never written
+    t += partials[(((static_cast<size_t>(b) * hkv + h) * ns + s) * g + gi) *
+                      dk + d];
+  }
+  out[i] = __float2bfloat16(t);
+}
+
+template <int DK>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* lengths, const float* beta, const float* gamma,
+                   float* partials, void* out, int b, int H, int hkv, int L,
+                   int bk, int window, float softcap, float scale, int merged,
+                   int fill_bound, cudaStream_t stream) {
+  const int ns = (L + bk - 1) / bk;
+  const size_t smem =
+      (kHeadChunk * static_cast<size_t>(bk) + kThreads * 4 * kHeadChunk) *
+      sizeof(float);
+  dim3 grid(ns, hkv, b);
+  decode_partials<DK><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), lengths, beta, gamma, partials, H,
+      hkv, L, bk, ns, window, softcap, scale, merged, fill_bound);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = static_cast<size_t>(b) * H * DK;
+  const int threads = 256;
+  decode_combine<<<(total + threads - 1) / threads, threads, 0, stream>>>(
+      partials, lengths, static_cast<__nv_bfloat16*>(out), b, H, hkv, DK, bk,
+      ns, window, fill_bound);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (b, H, dk) bf16; k, v (b, L, hkv, dk) bf16; lengths (b,) int32 = valid
+// rows per slot; beta, gamma (H,) fp32; partials (b, hkv, ceil(L/bk), g, dk)
+// fp32 scratch; out (b, H, dk) bf16. dk in {32, 64, 128, 256}; bk <= 512
+// (shared memory (8 * bk + 4096) * 4 bytes stays within the default 48 KB).
+extern "C" int consmax_decode_launch(const void* q, const void* k,
+                                     const void* v, const void* lengths,
+                                     const void* beta, const void* gamma,
+                                     void* partials, void* out, int b, int H,
+                                     int hkv, int L, int dk, int bk,
+                                     int window, float softcap, float scale,
+                                     int merged, int fill_bound,
+                                     void* stream) {
+  auto* len = static_cast<const int*>(lengths);
+  auto* bt = static_cast<const float*>(beta);
+  auto* gm = static_cast<const float*>(gamma);
+  auto* part = static_cast<float*>(partials);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dk) {
+    case 32:
+      return launch<32>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
+                        window, softcap, scale, merged, fill_bound, st);
+    case 64:
+      return launch<64>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
+                        window, softcap, scale, merged, fill_bound, st);
+    case 128:
+      return launch<128>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
+                         window, softcap, scale, merged, fill_bound, st);
+    case 256:
+      return launch<256>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
+                         window, softcap, scale, merged, fill_bound, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

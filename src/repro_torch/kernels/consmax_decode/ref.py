@@ -1,0 +1,34 @@
+"""Plain PyTorch version of the split-KV ConSmax decode kernel: the whole
+score row materialized, fp32 math (the reference's ``consmax_decode_ref``,
+but reading the cache in its stored ``(b, L, hkv, d)`` layout)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import cache_layout as CL
+
+
+def consmax_decode_ref(q, k, v, lengths, beta, gamma, *, window=0,
+                       softcap=0.0, merged=True, scale=None):
+    """q: (b, nh, d); k, v: (b, L, nkv, d); lengths: (b,) valid rows (the
+    decode row sits at ``lengths - 1``); beta/gamma: (nh,). Returns
+    (b, nh, d) in q.dtype."""
+    b, nh, d = q.shape
+    L, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, nkv, g, d)
+    s = torch.einsum("bhgd,bchd->bhgc", qf, k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(L, device=q.device)[None, :]           # (1, L)
+    n = lengths.to(torch.int32)[:, None]                        # (b, 1)
+    mask = CL.kv_mask(n - 1, kpos, n, window)                   # (b, L)
+    p = CL.consmax_weights(s, beta.float().reshape(nkv, g, 1),
+                           gamma.float().reshape(nkv, g, 1), merged)
+    p = torch.where(mask[:, None, None, :], p, 0.0)
+    o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
+    return o.reshape(b, nh, d).to(q.dtype)

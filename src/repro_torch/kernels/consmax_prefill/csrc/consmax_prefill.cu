@@ -1,0 +1,284 @@
+// ConSmax append-at-index prefill for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernel src/repro/kernels/consmax_prefill/kernel.py:
+// consmax_prefill (_kernel).
+//
+// A (b, c) chunk of pre-scaled queries at per-slot cache positions
+// index + [0, c) attends the cache rows below index + lengths (the chunk's
+// own K/V were written there first), causally and optionally within a
+// sliding window:
+//   s = q . k * scale;  s = softcap * tanh(s / softcap) (optional)
+//   p = C * exp(s), C = exp(-beta) / gamma (merged)  |  exp(s - beta) / gamma
+//   p = 0 where kv_mask(qpos, kpos, index + lengths, window) is false
+//   o = sum_j p_j v_j
+// The cache is read in its stored (b, L, hkv, dk) layout and the ragged
+// edge is masked here: no transposed or padded copy.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at c = 512 a
+// chunk does ~4 * c * H * fill * dk flops per layer (12.9 GFLOP ~ 13 us for
+// qwen2-1.5b at fill 4096) against ~2 * fill * hkv * dk * 2 bytes of K/V
+// (4 MB ~ 1.3 us): compute-bound, so the products run on tensor cores.
+//
+// Design against that bound:
+// * GQA folded position-major, as the TPU kernel does: folded row
+//   r = pos * g + head-in-group, so one block's 64 rows share one KV head
+//   and each K/V tile in shared memory serves g query heads.
+// * One block per (64 folded rows, kv head, slot) loops over 64-row KV
+//   tiles itself. ConSmax needs no running max and no rescale, so the fp32
+//   accumulator just adds each tile's p.V: the combine order is fixed, no
+//   partial buffers, no atomics, the same result on every run.
+// * Tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate):
+//   each of the 4 warps owns 16 rows; S = Q K^T and O += P V per tile, with
+//   the score accumulator re-packed in registers as the A operand of P V
+//   (P rounded to bf16, as the TPU kernel's p.astype(v.dtype)).
+// * Fill bounding without a host sync: the block reads index/lengths on the
+//   device and walks only the tiles its rows can see (below the slot's fill,
+//   at or before its last row's position, inside the window of its first);
+//   a dead tile would add exact zeros.
+// What it leaves for later: wgmma + TMA, cp.async double buffering and a
+// warp-specialized pipeline; the simple version stalls on its tile loads.
+#include "consmax_common.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerBlock = 16 * kWarps;  // folded query rows per block
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  __nv_bfloat162 t;
+  t.x = lo;
+  t.y = hi;
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+template <int DK>
+__global__ void __launch_bounds__(kThreads)
+    prefill_kernel(const __nv_bfloat16* __restrict__ q,  // (b, c, H, DK)
+                   const __nv_bfloat16* __restrict__ k,  // (b, L, hkv, DK)
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ index,        // (b,)
+                   const int* __restrict__ lengths,      // (b,)
+                   const float* __restrict__ beta,       // (H,)
+                   const float* __restrict__ gamma,
+                   __nv_bfloat16* __restrict__ out,      // (b, c, H, DK)
+                   int c, int H, int hkv, int L, int window, float softcap,
+                   float scale, int merged, int fill_bound) {
+  constexpr int BN = DK <= 128 ? 64 : 32;  // KV rows per tile
+  constexpr int KS = DK / 16;              // k-steps of S = Q K^T
+  constexpr int NT = BN / 8;               // n-tiles of S
+  constexpr int DT = DK / 8;               // n-tiles of O
+  constexpr int SROW = DK + 8;             // padded smem row (bank spread)
+  constexpr int CHUNKS = DK / 8;           // 16-byte chunks per K/V row
+  __shared__ __align__(16) __nv_bfloat16 k_s[BN * SROW];
+  __shared__ __align__(16) __nv_bfloat16 v_s[BN * SROW];
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = H / hkv;
+  const int rows_total = c * g;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int idx = index[b];
+  const int kvl = idx + lengths[b];
+  const int r0 = blockIdx.x * kRowsPerBlock;
+
+  // the KV tiles this block's rows can see (never past the cache's last
+  // row, even if index + lengths runs over it)
+  int kv_begin = 0, kv_end = L;
+  if (fill_bound) {
+    const int pos_lo = r0 / g;
+    const int pos_hi = min(c - 1, (r0 + kRowsPerBlock - 1) / g);
+    kv_end = min(L, min(kvl, idx + pos_hi + 1));
+    if (window > 0) kv_begin = max(0, idx + pos_lo - window + 1);
+  }
+  kv_begin = (kv_begin / BN) * BN;
+
+  // this thread's two accumulator rows: gid and gid + 8 of its warp's 16
+  bool rvalid[2];
+  int qpos[2];
+  float bet[2], gam[2];
+  const __nv_bfloat16* qrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + warp * 16 + gid + 8 * i;
+    rvalid[i] = r < rows_total;
+    const int pos = rvalid[i] ? r / g : 0;
+    const int head = h * g + (rvalid[i] ? r % g : 0);
+    qpos[i] = idx + pos;
+    bet[i] = beta[head];
+    gam[i] = gamma[head];
+    qrow[i] = q + ((static_cast<size_t>(b) * c + pos) * H + head) * DK;
+  }
+
+  // Q as mma A fragments, kept in registers for the whole KV walk
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int col = ks * 16 + tig * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // columns col and col + 8
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {         // rows gid and gid + 8
+        qa[ks][2 * half + i] =
+            rvalid[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + col +
+                                                           8 * half)
+                      : 0u;
+      }
+    }
+  }
+
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+  const size_t row_stride = static_cast<size_t>(hkv) * DK;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * L * row_stride +
+                            static_cast<size_t>(h) * DK;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * L * row_stride +
+                            static_cast<size_t>(h) * DK;
+
+  for (int j0 = kv_begin; j0 < kv_end; j0 += BN) {
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < BN * CHUNKS; i += kThreads) {
+      const int r = i / CHUNKS, ch = i % CHUNKS;
+      const int kpos = j0 + r;
+      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+      if (kpos < kv_end) {  // rows outside the walk are zeros, never garbage
+        kv4 = *reinterpret_cast<const uint4*>(kb + kpos * row_stride + ch * 8);
+        vv4 = *reinterpret_cast<const uint4*>(vb + kpos * row_stride + ch * 8);
+      }
+      *reinterpret_cast<uint4*>(k_s + r * SROW + ch * 8) = kv4;
+      *reinterpret_cast<uint4*>(v_s + r * SROW + ch * 8) = vv4;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x BN kv rows
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const __nv_bfloat16* kr = k_s + (nt * 8 + gid) * SROW + ks * 16 + tig * 2;
+        mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+    }
+    // weights, masked
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kpos = j0 + nt * 8 + tig * 2 + (e & 1);
+        s[nt][e] = rvalid[i] && kv_mask(qpos[i], kpos, kvl, window)
+                       ? consmax_weight(s[nt][e] * scale, bet[i], gam[i],
+                                        softcap, merged)
+                       : 0.f;
+      }
+    }
+    // O += P V, P re-packed from the score accumulator as A fragments
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const __nv_bfloat16* vr = v_s + (kk * 16 + tig * 2) * SROW + gid;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const __nv_bfloat16* vc = vr + dt * 8;
+        mma_bf16(o[dt], pa, pack_bf16(vc[0], vc[SROW]),
+                 pack_bf16(vc[8 * SROW], vc[9 * SROW]));
+      }
+    }
+  }
+
+  // store this thread's rows (pad rows of the chunk included: the caller
+  // discards them, as with the reference)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rvalid[i]) continue;
+    const int r = r0 + warp * 16 + gid + 8 * i;
+    const int pos = r / g, head = h * g + r % g;
+    __nv_bfloat16* orow =
+        out + ((static_cast<size_t>(b) * c + pos) * H + head) * DK;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + tig * 2) =
+          __floats2bfloat162_rn(o[dt][2 * i], o[dt][2 * i + 1]);
+    }
+  }
+}
+
+template <int DK>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* index, const int* lengths, const float* beta,
+                   const float* gamma, void* out, int b, int c, int H,
+                   int hkv, int L, int window, float softcap, float scale,
+                   int merged, int fill_bound, cudaStream_t stream) {
+  const int g = H / hkv;
+  dim3 grid((c * g + kRowsPerBlock - 1) / kRowsPerBlock, hkv, b);
+  prefill_kernel<DK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), index, lengths, beta, gamma,
+      static_cast<__nv_bfloat16*>(out), c, H, hkv, L, window, softcap, scale,
+      merged, fill_bound);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (b, c, H, dk) bf16; k, v (b, L, hkv, dk) bf16; index, lengths (b,)
+// int32; beta, gamma (H,) fp32; out (b, c, H, dk) bf16.
+// dk in {32, 64, 128, 256}.
+extern "C" int consmax_prefill_launch(const void* q, const void* k,
+                                      const void* v, const void* index,
+                                      const void* lengths, const void* beta,
+                                      const void* gamma, void* out, int b,
+                                      int c, int H, int hkv, int L, int dk,
+                                      int window, float softcap, float scale,
+                                      int merged, int fill_bound,
+                                      void* stream) {
+  auto* ix = static_cast<const int*>(index);
+  auto* len = static_cast<const int*>(lengths);
+  auto* bt = static_cast<const float*>(beta);
+  auto* gm = static_cast<const float*>(gamma);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dk) {
+    case 32:
+      return launch<32>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
+                        window, softcap, scale, merged, fill_bound, st);
+    case 64:
+      return launch<64>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
+                        window, softcap, scale, merged, fill_bound, st);
+    case 128:
+      return launch<128>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
+                         window, softcap, scale, merged, fill_bound, st);
+    case 256:
+      return launch<256>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
+                         window, softcap, scale, merged, fill_bound, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,85 @@
+"""Public wrapper of the ConSmax append-prefill kernel.
+
+Takes the model's serving layouts — q chunk ``(b, c, H, dk)``, cache k/v
+``(b, L, hkv, dk)``, per-slot ``index``/``lengths`` ``(b,)`` — and
+dispatches by the tensors' device: on the CPU it computes the plain version
+(``ref.consmax_prefill_ref``); on a CUDA device it launches the kernel in
+``csrc/consmax_prefill.cu`` (built at first use, see ``kernels/_build.py``)
+or raises. There is no fallback from one to the other.
+
+``consmax_prefill_op.launches`` counts kernel launches (CUDA only).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("consmax_prefill")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.consmax_prefill_launch.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, p]
+    lib.consmax_prefill_launch.restype = i
+    return lib
+
+
+def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
+                         softcap=0.0, merged=True, scale=None,
+                         fill_bound=True):
+    """Launch the CUDA kernel. q (b, c, H, dk) bf16; k, v (b, L, hkv, dk)
+    bf16; index, lengths (b,) int32; beta/gamma (H,) fp32. Returns
+    (b, c, H, dk) bf16."""
+    b, c, H, dk = q.shape
+    L, hkv = k.shape[1], k.shape[2]
+    index = index.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    beta = beta.float().contiguous()
+    gamma = gamma.float().contiguous()
+    _build.check_operands("consmax_prefill", q, k, v,
+                          slots={"index": index, "lengths": lengths},
+                          heads={"beta": beta, "gamma": gamma})
+    if scale is None:
+        scale = 1.0 / math.sqrt(dk)
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.consmax_prefill_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), index.data_ptr(),
+        lengths.data_ptr(), beta.data_ptr(), gamma.data_ptr(),
+        out.data_ptr(), b, c, H, hkv, L, dk, window, softcap, scale,
+        int(merged), int(fill_bound),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "consmax_prefill")
+    consmax_prefill_op.launches += 1
+    return out
+
+
+def consmax_prefill_op(q, k, v, index, lengths, beta, gamma, *, window=0,
+                       softcap=0.0, merged=True, scale=None, fill_bound=True):
+    """q: (b, c, H, dk) chunk at per-slot cache positions index + [0, c);
+    k, v: (b, L, hkv, dk) caches after the chunk's K/V were written;
+    index, lengths: (b,) int32; beta/gamma: (H,) fp32. Returns
+    (b, c, H, dk) in q.dtype; rows >= lengths are pad rows the caller
+    discards. ``scale=1.0`` when q is pre-scaled (the model path).
+    ``fill_bound`` skips KV tiles no row of a block can see (CUDA launch
+    only; the plain version computes the whole matrix)."""
+    if q.device.type == "cpu":
+        return consmax_prefill_ref(q, k, v, index, lengths, beta, gamma,
+                                   window=window, softcap=softcap,
+                                   merged=merged, scale=scale).to(q.dtype)
+    if q.device.type != "cuda":
+        raise NotImplementedError(
+            f"consmax_prefill: no kernel for device {q.device}")
+    return consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                window=window, softcap=softcap,
+                                merged=merged, scale=scale,
+                                fill_bound=fill_bound)
+
+
+consmax_prefill_op.launches = 0

@@ -1,0 +1,37 @@
+"""Plain PyTorch version of the ConSmax append-prefill kernel: the whole
+(c, L) score matrix per head materialized, fp32 math (the reference's
+``consmax_prefill_ref``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import cache_layout as CL
+
+
+def consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, *,
+                        window: int = 0, softcap: float = 0.0,
+                        merged: bool = True, scale: float | None = None):
+    """q: (b, c, H, dk) chunk at per-slot positions index + [0, c);
+    k, v: (b, L, hkv, dk) caches after the chunk's K/V were written;
+    index, lengths: (b,). Returns (b, c, H, dk) fp32; rows >= lengths are
+    pad rows the caller discards."""
+    b, c, H, dk = q.shape
+    L, hkv = k.shape[1], k.shape[2]
+    g = H // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(dk)
+    qg = q.float().reshape(b, c, hkv, g, dk)
+    s = torch.einsum("bqhgd,bchd->bhgqc", qg, k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = index[:, None] + torch.arange(c, device=q.device)   # (b, c)
+    kpos = torch.arange(L, device=q.device)
+    mask = CL.kv_mask(qpos[:, :, None], kpos[None, None, :],
+                      (index + lengths)[:, None, None], window)  # (b, c, L)
+    p = CL.consmax_weights(s, beta.float().reshape(1, hkv, g, 1, 1),
+                           gamma.float().reshape(1, hkv, g, 1, 1), merged)
+    p = torch.where(mask[:, None, None], p, 0.0)
+    out = torch.einsum("bhgqc,bchd->bqhgd", p, v.float())
+    return out.reshape(b, c, H, dk)

@@ -1,0 +1,59 @@
+// Device-side twins of kernels/cache_layout.py, shared by the ConSmax
+// serving kernels: the one serving mask (kv_mask), the fill-bounding skip
+// predicate (shard_live) and the ConSmax weights (consmax_weights), plus
+// small bf16 load helpers. Keep each formula identical to its Python twin:
+// the plain versions the kernels are tested against are built from those.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// cache_layout.kv_mask: query at absolute position qpos sees cache row kpos
+// iff kpos < kv_len, qpos >= kpos and (window > 0) qpos - kpos < window.
+__device__ __forceinline__ bool kv_mask(int qpos, int kpos, int kv_len,
+                                        int window) {
+  bool m = (kpos < kv_len) && (qpos >= kpos);
+  if (window > 0) m = m && (qpos - kpos < window);
+  return m;
+}
+
+// cache_layout.shard_live: rows [start, start + size) can contribute for a
+// query in [qpos_lo, qpos_hi].
+__device__ __forceinline__ bool shard_live(int start, int size, int kv_len,
+                                           int qpos_hi, int qpos_lo,
+                                           int window) {
+  bool live = (start < kv_len) && (start <= qpos_hi);
+  if (window > 0) live = live && (start + size > qpos_lo - window + 1);
+  return live;
+}
+
+// Optional tanh softcap, then cache_layout.consmax_weights: merged
+// C * exp(s) with C = exp(-beta) / gamma (Eq. 3), else exp(s - beta) / gamma
+// (Eq. 2). Only called for unmasked entries.
+__device__ __forceinline__ float consmax_weight(float s, float beta,
+                                                float gamma, float softcap,
+                                                int merged) {
+  if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+  return merged ? (expf(-beta) / gamma) * expf(s) : expf(s - beta) / gamma;
+}
+
+// N contiguous bf16 values as one aligned access, widened to fp32.
+template <int N> struct BF16Vec;
+template <> struct BF16Vec<1> { using T = unsigned short; };
+template <> struct BF16Vec<2> { using T = unsigned int; };
+template <> struct BF16Vec<4> { using T = uint2; };
+template <> struct BF16Vec<8> { using T = uint4; };
+
+template <int N>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
+  typename BF16Vec<N>::T raw =
+      *reinterpret_cast<const typename BF16Vec<N>::T*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = __bfloat162float(e[i]);
+}
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,36 @@
+"""Token frontend: embedding, ``embed_scale``, and sinusoidal absolute
+positions for archs without RoPE (gpt2-consmax) — the reference's
+``models/frontends.py`` for ``frontend="tokens"``."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn import layers as L
+
+
+def sinusoidal_pos(positions, d: int):
+    """positions: (..., s) int -> (..., s, d) fp32 sinusoidal encoding."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def frontend_apply(embedding: L.Embedding, cfg: ModelConfig, *, tokens,
+                   positions=None):
+    """Returns the (b, s, d) input stream for the backbone."""
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} is not ported yet (tokens only)")
+    cdt = cfg.cdtype()
+    x = L.embed(embedding.table, tokens, dtype=cdt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
+    if cfg.sinusoidal_pos and positions is not None:
+        x = x + sinusoidal_pos(positions, cfg.d_model).to(cdt)
+    return x

@@ -1,0 +1,163 @@
+"""Decoder LM assembled from dense blocks — the reference's
+``models/transformer.py`` for the serving path.
+
+``LM`` holds the parameters under the reference's tree names
+(``embed``, ``blocks[i][f"b{j}"]``, ``final_norm``; ``blocks[i]`` is super-
+layer ``i``, the reference's leading ``n_super`` axis). ``lm_apply`` is the
+forward pass with the serving options of the reference's ``lm_apply``; a
+Python loop over super-layers replaces ``lax.scan``.
+
+Caches are a list over super-layers of ``{f"b{j}": {"attn": {k, v,
+index}}}``. Forward passes update K/V in place and rebind ``index``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import cache_layout as CL
+from repro_torch.models import blocks as B
+from repro_torch.models import frontends as FE
+from repro_torch.nn import layers as L
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, device=device)
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({f"b{j}": B.Block(cfg, kind, device=device)
+                           for j, kind in enumerate(cfg.block_pattern)})
+            for _ in range(cfg.n_super_layers))
+        self.final_norm = L.Norm(cfg.d_model, kind=cfg.norm, device=device)
+
+    def reset_parameters(self, generator: torch.Generator):
+        self.embed.reset_parameters(generator)
+        for sup in self.blocks:
+            for blk in sup.values():
+                blk.reset_parameters(generator)
+        self.final_norm.reset_parameters(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+
+def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
+             merged=False, kv_chunk=1024, logits_index=None,
+             decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
+             fill_bound=True, prefill_append=None, decode_active=None,
+             logits_epilogue=None):
+    """Forward pass over a (b, s) token batch against per-slot caches.
+
+    prefill_append: (b,) int32 real chunk lengths — ``tokens`` is a
+    fixed-size chunk written into each cache at its per-slot ``index``
+    (which then advances by the real length); positions default to
+    ``index + arange(s)``. Otherwise a one-token decode step: the caller
+    passes ``positions`` (= cache index) and optionally ``decode_active``
+    (b,) bool — slots where False keep their cache rows and index.
+    logits_index: int or (b,) — unembed only that row (per batch row).
+    logits_epilogue: ``(logits, new_caches) -> out`` returned in place of
+    the logits (the serving sampling hook; it reads the post-step index).
+    Returns (logits | epilogue out, new_caches).
+    """
+    b, s = tokens.shape
+    if positions is None and prefill_append is not None:
+        idx = cache_index(caches)                      # per-slot fill level
+        positions = idx[:, None] + torch.arange(s, device=tokens.device)
+    x = FE.frontend_apply(p.embed, cfg, tokens=tokens, positions=positions)
+
+    new_caches = []
+    for sup, cache_in in zip(p.blocks, caches):
+        co = {}
+        for name in sup:
+            x, co[name] = B.block_apply(
+                sup[name], x, cfg, cache=cache_in[name], merged=merged,
+                kv_chunk=kv_chunk, decode_kernel=decode_kernel,
+                decode_kv_block=decode_kv_block,
+                prefill_kernel=prefill_kernel, fill_bound=fill_bound,
+                prefill_append=prefill_append, decode_active=decode_active)
+        new_caches.append(co)
+
+    x = p.final_norm(x)
+    if logits_index is not None:
+        if isinstance(logits_index, int):
+            x = x[:, logits_index:logits_index + 1]
+        else:                                  # (b,) per-batch row gather
+            li = logits_index.to(torch.int64)
+            x = torch.take_along_dim(x, li[:, None, None], dim=1)
+    logits = L.unembed(p.embed.table, x, dtype=cfg.cdtype())
+    if cfg.final_softcap > 0:
+        logits = cfg.final_softcap * torch.tanh(logits.float()
+                                                / cfg.final_softcap)
+    if logits_epilogue is not None:
+        return logits_epilogue(logits, new_caches), new_caches
+    return logits, new_caches
+
+
+# --------------------------------------------------------------- caches ----
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                kv_dtype="bfloat16", *, device=None):
+    """Per-super-layer contiguous KV caches: for every attention block
+    zero ``k``/``v`` (batch, max_seq, hkv, dk) and a zero ``index``
+    (batch,) int32, on ``device`` (default cuda). bfloat16 only
+    (``cache_layout.kv_cache_dtype``)."""
+    dtype = CL.kv_cache_dtype(kv_dtype)
+    device = resolve_device(device)
+    hkv, dk = cfg.n_kv_heads, cfg.head_dim_
+
+    def one_super():
+        c = {}
+        for j, kind in enumerate(cfg.block_pattern):
+            if kind not in B.ATTN_KINDS:
+                raise NotImplementedError(
+                    f"caches for block kind {kind!r} are not ported yet")
+            c[f"b{j}"] = {"attn": {
+                "k": torch.zeros((batch, max_seq, hkv, dk), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, max_seq, hkv, dk), dtype=dtype,
+                                 device=device),
+                "index": torch.zeros((batch,), dtype=torch.int32,
+                                     device=device),
+            }}
+        return c
+
+    return [one_super() for _ in range(cfg.n_super_layers)]
+
+
+def _attn_caches(caches):
+    for sup in caches:
+        for blk in sup.values():
+            yield blk["attn"]
+
+
+def cache_index(caches):
+    """Per-slot decode positions (b,) int32 from the first attention cache
+    (all layers agree)."""
+    return next(_attn_caches(caches))["index"]
+
+
+def slot_view(caches, slot: int):
+    """Batch-1 view of slot ``slot``: K/V are views into the pool (writes
+    land in place), ``index`` a (1,) view."""
+    return [{name: {"attn": {key: t[slot:slot + 1]
+                             for key, t in blk["attn"].items()}}
+             for name, blk in sup.items()} for sup in caches]
+
+
+def write_slot_index(caches, slot_caches, slot: int):
+    """Store a slot view's advanced ``index`` back into the pool (K/V were
+    written through the view already)."""
+    for pool, one in zip(_attn_caches(caches), _attn_caches(slot_caches)):
+        pool["index"][slot:slot + 1] = one["index"]
+
+
+def reset_slot(caches, slot: int):
+    """Zero slot ``slot`` in place (index back to 0, K/V rows cleared) so a
+    recycled slot cannot leak a previous request's context."""
+    for attn in _attn_caches(caches):
+        for t in attn.values():
+            t[slot].zero_()

@@ -1,0 +1,191 @@
+"""Core layers: linear, head projections, norms, embedding.
+
+Plain tensor functions with the reference's numerics (``nn/layers.py``),
+plus the ``nn.Module``s that hold their fp32 parameters under the
+reference's parameter names (``w``, ``b``, ``scale``, ``bias``, ``table``),
+so the weight bridge maps one pytree leaf onto one parameter.
+
+The reference casts every fp32 weight to the compute dtype on each call.
+``cast`` does that cast once and keeps the copy on the parameter: the cast
+is deterministic, so the result is the same, and a bf16 serving step does
+not re-read the fp32 weights.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def cast(p: torch.Tensor | None, dtype: torch.dtype):
+    """``p`` in ``dtype``. The converted copy is kept on the parameter and
+    refreshed whenever the parameter is written in place or moved (keyed by
+    its version counter and storage pointer). Write parameters through the
+    tensor itself (``load_state_dict``, or ``p.copy_`` under ``no_grad``):
+    a write through ``p.data`` bumps another version counter and is not
+    seen."""
+    if p is None or p.dtype == dtype:
+        return p
+    key = (dtype, p._version, p.data_ptr())
+    cached = getattr(p, "_cast_copy", None)
+    if cached is None or cached[0] != key:
+        cached = (key, p.detach().to(dtype))
+        p._cast_copy = cached
+    return cached[1]
+
+
+def _param(*shape, device=None):
+    return nn.Parameter(torch.zeros(shape, device=device),
+                        requires_grad=False)
+
+
+def _normal_(p: torch.Tensor, std: float, generator: torch.Generator):
+    with torch.no_grad():
+        p.copy_(torch.randn(p.shape, generator=generator,
+                            device=generator.device) * std)
+
+
+def _zero_(p: torch.Tensor | None):
+    if p is not None:
+        with torch.no_grad():
+            p.zero_()
+
+
+# ---------------------------------------------------------------- linear ----
+def linear(x, w, b=None, *, dtype=torch.bfloat16):
+    y = x.to(dtype) @ cast(w, dtype)
+    if b is not None:
+        y = y + cast(b, dtype)
+    return y
+
+
+def heads_proj(x, w, b=None, *, dtype=torch.bfloat16):
+    """(..., d) @ (d, heads, head_dim) -> (..., heads, head_dim)."""
+    d, h, k = w.shape
+    y = (x.to(dtype) @ cast(w, dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    if b is not None:
+        y = y + cast(b, dtype)
+    return y
+
+
+def heads_out(x, w, *, dtype=torch.bfloat16):
+    """(..., heads, head_dim) @ (heads, head_dim, d) -> (..., d)."""
+    h, k, d = w.shape
+    return x.to(dtype).flatten(-2) @ cast(w, dtype).reshape(h * k, d)
+
+
+class Linear(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
+                 device=None):
+        super().__init__()
+        self.w = _param(d_in, d_out, device=device)
+        self.b = _param(d_out, device=device) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator, scale=1.0):
+        _normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
+        _zero_(self.b)
+
+    def forward(self, x, dtype=torch.bfloat16):
+        return linear(x, self.w, self.b, dtype=dtype)
+
+
+class HeadsProj(nn.Module):
+    """(d_model) -> (heads, head_dim) projection, weight (d, H, dk)."""
+
+    def __init__(self, d_model: int, n_heads: int, head_dim: int, *,
+                 bias: bool = False, device=None):
+        super().__init__()
+        self.w = _param(d_model, n_heads, head_dim, device=device)
+        self.b = _param(n_heads, head_dim, device=device) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator, scale=1.0):
+        _normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
+        _zero_(self.b)
+
+    def forward(self, x, dtype=torch.bfloat16):
+        return heads_proj(x, self.w, self.b, dtype=dtype)
+
+
+class HeadsOut(nn.Module):
+    """(heads, head_dim) -> (d_model) projection, weight (H, dk, d)."""
+
+    def __init__(self, n_heads: int, head_dim: int, d_model: int, *,
+                 device=None):
+        super().__init__()
+        self.w = _param(n_heads, head_dim, d_model, device=device)
+
+    def reset_parameters(self, generator: torch.Generator, scale=1.0):
+        # fan-in over (heads, head_dim), as the reference's fan_in_normal
+        # with axis=1
+        fan_in = self.w.shape[0] * self.w.shape[1]
+        _normal_(self.w, scale / math.sqrt(fan_in), generator)
+
+    def forward(self, x, dtype=torch.bfloat16):
+        return heads_out(x, self.w, dtype=dtype)
+
+
+# ----------------------------------------------------------------- norms ----
+def rmsnorm(x, scale, *, eps=1e-6, zero_centered=True):
+    """RMSNorm; scale stored zero-centred (init 0 == gain 1)."""
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    g = scale.float()
+    g = 1.0 + g if zero_centered else g
+    return (x * g).to(dtype)
+
+
+def layernorm(x, scale, bias, *, eps=1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(dtype)
+
+
+class Norm(nn.Module):
+    """``rmsnorm`` (parameter ``scale``, init 0) or ``layernorm``
+    (``scale`` init 1, ``bias`` init 0)."""
+
+    def __init__(self, d: int, *, kind: str = "rmsnorm", device=None):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {kind!r}")
+        self.kind = kind
+        self.scale = _param(d, device=device)
+        self.bias = _param(d, device=device) if kind == "layernorm" else None
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.scale.fill_(0.0 if self.kind == "rmsnorm" else 1.0)
+        _zero_(self.bias)
+
+    def forward(self, x):
+        if self.kind == "rmsnorm":
+            return rmsnorm(x, self.scale)
+        return layernorm(x, self.scale, self.bias)
+
+
+# ------------------------------------------------------------- embedding ----
+def embed(table, ids, *, dtype=torch.bfloat16):
+    return F.embedding(ids, cast(table, dtype))
+
+
+def unembed(table, x, *, dtype=torch.bfloat16):
+    """Tied LM head: x @ table.T -> logits over vocab."""
+    return x.to(dtype) @ cast(table, dtype).T
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, *, device=None):
+        super().__init__()
+        self.table = _param(vocab, d, device=device)
+
+    def reset_parameters(self, generator: torch.Generator):
+        # 1/sqrt(d) keeps tied-unembed logits O(1) at init
+        _normal_(self.table, self.table.shape[1] ** -0.5, generator)

@@ -1,0 +1,140 @@
+"""The port's model against the JAX reference: the weight bridge, random
+init, and teacher-forced ``lm_apply`` logits — one ragged append chunk, then
+one-token decode steps — on the qwen2 (GQA, RoPE, QKV bias, SiLU-GLU,
+RMSNorm) and gpt2-consmax (MHA, sinusoidal positions, GELU, LayerNorm)
+smoke configs.
+
+Tolerances, as fractions of the largest reference logit:
+
+* ``compute_dtype="float32"``: 1e-5. Both sides run the same fp32 ops (the
+  KV cache is bf16 on both, written from the same fp32 rows); they differ in
+  summation order only.
+* ``compute_dtype="bfloat16"`` (the serving default): 2^-4. Each matmul
+  accumulates in fp32 in another order and rounds to bf16 (8-bit mantissa),
+  so after a few layers the logits differ by a few bf16 ulps; measured
+  below 2^-6 of the largest logit on these configs.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import random
+
+from repro.configs.registry import get_config as jget
+from repro.models import transformer as JT
+from repro.nn.module import Ctx
+from repro_torch.configs.registry import get_config as tget
+from repro_torch.models import transformer as TT
+from repro_torch.weights import from_jax_params, init_params
+
+ARCHS = ["qwen2-1.5b", "gpt2-consmax"]
+B, L, C, STEPS = 2, 32, 8, 3
+
+
+def _params(arch, cd="float32"):
+    jc = jget(arch, smoke=True, compute_dtype=cd)
+    tc = tget(arch, smoke=True, compute_dtype=cd)
+    p = JT.lm_init(Ctx(random.key(0)), jc)
+    tree = jax.tree.map(np.asarray, p)
+    return jc, tc, p, from_jax_params(tree, tc, device="cpu")
+
+
+def _tokens(jc):
+    r = np.random.default_rng(0)
+    toks = r.integers(0, jc.vocab_size, (B, C + STEPS)).astype(np.int32)
+    return toks, np.array([C, 5], np.int32)
+
+
+def _jax_logits(jc, p):
+    """Reference logits over a ragged chunk, then STEPS one-token decodes."""
+    toks, lens = _tokens(jc)
+    cache = JT.init_caches(jc, B, L)
+    lg, cache, _ = JT.lm_apply(p, jc, tokens=jnp.asarray(toks[:, :C]),
+                               caches=cache, merged=True,
+                               prefill_append=jnp.asarray(lens),
+                               logits_index=jnp.asarray(lens - 1))
+    out = [lg]
+    for t in range(STEPS):
+        idx = JT.cache_index(cache)
+        lg, cache, _ = JT.lm_apply(p, jc, tokens=jnp.asarray(
+            toks[:, C + t:C + t + 1]), caches=cache, merged=True,
+            positions=idx[:, None])
+        out.append(lg)
+    return [np.asarray(x, np.float32) for x in out]
+
+
+@torch.no_grad()
+def _torch_logits(jc, tc, tp, **kw):
+    """The port's logits over the same chunk and decodes."""
+    toks, lens = _tokens(jc)
+    cache = TT.init_caches(tc, B, L, device="cpu")
+    lg, cache = TT.lm_apply(tp, tc, tokens=torch.tensor(toks[:, :C]),
+                            caches=cache, merged=True,
+                            prefill_append=torch.tensor(lens),
+                            logits_index=torch.tensor(lens - 1), **kw)
+    out = [lg]
+    for t in range(STEPS):
+        idx = TT.cache_index(cache)
+        np.testing.assert_array_equal(idx.numpy(), lens + t)
+        lg, cache = TT.lm_apply(tp, tc, tokens=torch.tensor(
+            toks[:, C + t:C + t + 1]), caches=cache, merged=True,
+            positions=idx[:, None], **kw)
+        out.append(lg)
+    return [x.float().numpy() for x in out]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cd,frac", [("float32", 1e-5), ("bfloat16", 2 ** -4)])
+def test_teacher_forced_logits_match_reference(arch, cd, frac):
+    jc, tc, p, tp = _params(arch, cd)
+    for j, t in zip(_jax_logits(jc, p), _torch_logits(jc, tc, tp)):
+        assert t.shape == j.shape and np.isfinite(t).all()
+        np.testing.assert_allclose(t, j, rtol=0,
+                                   atol=frac * np.abs(j).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_kernel_flags_match_plain_walks(arch):
+    """With both kernel flags the port runs the kernels' plain versions on
+    the CPU; they compute the same function as the plain walks."""
+    jc, tc, _, tp = _params(arch)
+    walks = _torch_logits(jc, tc, tp)
+    kernels = _torch_logits(jc, tc, tp, decode_kernel=True,
+                            prefill_kernel=True)
+    for w, k in zip(walks, kernels):
+        np.testing.assert_allclose(k, w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+def test_bridge_maps_every_leaf_once():
+    jc, tc, p, tp = _params("qwen2-1.5b")
+    leaves = jax.tree_util.tree_flatten_with_path(p)[0]
+    n_ref = sum(np.asarray(a).size for _, a in leaves)
+    assert sum(t.numel() for t in tp.parameters()) == n_ref
+    q0 = np.asarray(p["blocks"]["b0"]["attn"]["q"]["w"])
+    np.testing.assert_array_equal(tp.blocks[1].b0.attn.q.w.numpy(), q0[1])
+    tree = jax.tree.map(np.asarray, p)
+    tree["extra"] = {"w": np.zeros(3, np.float32)}
+    with pytest.raises(RuntimeError):
+        from_jax_params(tree, tc, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_follows_reference_distributions(arch):
+    jc, tc, p, bridged = _params(arch)
+    model = init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    ref = dict(bridged.named_parameters())
+    for name, t in model.named_parameters():
+        r = ref[name]
+        assert t.shape == r.shape, name
+        if name.endswith(("beta", "gamma", "scale", "bias", ".b")):
+            lo, hi = r.min().item(), r.max().item()
+            if lo == hi:                  # constants: norms, biases, gamma
+                assert (t == lo).all(), name
+            else:                         # beta ~ U[lo, hi]
+                cfg = tc.consmax
+                assert ((t >= cfg.beta_init_lo)
+                        & (t <= cfg.beta_init_hi)).all(), name
+        elif t.numel() > 1000:            # fan-in normal / embedding normal
+            np.testing.assert_allclose(t.std().item(), r.std().item(),
+                                       rtol=0.1, err_msg=name)
