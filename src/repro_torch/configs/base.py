@@ -4,7 +4,10 @@ reference's ``configs/base.py``.
 Field names, defaults and ``ServeConfig.__post_init__`` checks match the
 reference one for one, so a config built here and one built there from the
 same arguments describe the same run. ``pdtype``/``cdtype`` return
-``torch.dtype``s.
+``torch.dtype``s. The serving fields the port does not read yet (the static
+session's, paged KV's, the Pallas prefill grid's) stay for that parity; the
+port's engine refuses a config that sets one away from its default
+(``serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -138,7 +141,8 @@ class ServeConfig:
     prefill_kernel: bool = False     # consmax_prefill kernel for append chunks
     prefill_kv_block: int = 512      # KV shard size of the reference's
                                      # prefill grid (the CUDA kernel picks
-                                     # its own tiles)
+                                     # its own tiles; the port's engine
+                                     # refuses another value)
     fill_bound: bool = True          # skip KV blocks past each slot's fill
                                      # (False = capacity-swept baseline)
     score_norm: Optional[str] = None # the served model's score_norm, when

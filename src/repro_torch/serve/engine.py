@@ -20,8 +20,9 @@ the ConSmax kernels (``kernels/consmax_decode``, ``kernels/consmax_prefill``)
 
 The KV caches are updated in place; ``_finish`` zeroes a recycled slot in
 place. Not ported yet (they raise): paged KV, the tensor/sequence mesh,
-host-side sampling (``fused_sampling=False``), quantized KV caches and
-sampled (temperature > 0) requests.
+host-side sampling (``fused_sampling=False``), quantized KV caches,
+sampled (temperature > 0) requests, and any ``ServeConfig`` field in
+``_UNREAD`` set away from its default.
 """
 from __future__ import annotations
 
@@ -37,6 +38,11 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import sampling as S
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Scheduler
+
+# ServeConfig fields that mirror the reference but that nothing in the port
+# reads; the engine refuses a config that sets one away from its default
+_UNREAD = ("batch", "q_chunk", "seq_shard_kv", "prefill_kv_block",
+           "page_size", "num_pages", "prefix_cache", "prefix_evict")
 
 
 class ContinuousBatchingEngine:
@@ -73,6 +79,14 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "host-side sampling (fused_sampling=False) is not ported "
                 "yet")
+        unread = [f.name for f in dataclasses.fields(scfg)
+                  if f.name in _UNREAD
+                  and getattr(scfg, f.name) != f.default]
+        if unread:
+            raise NotImplementedError(
+                f"ServeConfig {unread}: the port's engine does not read "
+                "these yet (static ServeSession, the Pallas prefill grid's "
+                "KV block, paged KV); leave them at their defaults")
         S.require_greedy(default_sampling)
         self.device = resolve_device(device)
         if params.device != self.device:

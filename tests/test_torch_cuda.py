@@ -13,7 +13,10 @@ Tolerance: the kernels read bf16 inputs, accumulate in fp32 and write bf16;
 the prefill kernel also rounds each weight p to bf16 before ``p @ v`` (as
 the TPU kernel does). Both roundings are relative 2^-9 per term, so
 ``|kernel - plain| <= 2^-8 * sum_j p_j |v_j|``; the tests allow 2^-7 of
-that sum, which is the plain version evaluated on ``|v|`` (p >= 0).
+that sum, which is the plain version evaluated on ``|v|`` (p >= 0). That
+sum grows with the fill faster than the output does, so each output row (a
+decode slot, a prefill query row) is also held to a relative L2 error of
+2^-7, four times the 2^-9 rounding: one lost or doubled KV tile exceeds it.
 """
 import numpy as np
 import pytest
@@ -60,6 +63,10 @@ def _assert_within_bound(got, ref, ref_absv):
     bound = 2.0 ** -7 * ref_absv.float() + 1e-6
     assert torch.isfinite(got.float()).all()
     assert bool((err <= bound).all()), float((err - bound).max())
+    ref_n = ref.float().flatten(-2).norm(dim=-1)
+    live = ref_n > 0
+    rel = err.flatten(-2).norm(dim=-1)[live] / ref_n[live]
+    assert bool((rel <= 2.0 ** -7).all()), float(rel.max())
 
 
 def test_kernels_build(cuda):
@@ -73,6 +80,7 @@ DECODE = {  # b, L, H, hkv, dk, bk
     "gpt2-mha": (3, 300, 6, 6, 64, 64),
     "mqa-ragged-L": (2, 200, 8, 1, 32, 64),
     "head-chunks": (2, 256, 20, 2, 256, 128),
+    "gpt2-engine": (4, 1024, 6, 6, 64, 256),   # chip_smoke's gpt2 engine
 }
 
 
@@ -104,6 +112,7 @@ PREFILL = {  # b, c, L, H, hkv, dk
     "gpt2-mha": (2, 16, 200, 6, 6, 64),
     "mqa-L200-c5": (2, 5, 200, 8, 1, 32),   # the reference's red Pallas case
     "dk256": (1, 24, 160, 4, 2, 256),
+    "gpt2-engine": (2, 128, 1024, 6, 6, 64),   # chip_smoke's gpt2 engine
 }
 
 

@@ -92,8 +92,11 @@ def test_unported_options_raise():
                                    device="cpu")
     with pytest.raises(NotImplementedError):
         eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7))
+    # fields the port mirrors but does not read refuse non-default values
     for kw in (dict(paged_kv=True, page_size=4), dict(fused_sampling=False),
-               dict(kv_cache_dtype="int8")):
+               dict(kv_cache_dtype="int8"), dict(prefill_kv_block=64),
+               dict(q_chunk=16), dict(batch=4), dict(seq_shard_kv=True),
+               dict(page_size=4), dict(prefix_cache=False)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **kw), model,
                                      device="cpu")
