@@ -19,7 +19,18 @@ Phases, in order; any failure exits non-zero before the result line:
    served by ``ContinuousBatchingEngine`` with both kernels, 12 greedy
    requests; every request finishes, both kernels ran, and one request
    served alone equals its tokens served among the others;
-6. engine: full-width gpt2-consmax (MHA, g = 1), the same checks.
+6. engine: full-width gpt2-consmax (MHA, g = 1), the same checks;
+7. paged engine: full-width qwen2-1.5b on a 128-page pool (16 slots x 8192
+   rows), prefix cache on, with shared-prefix traffic: the pool drains,
+   the cache hits, a page is copied on write, the prefill and launch counts
+   add up, and the tokens equal the contiguous engine's and a warm
+   request's served alone.
+
+Phase 3 covers the paged kernels too, at the paged engine's shapes (page
+size 256; then 16 and 64, a -1 hole, window / softcap / unmerged, and the
+gpt2-consmax shapes): each against its plain paged version, and bit for bit
+against the contiguous kernel on the same rows. Each phase prints its
+seconds.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. TF32 is switched off for fp32 matmuls
@@ -251,6 +262,219 @@ def gpt2_kernel_checks(gen, bk, kw):
            consmax_prefill_ref(qb, k, v.abs(), ib, nb, beta, gamma, **kw))
 
 
+def _paginate(gen, k, v, fills, ps, num_pages):
+    """Move the rows of contiguous caches k, v (b, L, hkv, dk) into pools of
+    ``num_pages`` pages of ``ps`` rows: slot s's pages are the next
+    ceil(fills[s] / ps) of a random permutation of the pool (disjoint
+    across slots), and its table row is -1 past them. The pages no table
+    maps hold random rows, which a right kernel never reads."""
+    b, L, hkv, dk = k.shape
+    npg = -(-L // ps)
+    counts = [-(-int(f) // ps) for f in fills]
+    if sum(counts) > num_pages:
+        raise ValueError(f"{sum(counts)} pages needed, pool {num_pages}")
+    cpu = torch.Generator().manual_seed(int(ps) * 1000 + b)
+    perm = torch.randperm(num_pages, generator=cpu).to(torch.int32)
+    kp = _rand(gen, (num_pages, ps, hkv, dk))
+    vp = _rand(gen, (num_pages, ps, hkv, dk))
+    table = torch.full((b, npg), -1, dtype=torch.int32)
+    pad = npg * ps - L
+    kpad = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vpad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    i = 0
+    for sl, n in enumerate(counts):
+        pages = perm[i:i + n]
+        i += n
+        table[sl, :n] = pages
+        idx = pages.long().cuda()
+        kp[idx] = kpad[sl, :n * ps].reshape(n, ps, hkv, dk)
+        vp[idx] = vpad[sl, :n * ps].reshape(n, ps, hkv, dk)
+    return kp, vp, table.cuda()
+
+
+def _same_bits(name, paged, contiguous):
+    same = torch.equal(paged, contiguous)
+    _log(f"[kernels] {name}: paged == contiguous kernel bit for bit: "
+         f"{same}")
+    if not same:
+        raise AssertionError(f"{name}: paged and contiguous kernels differ")
+
+
+def _paged_decode_case(name, gen, q, k, v, lengths, beta, gamma, kw, *, bk,
+                       ps, num_pages, hole=None):
+    """The paged decode kernel on ``k``/``v``'s rows paginated at ``ps``:
+    held against its plain paged version, and (no ``hole``) bit for bit
+    against the contiguous kernel on the same rows. ``hole`` = (slot,
+    column) of a table entry set to -1 inside the fill."""
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import (
+        consmax_decode_paged_ref)
+    kp, vp, table = _paginate(gen, k, v, lengths.tolist(), ps, num_pages)
+    if hole is not None:
+        table[hole] = -1
+    got = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta, gamma,
+                                    bk=bk, **kw)
+    err = _check(name, got, consmax_decode_paged_ref(
+        q.float(), kp, vp, table, lengths, beta, gamma, **kw),
+        consmax_decode_paged_ref(q.float(), kp, vp.abs(), table, lengths,
+                                 beta, gamma, **kw))
+    if hole is None:
+        _same_bits(name, got, consmax_decode_cuda(q, k, v, lengths, beta,
+                                                  gamma, bk=bk, **kw))
+    return err, (kp, vp, table)
+
+
+def _paged_prefill_case(name, gen, q, k, v, index, lengths, beta, gamma, kw,
+                        *, ps, num_pages):
+    """The paged prefill kernel against its plain paged version and, bit
+    for bit, the contiguous kernel on the same rows."""
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import (
+        consmax_prefill_paged_ref)
+    kp, vp, table = _paginate(gen, k, v, (index + lengths).tolist(), ps,
+                              num_pages)
+    got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths, beta,
+                                     gamma, **kw)
+    err = _check(name, got, consmax_prefill_paged_ref(
+        q, kp, vp, table, index, lengths, beta, gamma, **kw),
+        consmax_prefill_paged_ref(q, kp, vp.abs(), table, index, lengths,
+                                  beta, gamma, **kw))
+    _same_bits(name, got, consmax_prefill_cuda(q, k, v, index, lengths, beta,
+                                               gamma, **kw))
+    return err, (kp, vp, table)
+
+
+def paged_kernel_phase(flush):
+    """Both paged kernels at the paged engine's qwen2-1.5b shapes (page
+    size 256, pools of 256 pages, each slot's table a random permutation of
+    disjoint pages, -1 past its fill), against their plain paged versions
+    and bit for bit against the contiguous kernels on the same rows; then a
+    -1 hole inside a fill, page sizes 16 and 64, window / softcap /
+    unmerged, and the gpt2-consmax shapes (MHA, head_dim 64). Returns the
+    two kernels' rows of the result line."""
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import (
+        consmax_decode_paged_ref)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import (
+        consmax_prefill_paged_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    L, H, hkv, dk, bk, c, ps, npages = 8192, 12, 2, 128, 256, 512, 256, 256
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    rows = {}
+
+    # ---- decode: the contiguous case's 8 fills plus a free slot (n = 0)
+    lengths = torch.tensor([1, 256, 257, 1000, 3000, 4096, 8191, 8192, 0],
+                           dtype=torch.int32, device="cuda")
+    b = lengths.numel()
+    q = _rand(gen, (b, H, dk), dk ** -0.5)
+    k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+    beta, gamma = _head_params(gen, H)
+    err, (kp, vp, table) = _paged_decode_case(
+        "paged decode b=9 L=8192 ps=256 mixed fills + n=0", gen, q, k, v,
+        lengths, beta, gamma, kw, bk=bk, ps=ps, num_pages=npages)
+    ms = _time_ms(lambda: consmax_decode_paged_cuda(
+        q, kp, vp, table, lengths, beta, gamma, bk=bk, **kw), flush, 50)
+    plain_ms = _time_ms(lambda: consmax_decode_paged_ref(
+        q, kp, vp, table, lengths, beta, gamma, **kw), flush, 5)
+    fill = int(lengths.sum())
+    bound, by = _bound_ms(fill * hkv * dk * 2 * 2 + 2 * b * H * dk * 2
+                          + table.numel() * 4, 4 * fill * H * dk)
+    rows["consmax_decode_paged"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound,
+                                        bound_by=by)
+    _paged_decode_case("paged decode, -1 hole inside slot 5's fill (plain "
+                       "only)", gen, q, k, v, lengths, beta, gamma, kw,
+                       bk=bk, ps=ps, num_pages=npages, hole=(5, 3))
+    for pss in (16, 64):
+        need = sum(-(-int(f) // pss) for f in lengths.tolist())
+        _paged_decode_case(f"paged decode b=9 ps={pss}", gen, q, k, v,
+                           lengths, beta, gamma, kw, bk=bk, ps=pss,
+                           num_pages=need + 64)
+
+    # ---- prefill: the engine's (1, 512) chunk at the contiguous case's
+    # (index, len) pairs, then 8 slots at once
+    q1 = _rand(gen, (1, c, H, dk), dk ** -0.5)
+    k1, v1 = k[7:8].contiguous(), v[7:8].contiguous()
+    errs = []
+    for idx, n in [(0, 0), (0, 512), (3584, 512), (4000, 200), (7680, 512)]:
+        ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
+        tn = torch.tensor([n], dtype=torch.int32, device="cuda")
+        e, pools = _paged_prefill_case(
+            f"paged prefill c=512 ps=256 index={idx} len={n}", gen, q1, k1,
+            v1, ti, tn, beta, gamma, kw, ps=ps, num_pages=npages)
+        errs.append(e)
+        if (idx, n) == (3584, 512):
+            timed = (ti, tn, *pools)
+    qb = _rand(gen, (8, c, H, dk), dk ** -0.5)
+    kb, vb = k[:8].contiguous(), v[:8].contiguous()
+    ib = torch.tensor([0, 0, 256, 1000, 3584, 4000, 7000, 7680],
+                      dtype=torch.int32, device="cuda")
+    nb = torch.tensor([0, 512, 512, 77, 512, 300, 512, 512],
+                      dtype=torch.int32, device="cuda")
+    for pss in (256, 16, 64):
+        need = sum(-(-int(f) // pss) for f in (ib + nb).tolist())
+        e, _ = _paged_prefill_case(
+            f"paged prefill b=8 c=512 ps={pss} mixed fills", gen, qb, kb, vb,
+            ib, nb, beta, gamma, kw, ps=pss, num_pages=max(npages, need + 64))
+        errs.append(e)
+    ti, tn, kp1, vp1, t1 = timed
+    ms = _time_ms(lambda: consmax_prefill_paged_cuda(
+        q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw), flush, 50)
+    plain_ms = _time_ms(lambda: consmax_prefill_paged_ref(
+        q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw), flush, 5)
+    idx, n = 3584, 512
+    kvl = idx + n
+    visible = sum(min(idx + i + 1, kvl) for i in range(c))   # causal keys
+    bound, by = _bound_ms(kvl * hkv * dk * 2 * 2 + 2 * c * H * dk * 2
+                          + t1.numel() * 4, 4 * visible * H * dk)
+    rows["consmax_prefill_paged"] = dict(max_abs_err=max(errs), ms=ms,
+                                         plain_ms=plain_ms, bound_ms=bound,
+                                         bound_by=by)
+
+    # ---- the options qwen2-1.5b does not use, at 1024 rows
+    sl = slice(0, 1024)
+    ks, vs = k[:, sl].contiguous(), v[:, sl].contiguous()
+    lx = lengths.clamp(max=1024)
+    for name, kwx in [("window", dict(window=300)),
+                      ("softcap", dict(softcap=30.0)),
+                      ("unmerged", dict(merged=False))]:
+        kx = dict(kw, **kwx)
+        _paged_decode_case(f"paged decode {name}", gen, q, ks, vs, lx, beta,
+                           gamma, kx, bk=bk, ps=ps, num_pages=npages)
+        _paged_prefill_case(
+            f"paged prefill {name}", gen, q1, ks[7:8].contiguous(),
+            vs[7:8].contiguous(),
+            torch.tensor([400], dtype=torch.int32, device="cuda"),
+            torch.tensor([512], dtype=torch.int32, device="cuda"), beta,
+            gamma, kx, ps=ps, num_pages=npages)
+    del k, v, kp, vp, kb, vb
+
+    # ---- gpt2-consmax shapes: MHA (g = 1), head_dim 64, page size 128
+    b, L, H, dk, c = 8, 1024, 6, 64, 128
+    k, v = _rand(gen, (b, L, H, dk)), _rand(gen, (b, L, H, dk))
+    beta, gamma = _head_params(gen, H)
+    q = _rand(gen, (b, H, dk), dk ** -0.5)
+    lengths = torch.tensor([1, 64, 255, 256, 257, 500, 1023, 1024],
+                           dtype=torch.int32, device="cuda")
+    _paged_decode_case("gpt2 paged decode MHA b=8 L=1024 ps=128", gen, q, k,
+                       v, lengths, beta, gamma, kw, bk=bk, ps=128,
+                       num_pages=128)
+    qb = _rand(gen, (b, c, H, dk), dk ** -0.5)
+    ib = torch.tensor([0, 0, 128, 200, 384, 640, 700, 896],
+                      dtype=torch.int32, device="cuda")
+    nb = torch.tensor([0, 128, 128, 31, 128, 59, 128, 128],
+                      dtype=torch.int32, device="cuda")
+    _paged_prefill_case("gpt2 paged prefill MHA b=8 c=128 ps=128", gen, qb, k,
+                        v, ib, nb, beta, gamma, kw, ps=128, num_pages=128)
+    return rows
+
+
 def model_phase():
     """Full-width qwen2-1.5b logits, both kernels vs the plain walks, on a
     small input: a ragged 64-token chunk per slot, then 4 decode steps."""
@@ -400,6 +624,147 @@ def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
     return counts
 
 
+def _cache_bytes(caches):
+    return sum(t.numel() * t.element_size() for sup in caches
+               for blk in sup.values() for t in blk["attn"].values())
+
+
+def paged_engine_phase(*, seed=4, new_tokens=32):
+    """Full-width qwen2-1.5b (28 layers, random weights from ``seed``) on the
+    paged engine: 16 slots x 8192 rows over a pool of 128 pages of 256 rows
+    (a quarter of 16 x 8192, so admission waits for pages), prefix cache
+    on (lru), both paged kernels, greedy. Traffic, in submit order: a
+    2048-token page-aligned prefix P + 300 tokens (cold; the rest are
+    submitted once its prefill has covered P, so P is cached), six P +
+    100-1500-token suffixes (warm), P alone (fully cached: a 1-token tail
+    re-score that copies the shared last page), P + 500 tokens with n=2,
+    and six unrelated prompts of 200-6000 tokens. Checked: every request
+    finishes, the pool drains, the cache hits and copies, the prefill
+    token and kernel launch counts, the tokens equal the contiguous
+    engine's on the same requests and one warm request's tokens served
+    alone (cold) on a fresh paged engine. Returns the paged kernels'
+    launch counts of the paged run."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_op, consmax_prefill_paged_op)
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.weights import init_params
+
+    arch, chunk, ps, npages, plen = "qwen2-1.5b", 512, 256, 128, 2048
+    cfg = get_config(arch)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    common = dict(max_slots=16, max_seq=8192, prefill_chunk=chunk,
+                  decode_kernel=True, prefill_kernel=True,
+                  score_norm=cfg.score_norm)
+    paged_cfg = ServeConfig(**common, paged_kv=True, page_size=ps,
+                            num_pages=npages, prefix_cache=True,
+                            prefix_evict="lru")
+    r = np.random.default_rng(seed)
+
+    def toks(n):
+        return r.integers(0, cfg.vocab_size, n).tolist()
+
+    P = toks(plen)
+    # (prompt, n streams, prefix rows the paged engine skips)
+    reqs = [(P + toks(300), 1, 0)]
+    reqs += [(P + toks(int(n)), 1, plen)
+             for n in r.integers(100, 1501, 6)]
+    reqs += [(P, 1, plen - 1), (P + toks(500), 2, plen)]
+    reqs += [(toks(int(n)), 1, 0) for n in r.integers(200, 6001, 6)]
+
+    def serve(scfg, items, *, stage=True):
+        """Serve ``items`` on a fresh engine; the first alone until its
+        prefill has covered P (when ``stage``). Returns (engine, tokens per
+        stream, wall seconds)."""
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        t0 = time.perf_counter()
+        uids = [eng.submit(items[0][0], new_tokens, n=items[0][1])]
+        for _ in range(plen // chunk if stage else 0):
+            eng.step()                         # one chunk per iteration
+        if stage and eng.scheduler.slots[0].filled != plen:
+            raise AssertionError("the first request has not covered P")
+        uids += [eng.submit(p, new_tokens, n=n) for p, n, _ in items[1:]]
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flat = [u for x in uids for u in (x if isinstance(x, list) else [x])]
+        return eng, [results.get(u) for u in flat], wall
+
+    for op in (consmax_decode_op, consmax_prefill_op,
+               consmax_decode_paged_op, consmax_prefill_paged_op):
+        op.launches = 0
+    eng, paged_toks, wall = serve(paged_cfg, reqs)
+    counts = {"consmax_decode_paged": consmax_decode_paged_op.launches,
+              "consmax_prefill_paged": consmax_prefill_paged_op.launches}
+    if consmax_decode_op.launches or consmax_prefill_op.launches:
+        raise AssertionError("paged engine launched a contiguous kernel")
+    pool = eng.pool
+    streams = [(p, skip) for p, n, skip in reqs for _ in range(n)]
+    if any(t is None or len(t) != new_tokens for t in paged_toks):
+        raise AssertionError("paged engine: a request did not finish")
+    cold_total = sum(len(p) for p, _ in streams)
+    full = sum(1 for p, skip in streams if skip == len(p) - 1)
+    chunks = sum(-(-(len(p) - skip) // chunk) for p, skip in streams)
+    checks = {
+        "pool drained (free_pages == 128)": pool.free_pages == npages,
+        "prefix_hit_rows >= 9 x 2048": pool.prefix_hit_rows >= 9 * plen,
+        "cow_copies >= 1": pool.cow_copies >= 1,
+        "prefilled_tokens == cold total - hit rows + tail re-scores":
+            eng.prefilled_tokens == cold_total - pool.prefix_hit_rows + full,
+        "paged prefill launches == 28 x chunks":
+            counts["consmax_prefill_paged"] == cfg.n_layers * chunks,
+        "paged decode launches >= 28":
+            counts["consmax_decode_paged"] >= cfg.n_layers,
+    }
+    gen = sum(len(t) for t in paged_toks)
+    ttft = np.mean(list(eng.ttft.values()))
+    pool_bytes = _cache_bytes(eng.caches)
+    _log(f"[paged] {arch}: {len(streams)} requests, {cold_total} prompt "
+         f"tokens ({eng.prefilled_tokens} prefilled, "
+         f"{pool.prefix_hit_rows} rows from cached pages, "
+         f"{pool.cow_copies} cow copies, {pool.evictions} evictions) + "
+         f"{gen} generated in {wall:.3f} s: {gen / wall:.1f} generated "
+         f"tok/s, {cold_total / wall:.1f} prompt tok/s, mean TTFT "
+         f"{ttft:.3f} s; {chunks} prefill chunks; peak page occupancy "
+         f"{pool.peak_in_use / npages:.3f} ({pool.peak_in_use} of {npages} "
+         f"pages), peak reserved {pool.peak_reserved} pages; pool "
+         f"{pool_bytes / 2**20:.1f} MiB; kernel launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+
+    ceng, cont_toks, cwall = serve(ServeConfig(**common), reqs)
+    cont_bytes = _cache_bytes(ceng.caches)
+    cttft = np.mean(list(ceng.ttft.values()))
+    _log(f"[paged] {arch} contiguous engine, same requests and order: "
+         f"{cwall:.3f} s, {gen / cwall:.1f} generated tok/s, "
+         f"{cold_total / cwall:.1f} prompt tok/s, mean TTFT {cttft:.3f} s, "
+         f"{ceng.prefilled_tokens} prefilled tokens; cache "
+         f"{cont_bytes / 2**20:.1f} MiB")
+    del ceng
+    torch.cuda.empty_cache()
+    checks["tokens == contiguous engine's"] = paged_toks == cont_toks
+
+    solo = 3                                   # a warm P + suffix request
+    _, alone, _ = serve(paged_cfg, [reqs[solo]], stage=False)
+    name = f"request {solo} alone (cold) == served warm among the others"
+    checks[name] = alone[0] == paged_toks[solo]
+    for name, ok in checks.items():
+        _log(f"[paged] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("paged engine checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+
+    eng = ContinuousBatchingEngine(cfg, paged_cfg, model, device="cuda")
+    for p, n, _ in reqs:
+        eng.submit(p, new_tokens, n=n)
+    trace_steps(eng, f"{arch} paged", skip=8, steps=6)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -427,6 +792,10 @@ def main():
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     t0 = time.perf_counter()
     rows = kernel_phase(flush)
+    _log(f"[kernels] contiguous phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows.update(paged_kernel_phase(flush))
+    _log(f"[kernels] paged phase {time.perf_counter() - t0:.1f} s")
     del flush
     for name, row in rows.items():
         _log(f"[kernels] {name}: {row['ms'] * 1e3:.1f} us (plain "
@@ -435,8 +804,7 @@ def main():
     _log(f"[kernels] largest row relative L2 error of all checks "
          f"{_worst_rel[0]:.3e} (bound {REL_L2_BOUND:.3e})")
     _log(f"[kernels] tolerance: {TOL_NOTE}; no single PyTorch call "
-         f"computes ConSmax attention, so library_ms is null "
-         f"({time.perf_counter() - t0:.1f} s)")
+         f"computes ConSmax attention, so library_ms is null")
 
     t0 = time.perf_counter()
     model_phase()
@@ -454,13 +822,18 @@ def main():
                  prompt_lens=[20, 700, 131, 256, 999, 64], new_tokens=16,
                  seed=3)
     _log(f"[engine] gpt2-consmax phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(paged_engine_phase())
+    _log(f"[paged] qwen2-1.5b paged phase {time.perf_counter() - t0:.1f} s")
 
-    src = {"consmax_decode": ("src/repro_torch/kernels/consmax_decode/csrc/"
-                              "consmax_decode.cu",
-                              "src/repro/kernels/consmax_decode/kernel.py:171"),
-           "consmax_prefill": ("src/repro_torch/kernels/consmax_prefill/csrc/"
-                               "consmax_prefill.cu",
-                               "src/repro/kernels/consmax_prefill/kernel.py:128")}
+    dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
+    pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
+    ref_dec = "src/repro/kernels/consmax_decode/kernel.py"
+    ref_pre = "src/repro/kernels/consmax_prefill/kernel.py"
+    src = {"consmax_decode": (dec, f"{ref_dec}:171"),
+           "consmax_prefill": (pre, f"{ref_pre}:128"),
+           "consmax_decode_paged": (dec, f"{ref_dec}:340"),
+           "consmax_prefill_paged": (pre, f"{ref_pre}:276")}
     kernels = [dict(name=name, route="cuda", source=src[name][0],
                     replaces=src[name][1], launches=counts[name],
                     **rows[name], library_ms=None) for name in src]

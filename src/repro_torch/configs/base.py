@@ -148,7 +148,7 @@ class ServeConfig:
     score_norm: Optional[str] = None # the served model's score_norm, when
                                      # known: lets the kernel flags fail at
                                      # construction on a non-consmax arch
-    # --- paged KV (not in the port yet: the engine raises) ---
+    # --- paged KV (continuous engine; refused without paged_kv) ---
     paged_kv: bool = False
     page_size: int = 256
     num_pages: int = 0

@@ -8,18 +8,23 @@ reference's ``core/attention.py``.
   accumulator alone.
 * ``decode_attention`` — one-token decode against the cache, the score row
   materialized.
+* ``paged_attention`` — the same append walk over a shared page pool: block
+  j is one page per slot, gathered through the page table; unmapped (-1)
+  pages are masked whole (``block_valid``).
 * ``attention_apply`` — the module API: q/k/v projection, RoPE, the
   in-place cache write, the plain walks above or the ConSmax kernels
-  (``kernels/consmax_prefill``, ``kernels/consmax_decode``), and the output
-  projection.
+  (``kernels/consmax_prefill``, ``kernels/consmax_decode``, contiguous or
+  paged), and the output projection.
 
-Layouts as in the reference: q ``(b, s, H, dk)``, caches ``(b, L, hkv, dk)``,
-per-slot ``index`` ``(b,)`` int32. The port writes K/V into the cache tensors
-in place (the reference donates the cache buffer to the same effect).
+Layouts as in the reference: q ``(b, s, H, dk)``, caches ``(b, L, hkv, dk)``
+or page pools ``(P + 1, ps, hkv, dk)`` (see ``_paged_cache_write`` for the
+spare page), per-slot ``index`` ``(b,)`` int32. The port writes K/V into the
+cache tensors in place (the reference donates the cache buffer to the same
+effect).
 
 Not ported yet (they raise ``NotImplementedError``): the whole-prompt /
-training path (``blockwise_attention``), paged KV, cross-attention, and the
-softmax/softermax online walks of chunked prefill.
+training path (``blockwise_attention``), cross-attention, and the
+softmax/softermax online walks of chunked prefill and paged attention.
 """
 from __future__ import annotations
 
@@ -81,6 +86,36 @@ def _append_cache_write(cache, new, index):
     cache[bi, rows] = torch.where(keep, new.to(cache.dtype)[bi, src], win)
 
 
+def _paged_cache_write(pool, new, index, lengths, page_table):
+    """Scatter ``new``: (b, c, hkv, dk) into the page ``pool``:
+    (P + 1, ps, hkv, dk) at per-slot logical rows [index, index + lengths),
+    in place: logical row t of slot b lands in page ``page_table[b, t // ps]``,
+    row ``t % ps``.
+
+    Pad rows (>= lengths), rows past the table and rows whose page is
+    unmapped (-1) must reach no page. The reference drops them with an
+    out-of-bounds scatter (``mode="drop"``), which torch lacks; sending them
+    onto a real row instead would race with another slot's write of that
+    row in the same scatter. So the pool carries one spare page past the
+    ``PagePool``'s range (``init_paged_caches``), the last one, and every
+    dropped row lands there: deterministic for every real row, no host
+    sync, and nothing ever reads the spare page (no table maps it). Slots
+    own disjoint pages (the ``PagePool`` invariant), so the real rows never
+    collide."""
+    spare, ps = pool.shape[0] - 1, pool.shape[1]
+    b, c = new.shape[:2]
+    npg = page_table.shape[1]
+    ar = torch.arange(c, device=pool.device)
+    pos = index[:, None] + ar                                 # (b, c) logical
+    logical_page = pos // ps
+    pid = torch.gather(page_table, 1, logical_page.clamp(0, npg - 1).long())
+    drop = ((ar[None, :] >= lengths[:, None]) | (logical_page >= npg)
+            | (pid < 0))
+    pid = torch.where(drop, spare, pid)
+    pool[pid.reshape(-1).long(), (pos % ps).reshape(-1).long()] = (
+        new.reshape((b * c,) + new.shape[2:]).to(pool.dtype))
+
+
 def _decode_cache_write(cache, new, index, active):
     """Write the one-token rows ``new``: (b, 1, hkv, dk) at ``index``
     (clamped into the cache, as ``dynamic_update_slice`` does), in place;
@@ -95,30 +130,35 @@ def _decode_cache_write(cache, new, index, active):
 
 
 # ------------------------------------------------------------ plain walks ----
-def _kv_walk(q, index, lengths, k, v, kc, *, norm_kind, norm_params,
-             window=0, softcap=0.0, merged=True):
+def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
+             norm_params, window=0, softcap=0.0, merged=True,
+             block_valid=None):
     """A (b, c) chunk at per-slot positions index + [0, c) attends cache
-    blocks j = 0..hi of ``kc`` rows, hi bounded by the batch's highest fill.
-    Products in fp32 of the compute-dtype operands, weights cast to the
-    compute dtype before ``p @ v``, fp32 accumulator: the reference's
-    ``preferred_element_type=float32`` einsums."""
+    blocks j = 0..hi of ``kc`` rows, hi bounded by the batch's highest fill
+    and by the ``n_blocks`` blocks the cache holds;
+    ``gather(j) -> (k_blk, v_blk)`` yields the (b, <= kc, hkv, dk) block of
+    logical rows [j*kc, (j+1)*kc) — a slice of a contiguous cache, or one
+    page per slot gathered through a page table. ``block_valid(j) -> (b,)``
+    (optional) masks a slot's whole block (a -1 page: the gather clamped it
+    onto page 0). Products in fp32 of the compute-dtype operands, weights
+    cast to the compute dtype before ``p @ v``, fp32 accumulator: the
+    reference's ``preferred_element_type=float32`` einsums."""
     if norm_kind != "consmax":
         raise NotImplementedError(
             f"append walk for score_norm={norm_kind!r}: only the consmax "
             "walk is ported")
     b, c, H, dk = q.shape
-    hkv = k.shape[2]
     g = H // hkv
     cdt = q.dtype
     qg = q.reshape(b, c, hkv, g, dk).float()
     qpos = index[:, None] + torch.arange(c, device=q.device)    # (b, c)
     kv_len = index + lengths
-    hi = int(((kv_len + kc - 1) // kc).max())                   # host bound
+    hi = min(int(((kv_len + kc - 1) // kc).max()), n_blocks)    # host bound
     acc = torch.zeros((b, c, hkv, g, dk), dtype=torch.float32,
                       device=q.device)
     for j in range(hi):
-        k_blk = k[:, j * kc:(j + 1) * kc].to(cdt).float()
-        v_blk = v[:, j * kc:(j + 1) * kc].to(cdt).float()
+        k_blk, v_blk = gather(j)
+        k_blk, v_blk = k_blk.to(cdt).float(), v_blk.to(cdt).float()
         n = k_blk.shape[1]
         s = torch.einsum("bqhgd,bchd->bhgqc", qg, k_blk)
         if softcap > 0:
@@ -126,6 +166,8 @@ def _kv_walk(q, index, lengths, k, v, kc, *, norm_kind, norm_params,
         kpos = j * kc + torch.arange(n, device=q.device)
         msk = kv_mask(qpos[:, :, None], kpos[None, None, :],
                       kv_len[:, None, None], window)           # (b, c, n)
+        if block_valid is not None:
+            msk = msk & block_valid(j)[:, None, None]
         p = normalizers.apply_norm(
             "consmax", norm_params, s.reshape(b, H, c, n), msk[:, None],
             head_axis=1, merged=merged).reshape(b, hkv, g, c, n)
@@ -141,9 +183,37 @@ def append_attention(q, k, v, index, lengths, *, norm_kind, norm_params,
     row attends causally to cache rows < index + lengths; rows >= lengths
     are pad queries whose output the caller ignores."""
     kc = min(kv_chunk, k.shape[1])
-    return _kv_walk(q, index, lengths, k, v, kc, norm_kind=norm_kind,
+
+    def gather(j):
+        return k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+
+    return _kv_walk(q, index, lengths, gather, kc, -(-k.shape[1] // kc),
+                    k.shape[2], norm_kind=norm_kind, norm_params=norm_params,
+                    window=window, softcap=softcap, merged=merged)
+
+
+def paged_attention(q, kp, vp, page_table, index, lengths, *, norm_kind,
+                    norm_params, window=0, softcap=0.0, merged=True):
+    """Attention of a (b, c, H, dk) chunk against page-pool KV (consmax).
+
+    kp, vp: (P, ps, hkv, dk) pools; page_table: (b, npg) int32 (-1 =
+    unmapped); index: (b,) chunk start positions; lengths: (b,) real tokens
+    in the chunk. Covers chunked append prefill (c > 1) and one-token
+    decode (c == 1, lengths = the active mask: an inactive slot gets
+    kv_len = index, a fully masked row whose output is discarded). Block j
+    is page ``page_table[:, j]`` of every slot; an unmapped entry is clamped
+    to page 0 by the gather and masked whole (``block_valid``), since
+    under sequence sharding a -1 can sit inside the fill."""
+    ps = kp.shape[1]
+
+    def gather(j):
+        pid = page_table[:, j].clamp(min=0).long()
+        return kp[pid], vp[pid]
+
+    return _kv_walk(q, index, lengths, gather, ps, page_table.shape[1],
+                    kp.shape[2], norm_kind=norm_kind,
                     norm_params=norm_params, window=window, softcap=softcap,
-                    merged=merged)
+                    merged=merged, block_valid=lambda j: page_table[:, j] >= 0)
 
 
 def decode_attention(q, k, v, index, *, norm_kind, norm_params, window=0,
@@ -189,12 +259,16 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     decode_kernel / prefill_kernel: route consmax decode / append prefill
     through the ConSmax kernels (``decode_kv_block`` sizes the decode
     kernel's KV shards; ``fill_bound`` skips work past each slot's fill).
+    page_table: (b, npg) int32 — paged KV: the cache's k/v are shared
+    (P + 1, ps, hkv, dk) pools and each slot's logical rows live on the
+    pages its table row maps (-1 = unmapped). One branch covers chunked
+    prefill and one-token decode, where the active mask doubles as the
+    chunk length: an inactive slot writes nothing and reads a fully masked
+    row whose output is discarded.
     Returns (out, new_cache).
     """
     if cond is not None:
         raise NotImplementedError("cross-attention is not ported yet")
-    if page_table is not None:
-        raise NotImplementedError("paged KV is not ported yet")
     b, s, _ = x.shape
     if cache is None or (prefill_append is None and s > 1):
         raise NotImplementedError(
@@ -227,7 +301,35 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
         beta = p.score_norm.beta.float().expand(H).contiguous()
         gamma = p.score_norm.gamma.float().expand(H).contiguous()
 
-    if prefill_append is not None:
+    if page_table is not None:
+        if prefill_append is not None:
+            lengths = prefill_append.to(torch.int32)
+        elif decode_active is None:
+            lengths = torch.ones_like(idx)
+        else:
+            lengths = decode_active.to(torch.int32)
+        # pad rows / inactive slots land on the spare page, never a real one
+        _paged_cache_write(k_cache, k, idx, lengths, page_table)
+        _paged_cache_write(v_cache, v, idx, lengths, page_table)
+        kw = dict(window=window, softcap=cfg.attn_softcap, merged=merged)
+        if prefill_append is not None and prefill_kernel and consmax_kernels:
+            from repro_torch.kernels.consmax_prefill.ops import (
+                consmax_prefill_paged_op)
+            out = consmax_prefill_paged_op(
+                q, k_cache, v_cache, page_table, idx, lengths, beta, gamma,
+                scale=1.0, fill_bound=fill_bound, **kw)
+        elif prefill_append is None and decode_kernel and consmax_kernels:
+            from repro_torch.kernels.consmax_decode.ops import (
+                consmax_decode_paged_op)
+            out = consmax_decode_paged_op(
+                q, k_cache, v_cache, page_table, idx + lengths, beta, gamma,
+                scale=1.0, bk=decode_kv_block, fill_bound=fill_bound, **kw)
+        else:
+            out = paged_attention(q, k_cache, v_cache, page_table, idx,
+                                  lengths, norm_kind=cfg.score_norm,
+                                  norm_params=p.score_norm, **kw)
+        new_index = idx + lengths
+    elif prefill_append is not None:
         lengths = prefill_append.to(torch.int32)
         # zero pad rows (>= lengths) so they never enter the cache
         keep = (torch.arange(s, device=x.device)[None, :]

@@ -107,18 +107,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict):
+def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
+                   page_table=None):
     """Raise unless ``q`` (b, [c,] H, dk) and the caches ``k``/``v``
     (b, L, hkv, dk) are bf16 and agree, ``slots`` tensors are (b,) and
     ``heads`` tensors (H,), and every operand lies on ``q``'s device,
     contiguous and aligned for the kernel's vector loads (16 bytes for
-    q/k/v, 4 for the rest)."""
+    q/k/v, 4 for the rest). With ``page_table`` (b, npg) int32, ``k``/``v``
+    are (P, ps, hkv, dk) page pools instead."""
     b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{kernel}: {name} must be bfloat16 on CUDA, "
                             f"got {t.dtype}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dk:
+    if k.shape != v.shape or k.ndim != 4 or k.shape[3] != dk or (
+            page_table is None and k.shape[0] != b):
         raise ValueError(f"{kernel}: q {tuple(q.shape)} does not match "
                          f"cache {tuple(k.shape)} / {tuple(v.shape)}")
     if dk not in HEAD_DIMS:
@@ -131,7 +134,16 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict):
             if t.shape != (n,):
                 raise ValueError(f"{kernel}: {name} must have shape ({n},), "
                                  f"got {tuple(t.shape)}")
-    for name, t in {"q": q, "k": k, "v": v, **slots, **heads}.items():
+    extra = {}
+    if page_table is not None:
+        if (page_table.dtype != torch.int32 or page_table.ndim != 2
+                or page_table.shape[0] != b or page_table.shape[1] < 1):
+            raise ValueError(f"{kernel}: page_table must be ({b}, npg >= 1) "
+                             f"int32, got {tuple(page_table.shape)} "
+                             f"{page_table.dtype}")
+        extra["page_table"] = page_table
+    for name, t in {"q": q, "k": k, "v": v, **slots, **heads,
+                    **extra}.items():
         if t.device != q.device:
             raise ValueError(f"{kernel}: {name} on {t.device}, q on "
                              f"{q.device}")

@@ -4,8 +4,9 @@ the torch twin of the reference's ``kernels/cache_layout.py``.
 Everything the decode and prefill kernels, their plain versions and the
 plain KV walks (``core.attention``) agree on lives here: the one mask
 formula (``kv_mask``), the ConSmax weights (``consmax_weights``), the GQA
-folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``) and the fill
-bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``). The CUDA
+folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``), the fill
+bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``) and the
+page gather of the paged kernels' plain versions (``gather_pages``). The CUDA
 sources under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live`` and
 ``consmax_weights`` in device code; the tests hold the kernels against the
 plain versions built from these helpers.
@@ -95,6 +96,19 @@ def fill_bounded_sum(partials, n_live, axis: int = 2):
     idx = torch.arange(partials.shape[axis], device=partials.device)
     live = idx.reshape(shape) < n_live
     return torch.where(live, partials, 0.0).sum(dim=axis)
+
+
+def gather_pages(pool, page_table):
+    """The contiguous rows a page table maps: ``pool`` (P, ps, hkv, dk),
+    ``page_table`` (b, npg) int32 -> (b, npg * ps, hkv, dk), logical row r
+    of slot b from page ``page_table[b, r // ps]``, and zeros for -1
+    entries. Plain and whole: the paged kernels' plain versions and tests
+    use it, never the card's path."""
+    b, npg = page_table.shape
+    rows = pool[page_table.clamp(min=0).long()]       # (b, npg, ps, ...)
+    rows = torch.where((page_table >= 0).reshape(b, npg, 1, 1, 1), rows,
+                       torch.zeros((), dtype=pool.dtype, device=pool.device))
+    return rows.reshape(b, npg * pool.shape[1], *pool.shape[2:])
 
 
 def consmax_weights(s, beta, gamma, merged: bool):

@@ -1,13 +1,20 @@
 // Split-KV ConSmax decode for Hopper (sm_90a), CUDA C++.
 //
-// Replaces the TPU kernel src/repro/kernels/consmax_decode/kernel.py:
-// consmax_decode (_folded_kernel with fill_bound, _kernel without).
+// Replaces the TPU kernels of src/repro/kernels/consmax_decode/kernel.py:
+// consmax_decode (_folded_kernel with fill_bound, _kernel without) and
+// consmax_decode_paged (_paged_kernel).
 //
-// One query token per slot against the contiguous KV cache, read in its
-// stored (b, L, hkv, dk) layout (no transposed or padded copy):
+// One query token per slot against the KV cache, read in its stored layout
+// (no transposed or padded copy): the contiguous (b, L, hkv, dk) cache, or
+// a shared (P, ps, hkv, dk) page pool through a (b, npg) page table. The
+// two entry points run one kernel; only the row address differs
+// (ContigRows / PagedRows in consmax_common.cuh), so the paged kernel walks
+// the same decode_kv_block shards as the contiguous one, not the TPU's
+// per-page grid, and gives its bits when the pages hold the same rows:
 //   s = q . k * scale;  s = softcap * tanh(s / softcap) (optional)
 //   p = C * exp(s), C = exp(-beta) / gamma (merged)  |  exp(s - beta) / gamma
-//   p = 0 where kv_mask(n - 1, kpos, n, window) is false  (n = index + 1)
+//   p = 0 where kv_mask(n - 1, kpos, n, window) is false or no row backs
+//     kpos (an unmapped page)  (n = index + 1, or index + active when paged)
 //   o = sum_j p_j v_j
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): decode reads every
@@ -23,11 +30,17 @@
 //   and combine by plain addition: each shard writes a (g, dk) fp32 partial,
 //   and a second kernel sums the live shards of each slot in a fixed order
 //   (shard 0, 1, ...). No atomics: results are the same on every run.
+// * A slot with n = 0 (a free slot at index 0 in a paged decode step) has
+//   no live shard: no partial is written, and the combine, which tests the
+//   same predicate, writes zeros without reading one.
 // * Fill bounding without a host sync: a block reads its slot's length on
 //   the device and returns at once when its shard is past the fill or
 //   behind the sliding window (cache_layout.shard_live); the combine skips
 //   the same shards, so dead shards cost one launch slot and no bytes.
-//   Rows past the fill inside a live shard are not read either.
+//   Rows past the fill inside a live shard are not read either. A shard is
+//   live by the fill alone (the host never reads the table): a live shard
+//   whose rows are all unmapped reads nothing and writes a zero partial, as
+//   the reference's skip branch does, so the combine stays table-free.
 // * GQA folding: the g query heads sharing a KV head are held in registers
 //   (chunks of up to 8 heads), so each K/V row is read once for all of them.
 // * Loads: a warp reads one K row with 32 lanes x dk/32 contiguous bf16 (one
@@ -45,11 +58,12 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadChunk = 8;  // query heads of one GQA group per pass
 
-template <int DK>
+template <int DK, class Rows>
 __global__ void __launch_bounds__(kThreads)
     decode_partials(const __nv_bfloat16* __restrict__ q,  // (b, H, DK)
-                    const __nv_bfloat16* __restrict__ k,  // (b, L, hkv, DK)
+                    const __nv_bfloat16* __restrict__ k,  // rows of hkv * DK
                     const __nv_bfloat16* __restrict__ v,
+                    const Rows rows_of,                   // logical -> row
                     const int* __restrict__ lengths,      // (b,)
                     const float* __restrict__ beta,       // (H,)
                     const float* __restrict__ gamma,
@@ -73,10 +87,8 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(bk, L - start);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row_stride = static_cast<size_t>(hkv) * DK;
-  const size_t base = (static_cast<size_t>(b) * L + start) * row_stride +
-                      static_cast<size_t>(h) * DK;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
+  const __nv_bfloat16* kh = k + static_cast<size_t>(h) * DK;
+  const __nv_bfloat16* vh = v + static_cast<size_t>(h) * DK;
 
   for (int g0 = 0; g0 < g; g0 += kHeadChunk) {
     const int gc = min(kHeadChunk, g - g0);
@@ -96,11 +108,14 @@ __global__ void __launch_bounds__(kThreads)
     // pass 1: one warp per K row -> weights p_s[gi][j]
     for (int j = warp; j < rows; j += kWarps) {
       const int kpos = start + j;
-      const bool valid = kv_mask(n - 1, kpos, n, window);  // warp-uniform
+      // warp-uniform; the table is read only for unmasked rows
+      size_t row;
+      const bool valid =
+          kv_mask(n - 1, kpos, n, window) && rows_of.row(b, kpos, &row);
       float dot[kHeadChunk];
       if (valid) {
         float kf[kPerLane];
-        load_bf16<kPerLane>(kb + j * row_stride + lane * kPerLane, kf);
+        load_bf16<kPerLane>(kh + row * row_stride + lane * kPerLane, kf);
 #pragma unroll
         for (int gi = 0; gi < kHeadChunk; ++gi) {
           float t = 0.f;
@@ -130,9 +145,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[gi][e] = 0.f;
     for (int j = rg; j < rows; j += kRowGroups) {
-      if (!kv_mask(n - 1, start + j, n, window)) continue;  // never read
+      size_t row;
+      if (!kv_mask(n - 1, start + j, n, window) ||
+          !rows_of.row(b, start + j, &row))
+        continue;  // never read
       float vf[4];
-      load_bf16<4>(vb + j * row_stride + quad * 4, vf);
+      load_bf16<4>(vh + row * row_stride + quad * 4, vf);
 #pragma unroll
       for (int gi = 0; gi < kHeadChunk; ++gi) {
         const float p = gi < gc ? p_s[gi * bk + j] : 0.f;
@@ -181,8 +199,8 @@ __global__ void decode_combine(const float* __restrict__ partials,
   out[i] = __float2bfloat16(t);
 }
 
-template <int DK>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <int DK, class Rows>
+cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
                    const int* lengths, const float* beta, const float* gamma,
                    float* partials, void* out, int b, int H, int hkv, int L,
                    int bk, int window, float softcap, float scale, int merged,
@@ -192,11 +210,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       (kHeadChunk * static_cast<size_t>(bk) + kThreads * 4 * kHeadChunk) *
       sizeof(float);
   dim3 grid(ns, hkv, b);
-  decode_partials<DK><<<grid, kThreads, smem, stream>>>(
+  decode_partials<DK, Rows><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, beta, gamma, partials, H,
-      hkv, L, bk, ns, window, softcap, scale, merged, fill_bound);
+      static_cast<const __nv_bfloat16*>(v), rows_of, lengths, beta, gamma,
+      partials, H, hkv, L, bk, ns, window, softcap, scale, merged,
+      fill_bound);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(b) * H * DK;
@@ -205,6 +224,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       partials, lengths, static_cast<__nv_bfloat16*>(out), b, H, hkv, DK, bk,
       ns, window, fill_bound);
   return cudaGetLastError();
+}
+
+template <class Rows>
+int launch_dk(int dk, const void* q, const void* k, const void* v,
+              Rows rows_of, const void* lengths, const void* beta,
+              const void* gamma, void* partials, void* out, int b, int H,
+              int hkv, int L, int bk, int window, float softcap, float scale,
+              int merged, int fill_bound, void* stream) {
+  auto* len = static_cast<const int*>(lengths);
+  auto* bt = static_cast<const float*>(beta);
+  auto* gm = static_cast<const float*>(gamma);
+  auto* part = static_cast<float*>(partials);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dk) {
+    case 32:
+      return launch<32>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
+                        L, bk, window, softcap, scale, merged, fill_bound, st);
+    case 64:
+      return launch<64>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
+                        L, bk, window, softcap, scale, merged, fill_bound, st);
+    case 128:
+      return launch<128>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
+                         L, bk, window, softcap, scale, merged, fill_bound,
+                         st);
+    case 256:
+      return launch<256>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
+                         L, bk, window, softcap, scale, merged, fill_bound,
+                         st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -221,25 +271,23 @@ extern "C" int consmax_decode_launch(const void* q, const void* k,
                                      int window, float softcap, float scale,
                                      int merged, int fill_bound,
                                      void* stream) {
-  auto* len = static_cast<const int*>(lengths);
-  auto* bt = static_cast<const float*>(beta);
-  auto* gm = static_cast<const float*>(gamma);
-  auto* part = static_cast<float*>(partials);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (dk) {
-    case 32:
-      return launch<32>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
-                        window, softcap, scale, merged, fill_bound, st);
-    case 64:
-      return launch<64>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
-                        window, softcap, scale, merged, fill_bound, st);
-    case 128:
-      return launch<128>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
-                         window, softcap, scale, merged, fill_bound, st);
-    case 256:
-      return launch<256>(q, k, v, len, bt, gm, part, out, b, H, hkv, L, bk,
-                         window, softcap, scale, merged, fill_bound, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_dk(dk, q, k, v, ContigRows{L}, lengths, beta, gamma,
+                   partials, out, b, H, hkv, L, bk, window, softcap, scale,
+                   merged, fill_bound, stream);
+}
+
+// The paged twin: kp, vp (P, ps, hkv, dk) bf16 pools; table (b, npg) int32
+// (-1 = unmapped); lengths (b,) int32 = valid logical rows (index + active,
+// 0 allowed); partials (b, hkv, ceil(npg * ps / bk), g, dk) fp32 scratch.
+// Any page size: bk bounds the shared memory, ps only the address.
+extern "C" int consmax_decode_paged_launch(
+    const void* q, const void* kp, const void* vp, const void* table,
+    const void* lengths, const void* beta, const void* gamma, void* partials,
+    void* out, int b, int H, int hkv, int npg, int ps, int dk, int bk,
+    int window, float softcap, float scale, int merged, int fill_bound,
+    void* stream) {
+  const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
+  return launch_dk(dk, q, kp, vp, rows_of, lengths, beta, gamma, partials,
+                   out, b, H, hkv, npg * ps, bk, window, softcap, scale,
+                   merged, fill_bound, stream);
 }

@@ -1,13 +1,16 @@
-"""Public wrapper of the split-KV ConSmax decode kernel.
+"""Public wrappers of the split-KV ConSmax decode kernels.
 
-Takes the model's serving layouts — q ``(b, 1, H, dk)``, cache k/v
-``(b, L, hkv, dk)``, per-slot cache ``index`` ``(b,)`` — and dispatches by
-the tensors' device: on the CPU it computes the plain version
-(``ref.consmax_decode_ref``); on a CUDA device it launches the kernel in
-``csrc/consmax_decode.cu`` (built at first use, see ``kernels/_build.py``)
-or raises. There is no fallback from one to the other.
+Take the model's serving layouts — q ``(b, 1, H, dk)``, cache k/v
+``(b, L, hkv, dk)`` and per-slot cache ``index`` ``(b,)``, or the shared
+``(P, ps, hkv, dk)`` page pools with a ``(b, npg)`` page table and per-slot
+``lengths`` — and dispatch by the tensors' device: on the CPU they compute
+the plain versions (``ref.consmax_decode_ref`` / ``consmax_decode_paged_ref``);
+on a CUDA device they launch the kernel in ``csrc/consmax_decode.cu`` (built
+at first use, see ``kernels/_build.py``) or raise. There is no fallback from
+one to the other.
 
-``consmax_decode_op.launches`` counts kernel launches (CUDA only).
+``consmax_decode_op.launches`` and ``consmax_decode_paged_op.launches``
+count kernel launches (CUDA only), each its own entry point.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
+from repro_torch.kernels.consmax_decode.ref import (consmax_decode_paged_ref,
+                                                   consmax_decode_ref)
 
 MAX_BLOCK = 512          # keeps the kernel's shared memory under 48 KB
 
@@ -29,7 +33,33 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.consmax_decode_launch.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, p]
     lib.consmax_decode_launch.restype = i
+    lib.consmax_decode_paged_launch.argtypes = ([p] * 9 + [i] * 8
+                                                + [f, f, i, i, p])
+    lib.consmax_decode_paged_launch.restype = i
     return lib
+
+
+def _operands(kernel, q, k, v, lengths, beta, gamma, L, hkv, bk, scale,
+              page_table=None):
+    """Checked operands, the shard size, the scale and the scratch and
+    output tensors of one launch over ``L`` logical rows per slot."""
+    b, H, dk = q.shape
+    bk = min(bk, L)
+    lengths = lengths.to(torch.int32).contiguous()
+    beta = beta.float().contiguous()
+    gamma = gamma.float().contiguous()
+    _build.check_operands(kernel, q, k, v, slots={"lengths": lengths},
+                          heads={"beta": beta, "gamma": gamma},
+                          page_table=page_table)
+    if not 0 < bk <= MAX_BLOCK:
+        raise ValueError(f"{kernel}: bk {bk} not in (0, {MAX_BLOCK}]")
+    if scale is None:
+        scale = 1.0 / math.sqrt(dk)
+    ns = -(-L // bk)
+    partials = torch.empty((b, hkv, ns, H // hkv, dk), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty((b, H, dk), dtype=q.dtype, device=q.device)
+    return lengths, beta, gamma, bk, scale, partials, out
 
 
 def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
@@ -40,21 +70,8 @@ def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
     (b, H, dk) bf16."""
     b, H, dk = q.shape
     L, hkv = k.shape[1], k.shape[2]
-    bk = min(bk, L)
-    lengths = lengths.to(torch.int32).contiguous()
-    beta = beta.float().contiguous()
-    gamma = gamma.float().contiguous()
-    _build.check_operands("consmax_decode", q, k, v,
-                          slots={"lengths": lengths},
-                          heads={"beta": beta, "gamma": gamma})
-    if not 0 < bk <= MAX_BLOCK:
-        raise ValueError(f"consmax_decode: bk {bk} not in (0, {MAX_BLOCK}]")
-    if scale is None:
-        scale = 1.0 / math.sqrt(dk)
-    ns = -(-L // bk)
-    partials = torch.empty((b, hkv, ns, H // hkv, dk), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty((b, H, dk), dtype=q.dtype, device=q.device)
+    lengths, beta, gamma, bk, scale, partials, out = _operands(
+        "consmax_decode", q, k, v, lengths, beta, gamma, L, hkv, bk, scale)
     lib = _lib()
     err = lib.consmax_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
@@ -92,3 +109,59 @@ def consmax_decode_op(q, k, v, index, beta, gamma, *, window=0, softcap=0.0,
 
 
 consmax_decode_op.launches = 0
+
+
+def consmax_decode_paged_cuda(q, kp, vp, page_table, lengths, beta, gamma, *,
+                              window=0, softcap=0.0, merged=True, scale=None,
+                              bk=256, fill_bound=True):
+    """Launch the paged CUDA kernel. q (b, H, dk) bf16; kp, vp (P, ps, hkv,
+    dk) bf16 pools; page_table (b, npg) int32 (-1 = unmapped); lengths (b,)
+    int32 valid logical rows (0 allowed); beta/gamma (H,) fp32. The KV
+    shards are ``bk`` logical rows, as in the contiguous kernel, for any
+    page size. Returns (b, H, dk) bf16."""
+    b, H, dk = q.shape
+    ps, hkv = kp.shape[1], kp.shape[2]
+    npg = page_table.shape[1]
+    lengths, beta, gamma, bk, scale, partials, out = _operands(
+        "consmax_decode_paged", q, kp, vp, lengths, beta, gamma, npg * ps,
+        hkv, bk, scale, page_table=page_table)
+    lib = _lib()
+    err = lib.consmax_decode_paged_launch(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), beta.data_ptr(), gamma.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), b, H, hkv, npg, ps, dk, bk,
+        window, softcap, scale, int(merged), int(fill_bound),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "consmax_decode_paged")
+    consmax_decode_paged_op.launches += 1
+    return out
+
+
+def consmax_decode_paged_op(q, kp, vp, page_table, lengths, beta, gamma, *,
+                            window=0, softcap=0.0, merged=True, scale=None,
+                            bk=256, fill_bound=True):
+    """Paged-pool variant, with the reference's signature. q: (b, 1, H, dk);
+    kp, vp: shared (P, ps, hkv, dk) page pools after this step's K/V row
+    was written; page_table: (b, npg) int32; lengths: (b,) valid logical
+    rows (``index + active``: it already counts this step's row, and is 0
+    for a free slot at index 0).
+
+    Returns (b, 1, H, dk) in q.dtype. ``bk`` is the kernel's KV shard in
+    logical rows and ``fill_bound`` skips shards past each slot's fill
+    (both only shape the CUDA launch)."""
+    if q.device.type == "cpu":
+        return consmax_decode_paged_ref(q[:, 0], kp, vp, page_table, lengths,
+                                        beta, gamma, window=window,
+                                        softcap=softcap, merged=merged,
+                                        scale=scale)[:, None]
+    if q.device.type != "cuda":
+        raise NotImplementedError(
+            f"consmax_decode_paged: no kernel for device {q.device}")
+    return consmax_decode_paged_cuda(q[:, 0], kp, vp, page_table, lengths,
+                                     beta, gamma, window=window,
+                                     softcap=softcap, merged=merged,
+                                     scale=scale, bk=bk,
+                                     fill_bound=fill_bound)[:, None]
+
+
+consmax_decode_paged_op.launches = 0

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the split-KV ConSmax decode kernel: the whole
+"""Plain PyTorch versions of the split-KV ConSmax decode kernels: the whole
 score row materialized, fp32 math (the reference's ``consmax_decode_ref``,
-but reading the cache in its stored ``(b, L, hkv, d)`` layout)."""
+but reading the cache in its stored ``(b, L, hkv, d)`` layout), and the
+paged twin, which gathers each slot's pages first."""
 from __future__ import annotations
 
 import math
@@ -32,3 +33,16 @@ def consmax_decode_ref(q, k, v, lengths, beta, gamma, *, window=0,
     p = torch.where(mask[:, None, None, :], p, 0.0)
     o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
     return o.reshape(b, nh, d).to(q.dtype)
+
+
+def consmax_decode_paged_ref(q, kp, vp, page_table, lengths, beta, gamma, *,
+                             window=0, softcap=0.0, merged=True, scale=None):
+    """q: (b, nh, d); kp, vp: (P, ps, nkv, d) page pools; page_table:
+    (b, npg) int32 (-1 = unmapped); lengths: (b,) valid logical rows.
+    Gathers each slot's pages into (b, npg * ps, nkv, d), zeros for -1
+    entries (a zero K and V row adds exactly 0), then runs
+    ``consmax_decode_ref``. Returns (b, nh, d) in q.dtype."""
+    return consmax_decode_ref(q, CL.gather_pages(kp, page_table),
+                              CL.gather_pages(vp, page_table), lengths, beta,
+                              gamma, window=window, softcap=softcap,
+                              merged=merged, scale=scale)

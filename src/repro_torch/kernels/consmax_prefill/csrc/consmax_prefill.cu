@@ -1,7 +1,7 @@
 // ConSmax append-at-index prefill for Hopper (sm_90a), CUDA C++.
 //
-// Replaces the TPU kernel src/repro/kernels/consmax_prefill/kernel.py:
-// consmax_prefill (_kernel).
+// Replaces the TPU kernels of src/repro/kernels/consmax_prefill/kernel.py:
+// consmax_prefill (_kernel) and consmax_prefill_paged (_paged_kernel).
 //
 // A (b, c) chunk of pre-scaled queries at per-slot cache positions
 // index + [0, c) attends the cache rows below index + lengths (the chunk's
@@ -11,8 +11,15 @@
 //   p = C * exp(s), C = exp(-beta) / gamma (merged)  |  exp(s - beta) / gamma
 //   p = 0 where kv_mask(qpos, kpos, index + lengths, window) is false
 //   o = sum_j p_j v_j
-// The cache is read in its stored (b, L, hkv, dk) layout and the ragged
-// edge is masked here: no transposed or padded copy.
+// The cache is read in its stored layout and the ragged edge is masked
+// here: no transposed or padded copy. The contiguous (b, L, hkv, dk) cache
+// and the paged (P, ps, hkv, dk) pool + (b, npg) table run one kernel that
+// differs only in the row address (ContigRows / PagedRows in
+// consmax_common.cuh): the paged kernel walks the same 64-row tiles in
+// registers, not the TPU's sequential page axis, and gives the contiguous
+// kernel's bits when the pages hold the same rows. A row of an unmapped
+// (-1) page is loaded as zeros, never read: zero K and V rows add exact
+// zeros, as the reference's block_valid mask does.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at c = 512 a
 // chunk does ~4 * c * H * fill * dk flops per layer (12.9 GFLOP ~ 13 us for
@@ -67,11 +74,12 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
-template <int DK>
+template <int DK, class Rows>
 __global__ void __launch_bounds__(kThreads)
     prefill_kernel(const __nv_bfloat16* __restrict__ q,  // (b, c, H, DK)
-                   const __nv_bfloat16* __restrict__ k,  // (b, L, hkv, DK)
+                   const __nv_bfloat16* __restrict__ k,  // rows of hkv * DK
                    const __nv_bfloat16* __restrict__ v,
+                   const Rows rows_of,                   // logical -> row
                    const int* __restrict__ index,        // (b,)
                    const int* __restrict__ lengths,      // (b,)
                    const float* __restrict__ beta,       // (H,)
@@ -149,10 +157,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
   const size_t row_stride = static_cast<size_t>(hkv) * DK;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * L * row_stride +
-                            static_cast<size_t>(h) * DK;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * L * row_stride +
-                            static_cast<size_t>(h) * DK;
+  const __nv_bfloat16* kh = k + static_cast<size_t>(h) * DK;
+  const __nv_bfloat16* vh = v + static_cast<size_t>(h) * DK;
 
   for (int j0 = kv_begin; j0 < kv_end; j0 += BN) {
     __syncthreads();  // the previous tile is consumed
@@ -160,9 +166,10 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / CHUNKS, ch = i % CHUNKS;
       const int kpos = j0 + r;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (kpos < kv_end) {  // rows outside the walk are zeros, never garbage
-        kv4 = *reinterpret_cast<const uint4*>(kb + kpos * row_stride + ch * 8);
-        vv4 = *reinterpret_cast<const uint4*>(vb + kpos * row_stride + ch * 8);
+      size_t row;  // rows outside the walk or unmapped are zeros, never read
+      if (kpos < kv_end && rows_of.row(b, kpos, &row)) {
+        kv4 = *reinterpret_cast<const uint4*>(kh + row * row_stride + ch * 8);
+        vv4 = *reinterpret_cast<const uint4*>(vh + row * row_stride + ch * 8);
       }
       *reinterpret_cast<uint4*>(k_s + r * SROW + ch * 8) = kv4;
       *reinterpret_cast<uint4*>(v_s + r * SROW + ch * 8) = vv4;
@@ -230,21 +237,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DK>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <int DK, class Rows>
+cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
                    const int* index, const int* lengths, const float* beta,
                    const float* gamma, void* out, int b, int c, int H,
                    int hkv, int L, int window, float softcap, float scale,
                    int merged, int fill_bound, cudaStream_t stream) {
   const int g = H / hkv;
   dim3 grid((c * g + kRowsPerBlock - 1) / kRowsPerBlock, hkv, b);
-  prefill_kernel<DK><<<grid, kThreads, 0, stream>>>(
+  prefill_kernel<DK, Rows><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), index, lengths, beta, gamma,
-      static_cast<__nv_bfloat16*>(out), c, H, hkv, L, window, softcap, scale,
-      merged, fill_bound);
+      static_cast<const __nv_bfloat16*>(v), rows_of, index, lengths, beta,
+      gamma, static_cast<__nv_bfloat16*>(out), c, H, hkv, L, window, softcap,
+      scale, merged, fill_bound);
   return cudaGetLastError();
+}
+
+template <class Rows>
+int launch_dk(int dk, const void* q, const void* k, const void* v,
+              Rows rows_of, const void* index, const void* lengths,
+              const void* beta, const void* gamma, void* out, int b, int c,
+              int H, int hkv, int L, int window, float softcap, float scale,
+              int merged, int fill_bound, void* stream) {
+  auto* ix = static_cast<const int*>(index);
+  auto* len = static_cast<const int*>(lengths);
+  auto* bt = static_cast<const float*>(beta);
+  auto* gm = static_cast<const float*>(gamma);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dk) {
+    case 32:
+      return launch<32>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H, hkv,
+                        L, window, softcap, scale, merged, fill_bound, st);
+    case 64:
+      return launch<64>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H, hkv,
+                        L, window, softcap, scale, merged, fill_bound, st);
+    case 128:
+      return launch<128>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H,
+                         hkv, L, window, softcap, scale, merged, fill_bound,
+                         st);
+    case 256:
+      return launch<256>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H,
+                         hkv, L, window, softcap, scale, merged, fill_bound,
+                         st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -260,25 +298,22 @@ extern "C" int consmax_prefill_launch(const void* q, const void* k,
                                       int window, float softcap, float scale,
                                       int merged, int fill_bound,
                                       void* stream) {
-  auto* ix = static_cast<const int*>(index);
-  auto* len = static_cast<const int*>(lengths);
-  auto* bt = static_cast<const float*>(beta);
-  auto* gm = static_cast<const float*>(gamma);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (dk) {
-    case 32:
-      return launch<32>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
-                        window, softcap, scale, merged, fill_bound, st);
-    case 64:
-      return launch<64>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
-                        window, softcap, scale, merged, fill_bound, st);
-    case 128:
-      return launch<128>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
-                         window, softcap, scale, merged, fill_bound, st);
-    case 256:
-      return launch<256>(q, k, v, ix, len, bt, gm, out, b, c, H, hkv, L,
-                         window, softcap, scale, merged, fill_bound, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_dk(dk, q, k, v, ContigRows{L}, index, lengths, beta, gamma,
+                   out, b, c, H, hkv, L, window, softcap, scale, merged,
+                   fill_bound, stream);
+}
+
+// The paged twin: kp, vp (P, ps, hkv, dk) bf16 pools; table (b, npg) int32
+// (-1 = unmapped); the slot's logical capacity is npg * ps rows, so a chunk
+// running past it reads no row there (its column is clamped as well).
+extern "C" int consmax_prefill_paged_launch(
+    const void* q, const void* kp, const void* vp, const void* table,
+    const void* index, const void* lengths, const void* beta,
+    const void* gamma, void* out, int b, int c, int H, int hkv, int npg,
+    int ps, int dk, int window, float softcap, float scale, int merged,
+    int fill_bound, void* stream) {
+  const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
+  return launch_dk(dk, q, kp, vp, rows_of, index, lengths, beta, gamma, out,
+                   b, c, H, hkv, npg * ps, window, softcap, scale, merged,
+                   fill_bound, stream);
 }

@@ -1,13 +1,16 @@
-"""Public wrapper of the ConSmax append-prefill kernel.
+"""Public wrappers of the ConSmax append-prefill kernels.
 
-Takes the model's serving layouts — q chunk ``(b, c, H, dk)``, cache k/v
-``(b, L, hkv, dk)``, per-slot ``index``/``lengths`` ``(b,)`` — and
-dispatches by the tensors' device: on the CPU it computes the plain version
-(``ref.consmax_prefill_ref``); on a CUDA device it launches the kernel in
-``csrc/consmax_prefill.cu`` (built at first use, see ``kernels/_build.py``)
-or raises. There is no fallback from one to the other.
+Take the model's serving layouts — q chunk ``(b, c, H, dk)``, cache k/v
+``(b, L, hkv, dk)`` or the shared ``(P, ps, hkv, dk)`` page pools with a
+``(b, npg)`` page table, per-slot ``index``/``lengths`` ``(b,)`` — and
+dispatch by the tensors' device: on the CPU they compute the plain versions
+(``ref.consmax_prefill_ref`` / ``consmax_prefill_paged_ref``); on a CUDA
+device they launch the kernel in ``csrc/consmax_prefill.cu`` (built at first
+use, see ``kernels/_build.py``) or raise. There is no fallback from one to
+the other.
 
-``consmax_prefill_op.launches`` counts kernel launches (CUDA only).
+``consmax_prefill_op.launches`` and ``consmax_prefill_paged_op.launches``
+count kernel launches (CUDA only), each its own entry point.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
+from repro_torch.kernels.consmax_prefill.ref import (
+    consmax_prefill_paged_ref, consmax_prefill_ref)
 
 
 @functools.cache
@@ -27,7 +31,26 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.consmax_prefill_launch.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, p]
     lib.consmax_prefill_launch.restype = i
+    lib.consmax_prefill_paged_launch.argtypes = ([p] * 9 + [i] * 8
+                                                 + [f, f, i, i, p])
+    lib.consmax_prefill_paged_launch.restype = i
     return lib
+
+
+def _operands(kernel, q, k, v, index, lengths, beta, gamma, scale,
+              page_table=None):
+    """Checked operands, the scale and the output tensor of one launch."""
+    index = index.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    beta = beta.float().contiguous()
+    gamma = gamma.float().contiguous()
+    _build.check_operands(kernel, q, k, v,
+                          slots={"index": index, "lengths": lengths},
+                          heads={"beta": beta, "gamma": gamma},
+                          page_table=page_table)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return index, lengths, beta, gamma, scale, torch.empty_like(q)
 
 
 def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
@@ -38,16 +61,8 @@ def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
     (b, c, H, dk) bf16."""
     b, c, H, dk = q.shape
     L, hkv = k.shape[1], k.shape[2]
-    index = index.to(torch.int32).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    beta = beta.float().contiguous()
-    gamma = gamma.float().contiguous()
-    _build.check_operands("consmax_prefill", q, k, v,
-                          slots={"index": index, "lengths": lengths},
-                          heads={"beta": beta, "gamma": gamma})
-    if scale is None:
-        scale = 1.0 / math.sqrt(dk)
-    out = torch.empty_like(q)
+    index, lengths, beta, gamma, scale, out = _operands(
+        "consmax_prefill", q, k, v, index, lengths, beta, gamma, scale)
     lib = _lib()
     err = lib.consmax_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), index.data_ptr(),
@@ -83,3 +98,53 @@ def consmax_prefill_op(q, k, v, index, lengths, beta, gamma, *, window=0,
 
 
 consmax_prefill_op.launches = 0
+
+
+def consmax_prefill_paged_cuda(q, kp, vp, page_table, index, lengths, beta,
+                               gamma, *, window=0, softcap=0.0, merged=True,
+                               scale=None, fill_bound=True):
+    """Launch the paged CUDA kernel. q (b, c, H, dk) bf16; kp, vp (P, ps,
+    hkv, dk) bf16 pools; page_table (b, npg) int32 (-1 = unmapped); index,
+    lengths (b,) int32; beta/gamma (H,) fp32. Any page size. Returns
+    (b, c, H, dk) bf16."""
+    b, c, H, dk = q.shape
+    ps, hkv = kp.shape[1], kp.shape[2]
+    npg = page_table.shape[1]
+    index, lengths, beta, gamma, scale, out = _operands(
+        "consmax_prefill_paged", q, kp, vp, index, lengths, beta, gamma,
+        scale, page_table=page_table)
+    lib = _lib()
+    err = lib.consmax_prefill_paged_launch(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), page_table.data_ptr(),
+        index.data_ptr(), lengths.data_ptr(), beta.data_ptr(),
+        gamma.data_ptr(), out.data_ptr(), b, c, H, hkv, npg, ps, dk, window,
+        softcap, scale, int(merged), int(fill_bound),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "consmax_prefill_paged")
+    consmax_prefill_paged_op.launches += 1
+    return out
+
+
+def consmax_prefill_paged_op(q, kp, vp, page_table, index, lengths, beta,
+                             gamma, *, window=0, softcap=0.0, merged=True,
+                             scale=None, fill_bound=True):
+    """Paged-pool variant, with the reference's signature. kp, vp: shared
+    (P, ps, hkv, dk) pools after the chunk's K/V were written; page_table:
+    (b, npg) int32 (-1 = unmapped). Returns (b, c, H, dk) in q.dtype; rows
+    >= lengths are pad rows the caller discards. ``fill_bound`` only shapes
+    the CUDA launch."""
+    if q.device.type == "cpu":
+        return consmax_prefill_paged_ref(
+            q, kp, vp, page_table, index, lengths, beta, gamma,
+            window=window, softcap=softcap, merged=merged,
+            scale=scale).to(q.dtype)
+    if q.device.type != "cuda":
+        raise NotImplementedError(
+            f"consmax_prefill_paged: no kernel for device {q.device}")
+    return consmax_prefill_paged_cuda(q, kp, vp, page_table, index, lengths,
+                                      beta, gamma, window=window,
+                                      softcap=softcap, merged=merged,
+                                      scale=scale, fill_bound=fill_bound)
+
+
+consmax_prefill_paged_op.launches = 0

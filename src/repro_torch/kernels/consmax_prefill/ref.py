@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the ConSmax append-prefill kernel: the whole
+"""Plain PyTorch versions of the ConSmax append-prefill kernels: the whole
 (c, L) score matrix per head materialized, fp32 math (the reference's
-``consmax_prefill_ref``)."""
+``consmax_prefill_ref``), and the paged twin, which gathers each slot's
+pages first."""
 from __future__ import annotations
 
 import math
@@ -35,3 +36,18 @@ def consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, *,
     p = torch.where(mask[:, None, None], p, 0.0)
     out = torch.einsum("bhgqc,bchd->bqhgd", p, v.float())
     return out.reshape(b, c, H, dk)
+
+
+def consmax_prefill_paged_ref(q, kp, vp, page_table, index, lengths, beta,
+                              gamma, *, window: int = 0, softcap: float = 0.0,
+                              merged: bool = True,
+                              scale: float | None = None):
+    """q: (b, c, H, dk); kp, vp: (P, ps, hkv, dk) page pools after the
+    chunk's K/V were written; page_table: (b, npg) int32 (-1 = unmapped);
+    index, lengths: (b,). Gathers each slot's pages into
+    (b, npg * ps, hkv, dk), zeros for -1 entries, then runs
+    ``consmax_prefill_ref``. Returns (b, c, H, dk) fp32."""
+    return consmax_prefill_ref(q, CL.gather_pages(kp, page_table),
+                               CL.gather_pages(vp, page_table), index,
+                               lengths, beta, gamma, window=window,
+                               softcap=softcap, merged=merged, scale=scale)

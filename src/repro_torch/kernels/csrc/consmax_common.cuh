@@ -38,6 +38,39 @@ __device__ __forceinline__ float consmax_weight(float s, float beta,
   return merged ? (expf(-beta) / gamma) * expf(s) : expf(s - beta) / gamma;
 }
 
+// Where a slot's logical cache row lives: the one thing the contiguous and
+// the paged kernels do differently. row(b, r, &i) sets i to the index of the
+// (hkv * dk)-element row that holds logical row r of slot b, and returns
+// false when no row backs it (an unmapped page), which a kernel must treat
+// as exact zeros without loading anything. The tile walk, the shard split
+// and the numerics are the same for both, and tiles and shards stay aligned
+// to logical row positions: a paged kernel gives the contiguous kernel's
+// bits whenever the pages hold the same rows, for any page size.
+//
+// ContigRows: a (b, L, hkv, dk) cache; row r of slot b is row b * L + r.
+struct ContigRows {
+  int L;
+  __device__ __forceinline__ bool row(int b, int r, size_t* i) const {
+    *i = static_cast<size_t>(b) * L + r;
+    return true;
+  }
+};
+
+// PagedRows: a (P, ps, hkv, dk) page pool and a (b, npg) int32 table; row r
+// of slot b is row table[b, r / ps] * ps + r % ps, and a -1 entry maps
+// nothing. The column is clamped into [0, npg) so a read can never leave
+// the slot's table row, even for r past its last column.
+struct PagedRows {
+  const int* table;
+  int npg, ps;
+  __device__ __forceinline__ bool row(int b, int r, size_t* i) const {
+    const int col = min(r / ps, npg - 1);
+    const int page = __ldg(table + static_cast<size_t>(b) * npg + col);
+    *i = static_cast<size_t>(page) * ps + r % ps;
+    return page >= 0;
+  }
+};
+
 // N contiguous bf16 values as one aligned access, widened to fp32.
 template <int N> struct BF16Vec;
 template <> struct BF16Vec<1> { using T = unsigned short; };

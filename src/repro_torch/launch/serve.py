@@ -4,12 +4,17 @@ weights, on the CUDA card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
         --requests 12 --max-slots 4 --decode-kernel --prefill-kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --paged --page-size 4 --prefill-chunk 8
 
 Serves the smoke config of ``--arch`` on random weights (``chip_smoke.py``
 serves the published widths). Requests are greedy (sampled streams are not
 ported yet).
 ``--decode-kernel`` / ``--prefill-kernel`` route attention through the
 ConSmax CUDA kernels (their plain versions on ``--device cpu``).
+``--paged`` serves from a shared page pool with the prefix cache on (a
+stats line reports its hits; the CLI's prompts are random, so they rarely
+share a prefix).
 """
 from __future__ import annotations
 
@@ -44,6 +49,22 @@ def main(argv=None):
     ap.add_argument("--no-fill-bound", action="store_true",
                     help="disable fill-bounded kernel walks (capacity-swept "
                          "baseline)")
+    ap.add_argument("--paged", action="store_true",
+                    help="shared page-pool KV cache: slots map rows onto "
+                         "pool pages instead of owning max_seq rows")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV rows per pool page (must divide "
+                         "--prefill-chunk)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="pool capacity; 0 = max_slots * "
+                         "ceil(max_seq / page_size), i.e. no sharing gain")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable the prefix-sharing page cache (paged "
+                         "engine only)")
+    ap.add_argument("--prefix-evict", choices=("lru", "fifo"), default="lru",
+                    help="reclaim order of refcount-0 cached pages when the "
+                         "free list runs dry: lru = release order, fifo = "
+                         "registration order")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -59,6 +80,10 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
+    paged = dict(paged_kv=True, page_size=args.page_size,
+                 num_pages=args.num_pages,
+                 prefix_cache=not args.no_prefix_cache,
+                 prefix_evict=args.prefix_evict) if args.paged else {}
     scfg = ServeConfig(max_seq=2 * (args.prompt_len + args.steps) + 8,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
@@ -66,7 +91,7 @@ def main(argv=None):
                        decode_kernel=args.decode_kernel,
                        prefill_kernel=args.prefill_kernel,
                        fill_bound=not args.no_fill_bound,
-                       score_norm=cfg.score_norm)
+                       score_norm=cfg.score_norm, **paged)
     eng = ContinuousBatchingEngine(cfg, scfg, params, device=device)
     rng = np.random.default_rng(args.seed + 1)
     uids = []
@@ -87,7 +112,16 @@ def main(argv=None):
           f"{len(results)} requests, {n} tokens in {dt:.2f}s "
           f"({n / dt:.1f} tok/s) with {args.max_slots} slots, "
           f"decode_kernel={args.decode_kernel}, "
-          f"prefill_kernel={args.prefill_kernel}")
+          f"prefill_kernel={args.prefill_kernel}, paged={args.paged}")
+    if args.paged:
+        print(f"[serve/continuous] page pool: {scfg.num_pages} pages x "
+              f"{scfg.page_size} rows (peak in use {eng.pool.peak_in_use}) "
+              f"vs {args.max_slots} x {scfg.max_seq} contiguous rows")
+        if scfg.prefix_cache:
+            print(f"[serve/continuous] prefix cache ({scfg.prefix_evict}): "
+                  f"{eng.pool.prefix_hit_rows} prompt rows served from "
+                  f"cached pages, {eng.pool.cow_copies} cow copies, "
+                  f"{eng.pool.evictions} evictions")
     if uids:
         print("[serve/continuous] sample:", results[uids[0]])
 

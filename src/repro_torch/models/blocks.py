@@ -73,8 +73,9 @@ class Block(nn.Module):
 def block_apply(p: Block, x, cfg: ModelConfig, *, cache=None, merged=False,
                 kv_chunk=1024, decode_kernel=False, decode_kv_block=256,
                 prefill_kernel=False, fill_bound=True, prefill_append=None,
-                decode_active=None):
-    """Returns (x, new_cache)."""
+                decode_active=None, page_table=None):
+    """Returns (x, new_cache). ``page_table``: (b, npg) int32 for paged
+    caches (see ``core.attention.attention_apply``)."""
     akind = p.kind if p.kind in ("local", "global") else "global"
     cdt = cfg.cdtype()
     h = p.attn_norm(x)
@@ -84,7 +85,7 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, cache=None, merged=False,
         kv_chunk=kv_chunk, decode_kernel=decode_kernel,
         decode_kv_block=decode_kv_block, prefill_kernel=prefill_kernel,
         fill_bound=fill_bound, prefill_append=prefill_append,
-        decode_active=decode_active)
+        decode_active=decode_active, page_table=page_table)
     if cfg.post_block_norm:
         h = p.attn_post_norm(h)
     x = x + h

@@ -8,7 +8,10 @@ forward pass with the serving options of the reference's ``lm_apply``; a
 Python loop over super-layers replaces ``lax.scan``.
 
 Caches are a list over super-layers of ``{f"b{j}": {"attn": {k, v,
-index}}}``. Forward passes update K/V in place and rebind ``index``.
+index}}}``: per-slot ``(b, max_seq, hkv, dk)`` rows (``init_caches``) or,
+for paged serving, shared ``(num_pages + 1, page_size, hkv, dk)`` page
+pools (``init_paged_caches``). Forward passes update K/V in place and
+rebind ``index``; the slot utilities below update in place too.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
              merged=False, kv_chunk=1024, logits_index=None,
              decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
              fill_bound=True, prefill_append=None, decode_active=None,
-             logits_epilogue=None):
+             page_table=None, logits_epilogue=None):
     """Forward pass over a (b, s) token batch against per-slot caches.
 
     prefill_append: (b,) int32 real chunk lengths — ``tokens`` is a
@@ -59,6 +62,9 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
     ``index + arange(s)``. Otherwise a one-token decode step: the caller
     passes ``positions`` (= cache index) and optionally ``decode_active``
     (b,) bool — slots where False keep their cache rows and index.
+    page_table: (b, npg) int32 — paged caches (``init_paged_caches``): each
+    slot's logical rows live on the pool pages its table row maps; all
+    layers fill in lockstep, so one table serves the whole stack.
     logits_index: int or (b,) — unembed only that row (per batch row).
     logits_epilogue: ``(logits, new_caches) -> out`` returned in place of
     the logits (the serving sampling hook; it reads the post-step index).
@@ -79,7 +85,8 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
                 kv_chunk=kv_chunk, decode_kernel=decode_kernel,
                 decode_kv_block=decode_kv_block,
                 prefill_kernel=prefill_kernel, fill_bound=fill_bound,
-                prefill_append=prefill_append, decode_active=decode_active)
+                prefill_append=prefill_append, decode_active=decode_active,
+                page_table=page_table)
         new_caches.append(co)
 
     x = p.final_norm(x)
@@ -128,6 +135,40 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     return [one_super() for _ in range(cfg.n_super_layers)]
 
 
+def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
+                      page_size: int, kv_dtype="bfloat16", *, device=None):
+    """Paged caches: for every attention block ONE shared zero K/V pool
+    (num_pages + 1, page_size, hkv, dk) instead of per-slot rows, and a
+    zero per-slot ``index`` (batch,) int32 that keeps its contiguous
+    meaning (fill level in logical rows). Which pages back which slot is
+    the host-side ``PagePool``'s table, passed to ``lm_apply`` as
+    ``page_table``. Pages [0, num_pages) are the reference's pool; the one
+    past them is a spare that takes the writes the reference's scatter
+    drops (``core.attention._paged_cache_write``) and that no table maps.
+    bfloat16 only, on ``device`` (default cuda)."""
+    dtype = CL.kv_cache_dtype(kv_dtype)
+    device = resolve_device(device)
+    hkv, dk = cfg.n_kv_heads, cfg.head_dim_
+
+    def one_super():
+        c = {}
+        for j, kind in enumerate(cfg.block_pattern):
+            if kind not in B.ATTN_KINDS:
+                raise NotImplementedError(
+                    f"paged KV caches cover attention blocks only (got "
+                    f"{kind!r} in {cfg.block_pattern})")
+            shape = (num_pages + 1, page_size, hkv, dk)
+            c[f"b{j}"] = {"attn": {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "index": torch.zeros((batch,), dtype=torch.int32,
+                                     device=device),
+            }}
+        return c
+
+    return [one_super() for _ in range(cfg.n_super_layers)]
+
+
 def _attn_caches(caches):
     for sup in caches:
         for blk in sup.values():
@@ -140,12 +181,14 @@ def cache_index(caches):
     return next(_attn_caches(caches))["index"]
 
 
-def slot_view(caches, slot: int):
+def slot_view(caches, slot: int, *, paged: bool = False):
     """Batch-1 view of slot ``slot``: K/V are views into the pool (writes
-    land in place), ``index`` a (1,) view."""
-    return [{name: {"attn": {key: t[slot:slot + 1]
-                             for key, t in blk["attn"].items()}}
-             for name, blk in sup.items()} for sup in caches]
+    land in place), ``index`` a (1,) view. ``paged``: the K/V page pools
+    are shared by every slot and stay whole."""
+    return [{name: {"attn": {
+        key: t if paged and key != "index" else t[slot:slot + 1]
+        for key, t in blk["attn"].items()}}
+        for name, blk in sup.items()} for sup in caches]
 
 
 def write_slot_index(caches, slot_caches, slot: int):
@@ -161,3 +204,31 @@ def reset_slot(caches, slot: int):
     for attn in _attn_caches(caches):
         for t in attn.values():
             t[slot].zero_()
+
+
+def reset_slot_paged(caches, slot: int):
+    """Paged recycle: only ``index`` is slot-addressed. The slot's pages go
+    back to the host-side ``PagePool``, and stale rows a later owner
+    inherits sit at or past its fill, where every read masks them
+    (``reset_slot`` would zero pool page ``slot``, which belongs to whoever
+    the allocator gave it to)."""
+    set_slot_index(caches, slot, 0)
+
+
+def set_slot_index(caches, slot: int, value: int):
+    """Set slot ``slot``'s fill index to ``value`` in every layer, in place.
+    Warm prefix-cache admission needs it: the slot's table row already maps
+    cached pages holding ``value`` rows, so the first prefill chunk must
+    append past them."""
+    for attn in _attn_caches(caches):
+        attn["index"][slot] = value
+
+
+def copy_kv_page(caches, src: int, dst: int):
+    """Copy pool page ``src`` onto page ``dst`` in every layer of a paged
+    cache, in place; ``index`` untouched. The device half of copy-on-write:
+    the ``PagePool`` picks the pages, the engine runs this before a slot
+    writes into a page it no longer shares."""
+    for attn in _attn_caches(caches):
+        for key in ("k", "v"):
+            attn[key][dst] = attn[key][src]

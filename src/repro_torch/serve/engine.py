@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine over per-slot contiguous KV caches —
-the reference's ``ContinuousBatchingEngine`` (``serve/engine.py``).
+"""Continuous-batching serving engine over per-slot contiguous KV caches or
+a shared page pool — the reference's ``ContinuousBatchingEngine``
+(``serve/engine.py``).
 
 A fixed pool of ``max_slots`` cache slots. Each ``step``:
 
@@ -18,11 +19,22 @@ ConSmax serving uses the merged constant C = e^{-beta}/gamma (Eq. 3).
 the ConSmax kernels (``kernels/consmax_decode``, ``kernels/consmax_prefill``)
 — CUDA kernels on the card, their plain versions on the CPU.
 
-The KV caches are updated in place; ``_finish`` zeroes a recycled slot in
-place. Not ported yet (they raise): paged KV, the tensor/sequence mesh,
-host-side sampling (``fused_sampling=False``), quantized KV caches,
-sampled (temperature > 0) requests, and any ``ServeConfig`` field in
-``_UNREAD`` set away from its default.
+With ``ServeConfig.paged_kv`` the per-slot rows become ONE shared
+``(num_pages, page_size)`` page pool per layer, mapped through the host-side
+``PagePool`` (``serve/scheduler``): reservation-gated admission, pages on
+demand, release on finish, and a refcounted prefix cache — a request whose
+prompt prefix sits in cached pages admits *warm* (its table row points at
+the shared pages and its fill index starts past them), copy-on-write keeps
+every write on a page the slot owns alone, and ``submit(..., n=K)`` streams
+of one prompt share its pages. The device page table is re-uploaded only
+when the pool's ``version`` changes.
+
+The KV caches are updated in place; ``_finish`` zeroes a recycled
+contiguous slot (a paged slot resets only its index). Not ported yet (they
+raise): the tensor/sequence mesh, host-side sampling
+(``fused_sampling=False``), quantized KV caches, sampled (temperature > 0)
+requests, any ``ServeConfig`` field in ``_UNREAD`` set away from its default,
+and the paged fields in ``_PAGED`` set without ``paged_kv``.
 """
 from __future__ import annotations
 
@@ -37,12 +49,13 @@ from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.models import transformer as T
 from repro_torch.serve import sampling as S
 from repro_torch.serve.sampling import SamplingParams
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.scheduler import PagePool, Scheduler
 
 # ServeConfig fields that mirror the reference but that nothing in the port
 # reads; the engine refuses a config that sets one away from its default
-_UNREAD = ("batch", "q_chunk", "seq_shard_kv", "prefill_kv_block",
-           "page_size", "num_pages", "prefix_cache", "prefix_evict")
+_UNREAD = ("batch", "q_chunk", "seq_shard_kv", "prefill_kv_block")
+# read only by a paged engine: refused away from their defaults otherwise
+_PAGED = ("page_size", "num_pages", "prefix_cache", "prefix_evict")
 
 
 class ContinuousBatchingEngine:
@@ -70,8 +83,6 @@ class ContinuousBatchingEngine:
                     f"ServeConfig.{name}=True requires score_norm='consmax' "
                     f"(got {cfg.score_norm!r} for {cfg.arch_id}): the "
                     "serving kernels have no softmax/softermax path")
-        if scfg.paged_kv:
-            raise NotImplementedError("paged KV is not ported yet")
         if scfg.tp > 1 or scfg.seq_shards > 1:
             raise NotImplementedError("mesh serving (tp / seq_shards > 1) "
                                       "is not ported yet")
@@ -79,14 +90,16 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "host-side sampling (fused_sampling=False) is not ported "
                 "yet")
+        refused = _UNREAD if scfg.paged_kv else _UNREAD + _PAGED
         unread = [f.name for f in dataclasses.fields(scfg)
-                  if f.name in _UNREAD
+                  if f.name in refused
                   and getattr(scfg, f.name) != f.default]
         if unread:
             raise NotImplementedError(
                 f"ServeConfig {unread}: the port's engine does not read "
-                "these yet (static ServeSession, the Pallas prefill grid's "
-                "KV block, paged KV); leave them at their defaults")
+                "these (static ServeSession, the Pallas prefill grid's KV "
+                "block; the paged fields only with paged_kv=True); leave "
+                "them at their defaults")
         S.require_greedy(default_sampling)
         self.device = resolve_device(device)
         if params.device != self.device:
@@ -95,11 +108,30 @@ class ContinuousBatchingEngine:
         self.cfg, self.scfg = cfg, scfg
         self.params = params
         self.default_sampling = default_sampling
-        self.scheduler = Scheduler(scfg.max_slots, scfg.max_seq)
-        self.caches = T.init_caches(cfg, scfg.max_slots, scfg.max_seq,
-                                    scfg.kv_cache_dtype, device=self.device)
+        self.paged = scfg.paged_kv
+        if self.paged:
+            # one shared pool of num_pages x page_size rows serves every
+            # slot; the PagePool maps (slot, logical page) -> pool page
+            self.pool = PagePool(scfg.num_pages, scfg.page_size,
+                                 scfg.max_slots, scfg.max_pages_per_slot,
+                                 prefix_cache=scfg.prefix_cache,
+                                 evict=scfg.prefix_evict)
+            self.scheduler = Scheduler(scfg.max_slots, scfg.max_seq,
+                                       page_pool=self.pool)
+            self.caches = T.init_paged_caches(
+                cfg, scfg.max_slots, scfg.num_pages, scfg.page_size,
+                scfg.kv_cache_dtype, device=self.device)
+        else:
+            self.pool = None
+            self.scheduler = Scheduler(scfg.max_slots, scfg.max_seq)
+            self.caches = T.init_caches(cfg, scfg.max_slots, scfg.max_seq,
+                                        scfg.kv_cache_dtype,
+                                        device=self.device)
+        self._table_dev = None             # device page table, re-uploaded
+        self._table_version = -1           # only when the pool mutates
         self.results: dict[int, list[int]] = {}
-        self.prefilled_tokens = 0          # prompt tokens run through prefill
+        self.prefilled_tokens = 0          # chunk tokens computed: warm
+                                           # admissions skip cached rows
         self.ttft: dict[int, float] = {}   # uid -> seconds submit->1st token
         self._t_submit: dict[int, float] = {}
         self._submits = 0
@@ -119,9 +151,29 @@ class ContinuousBatchingEngine:
 
     # --------------------------------------------------------- frontend ----
     def submit(self, prompt, max_new_tokens: int, eos_id: int | None = None,
-               sampling: SamplingParams | None = None) -> int:
+               sampling: SamplingParams | None = None,
+               n: int = 1) -> int | list[int]:
         """Queue a request; returns its uid (key into ``results``). Greedy
-        only: a sampled request (temperature > 0) raises here."""
+        only: a sampled request (temperature > 0) raises here.
+
+        ``n > 1`` queues n streams of the same prompt and returns their
+        uids. On a paged engine with the prefix cache they share the
+        prompt's pages: a stream admitted after the first has registered
+        them prefills only the uncached rest (at least the 1-token tail
+        re-score), copy-on-write keeping each stream's rows private."""
+        if n < 1:
+            raise ValueError(f"submit: n must be >= 1, got {n}")
+        if n == 1:
+            return self._submit_one(prompt, max_new_tokens, eos_id, sampling)
+        uids = []
+        for i in range(n):
+            sp = sampling
+            if sp is not None and i:       # stream i draws from seed + i
+                sp = dataclasses.replace(sp, seed=(sp.seed + i) % 2**32)
+            uids.append(self._submit_one(prompt, max_new_tokens, eos_id, sp))
+        return uids
+
+    def _submit_one(self, prompt, max_new_tokens, eos_id, sampling) -> int:
         sp = sampling
         if sp is None and self.default_sampling is not None:
             sp = dataclasses.replace(
@@ -155,17 +207,61 @@ class ContinuousBatchingEngine:
                 break
             slot, req = admitted
             S.bank_put(self.bank, slot, req.sampling)
+            filled = self.scheduler.slots[slot].filled
+            if self.paged and filled:
+                # warm admission: the slot's table row maps cached pages
+                # holding rows [0, filled); the first chunk appends past them
+                T.set_slot_index(self.caches, slot, filled)
         plan = self.scheduler.prefill_plan(self._chunk, self._budget)
         for slot, start, n in plan:
             self._prefill_one(slot, start, n)
         if self.scheduler.decoding():
             self._decode_once()
 
+    @property
+    def page_occupancy(self) -> float:
+        """Fraction of pool pages currently mapped (paged engines only)."""
+        return self.pool.occupancy() if self.pool is not None else 0.0
+
+    @property
+    def page_reserved(self) -> float:
+        """Fraction of pool pages committed by live reservations, mapped or
+        not (paged engines only): ``page_reserved - page_occupancy`` is the
+        admission pressure ``page_occupancy`` cannot see."""
+        return (self.pool.reserved_fraction() if self.pool is not None
+                else 0.0)
+
     # ---------------------------------------------------------- internals ----
+    def _device_table(self):
+        """The pool's page table on the device, re-uploaded only when the
+        allocator mapped or released pages (``PagePool.version``): decode
+        steps between mutations reuse it, with no host transfer. The upload
+        goes through pinned memory without blocking the host."""
+        if self._table_version != self.pool.version:
+            table = torch.from_numpy(self.pool.table.copy())
+            if self.device.type == "cuda":
+                table = table.pin_memory()
+            self._table_dev = table.to(self.device, non_blocking=True)
+            self._table_version = self.pool.version
+        return self._table_dev
+
+    def _write_window(self, slot: int, start: int, stop: int):
+        """Back rows [0, stop) of a paged slot and copy-on-write every page
+        of [start, stop) it still shares, before anything writes there."""
+        _, copies = self.pool.ensure_writable(slot, start, stop)
+        for src, dst in copies:
+            T.copy_kv_page(self.caches, src, dst)
+
     def _prefill_one(self, slot: int, start: int, n: int):
         prompt = self.scheduler.slots[slot].request.prompt
         chunk = prompt[start:start + n] + [0] * (self._chunk - n)
-        slot_caches = T.slot_view(self.caches, slot)
+        kw = {}
+        if self.paged:
+            # a fully cached prompt's 1-token tail re-score lands in its
+            # shared last page: that page is copied before this chunk writes
+            self._write_window(slot, start, start + n)
+            kw["page_table"] = self._device_table()[slot:slot + 1]
+        slot_caches = T.slot_view(self.caches, slot, paged=self.paged)
         row = S.bank_take(self.bank, slice(slot, slot + 1))
 
         def epi(logits, new_caches):
@@ -177,10 +273,16 @@ class ContinuousBatchingEngine:
             slot_caches,
             prefill_append=torch.tensor([n], dtype=torch.int32,
                                         device=self.device),
-            logits_index=n - 1, logits_epilogue=epi)
+            logits_index=n - 1, logits_epilogue=epi, **kw)
         T.write_slot_index(self.caches, slot_caches, slot)
         self.prefilled_tokens += n
-        if self.scheduler.record_prefill(slot, n):
+        done = self.scheduler.record_prefill(slot, n)
+        if self.paged:
+            # register the prompt pages this chunk completed, so later
+            # requests with the same prefix admit warm
+            self.pool.commit_prefix(slot, prompt,
+                                    self.scheduler.slots[slot].filled)
+        if done:
             # prompt complete: this chunk's token is the request's first
             tok = int(out[0])
             self._last[slot] = tok
@@ -193,8 +295,18 @@ class ContinuousBatchingEngine:
     def _decode_once(self):
         decoding = self.scheduler.decoding()
         active = np.zeros((self.scfg.max_slots,), bool)
-        for slot, _ in decoding:
+        kw = {}
+        for slot, state in decoding:
             active[slot] = True
+            if self.paged:
+                # this step writes the last token's row: a page the slot
+                # owns alone (prefill privatized the shared tail already,
+                # so this never copies; the invariant is enforced, not
+                # assumed)
+                rows = state.filled + len(state.generated)
+                self._write_window(slot, rows - 1, rows)
+        if self.paged:
+            kw["page_table"] = self._device_table()
         active = torch.from_numpy(active).to(self.device)
         index = T.cache_index(self.caches)
 
@@ -204,7 +316,7 @@ class ContinuousBatchingEngine:
 
         out, self.caches = self._lm(
             self._last[:, None], self.caches, positions=index[:, None],
-            decode_active=active, logits_epilogue=epi)
+            decode_active=active, logits_epilogue=epi, **kw)
         self._last = torch.where(active, out, self._last)
         sampled = self._last.cpu().numpy()
         for slot, _ in decoding:
@@ -214,4 +326,5 @@ class ContinuousBatchingEngine:
     def _finish(self, slot: int):
         uid, generated = self.scheduler.finish(slot)
         self.results[uid] = generated
-        T.reset_slot(self.caches, slot)
+        (T.reset_slot_paged if self.paged else T.reset_slot)(self.caches,
+                                                              slot)

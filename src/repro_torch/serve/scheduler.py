@@ -2,8 +2,10 @@
 
 The port's own copy of the reference's ``serve/scheduler.py`` (numpy and
 the standard library only), kept line for line so both engines schedule
-identically. The port's engine uses ``Scheduler``; ``PagePool`` waits for
-the paged KV cache.
+identically — with one deliberate difference: ``PagePool.reserve_prefix``
+does not count the request's own refcount-0 prefix hits as free supply (see
+its docstring). The port's engine uses ``Scheduler`` and, when paged,
+``PagePool``.
 
 The decode batch is a fixed pool of ``max_slots`` slots sharing one jitted
 step; requests wait in a FIFO admission queue, occupy a slot for exactly
@@ -325,7 +327,16 @@ class PagePool:
         logits that seed sampling, so a fully cached, page-aligned prompt
         skips ``len(tokens) - 1`` rows and budgets ONE extra page for the
         copy-on-write that 1-token tail re-score will trigger (it writes
-        into the shared last page)."""
+        into the shared last page).
+
+        Differs from the reference's copy here: a hit with refcount 0 sits
+        on the evictable list, which ``free_pages_by_shard`` counts as
+        supply, and attaching it takes it off that list. The reference's
+        gate counts those hits as supply for the request's own new pages,
+        so it could admit a request whose next ``ensure`` found no page to
+        allocate (``IndexError`` / ``ValueError`` from ``_alloc``: a warm
+        admission under pool pressure, with one shard or several). Here
+        each shard's supply excludes the hits this reservation pins."""
         if self._reserved[slot]:
             raise ValueError(f"slot {slot} already holds a reservation")
         need = self.pages_for(rows)
@@ -351,8 +362,13 @@ class PagePool:
             demand[self.position_shard(j)] += 1
         if cow_budget:
             demand[self.position_shard(len(hits) - 1)] += cow_budget
+        # evictable hits this reservation pins stop being supply
+        pinned = [0] * self.seq_shards
+        for page in hits:
+            if self.refcount[page] == 0:
+                pinned[self.page_shard(page)] += 1
         for d in range(self.seq_shards):
-            if demand[d] > self.free_pages_by_shard(d) - \
+            if demand[d] > self.free_pages_by_shard(d) - pinned[d] - \
                     self.outstanding_by_shard(d):
                 return None
         for i, page in enumerate(hits):

@@ -1,5 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+The paged kernels are held to the same bounds against their plain paged
+versions, and bit for bit to the contiguous kernels on the same rows, for
+page sizes 4, 16, 64 and 256 (tiles and shards are aligned to logical row
+positions, so the page size changes only where a row is read from).
+
 Every test here is marked ``cuda`` and skips where no CUDA device is
 present (decided inside the ``cuda`` fixture, never at import). On a card:
 
@@ -23,12 +28,16 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.consmax_decode.ops import (consmax_decode_cuda,
-                                                    consmax_decode_op)
-from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
-from repro_torch.kernels.consmax_prefill.ops import (consmax_prefill_cuda,
-                                                     consmax_prefill_op)
-from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
+from repro_torch.kernels.consmax_decode.ops import (
+    consmax_decode_cuda, consmax_decode_op, consmax_decode_paged_cuda,
+    consmax_decode_paged_op)
+from repro_torch.kernels.consmax_decode.ref import (consmax_decode_paged_ref,
+                                                   consmax_decode_ref)
+from repro_torch.kernels.consmax_prefill.ops import (
+    consmax_prefill_cuda, consmax_prefill_op, consmax_prefill_paged_cuda,
+    consmax_prefill_paged_op)
+from repro_torch.kernels.consmax_prefill.ref import (
+    consmax_prefill_paged_ref, consmax_prefill_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -181,3 +190,179 @@ def test_ops_count_launches_and_dispatch_by_device(cuda):
     with pytest.raises(TypeError):                       # no silent upcast
         consmax_prefill_op(qc.float(), k, v, index - 3,
                            torch.full_like(index, 4), beta, gamma)
+
+
+def _paginate(k, v, fills, ps, seed=0, spare=3):
+    """The rows of contiguous caches k, v (b, L, hkv, dk) moved into page
+    pools (P, ps, hkv, dk) under a table of randomly permuted, disjoint
+    pages, -1 past each slot's fill (``spare`` unused pages stay zero)."""
+    b, L = k.shape[:2]
+    npg = -(-L // ps)
+    perm = np.random.default_rng(seed).permutation(b * npg + spare)
+    table = np.full((b, npg), -1, np.int32)
+    kp = torch.zeros((b * npg + spare, ps) + k.shape[2:], dtype=k.dtype,
+                     device=k.device)
+    vp = torch.zeros_like(kp)
+    for s in range(b):
+        for j in range(-(-int(fills[s]) // ps)):
+            page = int(perm[s * npg + j])
+            table[s, j] = page
+            n = min(ps, L - j * ps)
+            kp[page, :n] = k[s, j * ps:j * ps + n]
+            vp[page, :n] = v[s, j * ps:j * ps + n]
+    return kp, vp, torch.tensor(table, device=k.device)
+
+
+@pytest.mark.parametrize("ps", [4, 16, 64, 256])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "head-chunks"])
+def test_decode_paged_matches_plain_and_contiguous_bits(cuda, shape, ps):
+    b, L, H, hkv, dk, bk = DECODE[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk)
+    # fills: empty (a free paged slot, lengths 0), a shard boundary,
+    # mid-shard, full
+    lengths = torch.tensor([0, bk, bk + 7, L][:b], dtype=torch.int32,
+                           device=cuda)
+    kp, vp, table = _paginate(k, v, lengths.tolist(), ps)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta, gamma,
+                                    bk=bk, **kw)
+    cont = consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=bk, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cont)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    ref = consmax_decode_paged_ref(q.float(), kp, vp, table, lengths, beta,
+                                   gamma, **kw)
+    ref_absv = consmax_decode_paged_ref(q.float(), kp, vp.abs(), table,
+                                        lengths, beta, gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+@pytest.mark.parametrize("ps", [4, 16, 64, 256])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "dk256"])
+def test_prefill_paged_matches_plain_and_contiguous_bits(cuda, shape, ps):
+    b, c, L, H, hkv, dk = PREFILL[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c)
+    index = torch.tensor([64 % (L - c), L - c][:b], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([c - 2, c][:b], dtype=torch.int32, device=cuda)
+    kp, vp, table = _paginate(k, v, (index + lengths).tolist(), ps)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths, beta,
+                                     gamma, **kw)
+    cont = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cont)
+    ref = consmax_prefill_paged_ref(q, kp, vp, table, index, lengths, beta,
+                                    gamma, **kw)
+    ref_absv = consmax_prefill_paged_ref(q, kp, vp.abs(), table, index,
+                                         lengths, beta, gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+@pytest.mark.parametrize("variant", [dict(window=37), dict(softcap=5.0),
+                                     dict(merged=False), dict(hole=True),
+                                     dict(fill_bound=False)])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "mqa-ragged-L", "head-chunks"])
+def test_decode_paged_variants(cuda, shape, variant):
+    """Window, softcap, unmerged, a -1 hole inside the fill (plain version
+    only: no contiguous twin holds a hole) and the capacity sweep."""
+    variant = dict(variant)
+    hole = variant.pop("hole", False)
+    fill_bound = variant.pop("fill_bound", True)
+    b, L, H, hkv, dk, bk = DECODE[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
+                                   seed=3)
+    lengths = torch.tensor([1, bk, bk + 7, L][:b], dtype=torch.int32,
+                           device=cuda)
+    kp, vp, table = _paginate(k, v, lengths.tolist(), 16)
+    if hole:
+        table[-1, 2] = -1
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0) | variant
+    got = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta, gamma,
+                                    bk=bk, fill_bound=fill_bound, **kw)
+    torch.cuda.synchronize()
+    if not hole:
+        cont = consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=bk,
+                                   fill_bound=fill_bound, **kw)
+        assert torch.equal(got, cont)
+    ref = consmax_decode_paged_ref(q.float(), kp, vp, table, lengths, beta,
+                                   gamma, **kw)
+    ref_absv = consmax_decode_paged_ref(q.float(), kp, vp.abs(), table,
+                                        lengths, beta, gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+@pytest.mark.parametrize("variant", [dict(window=19), dict(softcap=5.0),
+                                     dict(merged=False), dict(hole=True),
+                                     dict(fill_bound=False)])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "mqa-L200-c5", "dk256"])
+def test_prefill_paged_variants(cuda, shape, variant):
+    variant = dict(variant)
+    hole = variant.pop("hole", False)
+    fill_bound = variant.pop("fill_bound", True)
+    b, c, L, H, hkv, dk = PREFILL[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=4)
+    index = torch.tensor([64 % (L - c), L - c][:b], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([c - 2, c][:b], dtype=torch.int32, device=cuda)
+    kp, vp, table = _paginate(k, v, (index + lengths).tolist(), 8)
+    if hole:
+        table[-1, 1] = -1
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0) | variant
+    got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths, beta,
+                                     gamma, fill_bound=fill_bound, **kw)
+    torch.cuda.synchronize()
+    if not hole and fill_bound:
+        cont = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                    **kw)
+        assert torch.equal(got, cont)
+    ref = consmax_prefill_paged_ref(q, kp, vp, table, index, lengths, beta,
+                                    gamma, **kw)
+    ref_absv = consmax_prefill_paged_ref(q, kp, vp.abs(), table, index,
+                                         lengths, beta, gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+def test_prefill_paged_chunk_past_the_table_end(cuda):
+    """A chunk whose rows run past the table's last column: the kernel
+    clamps the column, reads no row there and matches the plain version."""
+    q, k, v, beta, gamma = _inputs(cuda, b=1, L=100, H=4, hkv=2, dk=64, c=8)
+    index = torch.tensor([97], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([8], dtype=torch.int32, device=cuda)
+    kp, vp, table = _paginate(k, v, [100], 4)              # 25 columns
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths, beta,
+                                     gamma, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, consmax_prefill_cuda(q, k, v, index, lengths,
+                                                 beta, gamma, **kw))
+    ref = consmax_prefill_paged_ref(q, kp, vp, table, index, lengths, beta,
+                                    gamma, **kw)
+    ref_absv = consmax_prefill_paged_ref(q, kp, vp.abs(), table, index,
+                                         lengths, beta, gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+def test_paged_ops_count_launches_and_dispatch_by_device(cuda):
+    q, k, v, beta, gamma = _inputs(cuda, b=2, L=64, H=4, hkv=2, dk=64)
+    lengths = torch.tensor([4, 64], dtype=torch.int32, device=cuda)
+    kp, vp, table = _paginate(k, v, lengths.tolist(), 16)
+    n0, c0 = consmax_decode_paged_op.launches, consmax_decode_op.launches
+    consmax_decode_paged_op(q[:, None], kp, vp, table, lengths, beta, gamma,
+                            bk=32)
+    assert consmax_decode_paged_op.launches == n0 + 1
+    assert consmax_decode_op.launches == c0              # its own counter
+    consmax_decode_paged_op(q[:, None].cpu(), kp.cpu(), vp.cpu(),
+                            table.cpu(), lengths.cpu(), beta.cpu(),
+                            gamma.cpu())                 # plain: not counted
+    assert consmax_decode_paged_op.launches == n0 + 1
+    qc, k, v, beta, gamma = _inputs(cuda, b=2, L=64, H=4, hkv=2, dk=64, c=4)
+    kp, vp, table = _paginate(k, v, lengths.tolist(), 16)
+    n0 = consmax_prefill_paged_op.launches
+    consmax_prefill_paged_op(qc, kp, vp, table, lengths - 4,
+                             torch.full_like(lengths, 4), beta, gamma)
+    assert consmax_prefill_paged_op.launches == n0 + 1
+    with pytest.raises(ValueError):                      # table must be int32
+        consmax_prefill_paged_op(qc, kp, vp, table.long(), lengths - 4,
+                                 torch.full_like(lengths, 4), beta, gamma)

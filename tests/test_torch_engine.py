@@ -92,14 +92,22 @@ def test_unported_options_raise():
                                    device="cpu")
     with pytest.raises(NotImplementedError):
         eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7))
-    # fields the port mirrors but does not read refuse non-default values
-    for kw in (dict(paged_kv=True, page_size=4), dict(fused_sampling=False),
+    # fields the port mirrors but does not read refuse non-default values;
+    # the paged fields are read only with paged_kv=True
+    paged = dict(paged_kv=True, page_size=4)
+    for kw in (dict(paged, q_chunk=16), dict(fused_sampling=False),
                dict(kv_cache_dtype="int8"), dict(prefill_kv_block=64),
                dict(q_chunk=16), dict(batch=4), dict(seq_shard_kv=True),
-               dict(page_size=4), dict(prefix_cache=False)):
+               dict(page_size=4), dict(prefix_cache=False),
+               dict(paged, kv_cache_dtype="int8"),
+               dict(paged, num_pages=24, seq_shards=2), dict(tp=2)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **kw), model,
                                      device="cpu")
+    ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **paged,
+                                              prefix_cache=False,
+                                              prefix_evict="fifo"),
+                             model, device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
@@ -118,6 +126,11 @@ def test_serve_cli_on_cpu(capsys):
           "--max-slots", "2", "--prompt-len", "10", "--steps", "4",
           "--prefill-chunk", "4", "--decode-kernel", "--prefill-kernel"])
     assert "3 requests" in capsys.readouterr().out
+    main(["--device", "cpu", "--requests", "3", "--max-slots", "2",
+          "--prompt-len", "10", "--steps", "4", "--prefill-chunk", "8",
+          "--paged", "--page-size", "4", "--prefix-evict", "fifo"])
+    out = capsys.readouterr().out
+    assert "paged=True" in out and "prefix cache (fifo)" in out
 
 
 def _port_files():

@@ -1,5 +1,6 @@
 """The port's copy of the scheduler (``repro_torch.serve.scheduler``)
-against the reference's (``repro.serve.scheduler``), in lockstep.
+against the reference's (``repro.serve.scheduler``), in lockstep, and the
+admission fault the port's copy fixes.
 
 The port keeps its own copy of the numpy-only scheduler so that it imports
 nothing of the reference. These tests drive both copies with the same
@@ -13,12 +14,72 @@ reservations, prefix index, counters, version) equal after every step:
 * ``Scheduler`` with and without a page pool, over submit, admit (warm
   admissions from the prefix cache), ``prefill_plan``/``record_prefill``,
   ``record`` and ``finish``.
+
+The port's ``PagePool.reserve_prefix`` differs from the reference's on
+purpose: its gate does not count the request's own refcount-0 prefix hits
+as free supply (attaching them pins them). The lockstep walks therefore
+drive the port's copy against ``_FixedPagePool``, the reference's class
+with the same fix in ``reserve_prefix`` and nothing else changed, so every
+other op stays compared with the reference's own code. With the fix, no
+walk may fault; ``test_reserve_prefix_admission_fault_is_fixed`` is the
+fault's repro, and the reference's copy still has it.
 """
 import numpy as np
 import pytest
 
 from repro.serve import scheduler as JS
 from repro_torch.serve import scheduler as TS
+
+
+class _FixedPagePool(JS.PagePool):
+    """The reference's ``PagePool`` with the port's ``reserve_prefix`` gate:
+    each shard's supply excludes the refcount-0 hits this reservation
+    pins off the evictable list. The rest of the method is the
+    reference's."""
+
+    def reserve_prefix(self, slot, rows, tokens=None):
+        if self._reserved[slot]:
+            raise ValueError(f"slot {slot} already holds a reservation")
+        need = self.pages_for(rows)
+        if need > self.max_pages_per_slot:
+            raise ValueError(
+                f"slot {slot}: {rows} rows need {need} pages > "
+                f"max_pages_per_slot ({self.max_pages_per_slot})")
+        hits, cow_budget = [], 0
+        if self.prefix_cache and tokens is not None and len(tokens) > 0:
+            hits = self._match_prefix(tokens)[:need]
+            if hits and len(hits) * self.page_size >= len(tokens):
+                cow_budget = 1
+        demand = [0] * self.seq_shards
+        for j in range(len(hits), need):
+            demand[self.position_shard(j)] += 1
+        if cow_budget:
+            demand[self.position_shard(len(hits) - 1)] += cow_budget
+        pinned = [0] * self.seq_shards                  # the fix
+        for page in hits:
+            if self.refcount[page] == 0:
+                pinned[self.page_shard(page)] += 1
+        for d in range(self.seq_shards):
+            if demand[d] > (self.free_pages_by_shard(d) - pinned[d]
+                            - self.outstanding_by_shard(d)):
+                return None
+        for i, page in enumerate(hits):
+            if self.refcount[page] == 0:
+                del self._evictable[page]
+            self.refcount[page] += 1
+            self.table[slot, i] = page
+        self._held[slot] = len(hits)
+        self._reserved[slot] = need
+        self._outstanding[slot] = demand
+        if hits:
+            self.version += 1
+            self.prefix_hit_rows += len(hits) * self.page_size
+        self.peak_reserved = max(self.peak_reserved, self.reserved_pages)
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        skip = len(hits) * self.page_size
+        if tokens is not None and skip:
+            skip = min(skip, len(tokens) - 1)
+        return skip
 
 
 def _pool_state(pool):
@@ -65,9 +126,10 @@ def test_page_pool_copy_matches_reference(seed, prefix_cache, evict,
     num_pages = 2 * int(r.integers(2, 7))   # small: forces evictions
     max_slots = int(r.integers(2, 6))
     mpps = int(r.integers(2, num_pages + 1))
-    pools = [m.PagePool(num_pages, page_size, max_slots, mpps,
-                        prefix_cache=prefix_cache, evict=evict,
-                        seq_shards=seq_shards) for m in (JS, TS)]
+    pools = [cls(num_pages, page_size, max_slots, mpps,
+                 prefix_cache=prefix_cache, evict=evict,
+                 seq_shards=seq_shards)
+             for cls in (_FixedPagePool, TS.PagePool)]
     stream = r.integers(0, 50, 4 * mpps * page_size).tolist()
     fill, prompt = [0] * max_slots, [None] * max_slots
     _FAULTS.clear()
@@ -99,8 +161,7 @@ def test_page_pool_copy_matches_reference(seed, prefix_cache, evict,
             _both(pools, "release", slot)
             fill[slot], prompt[slot] = 0, None
         assert _pool_state(pools[0]) == _pool_state(pools[1])
-        if _FAULTS:             # the walk cannot go on from a faulted op
-            break
+    assert not _FAULTS          # the fixed gate admits nothing it can't back
 
 
 def _sched_state(s):
@@ -116,8 +177,8 @@ def test_scheduler_copy_matches_reference(paged):
     r = np.random.default_rng(7)
     max_slots, max_seq, chunk, budget = 3, 40, 8, 12
     scheds = []
-    for m in (JS, TS):
-        pool = (m.PagePool(24, 4, max_slots, max_seq // 4, evict=paged)
+    for m, cls in ((JS, _FixedPagePool), (TS, TS.PagePool)):
+        pool = (cls(24, 4, max_slots, max_seq // 4, evict=paged)
                 if paged else None)
         scheds.append(m.Scheduler(max_slots, max_seq, page_pool=pool))
     stream = r.integers(0, 50, max_seq).tolist()
@@ -162,3 +223,94 @@ def test_scheduler_copy_matches_reference(paged):
             assert (_pool_state(scheds[0].page_pool)
                     == _pool_state(scheds[1].page_pool))
     assert not scheds[0].has_work() and not scheds[1].has_work()
+
+
+def _fault_repro(module, pool_cls, evict):
+    """``PagePool(3, 2, 2, 3)``: slot 0 serves [1, 2, 3, 4] plus 2 rows and
+    releases (2 cached pages, 1 free), slot 1 takes the free page, then a
+    request with the cached prefix [1, 2, 3, 4] + [5] (6 rows: 3 pages, 2
+    of them hits) arrives. Its hits are the only allocatable pages, and
+    attaching them pins them: no page is left for its third."""
+    pool = pool_cls(3, 2, 2, 3, prefix_cache=True, evict=evict)
+    sched = module.Scheduler(2, 8, page_pool=pool)
+    uid = sched.submit([1, 2, 3, 4], 2)
+    slot, _ = sched.admit()
+    pool.ensure_writable(slot, 0, 6)
+    pool.commit_prefix(slot, [1, 2, 3, 4], 4)
+    assert sched.finish(slot)[0] == uid
+    assert pool.cached_pages == 2 and pool.free_pages == 3
+    assert pool.reserve(1, 2)
+    pool.ensure(1, 2)
+    sched.slots[1] = "busy"                 # slot 1 holds its page
+    sched.submit([1, 2, 3, 4, 5], 1)
+    admitted = sched.admit()
+    if admitted is not None:                # admitted: it must be servable
+        slot, req = admitted
+        state = sched.slots[slot]
+        pool.ensure_writable(slot, state.filled, 6)
+    return admitted, pool
+
+
+@pytest.mark.parametrize("evict", ["lru", "fifo"])
+def test_reserve_prefix_admission_fault_is_fixed(evict):
+    """The port's copy keeps the request queued until its pages exist; the
+    reference's copy admits it and then ``_alloc`` fails (IndexError under
+    lru, ValueError from ``min`` under fifo)."""
+    admitted, pool = _fault_repro(TS, TS.PagePool, evict)
+    assert admitted is None and pool.cached_pages == 2
+    pool.release(1)                         # the page comes back: it admits
+    with pytest.raises((IndexError, ValueError)):
+        _fault_repro(JS, JS.PagePool, evict)
+    admitted, _ = _fault_repro(JS, _FixedPagePool, evict)
+    assert admitted is None
+
+
+@pytest.mark.parametrize("evict", ["lru", "fifo"])
+@pytest.mark.parametrize("seed", range(3))
+def test_shared_prefix_walks_under_pool_pressure(seed, evict):
+    """``seq_shards=1`` walks of many requests sharing prefixes through a
+    pool far smaller than their reservations: the port's copy and the
+    fixed reference stay in lockstep, every request is served, and no op
+    faults."""
+    r = np.random.default_rng(100 + seed)
+    ps, num_pages, max_slots = 2, 6, 4
+    scheds = [m.Scheduler(max_slots, 12, page_pool=cls(
+        num_pages, ps, max_slots, 6, prefix_cache=True, evict=evict))
+        for m, cls in ((JS, _FixedPagePool), (TS, TS.PagePool))]
+    stem = r.integers(0, 9, 8).tolist()
+    for _ in range(14):
+        prompt = stem[:int(r.integers(1, 9))] + r.integers(
+            0, 9, int(r.integers(0, 3))).tolist()
+        new = int(r.integers(1, 3))
+        for s in scheds:
+            s.submit(prompt[:10], new)
+    pools = [s.page_pool for s in scheds]
+    _FAULTS.clear()
+    for _ in range(300):
+        if not scheds[0].has_work():
+            break
+        admitted = [[], []]
+        for s, out in zip(scheds, admitted):
+            while (a := s.admit()) is not None:
+                out.append((a[0], a[1].uid))
+        assert admitted[0] == admitted[1]
+        for slot, start, n in scheds[0].prefill_plan(4, 8):
+            _both(pools, "ensure_writable", slot, start, start + n)
+            done = [s.record_prefill(slot, n) for s in scheds]
+            _both(pools, "commit_prefix", slot,
+                  scheds[0].slots[slot].request.prompt,
+                  scheds[0].slots[slot].filled)
+            if done[0]:
+                fin = [s.record(slot, 1) for s in scheds]
+                if fin[0]:
+                    assert scheds[0].finish(slot) == scheds[1].finish(slot)
+        for slot, st in scheds[0].decoding():
+            rows = st.filled + len(st.generated)
+            _both(pools, "ensure_writable", slot, rows - 1, rows)
+            fin = [s.record(slot, 1) for s in scheds]
+            if fin[0]:
+                assert scheds[0].finish(slot) == scheds[1].finish(slot)
+        assert _pool_state(pools[0]) == _pool_state(pools[1])
+        assert not _FAULTS, _FAULTS
+    assert not scheds[0].has_work() and not scheds[1].has_work()
+    assert pools[1].free_pages == num_pages and pools[1].prefix_hit_rows > 0
