@@ -1,6 +1,14 @@
-"""Attention with a pluggable score normalizer — the serving branches of the
-reference's ``core/attention.py``.
+"""Attention with a pluggable score normalizer — the reference's
+``core/attention.py``: its whole-sequence walk and its serving branches.
 
+* ``blockwise_attention`` — whole-sequence attention (training /
+  whole-prompt prefill): query chunks against the KV chunks their causal /
+  window reach allows. For consmax the KV loop's carry is the fp32 output
+  accumulator alone; softmax and softermax (base 2) carry the online
+  (m, l, acc) state. Plain PyTorch, forward only (no checkpointing), not
+  routed through a kernel, as the reference does not route it through one
+  (``kernels/consmax_attn`` and ``kernels/softmax_attn`` are the tiled
+  kernels of this loop).
 * ``append_attention`` — chunked append-at-index prefill: a fixed-size
   chunk at per-slot cache position ``index`` attends ``cache[0:index]`` plus
   itself. For consmax each KV block's ``p @ v`` partial is final (no
@@ -22,9 +30,10 @@ spare page), per-slot ``index`` ``(b,)`` int32. The port writes K/V into the
 cache tensors in place (the reference donates the cache buffer to the same
 effect).
 
-Not ported yet (they raise ``NotImplementedError``): the whole-prompt /
-training path (``blockwise_attention``), cross-attention, and the
-softmax/softermax online walks of chunked prefill and paged attention.
+Not ported yet (they raise ``NotImplementedError``): the whole-sequence
+branch of ``attention_apply`` (training and ``ServeSession``, which will
+call ``blockwise_attention``), cross-attention, and the softmax/softermax
+online walks of chunked prefill and paged attention.
 """
 from __future__ import annotations
 
@@ -60,6 +69,80 @@ class Attention(nn.Module):
             m.reset_parameters(generator)
         if isinstance(self.score_norm, ConSmaxParams):
             self.score_norm.reset_parameters(generator)
+
+
+# ------------------------------------------------- blockwise attention ----
+def blockwise_attention(q, k, v, *, norm_kind: str, norm_params,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, merged: bool = False,
+                        q_chunk: int = 2048, kv_chunk: int = 1024,
+                        q_offset: int = 0):
+    """q: (b, sq, H, dk); k, v: (b, skv, hkv, dk). Returns (b, sq, H, dk)
+    in q.dtype.
+
+    Query chunk i (positions ``q_offset + i0 .. q_offset + i1 - 1``) walks
+    the KV chunks [lo, hi) its reach allows (the reference's static bounds:
+    causal ``hi``, window ``lo``, at least one chunk). Chunk scores are fp32
+    products of the compute-dtype operands, weights are cast to the compute
+    dtype before ``p @ v``, and the accumulator is fp32. The last KV chunk
+    may be short: the reference pads it and masks the pad keys, which adds
+    exact zeros (consmax) or nothing to m and l (softmax / softermax)."""
+    b, sq, H, dk = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = H // hkv
+    qc = min(q_chunk, sq)
+    kc = min(kv_chunk, skv)
+    n_kv = -(-skv // kc)
+    cdt = q.dtype
+    qg = q.reshape(b, sq, hkv, g, dk).float()
+    kf, vf = k.float(), v.float()
+    consmax = norm_kind == "consmax"
+    if not consmax and norm_kind not in ("softmax", "softermax"):
+        raise ValueError(f"unknown score_norm {norm_kind!r}")
+    expf = torch.exp2 if norm_kind == "softermax" else torch.exp
+
+    outs = []
+    for i0 in range(0, sq, qc):
+        i1 = min(i0 + qc, sq)
+        hi = n_kv if not causal else min(n_kv, -(-(q_offset + i1) // kc))
+        lo = max(0, (q_offset + i0 - window) // kc) if window > 0 else 0
+        q_blk = qg[:, i0:i1]
+        n_q = i1 - i0
+        acc = torch.zeros((b, hkv, g, n_q, dk), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, hkv, g, n_q), normalizers.NEG_INF,
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        for j in range(lo, max(hi, lo + 1)):
+            k_blk = kf[:, j * kc:(j + 1) * kc]
+            v_blk = vf[:, j * kc:(j + 1) * kc]
+            n = k_blk.shape[1]
+            s = torch.einsum("bqhgd,bchd->bhgqc", q_blk, k_blk)
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            qpos = q_offset + i0 + torch.arange(n_q, device=q.device)
+            kpos = j * kc + torch.arange(n, device=q.device)
+            msk = kv_mask(qpos[:, None], kpos[None, :], skv, window,
+                          causal=causal)
+            if consmax:
+                p = normalizers.apply_norm(
+                    "consmax", norm_params, s.reshape(b, H, n_q, n), msk,
+                    head_axis=1, merged=merged).reshape(b, hkv, g, n_q, n)
+                acc += torch.einsum("bhgqc,bchd->bhgqd", p.to(cdt).float(),
+                                    v_blk)
+                continue
+            s = torch.where(msk, s, normalizers.NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = expf(m - m_new)
+            e = torch.where(msk, expf(s - m_new[..., None]), 0.0)
+            l = l * alpha + e.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqc,bchd->bhgqd", e.to(cdt).float(), v_blk)
+            m = m_new
+        if not consmax:
+            acc = acc / l.clamp(min=1e-30)[..., None]
+        outs.append(acc.permute(0, 3, 1, 2, 4).to(cdt))   # b q h g d
+    return torch.cat(outs, dim=1).reshape(b, sq, H, dk)
 
 
 # ---------------------------------------------------- cache writes ----
@@ -272,9 +355,10 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     b, s, _ = x.shape
     if cache is None or (prefill_append is None and s > 1):
         raise NotImplementedError(
-            "whole-sequence attention (training / whole-prompt prefill, "
-            "blockwise_attention) is not ported yet: serve through "
-            "prefill_append chunks and one-token decode")
+            "whole-sequence attention through attention_apply (training / "
+            "whole-prompt prefill) is not wired yet: serve through "
+            "prefill_append chunks and one-token decode, or call "
+            "blockwise_attention directly")
     H, dk = cfg.n_heads, cfg.head_dim_
     cdt = cfg.cdtype()
     window = cfg.window if kind == "local" else 0

@@ -29,7 +29,8 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = _KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 COMMON_INCLUDE = _KERNELS_DIR / "csrc"
-KERNELS = ("consmax_decode", "consmax_prefill")
+KERNELS = ("consmax_decode", "consmax_prefill", "consmax_attn",
+           "softmax_attn", "consmax_lut")
 HEAD_DIMS = (32, 64, 128, 256)          # the head_dims the kernels compile
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -109,12 +110,14 @@ def load(name: str) -> ctypes.CDLL:
 
 def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
                    page_table=None):
-    """Raise unless ``q`` (b, [c,] H, dk) and the caches ``k``/``v``
-    (b, L, hkv, dk) are bf16 and agree, ``slots`` tensors are (b,) and
-    ``heads`` tensors (H,), and every operand lies on ``q``'s device,
-    contiguous and aligned for the kernel's vector loads (16 bytes for
-    q/k/v, 4 for the rest). With ``page_table`` (b, npg) int32, ``k``/``v``
-    are (P, ps, hkv, dk) page pools instead."""
+    """Raise unless the attention operands are bf16 and agree: ``q``
+    (b, [s,] H, dk) against ``k``/``v`` (b, L, hkv, dk) — a serving cache
+    (decode q (b, H, dk), prefill chunk (b, c, H, dk)) or a full sequence's
+    keys and values (b, skv, hkv, dk) — or, with ``page_table`` (b, npg)
+    int32, page pools (P, ps, hkv, dk); dk in ``HEAD_DIMS``, H a multiple
+    of hkv, ``slots`` tensors (b,) and ``heads`` tensors (H,); and every
+    operand on ``q``'s device, contiguous and aligned for the kernel's
+    vector loads (16 bytes for q/k/v, 4 for the rest)."""
     b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
@@ -123,11 +126,11 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
     if k.shape != v.shape or k.ndim != 4 or k.shape[3] != dk or (
             page_table is None and k.shape[0] != b):
         raise ValueError(f"{kernel}: q {tuple(q.shape)} does not match "
-                         f"cache {tuple(k.shape)} / {tuple(v.shape)}")
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     if dk not in HEAD_DIMS:
         raise ValueError(f"{kernel}: head_dim {dk} not in {HEAD_DIMS}")
     if H % k.shape[2]:
-        raise ValueError(f"{kernel}: {H} heads not a multiple of "
+        raise ValueError(f"{kernel}: {H} query heads not a multiple of "
                          f"{k.shape[2]} kv heads")
     for group, n in ((slots, b), (heads, H)):
         for name, t in group.items():
@@ -142,15 +145,49 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
                              f"int32, got {tuple(page_table.shape)} "
                              f"{page_table.dtype}")
         extra["page_table"] = page_table
-    for name, t in {"q": q, "k": k, "v": v, **slots, **heads,
-                    **extra}.items():
-        if t.device != q.device:
-            raise ValueError(f"{kernel}: {name} on {t.device}, q on "
-                             f"{q.device}")
-        align = 16 if name in ("q", "k", "v") else 4
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"{kernel}: {name} must be contiguous and "
-                             f"{align}-byte aligned")
+    _check_placement(kernel, q.device, {"q": q, "k": k, "v": v, **slots,
+                                        **heads, **extra},
+                     align={"q": 16, "k": 16, "v": 16})
+
+
+def check_sequence_operands(kernel: str, q, k, v, *, heads: dict):
+    """Full-sequence attention: ``q`` (b, sq, H, dk) against ``k``/``v``
+    (b, skv, hkv, dk) in the model layout, checked as ``check_operands``
+    does, with ``heads`` tensors (H,)."""
+    if q.ndim != 4:
+        raise ValueError(f"{kernel}: q must be (b, sq, H, dk), got "
+                         f"{tuple(q.shape)}")
+    check_operands(kernel, q, k, v, slots={}, heads=heads)
+
+
+def check_codes(kernel: str, codes, c=None):
+    """The LUT: ``codes`` int8 with n >= 1 elements, contiguous, at any
+    address (the kernel takes 16-byte loads only where the codes allow);
+    ``c``, when a tensor, a 0-d fp32 tensor on the codes' device."""
+    if codes.dtype != torch.int8:
+        raise TypeError(f"{kernel}: codes must be int8, got {codes.dtype}")
+    if codes.numel() < 1:
+        raise ValueError(f"{kernel}: codes must hold n >= 1 elements")
+    ops = {"codes": codes}
+    if isinstance(c, torch.Tensor):
+        if c.dtype != torch.float32 or c.ndim != 0:
+            raise ValueError(f"{kernel}: C must be a 0-d float32 tensor, got "
+                             f"{tuple(c.shape)} {c.dtype}")
+        ops["C"] = c
+    _check_placement(kernel, codes.device, ops, align={"codes": 1})
+
+
+def _check_placement(kernel: str, device, operands: dict, *, align: dict):
+    """Every operand on ``device``, contiguous, and aligned to
+    ``align[name]`` bytes (4 for a name not in ``align``)."""
+    for name, t in operands.items():
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, expected "
+                             f"{device}")
+        to = align.get(name, 4)
+        if not t.is_contiguous() or t.data_ptr() % to:
+            raise ValueError(f"{kernel}: {name} must be contiguous" + (
+                f" and {to}-byte aligned" if to > 1 else ""))
 
 
 def check(lib: ctypes.CDLL, err: int, what: str):

@@ -1,13 +1,14 @@
-"""Shared layout / masking helpers for the serving-path ConSmax kernels —
+"""Shared layout / masking helpers for the ConSmax kernels —
 the torch twin of the reference's ``kernels/cache_layout.py``.
 
-Everything the decode and prefill kernels, their plain versions and the
-plain KV walks (``core.attention``) agree on lives here: the one mask
-formula (``kv_mask``), the ConSmax weights (``consmax_weights``), the GQA
-folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``), the fill
-bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``) and the
-page gather of the paged kernels' plain versions (``gather_pages``). The CUDA
-sources under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live`` and
+Everything the ConSmax kernels (decode, prefill and the full-sequence
+attention kernels), their plain versions and the plain KV walks
+(``core.attention``) agree on lives here: the one mask formula
+(``kv_mask``, causal or not), the ConSmax weights (``consmax_weights``),
+the GQA folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``),
+the fill bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``)
+and the page gather of the paged kernels' plain versions
+(``gather_pages``). The CUDA sources under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live`` and
 ``consmax_weights`` in device code; the tests hold the kernels against the
 plain versions built from these helpers.
 
@@ -56,12 +57,17 @@ def tile_head_params(beta: torch.Tensor, gamma: torch.Tensor, hkv: int,
     return tile(beta), tile(gamma)
 
 
-def kv_mask(qpos, kpos, kv_len, window: int):
-    """The serving-path attention mask shared by the kernels and the plain
-    walks: a query at absolute position ``qpos`` sees cache row ``kpos`` iff
-    ``kpos < kv_len``, ``qpos >= kpos`` and (local layers)
-    ``qpos - kpos < window``."""
-    mask = (kpos < kv_len) & (qpos >= kpos)
+def kv_mask(qpos, kpos, kv_len, window: int, *, causal: bool = True):
+    """The one attention mask shared by the kernels and the plain walks: a
+    query at absolute position ``qpos`` sees key row ``kpos`` iff
+    ``kpos < kv_len``, (causal) ``qpos >= kpos`` and (local layers)
+    ``qpos - kpos < window``. The serving paths are always causal; the
+    full-sequence attention kernels count positions from 0 for queries and
+    keys alike, so their causal mask is top-left aligned also when there
+    are more keys than queries."""
+    mask = kpos < kv_len
+    if causal:
+        mask = mask & (qpos >= kpos)
     if window > 0:
         mask = mask & ((qpos - kpos) < window)
     return mask

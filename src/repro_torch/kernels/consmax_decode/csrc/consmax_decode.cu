@@ -47,6 +47,9 @@
 //   vector access each); in the p.V pass, threads cover a row in 4-element
 //   vectors. All math is fp32 FMA on CUDA cores: decode does too few flops
 //   per byte for tensor cores to matter.
+// * The form (Eq. 2 or 3) is a template parameter chosen at launch, and
+//   each head's merged constant C is computed once per head chunk
+//   (consmax_c), not per score.
 // What it leaves for later: cp.async/TMA double buffering of K/V and more
 // rows in flight per warp; the simple version is latency-bound well above
 // the 10 us figure.
@@ -58,7 +61,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadChunk = 8;  // query heads of one GQA group per pass
 
-template <int DK, class Rows>
+template <int DK, bool kMerged, class Rows>
 __global__ void __launch_bounds__(kThreads)
     decode_partials(const __nv_bfloat16* __restrict__ q,  // (b, H, DK)
                     const __nv_bfloat16* __restrict__ k,  // rows of hkv * DK
@@ -69,7 +72,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ gamma,
                     float* __restrict__ partials,  // (b, hkv, ns, g, DK)
                     int H, int hkv, int L, int bk, int ns, int window,
-                    float softcap, float scale, int merged, int fill_bound) {
+                    float softcap, float scale, int fill_bound) {
   constexpr int kPerLane = DK / 32;        // K elements per lane (score pass)
   constexpr int kQuads = DK / 4;           // 4-element vectors per row
   constexpr int kRowGroups = kThreads / kQuads;  // rows in flight (p.V pass)
@@ -94,7 +97,7 @@ __global__ void __launch_bounds__(kThreads)
     const int gc = min(kHeadChunk, g - g0);
     // this lane's slice of each query head, and each head's constants
     float qr[kHeadChunk][kPerLane];
-    float bet[kHeadChunk], gam[kHeadChunk];
+    float bet[kHeadChunk], gam[kHeadChunk], cm[kHeadChunk];
 #pragma unroll
     for (int gi = 0; gi < kHeadChunk; ++gi) {
       const int head = h * g + g0 + min(gi, gc - 1);
@@ -103,6 +106,7 @@ __global__ void __launch_bounds__(kThreads)
                           qr[gi]);
       bet[gi] = beta[head];
       gam[gi] = gamma[head];
+      cm[gi] = consmax_c(bet[gi], gam[gi]);
     }
 
     // pass 1: one warp per K row -> weights p_s[gi][j]
@@ -130,8 +134,8 @@ __global__ void __launch_bounds__(kThreads)
       if (lane == 0) {
         for (int gi = 0; gi < gc; ++gi)
           p_s[gi * bk + j] =
-              valid ? consmax_weight(dot[gi] * scale, bet[gi], gam[gi],
-                                     softcap, merged)
+              valid ? consmax_weight<kMerged>(dot[gi] * scale, bet[gi],
+                                              gam[gi], cm[gi], softcap)
                     : 0.f;
       }
     }
@@ -210,12 +214,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
       (kHeadChunk * static_cast<size_t>(bk) + kThreads * 4 * kHeadChunk) *
       sizeof(float);
   dim3 grid(ns, hkv, b);
-  decode_partials<DK, Rows><<<grid, kThreads, smem, stream>>>(
+  auto kernel = merged ? decode_partials<DK, true, Rows>
+                       : decode_partials<DK, false, Rows>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), rows_of, lengths, beta, gamma,
-      partials, H, hkv, L, bk, ns, window, softcap, scale, merged,
-      fill_bound);
+      partials, H, hkv, L, bk, ns, window, softcap, scale, fill_bound);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(b) * H * DK;

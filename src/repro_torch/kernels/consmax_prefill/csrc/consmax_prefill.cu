@@ -37,14 +37,19 @@
 // * Tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate):
 //   each of the 4 warps owns 16 rows; S = Q K^T and O += P V per tile, with
 //   the score accumulator re-packed in registers as the A operand of P V
-//   (P rounded to bf16, as the TPU kernel's p.astype(v.dtype)).
+//   (P rounded to bf16, as the TPU kernel's p.astype(v.dtype)). These tile
+//   steps live in mma_tiles.cuh, shared with consmax_attn.cu and
+//   softmax_attn.cu.
+// * The form (Eq. 2 or 3) is a template parameter chosen at launch, and
+//   each row's merged constant C is computed once before the KV walk
+//   (consmax_c): the tile loop holds one exp per score for merged ConSmax.
 // * Fill bounding without a host sync: the block reads index/lengths on the
 //   device and walks only the tiles its rows can see (below the slot's fill,
 //   at or before its last row's position, inside the window of its first);
 //   a dead tile would add exact zeros.
 // What it leaves for later: wgmma + TMA, cp.async double buffering and a
 // warp-specialized pipeline; the simple version stalls on its tile loads.
-#include "consmax_common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -52,29 +57,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerBlock = 16 * kWarps;  // folded query rows per block
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 t;
-  t.x = lo;
-  t.y = hi;
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-template <int DK, class Rows>
+template <int DK, bool kMerged, class Rows>
 __global__ void __launch_bounds__(kThreads)
     prefill_kernel(const __nv_bfloat16* __restrict__ q,  // (b, c, H, DK)
                    const __nv_bfloat16* __restrict__ k,  // rows of hkv * DK
@@ -86,15 +69,10 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ gamma,
                    __nv_bfloat16* __restrict__ out,      // (b, c, H, DK)
                    int c, int H, int hkv, int L, int window, float softcap,
-                   float scale, int merged, int fill_bound) {
-  constexpr int BN = DK <= 128 ? 64 : 32;  // KV rows per tile
-  constexpr int KS = DK / 16;              // k-steps of S = Q K^T
-  constexpr int NT = BN / 8;               // n-tiles of S
-  constexpr int DT = DK / 8;               // n-tiles of O
-  constexpr int SROW = DK + 8;             // padded smem row (bank spread)
-  constexpr int CHUNKS = DK / 8;           // 16-byte chunks per K/V row
-  __shared__ __align__(16) __nv_bfloat16 k_s[BN * SROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BN * SROW];
+                   float scale, int fill_bound) {
+  using T = Tile<DK>;
+  __shared__ __align__(16) __nv_bfloat16 k_s[T::BN * T::SROW];
+  __shared__ __align__(16) __nv_bfloat16 v_s[T::BN * T::SROW];
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = H / hkv;
@@ -114,13 +92,16 @@ __global__ void __launch_bounds__(kThreads)
     kv_end = min(L, min(kvl, idx + pos_hi + 1));
     if (window > 0) kv_begin = max(0, idx + pos_lo - window + 1);
   }
-  kv_begin = (kv_begin / BN) * BN;
+  kv_begin = (kv_begin / T::BN) * T::BN;
 
   // this thread's two accumulator rows: gid and gid + 8 of its warp's 16
+  // (pad rows of the chunk included: the caller discards them, as with the
+  // reference; rows past the folded chunk are not rows at all)
   bool rvalid[2];
   int qpos[2];
-  float bet[2], gam[2];
+  float bet[2], gam[2], cm[2];
   const __nv_bfloat16* qrow[2];
+  __nv_bfloat16* orow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + warp * 16 + gid + 8 * i;
@@ -130,29 +111,19 @@ __global__ void __launch_bounds__(kThreads)
     qpos[i] = idx + pos;
     bet[i] = beta[head];
     gam[i] = gamma[head];
-    qrow[i] = q + ((static_cast<size_t>(b) * c + pos) * H + head) * DK;
+    cm[i] = consmax_c(bet[i], gam[i]);
+    const size_t at = ((static_cast<size_t>(b) * c + pos) * H + head) * DK;
+    qrow[i] = rvalid[i] ? q + at : nullptr;
+    orow[i] = rvalid[i] ? out + at : nullptr;
   }
 
   // Q as mma A fragments, kept in registers for the whole KV walk
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int col = ks * 16 + tig * 2;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // columns col and col + 8
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {         // rows gid and gid + 8
-        qa[ks][2 * half + i] =
-            rvalid[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + col +
-                                                           8 * half)
-                      : 0u;
-      }
-    }
-  }
+  uint32_t qa[T::KS][4];
+  load_q_frags<DK>(qa, qrow, tig);
 
-  float o[DT][4];
+  float o[T::DT][4];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+  for (int dt = 0; dt < T::DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
@@ -160,81 +131,30 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* kh = k + static_cast<size_t>(h) * DK;
   const __nv_bfloat16* vh = v + static_cast<size_t>(h) * DK;
 
-  for (int j0 = kv_begin; j0 < kv_end; j0 += BN) {
+  for (int j0 = kv_begin; j0 < kv_end; j0 += T::BN) {
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BN * CHUNKS; i += kThreads) {
-      const int r = i / CHUNKS, ch = i % CHUNKS;
-      const int kpos = j0 + r;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      size_t row;  // rows outside the walk or unmapped are zeros, never read
-      if (kpos < kv_end && rows_of.row(b, kpos, &row)) {
-        kv4 = *reinterpret_cast<const uint4*>(kh + row * row_stride + ch * 8);
-        vv4 = *reinterpret_cast<const uint4*>(vh + row * row_stride + ch * 8);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * SROW + ch * 8) = kv4;
-      *reinterpret_cast<uint4*>(v_s + r * SROW + ch * 8) = vv4;
-    }
+    load_kv_tile<DK, kThreads>(k_s, v_s, kh, vh, row_stride, rows_of, b, j0,
+                               kv_end);
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x BN kv rows
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* kr = k_s + (nt * 8 + gid) * SROW + ks * 16 + tig * 2;
-        mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
+    float s[T::NT][4];
+    qk_tile<DK>(s, qa, k_s, gid, tig);
     // weights, masked
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < T::NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         const int kpos = j0 + nt * 8 + tig * 2 + (e & 1);
         s[nt][e] = rvalid[i] && kv_mask(qpos[i], kpos, kvl, window)
-                       ? consmax_weight(s[nt][e] * scale, bet[i], gam[i],
-                                        softcap, merged)
+                       ? consmax_weight<kMerged>(s[nt][e] * scale, bet[i],
+                                                 gam[i], cm[i], softcap)
                        : 0.f;
       }
     }
-    // O += P V, P re-packed from the score accumulator as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vr = v_s + (kk * 16 + tig * 2) * SROW + gid;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vc = vr + dt * 8;
-        mma_bf16(o[dt], pa, pack_bf16(vc[0], vc[SROW]),
-                 pack_bf16(vc[8 * SROW], vc[9 * SROW]));
-      }
-    }
+    pv_tile<DK>(o, s, v_s, gid, tig);
   }
-
-  // store this thread's rows (pad rows of the chunk included: the caller
-  // discards them, as with the reference)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!rvalid[i]) continue;
-    const int r = r0 + warp * 16 + gid + 8 * i;
-    const int pos = r / g, head = h * g + r % g;
-    __nv_bfloat16* orow =
-        out + ((static_cast<size_t>(b) * c + pos) * H + head) * DK;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + tig * 2) =
-          __floats2bfloat162_rn(o[dt][2 * i], o[dt][2 * i + 1]);
-    }
-  }
+  store_rows<DK>(orow, o, tig);
 }
 
 template <int DK, class Rows>
@@ -245,12 +165,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
                    int merged, int fill_bound, cudaStream_t stream) {
   const int g = H / hkv;
   dim3 grid((c * g + kRowsPerBlock - 1) / kRowsPerBlock, hkv, b);
-  prefill_kernel<DK, Rows><<<grid, kThreads, 0, stream>>>(
+  auto kernel = merged ? prefill_kernel<DK, true, Rows>
+                       : prefill_kernel<DK, false, Rows>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), rows_of, index, lengths, beta,
       gamma, static_cast<__nv_bfloat16*>(out), c, H, hkv, L, window, softcap,
-      scale, merged, fill_bound);
+      scale, fill_bound);
   return cudaGetLastError();
 }
 

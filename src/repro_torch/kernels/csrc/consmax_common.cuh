@@ -1,19 +1,24 @@
 // Device-side twins of kernels/cache_layout.py, shared by the ConSmax
-// serving kernels: the one serving mask (kv_mask), the fill-bounding skip
-// predicate (shard_live) and the ConSmax weights (consmax_weights), plus
-// small bf16 load helpers. Keep each formula identical to its Python twin:
-// the plain versions the kernels are tested against are built from those.
+// kernels and the softmax baseline: the one mask (kv_mask, causal or not),
+// the fill-bounding skip predicate (shard_live) and the ConSmax weights
+// (consmax_weight), plus small bf16 load helpers. Keep each formula
+// identical to its Python twin: the plain versions the kernels are tested
+// against are built from those.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// cache_layout.kv_mask: query at absolute position qpos sees cache row kpos
-// iff kpos < kv_len, qpos >= kpos and (window > 0) qpos - kpos < window.
+// cache_layout.kv_mask: query at absolute position qpos sees key row kpos
+// iff kpos < kv_len, (causal) qpos >= kpos and (window > 0)
+// qpos - kpos < window. The serving kernels are always causal; the
+// full-sequence kernels count query and key positions from 0, so their
+// causal mask is top-left aligned.
 __device__ __forceinline__ bool kv_mask(int qpos, int kpos, int kv_len,
-                                        int window) {
-  bool m = (kpos < kv_len) && (qpos >= kpos);
+                                        int window, bool causal = true) {
+  bool m = kpos < kv_len;
+  if (causal) m = m && (qpos >= kpos);
   if (window > 0) m = m && (qpos - kpos < window);
   return m;
 }
@@ -28,14 +33,23 @@ __device__ __forceinline__ bool shard_live(int start, int size, int kv_len,
   return live;
 }
 
+// The merged constant of Eq. 3, C = exp(-beta) / gamma: computed once per
+// query head by the caller, outside the KV loop.
+__device__ __forceinline__ float consmax_c(float beta, float gamma) {
+  return expf(-beta) / gamma;
+}
+
 // Optional tanh softcap, then cache_layout.consmax_weights: merged
-// C * exp(s) with C = exp(-beta) / gamma (Eq. 3), else exp(s - beta) / gamma
-// (Eq. 2). Only called for unmasked entries.
+// c * exp(s) with c = consmax_c(beta, gamma) (Eq. 3), else
+// exp(s - beta) / gamma (Eq. 2). The form is fixed at compile time, so
+// neither the other form nor a per-score exp(-beta) / gamma stays in the
+// tile loop. Only called for unmasked entries.
+template <bool kMerged>
 __device__ __forceinline__ float consmax_weight(float s, float beta,
-                                                float gamma, float softcap,
-                                                int merged) {
+                                                float gamma, float c,
+                                                float softcap) {
   if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-  return merged ? (expf(-beta) / gamma) * expf(s) : expf(s - beta) / gamma;
+  return kMerged ? c * expf(s) : expf(s - beta) / gamma;
 }
 
 // Where a slot's logical cache row lives: the one thing the contiguous and

@@ -22,6 +22,13 @@ that sum, which is the plain version evaluated on ``|v|`` (p >= 0). That
 sum grows with the fill faster than the output does, so each output row (a
 decode slot, a prefill query row) is also held to a relative L2 error of
 2^-7, four times the 2^-9 rounding: one lost or doubled KV tile exceeds it.
+
+The full-sequence kernels (``consmax_attn``, ``softmax_attn``) are held to
+the same two bounds, with the softmax weights normalized (the plain version
+on ``|v|`` is again ``sum_j p_j |v_j|``); ``consmax_attention`` also to
+``consmax_prefill``'s bits on the same rows. The LUT kernel is held bit for
+bit to its plain version on the same tables (two fp32 products in one
+order) and within relative 1e-5 of ``C * exp(scale * s)``.
 """
 import numpy as np
 import pytest
@@ -38,6 +45,15 @@ from repro_torch.kernels.consmax_prefill.ops import (
     consmax_prefill_paged_op)
 from repro_torch.kernels.consmax_prefill.ref import (
     consmax_prefill_paged_ref, consmax_prefill_ref)
+from repro_torch.kernels.consmax_attn.ops import (consmax_attention_cuda,
+                                                  consmax_attention_op)
+from repro_torch.kernels.consmax_attn.ref import consmax_attention_ref
+from repro_torch.kernels.consmax_lut.ops import (consmax_lut_cuda,
+                                                 consmax_lut_op, make_luts)
+from repro_torch.kernels.consmax_lut.ref import consmax_lut_ref, lut_product
+from repro_torch.kernels.softmax_attn.ops import (softmax_attention_cuda,
+                                                  softmax_attention_op)
+from repro_torch.kernels.softmax_attn.ref import softmax_attention_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +96,8 @@ def _assert_within_bound(got, ref, ref_absv):
 
 def test_kernels_build(cuda):
     _build.build()
+    assert {"consmax_attn", "softmax_attn", "consmax_lut"} <= set(
+        _build.KERNELS)
     for name in _build.KERNELS:
         assert _build.library_path(name).exists()
 
@@ -366,3 +384,186 @@ def test_paged_ops_count_launches_and_dispatch_by_device(cuda):
     with pytest.raises(ValueError):                      # table must be int32
         consmax_prefill_paged_op(qc, kp, vp, table.long(), lengths - 4,
                                  torch.full_like(lengths, 4), beta, gamma)
+
+
+# ------------------------------------------- full-sequence attention ----
+ATTN = {  # b, sq, skv, H, hkv, dk
+    "qwen2-gqa": (2, 256, 256, 12, 2, 128),
+    "gpt2-mha": (2, 200, 200, 6, 6, 64),          # ragged: not a 64-multiple
+    "mqa-dk32": (2, 100, 100, 8, 1, 32),
+    "gemma2-dk256": (1, 96, 96, 8, 4, 256),
+    "kv-longer": (1, 64, 192, 4, 1, 64),
+    "q-longer": (1, 150, 70, 4, 2, 64),
+}
+ATTN_VARIANTS = [dict(), dict(window=37), dict(softcap=5.0),
+                 dict(causal=False), dict(window=50, softcap=30.0)]
+
+
+def _seq_inputs(dev, *, b, sq, skv, H, hkv, dk, seed=0):
+    r = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0):
+        return torch.tensor(r.standard_normal(shape) * scale,
+                            dtype=torch.bfloat16, device=dev)
+
+    q = t((b, sq, H, dk))
+    k, v = t((b, skv, hkv, dk)), t((b, skv, hkv, dk))
+    beta = torch.tensor(r.uniform(0.5, 2.5, H), dtype=torch.float32,
+                        device=dev)
+    return q, k, v, beta, torch.full((H,), 100.0, device=dev)
+
+
+def _model_layout(fn, q, k, v, *args, **kw):
+    """A plain version (kernel layout) applied to model-layout tensors."""
+    return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), *args,
+              **kw).float().transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", ATTN)
+@pytest.mark.parametrize("variant", ATTN_VARIANTS + [dict(merged=True)])
+def test_consmax_attention_matches_plain(cuda, shape, variant):
+    b, sq, skv, H, hkv, dk = ATTN[shape]
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=b, sq=sq, skv=skv, H=H,
+                                       hkv=hkv, dk=dk)
+    outs = [consmax_attention_cuda(q, k, v, beta, gamma, **variant)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])          # fixed order: same bits
+    ref = _model_layout(consmax_attention_ref, q.float(), k, v, beta, gamma,
+                        **variant)
+    ref_absv = _model_layout(consmax_attention_ref, q.float(), k, v.abs(),
+                             beta, gamma, **variant)
+    _assert_within_bound(outs[0], ref, ref_absv)
+
+
+@pytest.mark.parametrize("shape", ATTN)
+@pytest.mark.parametrize("variant", ATTN_VARIANTS)
+def test_softmax_attention_matches_plain(cuda, shape, variant):
+    b, sq, skv, H, hkv, dk = ATTN[shape]
+    q, k, v, _, _ = _seq_inputs(cuda, b=b, sq=sq, skv=skv, H=H, hkv=hkv,
+                                dk=dk, seed=1)
+    got = softmax_attention_cuda(q, k, v, **variant)
+    torch.cuda.synchronize()
+    ref = _model_layout(softmax_attention_ref, q.float(), k, v, **variant)
+    ref_absv = _model_layout(softmax_attention_ref, q.float(), k, v.abs(),
+                             **variant)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "mqa-dk32",
+                                   "gemma2-dk256"])
+@pytest.mark.parametrize("variant", [dict(), dict(window=37),
+                                     dict(softcap=5.0)])
+def test_consmax_attention_gives_prefill_kernel_bits(cuda, shape, variant):
+    """Causal, sq = skv, merged, pre-scaled q: the full-sequence kernel is
+    the prefill kernel at index 0, lengths sq, on the same rows, bit for
+    bit (the same tiles in the same order through the same tile steps)."""
+    b, sq, _, H, hkv, dk = ATTN[shape]
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=b, sq=sq, skv=sq, H=H,
+                                       hkv=hkv, dk=dk, seed=2)
+    q = (q.float() * dk ** -0.5).to(torch.bfloat16)
+    kw = dict(merged=True, scale=1.0, **variant)
+    got = consmax_attention_cuda(q, k, v, beta, gamma, causal=True, **kw)
+    index = torch.zeros(b, dtype=torch.int32, device=cuda)
+    lengths = torch.full((b,), sq, dtype=torch.int32, device=cuda)
+    pre = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pre)
+
+
+def test_decode_kernel_equals_attention_kernel_last_row(cuda):
+    b, L, H, hkv, dk = 2, 300, 12, 2, 128
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=b, sq=L, skv=L, H=H, hkv=hkv,
+                                       dk=dk, seed=3)
+    full = consmax_attention_cuda(q, k, v, beta, gamma)
+    lengths = torch.full((b,), L, dtype=torch.int32, device=cuda)
+    dec = consmax_decode_cuda(q[:, -1].contiguous(), k, v, lengths, beta,
+                              gamma, merged=False, bk=128)
+    torch.cuda.synchronize()
+    ref_absv = _model_layout(consmax_attention_ref, q.float(), k, v.abs(),
+                             beta, gamma)[:, -1]
+    _assert_within_bound(dec, full[:, -1].float(), ref_absv)
+
+
+@pytest.mark.parametrize("scale", [0.03, 128 ** -0.5, 0.125])
+def test_lut_all_256_codes(cuda, scale):
+    s8 = torch.arange(-128, 128, dtype=torch.int8, device=cuda)
+    got = consmax_lut_op(s8, 0.01, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_product(s8, 0.01,
+                                        *make_luts(scale, cuda)))
+    ref = consmax_lut_ref(s8, 0.01, scale)
+    assert float(((got - ref).abs() / ref.abs()).max()) < 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 7, 16, 1000, 4097, 1 << 20])
+def test_lut_lengths_and_device_constant(cuda, n):
+    """Odd lengths take the tail path; C as a 0-d device tensor (read on
+    the device) gives the bits of C as a float."""
+    r = np.random.default_rng(n)
+    s8 = torch.tensor(r.integers(-128, 128, n), dtype=torch.int8,
+                      device=cuda)
+    luts = make_luts(0.05, cuda)
+    got = consmax_lut_cuda(s8, 0.5, *luts)
+    dev_c = consmax_lut_cuda(s8, torch.tensor(0.5, device=cuda), *luts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_product(s8, 0.5, *luts))
+    assert torch.equal(dev_c, got)
+    ref = consmax_lut_ref(s8, 0.5, 0.05)
+    assert float(((got - ref).abs() / ref.abs()).max()) < 1e-5
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("n", [7, 1000, 4096 * 3 + 5])
+def test_lut_codes_off_a_16_byte_boundary(cuda, offset, n):
+    """A slice of a score matrix that does not start on a 16-byte
+    boundary goes code by code and gives the aligned codes' bits."""
+    r = np.random.default_rng(offset * n)
+    buf = torch.tensor(r.integers(-128, 128, n + offset), dtype=torch.int8,
+                       device=cuda)
+    s8 = buf[offset:]
+    assert s8.data_ptr() % 16
+    luts = make_luts(0.05, cuda)
+    got = consmax_lut_cuda(s8, 0.5, *luts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_product(s8, 0.5, *luts))
+    assert torch.equal(got, consmax_lut_cuda(s8.clone(), 0.5, *luts))
+
+
+def test_paper_ops_count_launches_and_dispatch_by_device(cuda):
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=1, sq=64, skv=64, H=4, hkv=2,
+                                       dk=64)
+    cpu = [t.cpu() for t in (q, k, v, beta, gamma)]
+    n0 = consmax_attention_op.launches
+    consmax_attention_op(q, k, v, beta, gamma)
+    consmax_attention_op(*cpu)                           # plain: not counted
+    assert consmax_attention_op.launches == n0 + 1
+    n0 = softmax_attention_op.launches
+    softmax_attention_op(q, k, v)
+    softmax_attention_op(*cpu[:3])
+    assert softmax_attention_op.launches == n0 + 1
+    s8 = torch.arange(-128, 128, dtype=torch.int8, device=cuda)
+    n0 = consmax_lut_op.launches
+    got = consmax_lut_op(s8.reshape(16, 16), 0.01, scale=0.1)
+    assert got.shape == (16, 16) and got.device == s8.device
+    consmax_lut_op(s8.cpu(), 0.01, scale=0.1)
+    assert consmax_lut_op.launches == n0 + 1
+
+
+def test_paper_ops_refuse_what_the_kernels_cannot_take(cuda):
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=1, sq=64, skv=64, H=4, hkv=2,
+                                       dk=64)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    for op, extra in ((consmax_attention_op, (beta, gamma)),
+                      (softmax_attention_op, ())):
+        with pytest.raises(TypeError):                   # no silent upcast
+            op(q.float(), k.float(), v.float(), *extra)
+        with pytest.raises(ValueError):                  # no hidden copy
+            op(strided, k, v, *extra)
+        with pytest.raises(ValueError):                  # 3 query heads
+            op(q[:, :, :3].contiguous(), k, v, *[t[:3] for t in extra])
+    s8 = torch.arange(-128, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        consmax_lut_op(s8.int(), 0.01, scale=0.1)
+    with pytest.raises(ValueError):                      # no hidden copy
+        consmax_lut_op(s8.reshape(16, 16).t(), 0.01, scale=0.1)
