@@ -22,6 +22,13 @@ Phases, in order; any failure exits non-zero before the result line:
    the prefill kernel, the decode kernel's last row, all 256 LUT codes;
    times beside ``scaled_dot_product_attention`` and the ConSmax/softmax
    ratio;
+3c. quantized kernels: the four serving kernels on int8 and fp8_e4m3
+   caches (codes + per-row fp32 scales) at the qwen2-1.5b and gpt2-consmax
+   shapes above: bit-equal to the same kernel on the dequantized bf16
+   cache, within the bounds of the plain version, paged == contiguous bits;
+   times beside the bf16 kernel, same data; then the LUT check (the int8
+   decode kernel on all 256 K codes == ``consmax_lut`` within one bf16
+   ulp);
 4. model: full-width qwen2-1.5b logits with both kernels vs the plain
    walks on a small input;
 5. engine: full-width qwen2-1.5b (28 layers, random weights from a seed)
@@ -33,7 +40,19 @@ Phases, in order; any failure exits non-zero before the result line:
    rows), prefix cache on, with shared-prefix traffic: the pool drains,
    the cache hits, a page is copied on write, the prefill and launch counts
    add up, and the tokens equal the contiguous engine's and a warm
-   request's served alone.
+   request's served alone;
+8. the same paged phase with an int8 KV cache: the same checks and trace,
+   int8 paged tokens == int8 contiguous tokens, and both caches' bytes ==
+   the reckoning from the shapes (dk + 4 bytes per row, KV head and tensor);
+9. gpt2-consmax from an fp8_e4m3 cache: paged == contiguous tokens, solo
+   == batched;
+10. perplexity: full-width gpt2-consmax teacher-forced through
+   ``make_serve_fns``'s ``decode_step`` on 128 tokens; int8-KV within 1 %
+   of bf16-KV, fp8's printed.
+
+Launch counts: each serving path is run with the kernels' counts set to 0
+just before it and read just after (the bf16 contiguous kernels from phase
+5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9).
 
 Phase 3 covers the paged kernels too, at the paged engine's shapes (page
 size 256; then 16 and 64, a -1 hole, window / softcap / unmerged, and the
@@ -272,34 +291,47 @@ def gpt2_kernel_checks(gen, bk, kw):
            consmax_prefill_ref(qb, k, v.abs(), ib, nb, beta, gamma, **kw))
 
 
-def _paginate(gen, k, v, fills, ps, num_pages):
-    """Move the rows of contiguous caches k, v (b, L, hkv, dk) into pools of
-    ``num_pages`` pages of ``ps`` rows: slot s's pages are the next
-    ceil(fills[s] / ps) of a random permutation of the pool (disjoint
-    across slots), and its table row is -1 past them. The pages no table
-    maps hold random rows, which a right kernel never reads."""
-    b, L, hkv, dk = k.shape
+def _paginate_rows(tensors, fills, ps, num_pages, seed):
+    """Move the rows of contiguous (b, L, ...) tensors (K/V rows, bf16 or
+    codes, and scales alike) into pools of ``num_pages`` pages of ``ps``
+    rows under ONE table: slot s's pages are the next ceil(fills[s] / ps) of
+    a random permutation (disjoint across slots), -1 past them. Pages no
+    table maps hold random bytes (K/V) or NaN (fp32 scales): a kernel that
+    read one would show it. Returns (pools, table)."""
+    b, L = tensors[0].shape[:2]
     npg = -(-L // ps)
     counts = [-(-int(f) // ps) for f in fills]
     if sum(counts) > num_pages:
         raise ValueError(f"{sum(counts)} pages needed, pool {num_pages}")
-    cpu = torch.Generator().manual_seed(int(ps) * 1000 + b)
-    perm = torch.randperm(num_pages, generator=cpu).to(torch.int32)
-    kp = _rand(gen, (num_pages, ps, hkv, dk))
-    vp = _rand(gen, (num_pages, ps, hkv, dk))
+    cpu = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(num_pages, generator=cpu)
     table = torch.full((b, npg), -1, dtype=torch.int32)
-    pad = npg * ps - L
-    kpad = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-    vpad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     i = 0
     for sl, n in enumerate(counts):
-        pages = perm[i:i + n]
+        table[sl, :n] = perm[i:i + n].to(torch.int32)
         i += n
-        table[sl, :n] = pages
-        idx = pages.long().cuda()
-        kp[idx] = kpad[sl, :n * ps].reshape(n, ps, hkv, dk)
-        vp[idx] = vpad[sl, :n * ps].reshape(n, ps, hkv, dk)
-    return kp, vp, table.cuda()
+    pools = []
+    for t in tensors:
+        shape = (num_pages, ps) + tuple(t.shape[2:])
+        if t.dtype == torch.float32:
+            pool = torch.full(shape, float("nan"), device="cuda")
+        else:
+            pool = torch.randint(
+                0, 256, shape[:-1] + (shape[-1] * t.element_size(),),
+                dtype=torch.uint8, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(seed)
+            ).view(t.dtype)
+        # one-byte codes move as bytes (padding fp8 is not implemented)
+        byte = t.element_size() == 1
+        rows = torch.nn.functional.pad(
+            t.view(torch.uint8) if byte else t,
+            (0, 0) * (t.ndim - 2) + (0, npg * ps - L))
+        dst = pool.view(torch.uint8) if byte else pool
+        for sl, n in enumerate(counts):
+            dst[table[sl, :n].long().cuda()] = rows[sl, :n * ps].reshape(
+                n, ps, *t.shape[2:])
+        pools.append(pool)
+    return pools, table.cuda()
 
 
 def _same_bits(name, got, other, what="the contiguous kernel"):
@@ -309,7 +341,7 @@ def _same_bits(name, got, other, what="the contiguous kernel"):
         raise AssertionError(f"{name}: differs from {what}")
 
 
-def _paged_decode_case(name, gen, q, k, v, lengths, beta, gamma, kw, *, bk,
+def _paged_decode_case(name, q, k, v, lengths, beta, gamma, kw, *, bk,
                        ps, num_pages, hole=None):
     """The paged decode kernel on ``k``/``v``'s rows paginated at ``ps``:
     held against its plain paged version, and (no ``hole``) bit for bit
@@ -319,7 +351,8 @@ def _paged_decode_case(name, gen, q, k, v, lengths, beta, gamma, kw, *, bk,
         consmax_decode_cuda, consmax_decode_paged_cuda)
     from repro_torch.kernels.consmax_decode.ref import (
         consmax_decode_paged_ref)
-    kp, vp, table = _paginate(gen, k, v, lengths.tolist(), ps, num_pages)
+    (kp, vp), table = _paginate_rows([k, v], lengths.tolist(), ps, num_pages,
+                                     seed=ps * 1000 + k.shape[0])
     if hole is not None:
         table[hole] = -1
     got = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta, gamma,
@@ -334,7 +367,7 @@ def _paged_decode_case(name, gen, q, k, v, lengths, beta, gamma, kw, *, bk,
     return err, (kp, vp, table)
 
 
-def _paged_prefill_case(name, gen, q, k, v, index, lengths, beta, gamma, kw,
+def _paged_prefill_case(name, q, k, v, index, lengths, beta, gamma, kw,
                         *, ps, num_pages):
     """The paged prefill kernel against its plain paged version and, bit
     for bit, the contiguous kernel on the same rows."""
@@ -342,8 +375,8 @@ def _paged_prefill_case(name, gen, q, k, v, index, lengths, beta, gamma, kw,
         consmax_prefill_cuda, consmax_prefill_paged_cuda)
     from repro_torch.kernels.consmax_prefill.ref import (
         consmax_prefill_paged_ref)
-    kp, vp, table = _paginate(gen, k, v, (index + lengths).tolist(), ps,
-                              num_pages)
+    (kp, vp), table = _paginate_rows([k, v], (index + lengths).tolist(), ps,
+                                     num_pages, seed=ps * 1000 + k.shape[0])
     got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths, beta,
                                      gamma, **kw)
     err = _check(name, got, consmax_prefill_paged_ref(
@@ -385,7 +418,7 @@ def paged_kernel_phase(flush):
     k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
     beta, gamma = _head_params(gen, H)
     err, (kp, vp, table) = _paged_decode_case(
-        "paged decode b=9 L=8192 ps=256 mixed fills + n=0", gen, q, k, v,
+        "paged decode b=9 L=8192 ps=256 mixed fills + n=0", q, k, v,
         lengths, beta, gamma, kw, bk=bk, ps=ps, num_pages=npages)
     ms = _time_ms(lambda: consmax_decode_paged_cuda(
         q, kp, vp, table, lengths, beta, gamma, bk=bk, **kw), flush, 50)
@@ -398,11 +431,11 @@ def paged_kernel_phase(flush):
                                         plain_ms=plain_ms, bound_ms=bound,
                                         bound_by=by)
     _paged_decode_case("paged decode, -1 hole inside slot 5's fill (plain "
-                       "only)", gen, q, k, v, lengths, beta, gamma, kw,
+                       "only)", q, k, v, lengths, beta, gamma, kw,
                        bk=bk, ps=ps, num_pages=npages, hole=(5, 3))
     for pss in (16, 64):
         need = sum(-(-int(f) // pss) for f in lengths.tolist())
-        _paged_decode_case(f"paged decode b=9 ps={pss}", gen, q, k, v,
+        _paged_decode_case(f"paged decode b=9 ps={pss}", q, k, v,
                            lengths, beta, gamma, kw, bk=bk, ps=pss,
                            num_pages=need + 64)
 
@@ -415,7 +448,7 @@ def paged_kernel_phase(flush):
         ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
         tn = torch.tensor([n], dtype=torch.int32, device="cuda")
         e, pools = _paged_prefill_case(
-            f"paged prefill c=512 ps=256 index={idx} len={n}", gen, q1, k1,
+            f"paged prefill c=512 ps=256 index={idx} len={n}", q1, k1,
             v1, ti, tn, beta, gamma, kw, ps=ps, num_pages=npages)
         errs.append(e)
         if (idx, n) == (3584, 512):
@@ -429,7 +462,7 @@ def paged_kernel_phase(flush):
     for pss in (256, 16, 64):
         need = sum(-(-int(f) // pss) for f in (ib + nb).tolist())
         e, _ = _paged_prefill_case(
-            f"paged prefill b=8 c=512 ps={pss} mixed fills", gen, qb, kb, vb,
+            f"paged prefill b=8 c=512 ps={pss} mixed fills", qb, kb, vb,
             ib, nb, beta, gamma, kw, ps=pss, num_pages=max(npages, need + 64))
         errs.append(e)
     ti, tn, kp1, vp1, t1 = timed
@@ -454,10 +487,10 @@ def paged_kernel_phase(flush):
                       ("softcap", dict(softcap=30.0)),
                       ("unmerged", dict(merged=False))]:
         kx = dict(kw, **kwx)
-        _paged_decode_case(f"paged decode {name}", gen, q, ks, vs, lx, beta,
+        _paged_decode_case(f"paged decode {name}", q, ks, vs, lx, beta,
                            gamma, kx, bk=bk, ps=ps, num_pages=npages)
         _paged_prefill_case(
-            f"paged prefill {name}", gen, q1, ks[7:8].contiguous(),
+            f"paged prefill {name}", q1, ks[7:8].contiguous(),
             vs[7:8].contiguous(),
             torch.tensor([400], dtype=torch.int32, device="cuda"),
             torch.tensor([512], dtype=torch.int32, device="cuda"), beta,
@@ -471,7 +504,7 @@ def paged_kernel_phase(flush):
     q = _rand(gen, (b, H, dk), dk ** -0.5)
     lengths = torch.tensor([1, 64, 255, 256, 257, 500, 1023, 1024],
                            dtype=torch.int32, device="cuda")
-    _paged_decode_case("gpt2 paged decode MHA b=8 L=1024 ps=128", gen, q, k,
+    _paged_decode_case("gpt2 paged decode MHA b=8 L=1024 ps=128", q, k,
                        v, lengths, beta, gamma, kw, bk=bk, ps=128,
                        num_pages=128)
     qb = _rand(gen, (b, c, H, dk), dk ** -0.5)
@@ -479,9 +512,236 @@ def paged_kernel_phase(flush):
                       dtype=torch.int32, device="cuda")
     nb = torch.tensor([0, 128, 128, 31, 128, 59, 128, 128],
                       dtype=torch.int32, device="cuda")
-    _paged_prefill_case("gpt2 paged prefill MHA b=8 c=128 ps=128", gen, qb, k,
+    _paged_prefill_case("gpt2 paged prefill MHA b=8 c=128 ps=128", qb, k,
                         v, ib, nb, beta, gamma, kw, ps=128, num_pages=128)
     return rows
+
+
+QDTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
+
+
+def _quantize(x, name):
+    """Codes, fp32 scales and the dequantized bf16 cache of ``x``."""
+    from repro_torch.kernels import cache_layout as CL
+    codes, scale = CL.quantize_kv(x, QDTYPES[name])
+    return codes, scale, CL.dequant_block(codes, scale, torch.bfloat16)
+
+
+def quantized_kernel_phase(flush):
+    """The four serving kernels on int8 and fp8_e4m3 caches (codes and
+    per-row fp32 scales from ``quantize_kv``), at the qwen2-1.5b serving
+    shapes (decode b 8 x L 8192 at mixed fills; prefill c 512 at fill 4096
+    and 8 slots of mixed fills; paged page size 256) and gpt2-consmax's (MHA,
+    dk 64: decode b 8 x L 1024, prefill c 128, page size 128). Each
+    quantized kernel is bit-equal to the same kernel on the dequantized
+    bf16 cache, within the bounds of its plain version on that cache, and
+    the paged kernels bit-equal to the contiguous ones on the same rows.
+    Timed beside the bf16 kernel on the dequantized cache, same data, same
+    run; bound by bytes: dk + 4 per row per KV head per tensor. Then the LUT
+    check. Returns the eight (kernel, dtype) rows of the result line."""
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    rows = {}
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    for arch, (b, L, H, hkv, dk, c, ps, npages) in {
+            "qwen2-1.5b": (8, 8192, 12, 2, 128, 512, 256, 256),
+            "gpt2-consmax": (8, 1024, 6, 6, 64, 128, 128, 128)}.items():
+        timed = arch == "qwen2-1.5b"
+        lengths = (torch.tensor([1, 256, 257, 1000, 3000, 4096, 8191, 8192])
+                   if timed else
+                   torch.tensor([1, 64, 255, 256, 257, 500, 1023, 1024])
+                   ).to(torch.int32).cuda()
+        ib, nb = ((torch.tensor([0, 0, 256, 1000, 3584, 4000, 7000, 7680]),
+                   torch.tensor([0, 512, 512, 77, 512, 300, 512, 512]))
+                  if timed else
+                  (torch.tensor([0, 0, 128, 200, 384, 640, 700, 896]),
+                   torch.tensor([0, 128, 128, 31, 128, 59, 128, 128])))
+        ib, nb = ib.to(torch.int32).cuda(), nb.to(torch.int32).cuda()
+        k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+        beta, gamma = _head_params(gen, H)
+        q = _rand(gen, (b, H, dk), dk ** -0.5)
+        qb = _rand(gen, (b, c, H, dk), dk ** -0.5)
+        for name in QDTYPES:
+            kq, ks, kd = _quantize(k, name)
+            vq, vs, vd = _quantize(v, name)
+            sc = dict(k_scale=ks, v_scale=vs)
+            tag = f"{arch} {name}"
+            # ---- decode, contiguous and paged
+            dec = consmax_decode_cuda(q, kq, vq, lengths, beta, gamma,
+                                      bk=256, **sc, **kw)
+            _same_bits(f"{tag} decode b=8 L={L}", dec, consmax_decode_cuda(
+                q, kd, vd, lengths, beta, gamma, bk=256, **kw),
+                "the bf16 kernel on the dequantized cache")
+            d_err = _check(f"{tag} decode b=8 L={L}", dec,
+                           consmax_decode_ref(q.float(), kd, vd, lengths,
+                                              beta, gamma, **kw),
+                           consmax_decode_ref(q.float(), kd, vd.abs(),
+                                              lengths, beta, gamma, **kw))
+            (kp, vp, ksp, vsp), table = _paginate_rows(
+                [kq, vq, ks, vs], lengths.tolist(), ps, npages, seed=ps)
+            psc = dict(k_scale=ksp, v_scale=vsp)
+            pdec = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta,
+                                             gamma, bk=256, **psc, **kw)
+            _same_bits(f"{tag} paged decode ps={ps}", pdec, dec)
+            # ---- prefill: 8 slots of mixed fills, contiguous and paged
+            pre = consmax_prefill_cuda(qb, kq, vq, ib, nb, beta, gamma, **sc,
+                                       **kw)
+            _same_bits(f"{tag} prefill b=8 c={c}", pre, consmax_prefill_cuda(
+                qb, kd, vd, ib, nb, beta, gamma, **kw),
+                "the bf16 kernel on the dequantized cache")
+            p_err = _check(f"{tag} prefill b=8 c={c}", pre,
+                           consmax_prefill_ref(qb, kd, vd, ib, nb, beta,
+                                               gamma, **kw),
+                           consmax_prefill_ref(qb, kd, vd.abs(), ib, nb,
+                                               beta, gamma, **kw))
+            (kpp, vpp, kspp, vspp), tpp = _paginate_rows(
+                [kq, vq, ks, vs], (ib + nb).tolist(), ps, npages,
+                seed=ps + 1)
+            ppre = consmax_prefill_paged_cuda(
+                qb, kpp, vpp, tpp, ib, nb, beta, gamma, k_scale=kspp,
+                v_scale=vspp, **kw)
+            _same_bits(f"{tag} paged prefill ps={ps}", ppre, pre)
+            if not timed:
+                continue
+            rows.update(_quantized_times(
+                flush, name, q, (kq, vq, ks, vs), (kd, vd), (kp, vp, ksp, vsp),
+                table, lengths, beta, gamma, kw, d_err, p_err))
+        del k, v
+    lut_check()
+    return rows
+
+
+def _quantized_times(flush, name, q, quant, deq, pools, table, lengths,
+                     beta, gamma, kw, d_err, p_err):
+    """Times of the four quantized kernels at the qwen2-1.5b shapes (decode
+    b 8 x L 8192 mixed fills; prefill slot 7's rows, one (1, 512) chunk at
+    fill 4096), each beside the bf16 kernel on the dequantized cache and its
+    plain version on the quantized cache, same run."""
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import (
+        consmax_decode_paged_ref, consmax_decode_ref)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import (
+        consmax_prefill_paged_ref, consmax_prefill_ref)
+
+    kq, vq, ks, vs = quant
+    kd, vd = deq
+    kp, vp, ksp, vsp = pools
+    b, H, dk = q.shape
+    hkv = kq.shape[2]
+    sc, psc = dict(k_scale=ks, v_scale=vs), dict(k_scale=ksp, v_scale=vsp)
+    fill = int(lengths.sum())
+    row_bytes = hkv * (dk + 4) * 2                 # K and V codes + scales
+    qo_bytes = 2 * b * H * dk * 2
+    out = {}
+    t = {
+        "decode": _time_ms(lambda: consmax_decode_cuda(
+            q, kq, vq, lengths, beta, gamma, bk=256, **sc, **kw), flush, 50),
+        "decode bf16": _time_ms(lambda: consmax_decode_cuda(
+            q, kd, vd, lengths, beta, gamma, bk=256, **kw), flush, 50),
+        "decode plain": _time_ms(lambda: consmax_decode_ref(
+            q, kq, vq, lengths, beta, gamma, **sc, **kw), flush, 5),
+        "paged decode": _time_ms(lambda: consmax_decode_paged_cuda(
+            q, kp, vp, table, lengths, beta, gamma, bk=256, **psc, **kw),
+            flush, 50),
+        "paged decode plain": _time_ms(lambda: consmax_decode_paged_ref(
+            q, kp, vp, table, lengths, beta, gamma, **psc, **kw), flush, 5)}
+    dec_bound = _bound_ms(fill * row_bytes + qo_bytes, 4 * fill * H * dk)
+    pdec_bound = _bound_ms(fill * row_bytes + qo_bytes + table.numel() * 4,
+                           4 * fill * H * dk)
+    # prefill: slot 7's rows (8192 filled), a (1, 512) chunk at fill 4096
+    c, idx = 512, 3584
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q1 = _rand(gen, (1, c, H, dk), dk ** -0.5)
+    one = [x[7:8].contiguous() for x in (kq, vq, ks, vs, kd, vd)]
+    k1, v1, ks1, vs1, kd1, vd1 = one
+    (kp1, vp1, ksp1, vsp1), t1 = _paginate_rows([k1, v1, ks1, vs1], [8192],
+                                                256, 64, seed=7)
+    ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
+    tn = torch.tensor([c], dtype=torch.int32, device="cuda")
+    sc1, psc1 = dict(k_scale=ks1, v_scale=vs1), dict(k_scale=ksp1,
+                                                     v_scale=vsp1)
+    t.update({
+        "prefill": _time_ms(lambda: consmax_prefill_cuda(
+            q1, k1, v1, ti, tn, beta, gamma, **sc1, **kw), flush, 50),
+        "prefill bf16": _time_ms(lambda: consmax_prefill_cuda(
+            q1, kd1, vd1, ti, tn, beta, gamma, **kw), flush, 50),
+        "prefill plain": _time_ms(lambda: consmax_prefill_ref(
+            q1, k1, v1, ti, tn, beta, gamma, **sc1, **kw), flush, 5),
+        "paged prefill": _time_ms(lambda: consmax_prefill_paged_cuda(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, **psc1, **kw), flush, 50),
+        "paged prefill plain": _time_ms(lambda: consmax_prefill_paged_ref(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, **psc1, **kw), flush, 5)})
+    kvl = idx + c
+    visible = sum(min(idx + i + 1, kvl) for i in range(c))
+    pre_bound = _bound_ms(kvl * row_bytes + 2 * c * H * dk * 2,
+                          4 * visible * H * dk)
+    ppre_bound = _bound_ms(kvl * row_bytes + 2 * c * H * dk * 2
+                           + t1.numel() * 4, 4 * visible * H * dk)
+    _log(f"[quantized] {name} qwen2-1.5b: decode {t['decode'] * 1e3:.1f} us "
+         f"(bf16 kernel on the dequantized cache {t['decode bf16'] * 1e3:.1f}"
+         f" us, ratio {t['decode'] / t['decode bf16']:.4f}; plain "
+         f"{t['decode plain'] * 1e3:.1f} us; bound "
+         f"{dec_bound[0] * 1e3:.2f} us by {dec_bound[1]}); paged decode "
+         f"{t['paged decode'] * 1e3:.1f} us; prefill c=512 at fill 4096 "
+         f"{t['prefill'] * 1e3:.1f} us (bf16 {t['prefill bf16'] * 1e3:.1f} "
+         f"us, ratio {t['prefill'] / t['prefill bf16']:.4f}; bound "
+         f"{pre_bound[0] * 1e3:.2f} us by {pre_bound[1]}); paged prefill "
+         f"{t['paged prefill'] * 1e3:.1f} us")
+    for kernel, ms, plain, bound, err in (
+            ("consmax_decode", t["decode"], t["decode plain"], dec_bound,
+             d_err),
+            ("consmax_prefill", t["prefill"], t["prefill plain"], pre_bound,
+             p_err),
+            ("consmax_decode_paged", t["paged decode"],
+             t["paged decode plain"], pdec_bound, d_err),
+            ("consmax_prefill_paged", t["paged prefill"],
+             t["paged prefill plain"], ppre_bound, p_err)):
+        out[f"{kernel}[{name}]"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None)
+    return out
+
+
+def lut_check():
+    """The reference's LUT check (``tests/test_quantized_kv.py:217``) on the
+    card, at dk 256 over all 256 int8 codes: K row j holds code s_j in lane
+    0 (scale 1.0), q = e_0 in bf16, V the identity (scale 1.0), so lane d of
+    the quantized decode kernel's output is ``C * exp(sigma * s_d)``,
+    ``consmax_lut``'s value, within one bf16 ulp (the output is bf16)."""
+    from repro_torch.kernels.consmax_decode.ops import consmax_decode_cuda
+    from repro_torch.kernels.consmax_lut.ops import consmax_lut_op
+
+    n, sigma = 256, 1.0 / 16.0
+    codes = torch.arange(-128, 128, device="cuda").to(torch.int8)
+    k = torch.zeros((1, n, 1, n), dtype=torch.int8, device="cuda")
+    k[0, :, 0, 0] = codes
+    v = torch.eye(n, dtype=torch.int8, device="cuda")[None, :, None, :]
+    ones = torch.ones((1, n, 1), device="cuda")
+    q = torch.zeros((1, 1, n), dtype=torch.bfloat16, device="cuda")
+    q[0, 0, 0] = 1.0
+    beta = torch.tensor([1.5], device="cuda")
+    gamma = torch.tensor([100.0], device="cuda")
+    out = consmax_decode_cuda(q, k, v, torch.tensor(
+        [n], dtype=torch.int32, device="cuda"), beta, gamma, scale=sigma,
+        bk=256, k_scale=ones, v_scale=ones)[0, 0].float()
+    lut = consmax_lut_op(codes, torch.exp(-beta[0]) / gamma[0], scale=sigma)
+    ulp = 2.0 ** (torch.floor(torch.log2(lut.abs())) - 7)
+    worst = float(((out - lut).abs() / ulp).max())
+    ok = worst <= 1.0
+    _log(f"[quantized] LUT check: int8 decode on all 256 K codes vs "
+         f"consmax_lut: largest difference {worst:.3f} bf16 ulp (bound 1) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("quantized decode disagrees with consmax_lut")
 
 
 def _visible_pairs(sq, skv, *, causal, window=0):
@@ -884,13 +1144,17 @@ def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
 
 
 def _cache_bytes(caches):
+    """Bytes of the KV leaves (K/V, and a quantized cache's scales)."""
     return sum(t.numel() * t.element_size() for sup in caches
-               for blk in sup.values() for t in blk["attn"].values())
+               for blk in sup.values()
+               for key, t in blk["attn"].items() if key != "index")
 
 
-def paged_engine_phase(*, seed=4, new_tokens=32):
+def paged_engine_phase(*, seed=4, new_tokens=32, kv_dtype="bfloat16"):
     """Full-width qwen2-1.5b (28 layers, random weights from ``seed``) on the
-    paged engine: 16 slots x 8192 rows over a pool of 128 pages of 256 rows
+    paged engine, its KV cache in ``kv_dtype`` (bf16, or int8 codes with
+    per-row fp32 scales): 16 slots x 8192 rows over a pool of 128 pages of
+    256 rows
     (a quarter of 16 x 8192, so admission waits for pages), prefix cache
     on (lru), both paged kernels, greedy. Traffic, in submit order: a
     2048-token page-aligned prefix P + 300 tokens (cold; the rest are
@@ -900,9 +1164,11 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
     and six unrelated prompts of 200-6000 tokens. Checked: every request
     finishes, the pool drains, the cache hits and copies, the prefill
     token and kernel launch counts, the tokens equal the contiguous
-    engine's on the same requests and one warm request's tokens served
-    alone (cold) on a fresh paged engine. Returns the paged kernels'
-    launch counts of the paged run."""
+    engine's on the same requests (same KV dtype) and one warm request's
+    tokens served alone (cold) on a fresh paged engine, and both caches'
+    bytes equal the reckoning from the shapes; then a few iterations of a
+    fresh paged run are traced. Returns the kernels' launch counts of the
+    paged run and of the contiguous run."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.consmax_decode.ops import (
@@ -918,7 +1184,12 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
                         device="cuda")
     common = dict(max_slots=16, max_seq=8192, prefill_chunk=chunk,
                   decode_kernel=True, prefill_kernel=True,
-                  score_norm=cfg.score_norm)
+                  score_norm=cfg.score_norm, kv_cache_dtype=kv_dtype)
+    ops = {"consmax_decode": consmax_decode_op,
+           "consmax_prefill": consmax_prefill_op,
+           "consmax_decode_paged": consmax_decode_paged_op,
+           "consmax_prefill_paged": consmax_prefill_paged_op}
+    tag = f"[paged {kv_dtype}]"
     paged_cfg = ServeConfig(**common, paged_kv=True, page_size=ps,
                             num_pages=npages, prefix_cache=True,
                             prefix_evict="lru")
@@ -938,8 +1209,10 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
     def serve(scfg, items, *, stage=True):
         """Serve ``items`` on a fresh engine; the first alone until its
         prefill has covered P (when ``stage``). Returns (engine, tokens per
-        stream, wall seconds)."""
+        stream, wall seconds, kernel launches of the run)."""
         eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        for op in ops.values():
+            op.launches = 0
         t0 = time.perf_counter()
         uids = [eng.submit(items[0][0], new_tokens, n=items[0][1])]
         for _ in range(plen // chunk if stage else 0):
@@ -951,15 +1224,13 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         flat = [u for x in uids for u in (x if isinstance(x, list) else [x])]
-        return eng, [results.get(u) for u in flat], wall
+        counts = {name: op.launches for name, op in ops.items()}
+        return eng, [results.get(u) for u in flat], wall, counts
 
-    for op in (consmax_decode_op, consmax_prefill_op,
-               consmax_decode_paged_op, consmax_prefill_paged_op):
-        op.launches = 0
-    eng, paged_toks, wall = serve(paged_cfg, reqs)
-    counts = {"consmax_decode_paged": consmax_decode_paged_op.launches,
-              "consmax_prefill_paged": consmax_prefill_paged_op.launches}
-    if consmax_decode_op.launches or consmax_prefill_op.launches:
+    eng, paged_toks, wall, all_counts = serve(paged_cfg, reqs)
+    counts = {k: all_counts[k] for k in ("consmax_decode_paged",
+                                         "consmax_prefill_paged")}
+    if all_counts["consmax_decode"] or all_counts["consmax_prefill"]:
         raise AssertionError("paged engine launched a contiguous kernel")
     pool = eng.pool
     streams = [(p, skip) for p, n, skip in reqs for _ in range(n)]
@@ -982,7 +1253,12 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
     gen = sum(len(t) for t in paged_toks)
     ttft = np.mean(list(eng.ttft.values()))
     pool_bytes = _cache_bytes(eng.caches)
-    _log(f"[paged] {arch}: {len(streams)} requests, {cold_total} prompt "
+    per_row = 2 * cfg.head_dim_ if kv_dtype == "bfloat16" else (
+        cfg.head_dim_ + 4)                    # per KV head, K or V
+    reckoned = cfg.n_layers * cfg.n_kv_heads * per_row * 2
+    checks[f"pool bytes == {npages + 1} pages x {ps} rows x reckoning"] = (
+        pool_bytes == (npages + 1) * ps * reckoned)
+    _log(f"{tag} {arch}: {len(streams)} requests, {cold_total} prompt "
          f"tokens ({eng.prefilled_tokens} prefilled, "
          f"{pool.prefix_hit_rows} rows from cached pages, "
          f"{pool.cow_copies} cow copies, {pool.evictions} evictions) + "
@@ -991,28 +1267,36 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
          f"{ttft:.3f} s; {chunks} prefill chunks; peak page occupancy "
          f"{pool.peak_in_use / npages:.3f} ({pool.peak_in_use} of {npages} "
          f"pages), peak reserved {pool.peak_reserved} pages; pool "
-         f"{pool_bytes / 2**20:.1f} MiB; kernel launches {counts}")
+         f"{pool_bytes / 2**20:.1f} MiB (K/V + scales + index); kernel "
+         f"launches {counts}")
     del eng
     torch.cuda.empty_cache()
 
-    ceng, cont_toks, cwall = serve(ServeConfig(**common), reqs)
+    ceng, cont_toks, cwall, ccounts = serve(ServeConfig(**common), reqs)
     cont_bytes = _cache_bytes(ceng.caches)
     cttft = np.mean(list(ceng.ttft.values()))
-    _log(f"[paged] {arch} contiguous engine, same requests and order: "
+    _log(f"{tag} {arch} contiguous engine, same requests and order: "
          f"{cwall:.3f} s, {gen / cwall:.1f} generated tok/s, "
          f"{cold_total / cwall:.1f} prompt tok/s, mean TTFT {cttft:.3f} s, "
          f"{ceng.prefilled_tokens} prefilled tokens; cache "
-         f"{cont_bytes / 2**20:.1f} MiB")
+         f"{cont_bytes / 2**20:.1f} MiB; kernel launches {ccounts}")
     del ceng
     torch.cuda.empty_cache()
     checks["tokens == contiguous engine's"] = paged_toks == cont_toks
+    checks["contiguous cache bytes == 16 x 8192 rows x reckoning"] = (
+        cont_bytes == 16 * 8192 * reckoned)
+    checks["contiguous engine ran both contiguous kernels only"] = (
+        min(ccounts["consmax_decode"], ccounts["consmax_prefill"])
+        >= cfg.n_layers and not ccounts["consmax_decode_paged"]
+        and not ccounts["consmax_prefill_paged"])
+    ccounts = {k: ccounts[k] for k in ("consmax_decode", "consmax_prefill")}
 
     solo = 3                                   # a warm P + suffix request
-    _, alone, _ = serve(paged_cfg, [reqs[solo]], stage=False)
+    _, alone, _, _ = serve(paged_cfg, [reqs[solo]], stage=False)
     name = f"request {solo} alone (cold) == served warm among the others"
     checks[name] = alone[0] == paged_toks[solo]
     for name, ok in checks.items():
-        _log(f"[paged] check {name}: {ok}")
+        _log(f"{tag} check {name}: {ok}")
     if not all(checks.values()):
         raise AssertionError("paged engine checks failed: " + ", ".join(
             n for n, ok in checks.items() if not ok))
@@ -1020,8 +1304,130 @@ def paged_engine_phase(*, seed=4, new_tokens=32):
     eng = ContinuousBatchingEngine(cfg, paged_cfg, model, device="cuda")
     for p, n, _ in reqs:
         eng.submit(p, new_tokens, n=n)
-    trace_steps(eng, f"{arch} paged", skip=8, steps=6)
+    trace_steps(eng, f"{arch} paged {kv_dtype}", skip=8, steps=6)
+    return counts, ccounts
+
+
+def gpt2_fp8_engine_phase(*, seed=3, new_tokens=16):
+    """Full-width gpt2-consmax (random weights from ``seed``) served from an
+    fp8_e4m3 KV cache with both kernels, 6 greedy requests (20-999 prompt
+    tokens): on the contiguous engine (8 slots x 1024 rows, chunk 128) and
+    on the paged engine (page size 128, 64 pages, prefix cache on). Checked:
+    every request finishes, both engines give the same tokens, one request
+    served alone equals its tokens served among the others, and each run
+    went through its two fp8 kernels. Returns the launch counts of both
+    runs."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_op, consmax_prefill_paged_op)
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.weights import init_params
+
+    cfg = get_config("gpt2-consmax")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    common = dict(max_slots=8, max_seq=1024, prefill_chunk=128,
+                  decode_kernel=True, prefill_kernel=True,
+                  kv_cache_dtype="fp8_e4m3", score_norm=cfg.score_norm)
+    cfgs = {"contiguous": ServeConfig(**common),
+            "paged": ServeConfig(**common, paged_kv=True, page_size=128,
+                                 num_pages=64)}
+    r = np.random.default_rng(seed)
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 700, 131, 256, 999, 64)]
+    ops = {"consmax_decode": consmax_decode_op,
+           "consmax_prefill": consmax_prefill_op,
+           "consmax_decode_paged": consmax_decode_paged_op,
+           "consmax_prefill_paged": consmax_prefill_paged_op}
+
+    def serve(scfg, batch):
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        for op in ops.values():
+            op.launches = 0
+        uids = [eng.submit(prompts[i], new_tokens) for i in batch]
+        results = eng.run()
+        torch.cuda.synchronize()
+        return ([results.get(u) for u in uids],
+                {n: op.launches for n, op in ops.items()})
+
+    toks, counts = {}, {}
+    for kind, scfg in cfgs.items():
+        toks[kind], counts[kind] = serve(scfg, range(len(prompts)))
+    alone, _ = serve(cfgs["contiguous"], [2])
+    checks = {
+        "every request finished": all(
+            t is not None and len(t) == new_tokens
+            for t in toks["contiguous"] + toks["paged"]),
+        "paged tokens == contiguous tokens":
+            toks["paged"] == toks["contiguous"],
+        "request 2 alone == served among the others":
+            alone[0] == toks["contiguous"][2],
+        "contiguous run: fp8 contiguous kernels only": min(
+            counts["contiguous"]["consmax_decode"],
+            counts["contiguous"]["consmax_prefill"]) >= cfg.n_layers
+            and not counts["contiguous"]["consmax_decode_paged"],
+        "paged run: fp8 paged kernels only": min(
+            counts["paged"]["consmax_decode_paged"],
+            counts["paged"]["consmax_prefill_paged"]) >= cfg.n_layers
+            and not counts["paged"]["consmax_decode"],
+    }
+    _log(f"[fp8] gpt2-consmax fp8_e4m3 engines: kernel launches {counts}")
+    for name, ok in checks.items():
+        _log(f"[fp8] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("fp8 engine checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
     return counts
+
+
+def perplexity_phase(*, seed=5, n_tokens=128):
+    """The reference's quantized-cache accuracy gate
+    (``tests/test_quantized_kv.py:285``) on the card, at full width:
+    gpt2-consmax with random weights from ``seed``, a ``n_tokens``-token
+    sequence teacher-forced through ``make_serve_fns``'s logits-returning
+    ``decode_step`` (both kernels on, so every K/V row is written to and
+    read back from the cache dtype). int8-KV perplexity within 1 % of
+    bf16-KV's; fp8_e4m3's printed beside them."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.weights import init_params
+
+    cfg = get_config("gpt2-consmax")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, n_tokens)
+    ppl = {}
+    for kv in ("bfloat16", "int8", "fp8_e4m3"):
+        scfg = ServeConfig(max_seq=n_tokens + 2, max_slots=1,
+                           kv_cache_dtype=kv, fused_sampling=False,
+                           decode_kernel=True, prefill_kernel=True,
+                           score_norm="consmax")
+        init_caches, _, decode_step, _ = make_serve_fns(cfg, scfg,
+                                                        device="cuda")
+        caches = init_caches(1)
+        nll = torch.zeros((), dtype=torch.float64, device="cuda")
+        for t in range(n_tokens - 1):
+            logits, caches = decode_step(model, caches, {
+                "tokens": torch.tensor([[toks[t]]], dtype=torch.int32,
+                                       device="cuda")})
+            logp = torch.log_softmax(logits[0].float(), dim=-1)
+            nll -= logp[int(toks[t + 1])].double()
+        ppl[kv] = float(torch.exp(nll / (n_tokens - 1)))
+    rel = {kv: abs(ppl[kv] - ppl["bfloat16"]) / ppl["bfloat16"]
+           for kv in ("int8", "fp8_e4m3")}
+    ok = all(np.isfinite(list(ppl.values()))) and rel["int8"] <= 0.01
+    _log(f"[ppl] gpt2-consmax (full width, seed {seed}), {n_tokens} tokens "
+         f"teacher-forced through make_serve_fns decode_step: perplexity "
+         f"bf16-KV {ppl['bfloat16']:.4f}, int8-KV {ppl['int8']:.4f} "
+         f"(relative {rel['int8']:.3e}, gate 1e-2), fp8_e4m3-KV "
+         f"{ppl['fp8_e4m3']:.4f} (relative {rel['fp8_e4m3']:.3e}) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int8-KV perplexity gate failed")
 
 
 def main():
@@ -1061,6 +1467,11 @@ def main():
     rows.update(paper_rows)
     _log(f"[paper] paper kernel phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows.update(quantized_kernel_phase(flush))
+    _log(f"[quantized] quantized kernel phase "
+         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     del flush
     for name, row in rows.items():
         _log(f"[kernels] {name}: {row['ms'] * 1e3:.1f} us (plain "
@@ -1091,8 +1502,25 @@ def main():
                  seed=3)
     _log(f"[engine] gpt2-consmax phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts.update(paged_engine_phase())
+    counts.update(paged_engine_phase()[0])
     _log(f"[paged] qwen2-1.5b paged phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paged8, cont8 = paged_engine_phase(kv_dtype="int8")
+    counts.update({f"{k}[int8]": n for k, n in {**paged8, **cont8}.items()})
+    _log(f"[paged int8] qwen2-1.5b int8 paged + contiguous phase "
+         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp8 = gpt2_fp8_engine_phase()
+    counts.update({f"{k}[fp8_e4m3]": fp8[run][k] for run, names in (
+        ("contiguous", ("consmax_decode", "consmax_prefill")),
+        ("paged", ("consmax_decode_paged", "consmax_prefill_paged")))
+        for k in names})
+    _log(f"[fp8] gpt2-consmax fp8 phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    perplexity_phase()
+    _log(f"[ppl] perplexity phase {time.perf_counter() - t0:.1f} s")
 
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
@@ -1110,6 +1538,10 @@ def main():
                                  ref.format("softmax_attn", 75)),
            "consmax_lut": (port.format("consmax_lut"),
                            ref.format("consmax_lut", 47))}
+    for name in ("consmax_decode", "consmax_prefill", "consmax_decode_paged",
+                 "consmax_prefill_paged"):
+        for dt in QDTYPES:                  # the same kernels, K/V codes
+            src[f"{name}[{dt}]"] = src[name]
     counts.update(paper_counts)
     kernels = [dict(name=name, route="cuda", source=src[name][0],
                     replaces=src[name][1], launches=counts[name],

@@ -22,7 +22,9 @@
 * ``attention_apply`` — the module API: q/k/v projection, RoPE, the
   in-place cache write, the plain walks above or the ConSmax kernels
   (``kernels/consmax_prefill``, ``kernels/consmax_decode``, contiguous or
-  paged), and the output projection.
+  paged), and the output projection; and the whole-sequence branch
+  (training, whole-prompt prefill) through ``blockwise_attention``, which
+  fills rows [0, s) of the cache when one is given.
 
 Layouts as in the reference: q ``(b, s, H, dk)``, caches ``(b, L, hkv, dk)``
 or page pools ``(P + 1, ps, hkv, dk)`` (see ``_paged_cache_write`` for the
@@ -30,10 +32,16 @@ spare page), per-slot ``index`` ``(b,)`` int32. The port writes K/V into the
 cache tensors in place (the reference donates the cache buffer to the same
 effect).
 
-Not ported yet (they raise ``NotImplementedError``): the whole-sequence
-branch of ``attention_apply`` (training and ``ServeSession``, which will
-call ``blockwise_attention``), cross-attention, and the softmax/softermax
-online walks of chunked prefill and paged attention.
+Quantized KV: a cache dict that carries ``k_scale``/``v_scale`` leaves
+(int8 / fp8_e4m3 caches, ``models.transformer.init_caches``) stores K/V as
+codes with one fp32 scale per row and KV head. Every write site quantizes
+its fresh rows (``cache_layout.quantize_kv``) and writes the scales beside
+them through the same row addressing; every read dequantizes block by
+block (``cache_layout.dequant_block``), in the plain walks as in the
+kernels, which take the scales as operands.
+
+Not ported yet (they raise ``NotImplementedError``): cross-attention, and
+the softmax/softermax online walks of chunked prefill and paged attention.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import normalizers
 from repro_torch.core.consmax import ConSmaxParams
+from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.cache_layout import kv_mask
 from repro_torch.nn import layers as L
 from repro_torch.nn import rope as R
@@ -147,8 +156,9 @@ def blockwise_attention(q, k, v, *, norm_kind: str, norm_params,
 
 # ---------------------------------------------------- cache writes ----
 def _append_cache_write(cache, new, index):
-    """Write ``new``: (b, c, hkv, dk) into ``cache``: (b, L, hkv, dk) at
-    per-slot row ``index``: (b,), in place.
+    """Write ``new``: (b, c, ...) into ``cache``: (b, L, ...) at per-slot
+    row ``index``: (b,), in place — K/V rows (..., hkv, dk) or their
+    (..., hkv) scales.
 
     As the reference's read-modify-write: the c-row window starts at
     ``clamp(index, 0, L - c)`` and the chunk's rows land at their true
@@ -162,7 +172,7 @@ def _append_cache_write(cache, new, index):
     start = index.clamp(0, max(L_ - c, 0))
     off = index - start
     rows = start[:, None] + ar                               # (b, c)
-    keep = (ar >= off[:, None])[..., None, None]
+    keep = (ar >= off[:, None]).reshape((b, c) + (1,) * (new.ndim - 2))
     src = (ar - off[:, None]).clamp(min=0)
     bi = torch.arange(b, device=cache.device)[:, None]
     win = cache[bi, rows]
@@ -170,10 +180,11 @@ def _append_cache_write(cache, new, index):
 
 
 def _paged_cache_write(pool, new, index, lengths, page_table):
-    """Scatter ``new``: (b, c, hkv, dk) into the page ``pool``:
-    (P + 1, ps, hkv, dk) at per-slot logical rows [index, index + lengths),
-    in place: logical row t of slot b lands in page ``page_table[b, t // ps]``,
-    row ``t % ps``.
+    """Scatter ``new``: (b, c, ...) into the page ``pool``: (P + 1, ps, ...)
+    at per-slot logical rows [index, index + lengths), in place: logical row
+    t of slot b lands in page ``page_table[b, t // ps]``, row ``t % ps``.
+    K/V rows (..., hkv, dk) and their (..., hkv) scales take the same
+    rows; dropped ones reach the spare page alike.
 
     Pad rows (>= lengths), rows past the table and rows whose page is
     unmapped (-1) must reach no page. The reference drops them with an
@@ -200,16 +211,31 @@ def _paged_cache_write(pool, new, index, lengths, page_table):
 
 
 def _decode_cache_write(cache, new, index, active):
-    """Write the one-token rows ``new``: (b, 1, hkv, dk) at ``index``
-    (clamped into the cache, as ``dynamic_update_slice`` does), in place;
-    slots where ``active`` is False keep their row."""
+    """Write the one-token rows ``new``: (b, 1, ...) at ``index`` (clamped
+    into the cache, as ``dynamic_update_slice`` does), in place — K/V rows
+    (b, 1, hkv, dk) or their (b, 1, hkv) scales; slots where ``active`` is
+    False keep their row."""
     b = new.shape[0]
     rows = index.clamp(0, cache.shape[1] - 1)
     bi = torch.arange(b, device=cache.device)
     new = new[:, 0].to(cache.dtype)
     if active is not None:
-        new = torch.where(active[:, None, None], new, cache[bi, rows])
+        keep = active.reshape((b,) + (1,) * (new.ndim - 1))
+        new = torch.where(keep, new, cache[bi, rows])
     cache[bi, rows] = new
+
+
+def _quantized_write(write, cache, k, v, *args):
+    """Run ``write(leaf, new, *args)`` for K and V and, for a quantized
+    cache, quantize the fresh rows first and write their scales through
+    the same ``write`` (the reference's write sites)."""
+    if "k_scale" in cache:
+        k, ksc = CL.quantize_kv(k, cache["k"].dtype)
+        v, vsc = CL.quantize_kv(v, cache["v"].dtype)
+        write(cache["k_scale"], ksc, *args)
+        write(cache["v_scale"], vsc, *args)
+    write(cache["k"], k, *args)
+    write(cache["v"], v, *args)
 
 
 # ------------------------------------------------------------ plain walks ----
@@ -259,16 +285,23 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
 
 
 def append_attention(q, k, v, index, lengths, *, norm_kind, norm_params,
-                     window=0, softcap=0.0, merged=True, kv_chunk=1024):
+                     window=0, softcap=0.0, merged=True, kv_chunk=1024,
+                     k_scale=None, v_scale=None):
     """q: (b, c, H, dk) chunk queries at per-slot positions index + [0, c);
     k, v: (b, L, hkv, dk) caches *after* the chunk's K/V were written at
     ``index``; lengths: (b,) real (non-pad) tokens in the chunk. Each query
     row attends causally to cache rows < index + lengths; rows >= lengths
-    are pad queries whose output the caller ignores."""
+    are pad queries whose output the caller ignores. ``k_scale``/``v_scale``
+    (b, L, hkv): the row scales of a quantized cache, applied to each
+    gathered block (``dequant_block``)."""
     kc = min(kv_chunk, k.shape[1])
 
     def gather(j):
-        return k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+        sl = slice(j * kc, (j + 1) * kc)
+        if k_scale is None:
+            return k[:, sl], v[:, sl]
+        return (CL.dequant_block(k[:, sl], k_scale[:, sl], q.dtype),
+                CL.dequant_block(v[:, sl], v_scale[:, sl], q.dtype))
 
     return _kv_walk(q, index, lengths, gather, kc, -(-k.shape[1] // kc),
                     k.shape[2], norm_kind=norm_kind, norm_params=norm_params,
@@ -276,7 +309,8 @@ def append_attention(q, k, v, index, lengths, *, norm_kind, norm_params,
 
 
 def paged_attention(q, kp, vp, page_table, index, lengths, *, norm_kind,
-                    norm_params, window=0, softcap=0.0, merged=True):
+                    norm_params, window=0, softcap=0.0, merged=True,
+                    k_scale=None, v_scale=None):
     """Attention of a (b, c, H, dk) chunk against page-pool KV (consmax).
 
     kp, vp: (P, ps, hkv, dk) pools; page_table: (b, npg) int32 (-1 =
@@ -286,12 +320,17 @@ def paged_attention(q, kp, vp, page_table, index, lengths, *, norm_kind,
     kv_len = index, a fully masked row whose output is discarded). Block j
     is page ``page_table[:, j]`` of every slot; an unmapped entry is clamped
     to page 0 by the gather and masked whole (``block_valid``), since
-    under sequence sharding a -1 can sit inside the fill."""
+    under sequence sharding a -1 can sit inside the fill. ``k_scale``/
+    ``v_scale`` (P, ps, hkv): the scale pools of a quantized pool, gathered
+    with each page and applied to it (``dequant_block``)."""
     ps = kp.shape[1]
 
     def gather(j):
         pid = page_table[:, j].clamp(min=0).long()
-        return kp[pid], vp[pid]
+        if k_scale is None:
+            return kp[pid], vp[pid]
+        return (CL.dequant_block(kp[pid], k_scale[pid], q.dtype),
+                CL.dequant_block(vp[pid], v_scale[pid], q.dtype))
 
     return _kv_walk(q, index, lengths, gather, ps, page_table.shape[1],
                     kp.shape[2], norm_kind=norm_kind,
@@ -300,9 +339,14 @@ def paged_attention(q, kp, vp, page_table, index, lengths, *, norm_kind,
 
 
 def decode_attention(q, k, v, index, *, norm_kind, norm_params, window=0,
-                     softcap=0.0, merged=True):
+                     softcap=0.0, merged=True, k_scale=None, v_scale=None):
     """q: (b, 1, H, dk); k, v: (b, L, hkv, dk); index: (b,) current
-    position (its K/V row already written). The score row is materialized."""
+    position (its K/V row already written). The score row is materialized,
+    and with it a quantized cache's rows dequantized by their (b, L, hkv)
+    ``k_scale``/``v_scale``, as the reference's plain decode does."""
+    if k_scale is not None:
+        k = CL.dequant_block(k, k_scale, q.dtype)
+        v = CL.dequant_block(v, v_scale, q.dtype)
     b, _, H, dk = q.shape
     L_, hkv = k.shape[1], k.shape[2]
     g = H // hkv
@@ -324,16 +368,25 @@ def decode_attention(q, k, v, index, *, norm_kind, norm_params, window=0,
 
 # ----------------------------------------------------------- module api ----
 def attention_apply(p: Attention, x, cfg: ModelConfig, *,
-                    kind: str = "global", cache=None, cond=None,
-                    merged=False, kv_chunk: int = 1024,
-                    decode_kernel: bool = False, decode_kv_block: int = 256,
-                    prefill_kernel: bool = False, fill_bound: bool = True,
-                    prefill_append=None, decode_active=None,
-                    page_table=None):
-    """Self-attention over x: (b, s, d) against a per-slot KV cache.
+                    kind: str = "global", positions=None, cache=None,
+                    cond=None, merged=False, q_chunk: int = 2048,
+                    kv_chunk: int = 1024, decode_kernel: bool = False,
+                    decode_kv_block: int = 256, prefill_kernel: bool = False,
+                    fill_bound: bool = True, prefill_append=None,
+                    decode_active=None, page_table=None):
+    """Self-attention over x: (b, s, d), with or without a per-slot KV
+    cache.
 
-    cache: dict(k, v, index) — K/V are written in place; the returned cache
-    dict holds the same K/V tensors and the advanced index.
+    cache: None (training: whole-sequence causal attention through
+    ``blockwise_attention``) or dict(k, v, index[, k_scale, v_scale]) —
+    K/V (and a quantized cache's scales) are written in place; the returned
+    cache dict holds the same tensors and the advanced index. With a cache
+    and neither ``prefill_append`` nor a one-token x, x is a whole prompt:
+    it attends through ``blockwise_attention`` on its own full-precision
+    K/V, which then fill cache rows [0, s) (quantized when the cache is),
+    and ``index`` becomes s. ``positions`` (b or 1, s) are the whole-
+    sequence RoPE positions (default 0..s-1); the serving branches take
+    theirs from the cache index.
     prefill_append: (b,) int32 real chunk lengths — x is a fixed-size chunk
     appended at the cache's per-slot ``index``. Pad rows' K/V are zeroed
     before the write and ``index`` advances by the real count.
@@ -353,16 +406,16 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     if cond is not None:
         raise NotImplementedError("cross-attention is not ported yet")
     b, s, _ = x.shape
-    if cache is None or (prefill_append is None and s > 1):
-        raise NotImplementedError(
-            "whole-sequence attention through attention_apply (training / "
-            "whole-prompt prefill) is not wired yet: serve through "
-            "prefill_append chunks and one-token decode, or call "
-            "blockwise_attention directly")
     H, dk = cfg.n_heads, cfg.head_dim_
     cdt = cfg.cdtype()
     window = cfg.window if kind == "local" else 0
     consmax_kernels = cfg.score_norm == "consmax"
+    whole = cache is None or (prefill_append is None and s > 1)
+    if whole and page_table is not None:
+        raise NotImplementedError(
+            "paged KV caches serve chunked prefill (prefill_append) and "
+            "one-token decode only: whole-prompt prefill writes contiguous "
+            "rows")
 
     q = p.q(x, cdt) * torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
     k = p.k(x, cdt)
@@ -373,14 +426,38 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     rot = int(dk * cfg.rope_fraction)
     if rot % 2:
         rot -= 1
-    idx = cache["index"]                                     # (b,) int32
-    if rope_on:
+    if whole:
+        pos = (torch.arange(s, device=x.device)[None, :] if positions is None
+               else positions)
+    else:
+        idx = cache["index"]                                 # (b,) int32
         pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]
+    if rope_on:
         q = R.apply_rope(q, pos, rotary_dim=rot, theta=cfg.rope_theta,
                          interleaved=interleaved)
         k = R.apply_rope(k, pos, rotary_dim=rot, theta=cfg.rope_theta,
                          interleaved=interleaved)
+
+    if whole:
+        # training, or whole-prompt prefill: attention on the full-precision
+        # K/V; only the cache write pays the quantization round trip
+        out = blockwise_attention(
+            q, k, v, norm_kind=cfg.score_norm, norm_params=p.score_norm,
+            causal=True, window=window, softcap=cfg.attn_softcap,
+            merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        new_cache = None
+        if cache is not None:
+            def fill(leaf, new):
+                leaf[:, :s] = new.to(leaf.dtype)
+            _quantized_write(fill, cache, k, v)
+            new_cache = dict(cache, index=torch.full(
+                (b,), s, dtype=torch.int32, device=x.device))
+        return p.o(out, cdt), new_cache
+
     k_cache, v_cache = cache["k"], cache["v"]
+    scales = {}
+    if "k_scale" in cache:
+        scales = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
     if consmax_kernels:
         beta = p.score_norm.beta.float().expand(H).contiguous()
         gamma = p.score_norm.gamma.float().expand(H).contiguous()
@@ -393,9 +470,10 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
         else:
             lengths = decode_active.to(torch.int32)
         # pad rows / inactive slots land on the spare page, never a real one
-        _paged_cache_write(k_cache, k, idx, lengths, page_table)
-        _paged_cache_write(v_cache, v, idx, lengths, page_table)
-        kw = dict(window=window, softcap=cfg.attn_softcap, merged=merged)
+        _quantized_write(_paged_cache_write, cache, k, v, idx, lengths,
+                         page_table)
+        kw = dict(window=window, softcap=cfg.attn_softcap, merged=merged,
+                  **scales)
         if prefill_append is not None and prefill_kernel and consmax_kernels:
             from repro_torch.kernels.consmax_prefill.ops import (
                 consmax_prefill_paged_op)
@@ -415,41 +493,43 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
         new_index = idx + lengths
     elif prefill_append is not None:
         lengths = prefill_append.to(torch.int32)
-        # zero pad rows (>= lengths) so they never enter the cache
+        # zero pad rows (>= lengths) so they never enter the cache; a zero
+        # row quantizes to (0, scale 1.0) and reads back as zeros
         keep = (torch.arange(s, device=x.device)[None, :]
                 < lengths[:, None])[..., None, None]
-        _append_cache_write(k_cache, torch.where(keep, k, 0), idx)
-        _append_cache_write(v_cache, torch.where(keep, v, 0), idx)
+        _quantized_write(_append_cache_write, cache, torch.where(keep, k, 0),
+                         torch.where(keep, v, 0), idx)
         if prefill_kernel and consmax_kernels:
             from repro_torch.kernels.consmax_prefill.ops import (
                 consmax_prefill_op)
             out = consmax_prefill_op(
                 q, k_cache, v_cache, idx, lengths, beta, gamma,
                 window=window, softcap=cfg.attn_softcap, merged=merged,
-                scale=1.0, fill_bound=fill_bound)
+                scale=1.0, fill_bound=fill_bound, **scales)
         else:
             out = append_attention(
                 q, k_cache, v_cache, idx, lengths,
                 norm_kind=cfg.score_norm, norm_params=p.score_norm,
                 window=window, softcap=cfg.attn_softcap, merged=merged,
-                kv_chunk=kv_chunk)
+                kv_chunk=kv_chunk, **scales)
         new_index = idx + lengths
     else:
-        _decode_cache_write(k_cache, k, idx, decode_active)
-        _decode_cache_write(v_cache, v, idx, decode_active)
+        _quantized_write(_decode_cache_write, cache, k, v, idx,
+                         decode_active)
         if decode_kernel and consmax_kernels:
             from repro_torch.kernels.consmax_decode.ops import (
                 consmax_decode_op)
             out = consmax_decode_op(
                 q, k_cache, v_cache, idx, beta, gamma, window=window,
                 softcap=cfg.attn_softcap, merged=merged, scale=1.0,
-                bk=decode_kv_block, fill_bound=fill_bound)
+                bk=decode_kv_block, fill_bound=fill_bound, **scales)
         else:
             out = decode_attention(q, k_cache, v_cache, idx,
                                    norm_kind=cfg.score_norm,
                                    norm_params=p.score_norm, window=window,
-                                   softcap=cfg.attn_softcap, merged=merged)
+                                   softcap=cfg.attn_softcap, merged=merged,
+                                   **scales)
         step = 1 if decode_active is None else decode_active.to(idx.dtype)
         new_index = idx + step
     out = p.o(out, cdt)
-    return out, {"k": k_cache, "v": v_cache, "index": new_index}
+    return out, dict(cache, index=new_index)

@@ -32,6 +32,9 @@ COMMON_INCLUDE = _KERNELS_DIR / "csrc"
 KERNELS = ("consmax_decode", "consmax_prefill", "consmax_attn",
            "softmax_attn", "consmax_lut")
 HEAD_DIMS = (32, 64, 128, 256)          # the head_dims the kernels compile
+# K/V element types of the serving kernels -> their kv_type code (KVCode in
+# csrc/consmax_common.cuh); int8 / fp8_e4m3 caches come with fp32 scales
+KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -108,21 +111,51 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_kv_scales(kernel: str, k, v, k_scale, v_scale):
+    """Raise unless the cache's scales match its dtype: an int8 / fp8_e4m3
+    cache needs fp32 ``k_scale``/``v_scale`` shaped like it without its dk
+    axis, a float cache (bf16 on the card; any float dtype in the plain
+    versions) takes none. Checked on every device, before the plain
+    version or the kernel runs."""
+    if v.dtype != k.dtype:
+        raise TypeError(f"{kernel}: k is {k.dtype}, v is {v.dtype}")
+    given = (k_scale is not None, v_scale is not None)
+    if k.dtype not in (torch.int8, torch.float8_e4m3fn):
+        if any(given):
+            raise ValueError(f"{kernel}: a {k.dtype} cache takes no "
+                             "k_scale/v_scale")
+        return
+    if not all(given):
+        raise ValueError(f"{kernel}: a {k.dtype} cache needs its k_scale "
+                         "and v_scale")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or t.shape != k.shape[:-1]:
+            raise ValueError(f"{kernel}: {name} must be float32 of shape "
+                             f"{tuple(k.shape[:-1])}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
 def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
-                   page_table=None):
-    """Raise unless the attention operands are bf16 and agree: ``q``
+                   page_table=None, k_scale=None, v_scale=None) -> int:
+    """Raise unless the attention operands agree: ``q`` bf16
     (b, [s,] H, dk) against ``k``/``v`` (b, L, hkv, dk) — a serving cache
     (decode q (b, H, dk), prefill chunk (b, c, H, dk)) or a full sequence's
     keys and values (b, skv, hkv, dk) — or, with ``page_table`` (b, npg)
-    int32, page pools (P, ps, hkv, dk); dk in ``HEAD_DIMS``, H a multiple
+    int32, page pools (P, ps, hkv, dk); k/v bf16, or int8 / fp8_e4m3 with
+    their scales (``check_kv_scales``); dk in ``HEAD_DIMS``, H a multiple
     of hkv, ``slots`` tensors (b,) and ``heads`` tensors (H,); and every
     operand on ``q``'s device, contiguous and aligned for the kernel's
-    vector loads (16 bytes for q/k/v, 4 for the rest)."""
+    vector loads (16 bytes for q/k/v, 4 for the rest). Returns the cache's
+    kv_type code (``KV_TYPES``)."""
     b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{kernel}: {name} must be bfloat16 on CUDA, "
-                            f"got {t.dtype}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{kernel}: q must be bfloat16 on CUDA, got "
+                        f"{q.dtype}")
+    if k.dtype not in KV_TYPES:
+        raise TypeError(f"{kernel}: k/v must be one of "
+                        f"{[str(t) for t in KV_TYPES]} on CUDA, got "
+                        f"{k.dtype}")
+    check_kv_scales(kernel, k, v, k_scale, v_scale)
     if k.shape != v.shape or k.ndim != 4 or k.shape[3] != dk or (
             page_table is None and k.shape[0] != b):
         raise ValueError(f"{kernel}: q {tuple(q.shape)} does not match "
@@ -145,15 +178,22 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
                              f"int32, got {tuple(page_table.shape)} "
                              f"{page_table.dtype}")
         extra["page_table"] = page_table
+    if k_scale is not None:
+        extra.update(k_scale=k_scale, v_scale=v_scale)
     _check_placement(kernel, q.device, {"q": q, "k": k, "v": v, **slots,
                                         **heads, **extra},
                      align={"q": 16, "k": 16, "v": 16})
+    return KV_TYPES[k.dtype]
 
 
 def check_sequence_operands(kernel: str, q, k, v, *, heads: dict):
     """Full-sequence attention: ``q`` (b, sq, H, dk) against ``k``/``v``
     (b, skv, hkv, dk) in the model layout, checked as ``check_operands``
-    does, with ``heads`` tensors (H,)."""
+    does, with ``heads`` tensors (H,); bf16 k/v only."""
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel}: {name} must be bfloat16 on CUDA, "
+                            f"got {t.dtype}")
     if q.ndim != 4:
         raise ValueError(f"{kernel}: q must be (b, sq, H, dk), got "
                          f"{tuple(q.shape)}")
@@ -188,6 +228,12 @@ def _check_placement(kernel: str, device, operands: dict, *, align: dict):
         if not t.is_contiguous() or t.data_ptr() % to:
             raise ValueError(f"{kernel}: {name} must be contiguous" + (
                 f" and {to}-byte aligned" if to > 1 else ""))
+
+
+def data_ptr(t):
+    """A tensor's address for a ``ctypes.c_void_p`` argument; None (a null
+    pointer) for an absent optional operand."""
+    return None if t is None else t.data_ptr()
 
 
 def check(lib: ctypes.CDLL, err: int, what: str):

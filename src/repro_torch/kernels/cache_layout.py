@@ -8,12 +8,18 @@ attention kernels), their plain versions and the plain KV walks
 the GQA folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``),
 the fill bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``)
 and the page gather of the paged kernels' plain versions
-(``gather_pages``). The CUDA sources under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live`` and
-``consmax_weights`` in device code; the tests hold the kernels against the
-plain versions built from these helpers.
+(``gather_pages``), and the quantized KV cache contract
+(``quantize_kv`` / ``dequantize_kv`` / ``dequant_block``). The CUDA sources
+under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live``,
+``consmax_weights`` and ``dequant_block`` in device code; the tests hold the
+kernels against the plain versions built from these helpers.
 
-Only bfloat16 KV caches are served by the port so far: the quantized
-(int8 / fp8_e4m3) cache names raise ``NotImplementedError``.
+KV caches are stored as bfloat16, int8 or fp8_e4m3
+(``ServeConfig.kv_cache_dtype``). A quantized cache carries one fp32 scale
+per cache row per KV head (``k_scale`` / ``v_scale`` leaves shaped like the
+cache without its dk axis), written by ``quantize_kv`` at every cache write
+and applied by ``dequant_block`` one block at a time at every read — in the
+CUDA kernels and in their plain versions alike.
 """
 from __future__ import annotations
 
@@ -105,14 +111,16 @@ def fill_bounded_sum(partials, n_live, axis: int = 2):
 
 
 def gather_pages(pool, page_table):
-    """The contiguous rows a page table maps: ``pool`` (P, ps, hkv, dk),
-    ``page_table`` (b, npg) int32 -> (b, npg * ps, hkv, dk), logical row r
-    of slot b from page ``page_table[b, r // ps]``, and zeros for -1
-    entries. Plain and whole: the paged kernels' plain versions and tests
-    use it, never the card's path."""
+    """The contiguous rows a page table maps: ``pool`` (P, ps, ...) — a
+    (P, ps, hkv, dk) K/V pool or a (P, ps, hkv) scale pool —, ``page_table``
+    (b, npg) int32 -> (b, npg * ps, ...), logical row r of slot b from page
+    ``page_table[b, r // ps]``, and zeros for -1 entries. Plain and whole:
+    the paged kernels' plain versions and tests use it, never the card's
+    path."""
     b, npg = page_table.shape
     rows = pool[page_table.clamp(min=0).long()]       # (b, npg, ps, ...)
-    rows = torch.where((page_table >= 0).reshape(b, npg, 1, 1, 1), rows,
+    valid = (page_table >= 0).reshape((b, npg) + (1,) * (pool.ndim - 1))
+    rows = torch.where(valid, rows,
                        torch.zeros((), dtype=pool.dtype, device=pool.device))
     return rows.reshape(b, npg * pool.shape[1], *pool.shape[2:])
 
@@ -129,19 +137,68 @@ def consmax_weights(s, beta, gamma, merged: bool):
 KV_DTYPES = {
     "bfloat16": torch.bfloat16,
     "bf16": torch.bfloat16,
+    "int8": torch.int8,
+    "fp8_e4m3": torch.float8_e4m3fn,
 }
-_QUANTIZED = ("int8", "fp8_e4m3")
+_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
 
-def kv_cache_dtype(name: str) -> torch.dtype:
-    """The torch dtype a ``ServeConfig.kv_cache_dtype`` name stores K/V in.
-    The quantized caches of the reference are not ported yet."""
-    if name in _QUANTIZED:
-        raise NotImplementedError(
-            f"kv cache dtype {name!r}: quantized KV caches are not ported "
-            "yet (the port serves bfloat16 caches only)")
+def kv_cache_dtype(name) -> torch.dtype:
+    """The torch dtype a ``ServeConfig.kv_cache_dtype`` name stores K/V in
+    (a torch dtype passes through)."""
+    if isinstance(name, torch.dtype):
+        return name
     if name not in KV_DTYPES:
-        raise ValueError(
-            f"unknown kv cache dtype {name!r}; expected one of "
-            f"{sorted(KV_DTYPES) + list(_QUANTIZED)}")
+        raise ValueError(f"unknown kv cache dtype {name!r}; expected one of "
+                         f"{sorted(KV_DTYPES)}")
     return KV_DTYPES[name]
+
+
+def kv_quantized(name) -> bool:
+    """True iff this kv dtype needs scale leaves and write-time
+    quantization (bf16 is stored as is, with no scale leaves)."""
+    return kv_cache_dtype(name) in _QMAX
+
+
+def kv_qmax(dtype) -> float:
+    """Largest magnitude the quantizer scales a row onto: 127 for int8, 448
+    for fp8_e4m3."""
+    dtype = kv_cache_dtype(dtype)
+    if dtype not in _QMAX:
+        raise ValueError(f"kv_qmax: {dtype} is not a quantized kv dtype")
+    return _QMAX[dtype]
+
+
+def quantize_kv(x, dtype):
+    """K/V rows ``x`` (..., hkv, dk) -> (codes (..., hkv, dk) in ``dtype``,
+    scale (..., hkv) fp32), one absmax scale per row per head: the
+    reference's arithmetic exactly (fp32 upcast, ``amax / qmax`` with 1.0
+    for an all-zero row, true division, int8 rounded half to even and
+    clamped). An all-zero row quantizes to exact zeros with scale 1.0, so
+    it reads back as the zeros a bf16 cache holds."""
+    dtype = kv_cache_dtype(dtype)
+    qmax = kv_qmax(dtype)
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qmax,
+                        torch.ones((), dtype=torch.float32,
+                                   device=x.device))
+    q = xf / scale[..., None]
+    if dtype == torch.int8:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q.to(dtype), scale
+
+
+def dequantize_kv(q, scale, out_dtype=torch.float32):
+    """Inverse of ``quantize_kv``: codes (..., hkv, dk) times their
+    (..., hkv) fp32 row scales, an fp32 multiply, then ``out_dtype``."""
+    return dequant_block(q, scale, out_dtype)
+
+
+def dequant_block(x, scale, out_dtype):
+    """One block's dequant: ``x`` (..., rows, dk) codes, ``scale`` their
+    (..., rows) fp32 scales; an fp32 multiply, then a cast to the compute
+    dtype. The CUDA kernels do the same (``dequant`` in
+    ``csrc/consmax_common.cuh``: the product rounded to bf16), so a kernel
+    on a quantized cache gives its own bits on the dequantized cache."""
+    return (x.float() * scale.float()[..., None]).to(out_dtype)

@@ -10,7 +10,13 @@
 // two entry points run one kernel; only the row address differs
 // (ContigRows / PagedRows in consmax_common.cuh), so the paged kernel walks
 // the same decode_kv_block shards as the contiguous one, not the TPU's
-// per-page grid, and gives its bits when the pages hold the same rows:
+// per-page grid, and gives its bits when the pages hold the same rows.
+// The cache holds bf16, or int8 / fp8_e4m3 codes with one fp32 scale per
+// (row, KV head) in (b, L, hkv) / (P, ps, hkv) scale tensors addressed by
+// the same row index; each element is dequantized as it is loaded
+// (consmax_common.cuh dequant: code * scale rounded to bf16), so a
+// quantized cache gives the bits of the bf16 kernel on its dequantized
+// values (the TPU kernels' per-block dequant_block):
 //   s = q . k * scale;  s = softcap * tanh(s / softcap) (optional)
 //   p = C * exp(s), C = exp(-beta) / gamma (merged)  |  exp(s - beta) / gamma
 //   p = 0 where kv_mask(n - 1, kpos, n, window) is false or no row backs
@@ -22,6 +28,8 @@
 // i.e. ~g flops per byte — far below the ~295 flops/byte ridge, so it is
 // bandwidth-bound: about b * fill * hkv * dk * 2 bytes * 2 (K and V) per
 // layer, 33.5 MB ~ 10 us for b = 8, fill = 4096, qwen2-1.5b (hkv 2, dk 128).
+// An int8 / fp8 cache moves dk + 4 bytes per row, KV head and tensor (the
+// codes and the scale) instead of 2 * dk: 0.516x at dk 128.
 //
 // Design against that bound:
 // * Split-KV: the grid is (KV shard, kv head, slot), so b * hkv = 16 rows of
@@ -43,10 +51,12 @@
 //   the reference's skip branch does, so the combine stays table-free.
 // * GQA folding: the g query heads sharing a KV head are held in registers
 //   (chunks of up to 8 heads), so each K/V row is read once for all of them.
-// * Loads: a warp reads one K row with 32 lanes x dk/32 contiguous bf16 (one
-//   vector access each); in the p.V pass, threads cover a row in 4-element
-//   vectors. All math is fp32 FMA on CUDA cores: decode does too few flops
-//   per byte for tensor cores to matter.
+// * Loads: a warp reads one K row with 32 lanes x dk/32 contiguous elements
+//   (one vector access each); in the p.V pass, threads cover a row in
+//   4-element vectors. A quantized row's scale is one fp32 at the same
+//   address for every lane of the warp (one broadcast transaction), issued
+//   beside the row's codes, not after them. All math is fp32 FMA on CUDA
+//   cores: decode does too few flops per byte for tensor cores to matter.
 // * The form (Eq. 2 or 3) is a template parameter chosen at launch, and
 //   each head's merged constant C is computed once per head chunk
 //   (consmax_c), not per score.
@@ -61,11 +71,13 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadChunk = 8;  // query heads of one GQA group per pass
 
-template <int DK, bool kMerged, class Rows>
+template <int DK, bool kMerged, class TKV, class Rows>
 __global__ void __launch_bounds__(kThreads)
     decode_partials(const __nv_bfloat16* __restrict__ q,  // (b, H, DK)
-                    const __nv_bfloat16* __restrict__ k,  // rows of hkv * DK
-                    const __nv_bfloat16* __restrict__ v,
+                    const TKV* __restrict__ k,            // rows of hkv * DK
+                    const TKV* __restrict__ v,
+                    const float* __restrict__ k_scale,    // rows of hkv
+                    const float* __restrict__ v_scale,    // (null for bf16)
                     const Rows rows_of,                   // logical -> row
                     const int* __restrict__ lengths,      // (b,)
                     const float* __restrict__ beta,       // (H,)
@@ -90,8 +102,10 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(bk, L - start);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row_stride = static_cast<size_t>(hkv) * DK;
-  const __nv_bfloat16* kh = k + static_cast<size_t>(h) * DK;
-  const __nv_bfloat16* vh = v + static_cast<size_t>(h) * DK;
+  const TKV* kh = k + static_cast<size_t>(h) * DK;
+  const TKV* vh = v + static_cast<size_t>(h) * DK;
+  const float* ksh = k_scale + h;          // row r's scale: ksh[r * hkv]
+  const float* vsh = v_scale + h;
 
   for (int g0 = 0; g0 < g; g0 += kHeadChunk) {
     const int gc = min(kHeadChunk, g - g0);
@@ -119,7 +133,9 @@ __global__ void __launch_bounds__(kThreads)
       float dot[kHeadChunk];
       if (valid) {
         float kf[kPerLane];
-        load_bf16<kPerLane>(kh + row * row_stride + lane * kPerLane, kf);
+        const float ksc = KVType<TKV>::kScaled ? ksh[row * hkv] : 0.f;
+        load_kv<TKV, kPerLane>(kh + row * row_stride + lane * kPerLane, ksc,
+                               kf);
 #pragma unroll
         for (int gi = 0; gi < kHeadChunk; ++gi) {
           float t = 0.f;
@@ -154,7 +170,8 @@ __global__ void __launch_bounds__(kThreads)
           !rows_of.row(b, start + j, &row))
         continue;  // never read
       float vf[4];
-      load_bf16<4>(vh + row * row_stride + quad * 4, vf);
+      const float vsc = KVType<TKV>::kScaled ? vsh[row * hkv] : 0.f;
+      load_kv<TKV, 4>(vh + row * row_stride + quad * 4, vsc, vf);
 #pragma unroll
       for (int gi = 0; gi < kHeadChunk; ++gi) {
         const float p = gi < gc ? p_s[gi * bk + j] : 0.f;
@@ -203,8 +220,9 @@ __global__ void decode_combine(const float* __restrict__ partials,
   out[i] = __float2bfloat16(t);
 }
 
-template <int DK, class Rows>
-cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
+template <int DK, class TKV, class Rows>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale, Rows rows_of,
                    const int* lengths, const float* beta, const float* gamma,
                    float* partials, void* out, int b, int H, int hkv, int L,
                    int bk, int window, float softcap, float scale, int merged,
@@ -214,13 +232,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
       (kHeadChunk * static_cast<size_t>(bk) + kThreads * 4 * kHeadChunk) *
       sizeof(float);
   dim3 grid(ns, hkv, b);
-  auto kernel = merged ? decode_partials<DK, true, Rows>
-                       : decode_partials<DK, false, Rows>;
+  auto kernel = merged ? decode_partials<DK, true, TKV, Rows>
+                       : decode_partials<DK, false, TKV, Rows>;
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), rows_of, lengths, beta, gamma,
-      partials, H, hkv, L, bk, ns, window, softcap, scale, fill_bound);
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), k_scale, v_scale, rows_of, lengths, beta,
+      gamma, partials, H, hkv, L, bk, ns, window, softcap, scale, fill_bound);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(b) * H * DK;
@@ -231,32 +248,65 @@ cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
   return cudaGetLastError();
 }
 
-template <class Rows>
+// The head_dim and K/V element type a launch was built for.
+template <class TKV, class Rows>
 int launch_dk(int dk, const void* q, const void* k, const void* v,
+              const float* ks, const float* vs, Rows rows_of,
+              const int* len, const float* bt, const float* gm, float* part,
+              void* out, int b, int H, int hkv, int L, int bk, int window,
+              float softcap, float scale, int merged, int fill_bound,
+              cudaStream_t st) {
+  switch (dk) {
+    case 32:
+      return launch<32, TKV>(q, k, v, ks, vs, rows_of, len, bt, gm, part, out,
+                             b, H, hkv, L, bk, window, softcap, scale, merged,
+                             fill_bound, st);
+    case 64:
+      return launch<64, TKV>(q, k, v, ks, vs, rows_of, len, bt, gm, part, out,
+                             b, H, hkv, L, bk, window, softcap, scale, merged,
+                             fill_bound, st);
+    case 128:
+      return launch<128, TKV>(q, k, v, ks, vs, rows_of, len, bt, gm, part,
+                              out, b, H, hkv, L, bk, window, softcap, scale,
+                              merged, fill_bound, st);
+    case 256:
+      return launch<256, TKV>(q, k, v, ks, vs, rows_of, len, bt, gm, part,
+                              out, b, H, hkv, L, bk, window, softcap, scale,
+                              merged, fill_bound, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class Rows>
+int launch_kv(int kv_type, int dk, const void* q, const void* k,
+              const void* v, const void* k_scale, const void* v_scale,
               Rows rows_of, const void* lengths, const void* beta,
               const void* gamma, void* partials, void* out, int b, int H,
               int hkv, int L, int bk, int window, float softcap, float scale,
               int merged, int fill_bound, void* stream) {
+  auto* ks = static_cast<const float*>(k_scale);
+  auto* vs = static_cast<const float*>(v_scale);
   auto* len = static_cast<const int*>(lengths);
   auto* bt = static_cast<const float*>(beta);
   auto* gm = static_cast<const float*>(gamma);
   auto* part = static_cast<float*>(partials);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (dk) {
-    case 32:
-      return launch<32>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
-                        L, bk, window, softcap, scale, merged, fill_bound, st);
-    case 64:
-      return launch<64>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
-                        L, bk, window, softcap, scale, merged, fill_bound, st);
-    case 128:
-      return launch<128>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
-                         L, bk, window, softcap, scale, merged, fill_bound,
-                         st);
-    case 256:
-      return launch<256>(q, k, v, rows_of, len, bt, gm, part, out, b, H, hkv,
-                         L, bk, window, softcap, scale, merged, fill_bound,
-                         st);
+  if (kv_type != kKVBF16 && (!ks || !vs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (kv_type) {
+    case kKVBF16:
+      return launch_dk<__nv_bfloat16>(dk, q, k, v, ks, vs, rows_of, len, bt,
+                                      gm, part, out, b, H, hkv, L, bk, window,
+                                      softcap, scale, merged, fill_bound, st);
+    case kKVInt8:
+      return launch_dk<int8_t>(dk, q, k, v, ks, vs, rows_of, len, bt, gm,
+                               part, out, b, H, hkv, L, bk, window, softcap,
+                               scale, merged, fill_bound, st);
+    case kKVFP8:
+      return launch_dk<__nv_fp8_e4m3>(dk, q, k, v, ks, vs, rows_of, len, bt,
+                                      gm, part, out, b, H, hkv, L, bk, window,
+                                      softcap, scale, merged, fill_bound, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -264,35 +314,41 @@ int launch_dk(int dk, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (b, H, dk) bf16; k, v (b, L, hkv, dk) bf16; lengths (b,) int32 = valid
-// rows per slot; beta, gamma (H,) fp32; partials (b, hkv, ceil(L/bk), g, dk)
-// fp32 scratch; out (b, H, dk) bf16. dk in {32, 64, 128, 256}; bk <= 512
-// (shared memory (8 * bk + 4096) * 4 bytes stays within the default 48 KB).
+// q (b, H, dk) bf16; k, v (b, L, hkv, dk) of kv_type (KVCode: bf16, int8,
+// fp8_e4m3); k_scale, v_scale (b, L, hkv) fp32 for int8 / fp8 (null for
+// bf16); lengths (b,) int32 = valid rows per slot; beta, gamma (H,) fp32;
+// partials (b, hkv, ceil(L/bk), g, dk) fp32 scratch; out (b, H, dk) bf16.
+// dk in {32, 64, 128, 256}; bk <= 512 (shared memory (8 * bk + 4096) * 4
+// bytes stays within the default 48 KB).
 extern "C" int consmax_decode_launch(const void* q, const void* k,
-                                     const void* v, const void* lengths,
+                                     const void* v, const void* k_scale,
+                                     const void* v_scale, const void* lengths,
                                      const void* beta, const void* gamma,
                                      void* partials, void* out, int b, int H,
                                      int hkv, int L, int dk, int bk,
                                      int window, float softcap, float scale,
-                                     int merged, int fill_bound,
+                                     int merged, int fill_bound, int kv_type,
                                      void* stream) {
-  return launch_dk(dk, q, k, v, ContigRows{L}, lengths, beta, gamma,
-                   partials, out, b, H, hkv, L, bk, window, softcap, scale,
-                   merged, fill_bound, stream);
+  return launch_kv(kv_type, dk, q, k, v, k_scale, v_scale, ContigRows{L},
+                   lengths, beta, gamma, partials, out, b, H, hkv, L, bk,
+                   window, softcap, scale, merged, fill_bound, stream);
 }
 
-// The paged twin: kp, vp (P, ps, hkv, dk) bf16 pools; table (b, npg) int32
-// (-1 = unmapped); lengths (b,) int32 = valid logical rows (index + active,
-// 0 allowed); partials (b, hkv, ceil(npg * ps / bk), g, dk) fp32 scratch.
-// Any page size: bk bounds the shared memory, ps only the address.
+// The paged twin: kp, vp (P, ps, hkv, dk) pools of kv_type; k_scale,
+// v_scale (P, ps, hkv) fp32 scale pools (null for bf16), read at the same
+// row index as the data; table (b, npg) int32 (-1 = unmapped); lengths (b,)
+// int32 = valid logical rows (index + active, 0 allowed); partials
+// (b, hkv, ceil(npg * ps / bk), g, dk) fp32 scratch. Any page size: bk
+// bounds the shared memory, ps only the address.
 extern "C" int consmax_decode_paged_launch(
-    const void* q, const void* kp, const void* vp, const void* table,
-    const void* lengths, const void* beta, const void* gamma, void* partials,
-    void* out, int b, int H, int hkv, int npg, int ps, int dk, int bk,
-    int window, float softcap, float scale, int merged, int fill_bound,
+    const void* q, const void* kp, const void* vp, const void* k_scale,
+    const void* v_scale, const void* table, const void* lengths,
+    const void* beta, const void* gamma, void* partials, void* out, int b,
+    int H, int hkv, int npg, int ps, int dk, int bk, int window,
+    float softcap, float scale, int merged, int fill_bound, int kv_type,
     void* stream) {
   const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
-  return launch_dk(dk, q, kp, vp, rows_of, lengths, beta, gamma, partials,
-                   out, b, H, hkv, npg * ps, bk, window, softcap, scale,
-                   merged, fill_bound, stream);
+  return launch_kv(kv_type, dk, q, kp, vp, k_scale, v_scale, rows_of,
+                   lengths, beta, gamma, partials, out, b, H, hkv, npg * ps,
+                   bk, window, softcap, scale, merged, fill_bound, stream);
 }

@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the split-KV ConSmax decode kernels: the whole
 score row materialized, fp32 math (the reference's ``consmax_decode_ref``,
 but reading the cache in its stored ``(b, L, hkv, d)`` layout), and the
-paged twin, which gathers each slot's pages first."""
+paged twin, which gathers each slot's pages (and scale pages) first.
+
+A quantized (int8 / fp8_e4m3) cache is dequantized with
+``cache_layout.dequant_block`` to ``q.dtype``, as the kernel and the
+reference's CPU path do, before the fp32 math."""
 from __future__ import annotations
 
 import math
@@ -12,10 +16,15 @@ from repro_torch.kernels import cache_layout as CL
 
 
 def consmax_decode_ref(q, k, v, lengths, beta, gamma, *, window=0,
-                       softcap=0.0, merged=True, scale=None):
+                       softcap=0.0, merged=True, scale=None, k_scale=None,
+                       v_scale=None):
     """q: (b, nh, d); k, v: (b, L, nkv, d); lengths: (b,) valid rows (the
-    decode row sits at ``lengths - 1``); beta/gamma: (nh,). Returns
+    decode row sits at ``lengths - 1``); beta/gamma: (nh,); k_scale,
+    v_scale: (b, L, nkv) fp32 row scales of a quantized cache. Returns
     (b, nh, d) in q.dtype."""
+    if k_scale is not None:
+        k = CL.dequant_block(k, k_scale, q.dtype)
+        v = CL.dequant_block(v, v_scale, q.dtype)
     b, nh, d = q.shape
     L, nkv = k.shape[1], k.shape[2]
     g = nh // nkv
@@ -36,13 +45,20 @@ def consmax_decode_ref(q, k, v, lengths, beta, gamma, *, window=0,
 
 
 def consmax_decode_paged_ref(q, kp, vp, page_table, lengths, beta, gamma, *,
-                             window=0, softcap=0.0, merged=True, scale=None):
+                             window=0, softcap=0.0, merged=True, scale=None,
+                             k_scale=None, v_scale=None):
     """q: (b, nh, d); kp, vp: (P, ps, nkv, d) page pools; page_table:
-    (b, npg) int32 (-1 = unmapped); lengths: (b,) valid logical rows.
-    Gathers each slot's pages into (b, npg * ps, nkv, d), zeros for -1
-    entries (a zero K and V row adds exactly 0), then runs
+    (b, npg) int32 (-1 = unmapped); lengths: (b,) valid logical rows;
+    k_scale, v_scale: (P, ps, nkv) fp32 scale pools of a quantized pool.
+    Gathers each slot's pages (and scale pages) into (b, npg * ps, nkv, d),
+    zeros for -1 entries (a zero K and V row adds exactly 0), then runs
     ``consmax_decode_ref``. Returns (b, nh, d) in q.dtype."""
+    ks = vs = None
+    if k_scale is not None:
+        ks = CL.gather_pages(k_scale, page_table)
+        vs = CL.gather_pages(v_scale, page_table)
     return consmax_decode_ref(q, CL.gather_pages(kp, page_table),
                               CL.gather_pages(vp, page_table), lengths, beta,
                               gamma, window=window, softcap=softcap,
-                              merged=merged, scale=scale)
+                              merged=merged, scale=scale, k_scale=ks,
+                              v_scale=vs)

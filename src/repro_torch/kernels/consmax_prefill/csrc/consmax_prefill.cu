@@ -19,7 +19,11 @@
 // registers, not the TPU's sequential page axis, and gives the contiguous
 // kernel's bits when the pages hold the same rows. A row of an unmapped
 // (-1) page is loaded as zeros, never read: zero K and V rows add exact
-// zeros, as the reference's block_valid mask does.
+// zeros, as the reference's block_valid mask does. The cache holds bf16, or
+// int8 / fp8_e4m3 codes with one fp32 scale per (row, KV head); the tile
+// load dequantizes them into the bf16 shared-memory tile (mma_tiles.cuh
+// load_kv_tile), so a quantized cache gives the bits of the bf16 kernel on
+// its dequantized values (the TPU kernels' per-block dequant_block).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at c = 512 a
 // chunk does ~4 * c * H * fill * dk flops per layer (12.9 GFLOP ~ 13 us for
@@ -57,11 +61,13 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerBlock = 16 * kWarps;  // folded query rows per block
 
-template <int DK, bool kMerged, class Rows>
+template <int DK, bool kMerged, class TKV, class Rows>
 __global__ void __launch_bounds__(kThreads)
     prefill_kernel(const __nv_bfloat16* __restrict__ q,  // (b, c, H, DK)
-                   const __nv_bfloat16* __restrict__ k,  // rows of hkv * DK
-                   const __nv_bfloat16* __restrict__ v,
+                   const TKV* __restrict__ k,            // rows of hkv * DK
+                   const TKV* __restrict__ v,
+                   const float* __restrict__ k_scale,    // rows of hkv
+                   const float* __restrict__ v_scale,    // (null for bf16)
                    const Rows rows_of,                   // logical -> row
                    const int* __restrict__ index,        // (b,)
                    const int* __restrict__ lengths,      // (b,)
@@ -128,13 +134,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
   const size_t row_stride = static_cast<size_t>(hkv) * DK;
-  const __nv_bfloat16* kh = k + static_cast<size_t>(h) * DK;
-  const __nv_bfloat16* vh = v + static_cast<size_t>(h) * DK;
+  const TKV* kh = k + static_cast<size_t>(h) * DK;
+  const TKV* vh = v + static_cast<size_t>(h) * DK;
 
   for (int j0 = kv_begin; j0 < kv_end; j0 += T::BN) {
     __syncthreads();  // the previous tile is consumed
-    load_kv_tile<DK, kThreads>(k_s, v_s, kh, vh, row_stride, rows_of, b, j0,
-                               kv_end);
+    load_kv_tile<DK, kThreads>(k_s, v_s, kh, vh, k_scale + h, v_scale + h,
+                               hkv, row_stride, rows_of, b, j0, kv_end);
     __syncthreads();
 
     float s[T::NT][4];
@@ -157,51 +163,83 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<DK>(orow, o, tig);
 }
 
-template <int DK, class Rows>
-cudaError_t launch(const void* q, const void* k, const void* v, Rows rows_of,
+template <int DK, class TKV, class Rows>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale, Rows rows_of,
                    const int* index, const int* lengths, const float* beta,
                    const float* gamma, void* out, int b, int c, int H,
                    int hkv, int L, int window, float softcap, float scale,
                    int merged, int fill_bound, cudaStream_t stream) {
   const int g = H / hkv;
   dim3 grid((c * g + kRowsPerBlock - 1) / kRowsPerBlock, hkv, b);
-  auto kernel = merged ? prefill_kernel<DK, true, Rows>
-                       : prefill_kernel<DK, false, Rows>;
+  auto kernel = merged ? prefill_kernel<DK, true, TKV, Rows>
+                       : prefill_kernel<DK, false, TKV, Rows>;
   kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), rows_of, index, lengths, beta,
-      gamma, static_cast<__nv_bfloat16*>(out), c, H, hkv, L, window, softcap,
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), k_scale, v_scale, rows_of, index, lengths,
+      beta, gamma, static_cast<__nv_bfloat16*>(out), c, H, hkv, L, window, softcap,
       scale, fill_bound);
   return cudaGetLastError();
 }
 
-template <class Rows>
+// The head_dim and K/V element type a launch was built for.
+template <class TKV, class Rows>
 int launch_dk(int dk, const void* q, const void* k, const void* v,
+              const float* ks, const float* vs, Rows rows_of, const int* ix,
+              const int* len, const float* bt, const float* gm, void* out,
+              int b, int c, int H, int hkv, int L, int window, float softcap,
+              float scale, int merged, int fill_bound, cudaStream_t st) {
+  switch (dk) {
+    case 32:
+      return launch<32, TKV>(q, k, v, ks, vs, rows_of, ix, len, bt, gm, out,
+                             b, c, H, hkv, L, window, softcap, scale, merged,
+                             fill_bound, st);
+    case 64:
+      return launch<64, TKV>(q, k, v, ks, vs, rows_of, ix, len, bt, gm, out,
+                             b, c, H, hkv, L, window, softcap, scale, merged,
+                             fill_bound, st);
+    case 128:
+      return launch<128, TKV>(q, k, v, ks, vs, rows_of, ix, len, bt, gm, out,
+                              b, c, H, hkv, L, window, softcap, scale, merged,
+                              fill_bound, st);
+    case 256:
+      return launch<256, TKV>(q, k, v, ks, vs, rows_of, ix, len, bt, gm, out,
+                              b, c, H, hkv, L, window, softcap, scale, merged,
+                              fill_bound, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class Rows>
+int launch_kv(int kv_type, int dk, const void* q, const void* k,
+              const void* v, const void* k_scale, const void* v_scale,
               Rows rows_of, const void* index, const void* lengths,
               const void* beta, const void* gamma, void* out, int b, int c,
               int H, int hkv, int L, int window, float softcap, float scale,
               int merged, int fill_bound, void* stream) {
+  auto* ks = static_cast<const float*>(k_scale);
+  auto* vs = static_cast<const float*>(v_scale);
   auto* ix = static_cast<const int*>(index);
   auto* len = static_cast<const int*>(lengths);
   auto* bt = static_cast<const float*>(beta);
   auto* gm = static_cast<const float*>(gamma);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (dk) {
-    case 32:
-      return launch<32>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H, hkv,
-                        L, window, softcap, scale, merged, fill_bound, st);
-    case 64:
-      return launch<64>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H, hkv,
-                        L, window, softcap, scale, merged, fill_bound, st);
-    case 128:
-      return launch<128>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H,
-                         hkv, L, window, softcap, scale, merged, fill_bound,
-                         st);
-    case 256:
-      return launch<256>(q, k, v, rows_of, ix, len, bt, gm, out, b, c, H,
-                         hkv, L, window, softcap, scale, merged, fill_bound,
-                         st);
+  if (kv_type != kKVBF16 && (!ks || !vs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (kv_type) {
+    case kKVBF16:
+      return launch_dk<__nv_bfloat16>(dk, q, k, v, ks, vs, rows_of, ix, len,
+                                      bt, gm, out, b, c, H, hkv, L, window,
+                                      softcap, scale, merged, fill_bound, st);
+    case kKVInt8:
+      return launch_dk<int8_t>(dk, q, k, v, ks, vs, rows_of, ix, len, bt, gm,
+                               out, b, c, H, hkv, L, window, softcap, scale,
+                               merged, fill_bound, st);
+    case kKVFP8:
+      return launch_dk<__nv_fp8_e4m3>(dk, q, k, v, ks, vs, rows_of, ix, len,
+                                      bt, gm, out, b, c, H, hkv, L, window,
+                                      softcap, scale, merged, fill_bound, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -209,33 +247,38 @@ int launch_dk(int dk, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (b, c, H, dk) bf16; k, v (b, L, hkv, dk) bf16; index, lengths (b,)
-// int32; beta, gamma (H,) fp32; out (b, c, H, dk) bf16.
-// dk in {32, 64, 128, 256}.
+// q (b, c, H, dk) bf16; k, v (b, L, hkv, dk) of kv_type (KVCode: bf16,
+// int8, fp8_e4m3); k_scale, v_scale (b, L, hkv) fp32 for int8 / fp8 (null
+// for bf16); index, lengths (b,) int32; beta, gamma (H,) fp32; out
+// (b, c, H, dk) bf16. dk in {32, 64, 128, 256}.
 extern "C" int consmax_prefill_launch(const void* q, const void* k,
-                                      const void* v, const void* index,
+                                      const void* v, const void* k_scale,
+                                      const void* v_scale, const void* index,
                                       const void* lengths, const void* beta,
                                       const void* gamma, void* out, int b,
                                       int c, int H, int hkv, int L, int dk,
                                       int window, float softcap, float scale,
-                                      int merged, int fill_bound,
+                                      int merged, int fill_bound, int kv_type,
                                       void* stream) {
-  return launch_dk(dk, q, k, v, ContigRows{L}, index, lengths, beta, gamma,
-                   out, b, c, H, hkv, L, window, softcap, scale, merged,
-                   fill_bound, stream);
+  return launch_kv(kv_type, dk, q, k, v, k_scale, v_scale, ContigRows{L},
+                   index, lengths, beta, gamma, out, b, c, H, hkv, L, window,
+                   softcap, scale, merged, fill_bound, stream);
 }
 
-// The paged twin: kp, vp (P, ps, hkv, dk) bf16 pools; table (b, npg) int32
-// (-1 = unmapped); the slot's logical capacity is npg * ps rows, so a chunk
-// running past it reads no row there (its column is clamped as well).
+// The paged twin: kp, vp (P, ps, hkv, dk) pools of kv_type; k_scale,
+// v_scale (P, ps, hkv) fp32 scale pools (null for bf16), read at the same
+// row index as the data; table (b, npg) int32 (-1 = unmapped); the slot's
+// logical capacity is npg * ps rows, so a chunk running past it reads no
+// row there (its column is clamped as well).
 extern "C" int consmax_prefill_paged_launch(
-    const void* q, const void* kp, const void* vp, const void* table,
-    const void* index, const void* lengths, const void* beta,
-    const void* gamma, void* out, int b, int c, int H, int hkv, int npg,
-    int ps, int dk, int window, float softcap, float scale, int merged,
-    int fill_bound, void* stream) {
+    const void* q, const void* kp, const void* vp, const void* k_scale,
+    const void* v_scale, const void* table, const void* index,
+    const void* lengths, const void* beta, const void* gamma, void* out,
+    int b, int c, int H, int hkv, int npg, int ps, int dk, int window,
+    float softcap, float scale, int merged, int fill_bound, int kv_type,
+    void* stream) {
   const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
-  return launch_dk(dk, q, kp, vp, rows_of, index, lengths, beta, gamma, out,
-                   b, c, H, hkv, npg * ps, window, softcap, scale, merged,
-                   fill_bound, stream);
+  return launch_kv(kv_type, dk, q, kp, vp, k_scale, v_scale, rows_of, index,
+                   lengths, beta, gamma, out, b, c, H, hkv, npg * ps, window,
+                   softcap, scale, merged, fill_bound, stream);
 }

@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the ConSmax append-prefill kernels: the whole
 (c, L) score matrix per head materialized, fp32 math (the reference's
 ``consmax_prefill_ref``), and the paged twin, which gathers each slot's
-pages first."""
+pages (and scale pages) first.
+
+A quantized (int8 / fp8_e4m3) cache is dequantized with
+``cache_layout.dequant_block`` to ``q.dtype``, as the kernel and the
+reference's CPU path do, before the fp32 math."""
 from __future__ import annotations
 
 import math
@@ -13,11 +17,16 @@ from repro_torch.kernels import cache_layout as CL
 
 def consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, *,
                         window: int = 0, softcap: float = 0.0,
-                        merged: bool = True, scale: float | None = None):
+                        merged: bool = True, scale: float | None = None,
+                        k_scale=None, v_scale=None):
     """q: (b, c, H, dk) chunk at per-slot positions index + [0, c);
     k, v: (b, L, hkv, dk) caches after the chunk's K/V were written;
-    index, lengths: (b,). Returns (b, c, H, dk) fp32; rows >= lengths are
-    pad rows the caller discards."""
+    index, lengths: (b,); k_scale, v_scale: (b, L, hkv) fp32 row scales of
+    a quantized cache. Returns (b, c, H, dk) fp32; rows >= lengths are pad
+    rows the caller discards."""
+    if k_scale is not None:
+        k = CL.dequant_block(k, k_scale, q.dtype)
+        v = CL.dequant_block(v, v_scale, q.dtype)
     b, c, H, dk = q.shape
     L, hkv = k.shape[1], k.shape[2]
     g = H // hkv
@@ -41,13 +50,20 @@ def consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, *,
 def consmax_prefill_paged_ref(q, kp, vp, page_table, index, lengths, beta,
                               gamma, *, window: int = 0, softcap: float = 0.0,
                               merged: bool = True,
-                              scale: float | None = None):
+                              scale: float | None = None, k_scale=None,
+                              v_scale=None):
     """q: (b, c, H, dk); kp, vp: (P, ps, hkv, dk) page pools after the
     chunk's K/V were written; page_table: (b, npg) int32 (-1 = unmapped);
-    index, lengths: (b,). Gathers each slot's pages into
+    index, lengths: (b,); k_scale, v_scale: (P, ps, hkv) fp32 scale pools
+    of a quantized pool. Gathers each slot's pages (and scale pages) into
     (b, npg * ps, hkv, dk), zeros for -1 entries, then runs
     ``consmax_prefill_ref``. Returns (b, c, H, dk) fp32."""
+    ks = vs = None
+    if k_scale is not None:
+        ks = CL.gather_pages(k_scale, page_table)
+        vs = CL.gather_pages(v_scale, page_table)
     return consmax_prefill_ref(q, CL.gather_pages(kp, page_table),
                                CL.gather_pages(vp, page_table), index,
                                lengths, beta, gamma, window=window,
-                               softcap=softcap, merged=merged, scale=scale)
+                               softcap=softcap, merged=merged, scale=scale,
+                               k_scale=ks, v_scale=vs)

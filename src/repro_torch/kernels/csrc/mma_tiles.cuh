@@ -94,6 +94,46 @@ __device__ __forceinline__ void load_kv_tile(
   }
 }
 
+// The same tile from a cache of K/V element type TKV: bf16 as above
+// (scales ignored); int8 / fp8_e4m3 codes read 16 at a time (one 16-byte
+// access), dequantized with their row's scale (ksh[row * hkv], vsh[...]:
+// the KV head's column of the (rows, hkv) scale tensors) and stored as bf16
+// in the same SROW layout. qk_tile / pv_tile then run unchanged, so a
+// quantized tile gives the bits of the bf16 tile of the dequantized cache.
+// Rows at or past kv_end and rows no page backs are zeros, and neither
+// their codes nor their scales are read.
+template <int DK, int THREADS, class TKV, class Rows>
+__device__ __forceinline__ void load_kv_tile(
+    __nv_bfloat16* k_s, __nv_bfloat16* v_s, const TKV* kh, const TKV* vh,
+    const float* ksh, const float* vsh, int hkv, size_t row_stride,
+    const Rows& rows_of, int b, int j0, int kv_end) {
+  if constexpr (!KVType<TKV>::kScaled) {
+    load_kv_tile<DK, THREADS>(k_s, v_s, kh, vh, row_stride, rows_of, b, j0,
+                              kv_end);
+  } else {
+    using T = Tile<DK>;
+    constexpr int QCH = DK / 16;  // 16-code chunks per row
+    for (int i = threadIdx.x; i < T::BN * QCH; i += THREADS) {
+      const int r = i / QCH, ch = i % QCH;
+      const int kpos = j0 + r;
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      uint4 klo = z, khi = z, vlo = z, vhi = z;
+      size_t row;
+      if (kpos < kv_end && rows_of.row(b, kpos, &row)) {
+        const float ksc = ksh[row * hkv], vsc = vsh[row * hkv];
+        dequant16(kh + row * row_stride + ch * 16, ksc, &klo, &khi);
+        dequant16(vh + row * row_stride + ch * 16, vsc, &vlo, &vhi);
+      }
+      uint4* kd = reinterpret_cast<uint4*>(k_s + r * T::SROW + ch * 16);
+      uint4* vd = reinterpret_cast<uint4*>(v_s + r * T::SROW + ch * 16);
+      kd[0] = klo;
+      kd[1] = khi;
+      vd[0] = vlo;
+      vd[1] = vhi;
+    }
+  }
+}
+
 // S = Q K^T for this warp's 16 rows x BN tile rows, fp32, k-steps in order.
 template <int DK>
 __device__ __forceinline__ void qk_tile(float (&s)[Tile<DK>::NT][4],

@@ -6,6 +6,8 @@ weights, on the CUDA card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --paged --page-size 4 --prefill-chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv-dtype int8 \
+        --decode-kernel --prefill-kernel
 
 Serves the smoke config of ``--arch`` on random weights (``chip_smoke.py``
 serves the published widths). Requests are greedy (sampled streams are not
@@ -14,7 +16,9 @@ ported yet).
 ConSmax CUDA kernels (their plain versions on ``--device cpu``).
 ``--paged`` serves from a shared page pool with the prefix cache on (a
 stats line reports its hits; the CLI's prompts are random, so they rarely
-share a prefix).
+share a prefix). ``--kv-dtype int8`` / ``fp8_e4m3`` stores the KV cache as
+codes with one fp32 scale per row and KV head (the stats line reports the
+cache's bytes).
 """
 from __future__ import annotations
 
@@ -61,6 +65,11 @@ def main(argv=None):
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable the prefix-sharing page cache (paged "
                          "engine only)")
+    ap.add_argument("--kv-dtype", choices=("bfloat16", "int8", "fp8_e4m3"),
+                    default="bfloat16",
+                    help="KV cache storage: bf16, or int8 / fp8_e4m3 codes "
+                         "with per-row fp32 scales (quantized at write, "
+                         "dequantized per block at read)")
     ap.add_argument("--prefix-evict", choices=("lru", "fifo"), default="lru",
                     help="reclaim order of refcount-0 cached pages when the "
                          "free list runs dry: lru = release order, fifo = "
@@ -91,6 +100,7 @@ def main(argv=None):
                        decode_kernel=args.decode_kernel,
                        prefill_kernel=args.prefill_kernel,
                        fill_bound=not args.no_fill_bound,
+                       kv_cache_dtype=args.kv_dtype,
                        score_norm=cfg.score_norm, **paged)
     eng = ContinuousBatchingEngine(cfg, scfg, params, device=device)
     rng = np.random.default_rng(args.seed + 1)
@@ -112,7 +122,13 @@ def main(argv=None):
           f"{len(results)} requests, {n} tokens in {dt:.2f}s "
           f"({n / dt:.1f} tok/s) with {args.max_slots} slots, "
           f"decode_kernel={args.decode_kernel}, "
-          f"prefill_kernel={args.prefill_kernel}, paged={args.paged}")
+          f"prefill_kernel={args.prefill_kernel}, paged={args.paged}, "
+          f"kv_dtype={args.kv_dtype}")
+    kv_bytes = sum(t.numel() * t.element_size() for sup in eng.caches
+                   for blk in sup.values() for key, t in blk["attn"].items()
+                   if key != "index")
+    print(f"[serve/continuous] KV cache: {kv_bytes / 2**20:.3f} MiB "
+          f"({args.kv_dtype})")
     if args.paged:
         print(f"[serve/continuous] page pool: {scfg.num_pages} pages x "
               f"{scfg.page_size} rows (peak in use {eng.pool.peak_in_use}) "

@@ -70,19 +70,21 @@ class Block(nn.Module):
             m.reset_parameters(generator)
 
 
-def block_apply(p: Block, x, cfg: ModelConfig, *, cache=None, merged=False,
-                kv_chunk=1024, decode_kernel=False, decode_kv_block=256,
+def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
+                cache=None, merged=False, q_chunk=2048, kv_chunk=1024,
+                decode_kernel=False, decode_kv_block=256,
                 prefill_kernel=False, fill_bound=True, prefill_append=None,
                 decode_active=None, page_table=None):
-    """Returns (x, new_cache). ``page_table``: (b, npg) int32 for paged
+    """Returns (x, new_cache); new_cache is None without a cache (the
+    whole-sequence forward). ``page_table``: (b, npg) int32 for paged
     caches (see ``core.attention.attention_apply``)."""
     akind = p.kind if p.kind in ("local", "global") else "global"
     cdt = cfg.cdtype()
     h = p.attn_norm(x)
     h, attn_cache = ATT.attention_apply(
-        p.attn, h, cfg, kind=akind,
+        p.attn, h, cfg, kind=akind, positions=positions,
         cache=cache["attn"] if cache is not None else None, merged=merged,
-        kv_chunk=kv_chunk, decode_kernel=decode_kernel,
+        q_chunk=q_chunk, kv_chunk=kv_chunk, decode_kernel=decode_kernel,
         decode_kv_block=decode_kv_block, prefill_kernel=prefill_kernel,
         fill_bound=fill_bound, prefill_append=prefill_append,
         decode_active=decode_active, page_table=page_table)
@@ -93,4 +95,4 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, cache=None, merged=False,
     if cfg.post_block_norm:
         h = p.mlp_post_norm(h)
     x = x + h
-    return x, dict(cache, attn=attn_cache)
+    return x, (None if cache is None else dict(cache, attn=attn_cache))

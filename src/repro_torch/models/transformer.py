@@ -10,8 +10,11 @@ Python loop over super-layers replaces ``lax.scan``.
 Caches are a list over super-layers of ``{f"b{j}": {"attn": {k, v,
 index}}}``: per-slot ``(b, max_seq, hkv, dk)`` rows (``init_caches``) or,
 for paged serving, shared ``(num_pages + 1, page_size, hkv, dk)`` page
-pools (``init_paged_caches``). Forward passes update K/V in place and
-rebind ``index``; the slot utilities below update in place too.
+pools (``init_paged_caches``). An int8 / fp8_e4m3 cache adds fp32
+``k_scale``/``v_scale`` leaves of the same shape without dk, one scale per
+row and KV head; a bf16 cache has none. Forward passes update K/V (and
+scales) in place and rebind ``index``; the slot utilities below update in
+place too.
 """
 from __future__ import annotations
 
@@ -49,12 +52,17 @@ class LM(nn.Module):
         return self.embed.table.device
 
 
-def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
-             merged=False, kv_chunk=1024, logits_index=None,
-             decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
-             fill_bound=True, prefill_append=None, decode_active=None,
-             page_table=None, logits_epilogue=None):
-    """Forward pass over a (b, s) token batch against per-slot caches.
+def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
+             positions=None, merged=False, q_chunk=2048, kv_chunk=1024,
+             logits_index=None, decode_kernel=False, decode_kv_block=256,
+             prefill_kernel=False, fill_bound=True, prefill_append=None,
+             decode_active=None, page_table=None, logits_epilogue=None):
+    """Forward pass over a (b, s) token batch, against per-slot caches or
+    (``caches=None``) without any: the whole-sequence forward.
+
+    With caches and neither ``prefill_append`` nor a one-token batch,
+    ``tokens`` is a whole prompt that fills cache rows [0, s) (the
+    reference's whole-prompt prefill; the caller passes ``positions``).
 
     prefill_append: (b,) int32 real chunk lengths — ``tokens`` is a
     fixed-size chunk written into each cache at its per-slot ``index``
@@ -71,23 +79,30 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
     Returns (logits | epilogue out, new_caches).
     """
     b, s = tokens.shape
-    if positions is None and prefill_append is not None:
+    if positions is None and caches is None:
+        positions = torch.arange(s, device=tokens.device)[None, :]
+    elif positions is None and prefill_append is not None:
         idx = cache_index(caches)                      # per-slot fill level
         positions = idx[:, None] + torch.arange(s, device=tokens.device)
     x = FE.frontend_apply(p.embed, cfg, tokens=tokens, positions=positions)
 
     new_caches = []
-    for sup, cache_in in zip(p.blocks, caches):
+    for i, sup in enumerate(p.blocks):
+        cache_in = caches[i] if caches is not None else None
         co = {}
         for name in sup:
             x, co[name] = B.block_apply(
-                sup[name], x, cfg, cache=cache_in[name], merged=merged,
-                kv_chunk=kv_chunk, decode_kernel=decode_kernel,
+                sup[name], x, cfg, positions=positions,
+                cache=cache_in[name] if cache_in is not None else None,
+                merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                decode_kernel=decode_kernel,
                 decode_kv_block=decode_kv_block,
                 prefill_kernel=prefill_kernel, fill_bound=fill_bound,
                 prefill_append=prefill_append, decode_active=decode_active,
                 page_table=page_table)
         new_caches.append(co)
+    if caches is None:
+        new_caches = None
 
     x = p.final_norm(x)
     if logits_index is not None:
@@ -106,12 +121,26 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches, positions=None,
 
 
 # --------------------------------------------------------------- caches ----
+def _kv_leaves(rows: tuple, hkv: int, dk: int, dtype, device) -> dict:
+    """Zero ``k``/``v`` (*rows, hkv, dk) and, for a quantized dtype, fp32
+    ``k_scale``/``v_scale`` (*rows, hkv) initialised to ones (the
+    reference's init; a zero row with scale 1.0 reads back as zeros)."""
+    leaves = {name: torch.zeros(rows + (hkv, dk), dtype=dtype, device=device)
+              for name in ("k", "v")}
+    if CL.kv_quantized(dtype):
+        leaves.update({name: torch.ones(rows + (hkv,), dtype=torch.float32,
+                                        device=device)
+                       for name in ("k_scale", "v_scale")})
+    return leaves
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 kv_dtype="bfloat16", *, device=None):
     """Per-super-layer contiguous KV caches: for every attention block
-    zero ``k``/``v`` (batch, max_seq, hkv, dk) and a zero ``index``
-    (batch,) int32, on ``device`` (default cuda). bfloat16 only
-    (``cache_layout.kv_cache_dtype``)."""
+    zero ``k``/``v`` (batch, max_seq, hkv, dk) in ``kv_dtype`` (bfloat16,
+    int8 or fp8_e4m3, ``cache_layout.kv_cache_dtype``), for a quantized
+    dtype fp32 ``k_scale``/``v_scale`` (batch, max_seq, hkv) of ones, and a
+    zero ``index`` (batch,) int32, on ``device`` (default cuda)."""
     dtype = CL.kv_cache_dtype(kv_dtype)
     device = resolve_device(device)
     hkv, dk = cfg.n_kv_heads, cfg.head_dim_
@@ -123,10 +152,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 raise NotImplementedError(
                     f"caches for block kind {kind!r} are not ported yet")
             c[f"b{j}"] = {"attn": {
-                "k": torch.zeros((batch, max_seq, hkv, dk), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((batch, max_seq, hkv, dk), dtype=dtype,
-                                 device=device),
+                **_kv_leaves((batch, max_seq), hkv, dk, dtype, device),
                 "index": torch.zeros((batch,), dtype=torch.int32,
                                      device=device),
             }}
@@ -145,7 +171,9 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
     ``page_table``. Pages [0, num_pages) are the reference's pool; the one
     past them is a spare that takes the writes the reference's scatter
     drops (``core.attention._paged_cache_write``) and that no table maps.
-    bfloat16 only, on ``device`` (default cuda)."""
+    A quantized ``kv_dtype`` (see ``init_caches``) adds fp32 scale pools
+    (num_pages + 1, page_size, hkv) of ones, spare page included, so a
+    page's scales move with its rows. On ``device`` (default cuda)."""
     dtype = CL.kv_cache_dtype(kv_dtype)
     device = resolve_device(device)
     hkv, dk = cfg.n_kv_heads, cfg.head_dim_
@@ -157,10 +185,9 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                 raise NotImplementedError(
                     f"paged KV caches cover attention blocks only (got "
                     f"{kind!r} in {cfg.block_pattern})")
-            shape = (num_pages + 1, page_size, hkv, dk)
             c[f"b{j}"] = {"attn": {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
+                **_kv_leaves((num_pages + 1, page_size), hkv, dk, dtype,
+                             device),
                 "index": torch.zeros((batch,), dtype=torch.int32,
                                      device=device),
             }}
@@ -199,7 +226,8 @@ def write_slot_index(caches, slot_caches, slot: int):
 
 
 def reset_slot(caches, slot: int):
-    """Zero slot ``slot`` in place (index back to 0, K/V rows cleared) so a
+    """Zero slot ``slot`` in place (index back to 0, K/V rows and a
+    quantized cache's scale rows cleared, as the reference does) so a
     recycled slot cannot leak a previous request's context."""
     for attn in _attn_caches(caches):
         for t in attn.values():
@@ -226,9 +254,11 @@ def set_slot_index(caches, slot: int, value: int):
 
 def copy_kv_page(caches, src: int, dst: int):
     """Copy pool page ``src`` onto page ``dst`` in every layer of a paged
-    cache, in place; ``index`` untouched. The device half of copy-on-write:
-    the ``PagePool`` picks the pages, the engine runs this before a slot
-    writes into a page it no longer shares."""
+    cache, in place — K/V rows and a quantized pool's scale rows; ``index``
+    untouched. The device half of copy-on-write: the ``PagePool`` picks the
+    pages, the engine runs this before a slot writes into a page it no
+    longer shares."""
     for attn in _attn_caches(caches):
-        for key in ("k", "v"):
-            attn[key][dst] = attn[key][src]
+        for key, t in attn.items():
+            if key != "index":
+                t[dst] = t[src]

@@ -1,8 +1,18 @@
-"""Continuous-batching serving engine over per-slot contiguous KV caches or
-a shared page pool — the reference's ``ContinuousBatchingEngine``
-(``serve/engine.py``).
+"""Serving over per-slot contiguous KV caches or a shared page pool — the
+reference's ``serve/engine.py``: ``make_serve_fns`` (the model steps) and
+``ContinuousBatchingEngine``.
 
-A fixed pool of ``max_slots`` cache slots. Each ``step``:
+``make_serve_fns`` returns the reference's four step functions:
+``init_caches``, the whole-prompt ``prefill_step`` (through
+``blockwise_attention``, then the cache fill), the one-token
+``decode_step`` and the right-padded ``prefill_ragged`` (append-at-index
+chunks). With ``ServeConfig.fused_sampling`` (the default) each step ends
+in the greedy sampling epilogue and returns ``(b,)`` tokens; without it the
+steps return the last position's logits, as the reference's legacy
+signatures do (its perplexity walk reads them).
+
+``ContinuousBatchingEngine`` holds a fixed pool of ``max_slots`` cache
+slots. Each ``step``:
 
 1. admits queued requests into free slots (FIFO, ``serve/scheduler``),
 2. runs at most one append-at-index prefill chunk per PREFILLING slot,
@@ -29,12 +39,17 @@ every write on a page the slot owns alone, and ``submit(..., n=K)`` streams
 of one prompt share its pages. The device page table is re-uploaded only
 when the pool's ``version`` changes.
 
+``ServeConfig.kv_cache_dtype`` stores the caches as bfloat16, or as int8
+/ fp8_e4m3 codes with one fp32 scale per row and KV head (quantized at
+every cache write, dequantized block by block at every read, inside the
+kernels as in the plain walks; ``kernels/cache_layout``).
+
 The KV caches are updated in place; ``_finish`` zeroes a recycled
 contiguous slot (a paged slot resets only its index). Not ported yet (they
-raise): the tensor/sequence mesh, host-side sampling
-(``fused_sampling=False``), quantized KV caches, sampled (temperature > 0)
-requests, any ``ServeConfig`` field in ``_UNREAD`` set away from its default,
-and the paged fields in ``_PAGED`` set without ``paged_kv``.
+raise): the tensor/sequence mesh, the engine's host-side sampling
+(``fused_sampling=False``), sampled (temperature > 0) requests and draws,
+any ``ServeConfig`` field in ``_UNREAD`` set away from its default, and the
+paged fields in ``_PAGED`` set without ``paged_kv``.
 """
 from __future__ import annotations
 
@@ -46,6 +61,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.kernels import cache_layout as CL
 from repro_torch.models import transformer as T
 from repro_torch.serve import sampling as S
 from repro_torch.serve.sampling import SamplingParams
@@ -56,6 +72,108 @@ from repro_torch.serve.scheduler import PagePool, Scheduler
 _UNREAD = ("batch", "q_chunk", "seq_shard_kv", "prefill_kv_block")
 # read only by a paged engine: refused away from their defaults otherwise
 _PAGED = ("page_size", "num_pages", "prefix_cache", "prefix_evict")
+
+
+def _check_kernel_flags(cfg: ModelConfig, scfg: ServeConfig):
+    for flag, name in ((scfg.decode_kernel, "decode_kernel"),
+                       (scfg.prefill_kernel, "prefill_kernel")):
+        if flag and cfg.score_norm != "consmax":
+            raise ValueError(
+                f"ServeConfig.{name}=True requires score_norm='consmax' "
+                f"(got {cfg.score_norm!r} for {cfg.arch_id}): the "
+                "serving kernels have no softmax/softermax path")
+
+
+def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
+    """Returns (init_caches, prefill_step, decode_step, prefill_ragged), the
+    reference's step functions on ``device`` (default cuda).
+
+    With ``scfg.fused_sampling`` (the default) every step takes a trailing
+    ``sampling`` bank (``serve/sampling.bank_init``; greedy rows only) and
+    returns ``(tokens (b,) int32, caches)``; the decode step takes
+    ``batch_inputs["tokens"]`` as the (b,) last-token vector and returns
+    the input token for rows whose ``active`` entry is False. With
+    ``fused_sampling=False`` the steps return ``(logits (b, vocab),
+    caches)``, decode tokens given as (b, 1). ``decode_step`` also takes an
+    optional ``batch_inputs["page_table"]`` for paged caches. Each step runs
+    under ``torch.no_grad`` and updates the caches in place."""
+    _check_kernel_flags(cfg, scfg)
+    if cfg.frontend != "tokens":
+        raise NotImplementedError("make_serve_fns: token frontends only")
+    fused = scfg.fused_sampling
+    kv_dtype = CL.kv_cache_dtype(scfg.kv_cache_dtype)
+    device = resolve_device(device)
+
+    def init_caches(batch: int):
+        return T.init_caches(cfg, batch, scfg.max_seq, kv_dtype,
+                             device=device)
+
+    def _epilogue(sampling):
+        """Greedy tokens of the last kept row (the reference samples with
+        keys folded on the post-step cache index; its draws are not ported,
+        so a bank row with temperature > 0 raises)."""
+        if not fused:
+            return None
+        if sampling is not None and bool((sampling["temperature"] > 0).any()):
+            raise NotImplementedError(
+                "sampled draws (temperature > 0) need the reference's "
+                "threefry fold_in keys, which are not ported yet")
+
+        def epi(logits, new_caches):
+            return S.sample_tokens(logits[:, -1], sampling,
+                                   T.cache_index(new_caches))
+        return epi
+
+    @torch.no_grad()
+    def prefill_step(params, caches, batch_inputs, sampling=None):
+        """Whole-prompt prefill into fresh caches; returns (first tokens |
+        last-position logits, caches)."""
+        tokens = batch_inputs["tokens"]
+        s = tokens.shape[1]
+        out, caches = T.lm_apply(
+            params, cfg, tokens=tokens, caches=caches, merged=True,
+            positions=torch.arange(s, device=tokens.device)[None, :],
+            logits_index=s - 1, logits_epilogue=_epilogue(sampling),
+            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk)
+        return (out if fused else out[:, -1]), caches
+
+    @torch.no_grad()
+    def prefill_ragged(params, caches, batch_inputs, lengths, sampling=None):
+        """Right-padded ragged batch prefill through the append-at-index
+        path: pad K/V never enters the cache, each slot's index lands on its
+        real length, and the output is taken at ``lengths - 1``."""
+        out, caches = T.lm_apply(
+            params, cfg, tokens=batch_inputs["tokens"], caches=caches,
+            merged=True, prefill_append=lengths, logits_index=lengths - 1,
+            prefill_kernel=scfg.prefill_kernel, fill_bound=scfg.fill_bound,
+            logits_epilogue=_epilogue(sampling), q_chunk=scfg.q_chunk,
+            kv_chunk=scfg.kv_chunk)
+        return (out if fused else out[:, 0]), caches
+
+    @torch.no_grad()
+    def decode_step(params, caches, batch_inputs, sampling=None):
+        """One-token decode. Fused: ``tokens`` (b,) -> the next (b,) tokens,
+        rows where ``active`` is False passed through (their cache rows and
+        index stay untouched). Legacy: ``tokens`` (b, 1) -> (b, vocab)
+        logits."""
+        toks = batch_inputs["tokens"]
+        index = T.cache_index(caches)
+        out, caches = T.lm_apply(
+            params, cfg, tokens=toks[:, None] if fused else toks,
+            caches=caches, merged=True, positions=index[:, None],
+            decode_kernel=scfg.decode_kernel,
+            decode_kv_block=scfg.decode_kv_block, fill_bound=scfg.fill_bound,
+            decode_active=batch_inputs.get("active"),
+            page_table=batch_inputs.get("page_table"),
+            logits_epilogue=_epilogue(sampling))
+        if not fused:
+            return out[:, -1], caches
+        active = batch_inputs.get("active")
+        if active is not None:
+            out = torch.where(active, out, toks)
+        return out, caches
+
+    return init_caches, prefill_step, decode_step, prefill_ragged
 
 
 class ContinuousBatchingEngine:
@@ -76,13 +194,7 @@ class ContinuousBatchingEngine:
                 "continuous batching requires a pure dense-attention block "
                 f"pattern (got {cfg.block_pattern}, "
                 f"cross_attn={cfg.cross_attn})")
-        for flag, name in ((scfg.decode_kernel, "decode_kernel"),
-                           (scfg.prefill_kernel, "prefill_kernel")):
-            if flag and cfg.score_norm != "consmax":
-                raise ValueError(
-                    f"ServeConfig.{name}=True requires score_norm='consmax' "
-                    f"(got {cfg.score_norm!r} for {cfg.arch_id}): the "
-                    "serving kernels have no softmax/softermax path")
+        _check_kernel_flags(cfg, scfg)
         if scfg.tp > 1 or scfg.seq_shards > 1:
             raise NotImplementedError("mesh serving (tp / seq_shards > 1) "
                                       "is not ported yet")

@@ -29,12 +29,22 @@ on ``|v|`` is again ``sum_j p_j |v_j|``); ``consmax_attention`` also to
 ``consmax_prefill``'s bits on the same rows. The LUT kernel is held bit for
 bit to its plain version on the same tables (two fp32 products in one
 order) and within relative 1e-5 of ``C * exp(scale * s)``.
+
+The serving kernels on an int8 / fp8_e4m3 cache (the codes of
+``cache_layout.quantize_kv`` with their fp32 scales) are held bit for bit to
+the same kernel on the dequantized bf16 cache (``dequant_block``: the
+kernel dequantizes every element exactly so), their paged twins bit for bit
+to the contiguous kernels on the same rows, and the plain versions on the
+dequantized cache within the bounds above. The decode kernel on int8 K
+codes (V the identity, q = e_0) gives ``consmax_lut``'s weights within one
+bf16 ulp: its output is bf16.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.consmax_decode.ops import (
     consmax_decode_cuda, consmax_decode_op, consmax_decode_paged_cuda,
     consmax_decode_paged_op)
@@ -567,3 +577,125 @@ def test_paper_ops_refuse_what_the_kernels_cannot_take(cuda):
         consmax_lut_op(s8.int(), 0.01, scale=0.1)
     with pytest.raises(ValueError):                      # no hidden copy
         consmax_lut_op(s8.reshape(16, 16).t(), 0.01, scale=0.1)
+
+
+# ------------------------------------------------- quantized KV caches ----
+QDTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
+
+
+def _quantized(x, name):
+    """Codes, scales and the dequantized bf16 cache of ``x``."""
+    codes, scale = CL.quantize_kv(x, QDTYPES[name])
+    return codes, scale, CL.dequant_block(codes, scale, torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", QDTYPES)
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "mqa-ragged-L",
+                                   "head-chunks"])
+def test_decode_quantized_bits(cuda, shape, name):
+    b, L, H, hkv, dk, bk = DECODE[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
+                                   seed=5)
+    kq, ks, kd = _quantized(k, name)
+    vq, vs, vd = _quantized(v, name)
+    lengths = torch.tensor([1, bk, bk + 7, L][:b], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0, bk=bk)
+    got = consmax_decode_cuda(q, kq, vq, lengths, beta, gamma, k_scale=ks,
+                              v_scale=vs, **kw)
+    yard = consmax_decode_cuda(q, kd, vd, lengths, beta, gamma, **kw)
+    fills = lengths.tolist()
+    kp, vp, table = _paginate(kq, vq, fills, 16)
+    ksp, vsp, _ = _paginate(ks, vs, fills, 16)          # the same table
+    paged = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta,
+                                      gamma, k_scale=ksp, v_scale=vsp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, yard) and torch.equal(paged, got)
+    del kw["bk"]
+    # the plain version on the dequantized cache (the kernel's arithmetic:
+    # bf16 values), fp32 out
+    ref = consmax_decode_ref(q.float(), kd, vd, lengths, beta, gamma, **kw)
+    ref_absv = consmax_decode_ref(q.float(), kd, vd.abs(), lengths, beta,
+                                  gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+@pytest.mark.parametrize("name", QDTYPES)
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "mqa-L200-c5",
+                                   "dk256"])
+def test_prefill_quantized_bits(cuda, shape, name):
+    b, c, L, H, hkv, dk = PREFILL[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=6)
+    kq, ks, kd = _quantized(k, name)
+    vq, vs, vd = _quantized(v, name)
+    index = torch.tensor([64 % (L - c), L - c][:b], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([c - 2, c][:b], dtype=torch.int32, device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_prefill_cuda(q, kq, vq, index, lengths, beta, gamma,
+                               k_scale=ks, v_scale=vs, **kw)
+    yard = consmax_prefill_cuda(q, kd, vd, index, lengths, beta, gamma, **kw)
+    fills = (index + lengths).tolist()
+    kp, vp, table = _paginate(kq, vq, fills, 8)
+    ksp, vsp, _ = _paginate(ks, vs, fills, 8)
+    paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                       beta, gamma, k_scale=ksp, v_scale=vsp,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, yard) and torch.equal(paged, got)
+    # q is bf16: the plain version dequantizes to bf16, as the kernel does
+    ref = consmax_prefill_ref(q, kq, vq, index, lengths, beta, gamma,
+                              k_scale=ks, v_scale=vs, **kw)
+    ref_absv = consmax_prefill_ref(q, kd, vd.abs(), index, lengths, beta,
+                                   gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+def test_decode_on_int8_codes_matches_the_lut(cuda):
+    """All 256 int8 codes as K rows (code in lane 0, scale 1.0), q = e_0,
+    V the 256 x 256 identity (scale 1.0): lane d of the decode output is
+    ``C * exp(sigma * s_d)``, what ``consmax_lut`` computes from the codes
+    (the reference's check, ``tests/test_quantized_kv.py:217``, at dk
+    256: the kernels take dk >= 32)."""
+    n = 256
+    codes = torch.arange(-128, 128, dtype=torch.int32,
+                         device=cuda).to(torch.int8)
+    k = torch.zeros((1, n, 1, n), dtype=torch.int8, device=cuda)
+    k[0, :, 0, 0] = codes
+    v = torch.eye(n, dtype=torch.int8, device=cuda)[None, :, None, :]
+    ones = torch.ones((1, n, 1), device=cuda)
+    q = torch.zeros((1, 1, n), dtype=torch.bfloat16, device=cuda)
+    q[0, 0, 0] = 1.0
+    beta = torch.tensor([1.5], device=cuda)
+    gamma = torch.tensor([100.0], device=cuda)
+    sigma = 1.0 / 16.0
+    out = consmax_decode_cuda(q, k, v, torch.tensor([n], dtype=torch.int32,
+                                                    device=cuda), beta,
+                              gamma, scale=sigma, k_scale=ones, v_scale=ones)
+    lut = consmax_lut_op(codes, torch.exp(-beta[0]) / gamma[0], scale=sigma)
+    torch.cuda.synchronize()
+    ulp = 2.0 ** (torch.floor(torch.log2(lut.abs())) - 7)
+    assert bool(((out[0, 0].float() - lut).abs() <= ulp).all())
+
+
+def test_serving_ops_refuse_mismatched_scales_on_cuda(cuda):
+    q, k, v, beta, gamma = _inputs(cuda, b=2, L=64, H=4, hkv=2, dk=64)
+    kq, ks, _ = _quantized(k, "int8")
+    vq, vs, _ = _quantized(v, "int8")
+    index = torch.tensor([3, 63], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="needs its k_scale"):
+        consmax_decode_op(q[:, None], kq, vq, index, beta, gamma)
+    with pytest.raises(ValueError, match="takes no"):
+        consmax_decode_op(q[:, None], k, v, index, beta, gamma, k_scale=ks,
+                          v_scale=vs)
+    with pytest.raises(TypeError):                       # fp32 cache
+        consmax_decode_op(q[:, None], k.float(), v.float(), index, beta,
+                          gamma)
+    qc = _inputs(cuda, b=2, L=64, H=4, hkv=2, dk=64, c=4)[0]
+    with pytest.raises(ValueError, match="needs its k_scale"):
+        consmax_prefill_op(qc, kq, vq, index - 3, torch.full_like(index, 4),
+                           beta, gamma)
+    with pytest.raises(ValueError, match="float32 of shape"):
+        consmax_prefill_op(qc, kq, vq, index - 3, torch.full_like(index, 4),
+                           beta, gamma, k_scale=ks[:, :8], v_scale=vs[:, :8])

@@ -96,10 +96,9 @@ def test_unported_options_raise():
     # the paged fields are read only with paged_kv=True
     paged = dict(paged_kv=True, page_size=4)
     for kw in (dict(paged, q_chunk=16), dict(fused_sampling=False),
-               dict(kv_cache_dtype="int8"), dict(prefill_kv_block=64),
+               dict(prefill_kv_block=64),
                dict(q_chunk=16), dict(batch=4), dict(seq_shard_kv=True),
                dict(page_size=4), dict(prefix_cache=False),
-               dict(paged, kv_cache_dtype="int8"),
                dict(paged, num_pages=24, seq_shards=2), dict(tp=2)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **kw), model,
@@ -108,6 +107,11 @@ def test_unported_options_raise():
                                               prefix_cache=False,
                                               prefix_evict="fifo"),
                              model, device="cpu")
+    # the quantized caches are served (tests/test_torch_quantized_kv.py)
+    for kw in (dict(kv_cache_dtype="int8"),
+               dict(paged, kv_cache_dtype="fp8_e4m3")):
+        ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **kw), model,
+                                 device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):

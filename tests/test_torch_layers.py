@@ -223,13 +223,18 @@ def test_consmax_weights(merged):
 
 
 def test_kv_cache_dtype_bf16_only():
+    # the name predates the quantized caches: bf16 is the only unscaled one
     assert TCL.kv_cache_dtype("bfloat16") == torch.bfloat16
     assert TCL.kv_cache_dtype("bf16") == torch.bfloat16
-    for name in ("int8", "fp8_e4m3"):
-        with pytest.raises(NotImplementedError):
-            TCL.kv_cache_dtype(name)
+    assert TCL.kv_cache_dtype("int8") == torch.int8
+    assert TCL.kv_cache_dtype("fp8_e4m3") == torch.float8_e4m3fn
+    assert [TCL.kv_quantized(n) for n in ("bf16", "int8", "fp8_e4m3")] == [
+        False, True, True]
+    assert (TCL.kv_qmax("int8"), TCL.kv_qmax("fp8_e4m3")) == (127.0, 448.0)
     with pytest.raises(ValueError):
         TCL.kv_cache_dtype("float64")
+    with pytest.raises(ValueError):
+        TCL.kv_qmax("bfloat16")
 
 
 # ------------------------------------------------------------ configs ----
