@@ -6,7 +6,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. header: the card's ``nvidia-smi`` name and power limit, torch and CUDA;
 2. build: every CUDA kernel of the path, from ``src/repro_torch`` (nvcc,
-   one process per source, all at once);
+   one process per source, all at once); then, for each instantiation of
+   the shared attention mainloop (``attn_walk_kernel``), its registers,
+   dynamic and static shared memory and spills from ``ptxas -v``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (qwen2-1.5b: 8 slots x 8192 rows, 2 KV heads,
    GQA group 6, head_dim 128, bf16; prefill chunk 512) and the
@@ -20,8 +22,8 @@ Phases, in order; any failure exits non-zero before the result line:
    LUT on 12 x 4096 x 4096 int8 scores), launch counts read around that
    run; then non-causal cross-length, merged, odd-length, bit-equality with
    the prefill kernel, the decode kernel's last row, all 256 LUT codes;
-   times beside ``scaled_dot_product_attention`` and the ConSmax/softmax
-   ratio;
+   times beside ``scaled_dot_product_attention``, the ConSmax (Eq. 2 and
+   Eq. 3) / softmax time ratio and each kernel's share of its bound;
 3c. quantized kernels: the four serving kernels on int8 and fp8_e4m3
    caches (codes + per-row fp32 scales) at the qwen2-1.5b and gpt2-consmax
    shapes above: bit-equal to the same kernel on the dequantized bf16
@@ -50,6 +52,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``make_serve_fns``'s ``decode_step`` on 128 tokens; int8-KV within 1 %
    of bf16-KV, fp8's printed.
 
+The trace phases print device busy ms per engine iteration and, within
+it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms.
+
 Launch counts: each serving path is run with the kernels' counts set to 0
 just before it and read just after (the bf16 contiguous kernels from phase
 5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9).
@@ -66,6 +71,7 @@ and convolutions, so the plain versions run in full fp32.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -972,7 +978,13 @@ def paper_kernel_phase(flush):
                 f"{t['softmax_plain'] * 1e3:.1f} us), "
                 f"scaled_dot_product_attention {t['sdpa'] * 1e3:.1f} us"
                 if not kw else "")
-             + f"; bound {t['bound'] * 1e3:.2f} us by {t['by']}{ratio}")
+             + f"; bound {t['bound'] * 1e3:.2f} us by {t['by']}{ratio}; "
+             f"share of the bound (bound / time): consmax_attention "
+             f"{t['bound'] / t['consmax']:.3f}" + (
+                 f", merged {t['bound'] / t['merged']:.3f}, "
+                 f"softmax_attention {t['bound'] / t['softmax']:.3f}, "
+                 f"scaled_dot_product_attention "
+                 f"{t['bound'] / t['sdpa']:.3f}" if not kw else ""))
     head = times["qwen2-1.5b b=2 s=4096"]
     rows["consmax_attention"] = dict(
         max_abs_err=max(errs["consmax_attention"]), ms=head["consmax"],
@@ -1067,12 +1079,16 @@ def trace_steps(eng, arch, *, skip, steps):
         end = max(end, e.time_range.end)
         by_name[e.name[:40]] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    walk_ms = sum(e.time_range.elapsed_us() for e in dev
+                  if "attn_walk_kernel" in e.name) / 1e3
     busy_ms = busy / 1e3
     _log(f"[trace] {arch}: {steps} engine iterations under torch.profiler: "
          f"wall {wall * 1e3 / steps:.1f} ms/iteration, device busy "
          f"{busy_ms / steps:.1f} ms/iteration (idle share "
          f"{1 - busy_ms / (wall * 1e3):.3f}), {len(dev) / steps:.0f} device "
-         f"ops/iteration; device time by kernel: "
+         f"ops/iteration; prefill_kernel (the mainloop's "
+         f"attn_walk_kernel) {walk_ms / steps:.2f} ms/iteration; device "
+         f"time by kernel: "
          + ", ".join(f"{n} {t / 1e3 / steps:.2f} ms" for n, t in top))
 
 
@@ -1430,6 +1446,45 @@ def perplexity_phase(*, seed=5, n_tokens=128):
         raise AssertionError("int8-KV perplexity gate failed")
 
 
+WALK_KV = {"13__nv_bfloat16": ("bf16", 0), "a": ("int8", 1),
+           "13__nv_fp8_e4m3": ("fp8_e4m3", 2)}
+WALK_FORM = {"0": "Eq. 2", "1": "Eq. 3", "2": "softmax"}
+
+
+def mainloop_report():
+    """Each instantiation of the shared attention mainloop
+    (``attn_walk_kernel``, csrc/attn_mainloop.cuh) in the three libraries
+    that build it: registers, static and dynamic shared memory and spills,
+    as ``ptxas -v`` reported them in this run's build."""
+    import re
+
+    from repro_torch.kernels import _build
+    for lib_name in ("consmax_prefill", "consmax_attn", "softmax_attn"):
+        lib = _build.load(lib_name)
+        lib.attn_walk_smem_bytes.argtypes = [ctypes.c_int] * 3
+        rows = []
+        for k in _build.ptxas_report(lib_name):
+            m = re.search(r"attn_walk_kernelILi(\d+)ELi(\d)E(13__nv_bfloat16"
+                          r"|a|13__nv_fp8_e4m3)\d+(Contig|Paged)RowsLi([12])E",
+                          k["kernel"])
+            if not m:
+                continue
+            dk, form, kv, rows_of, cons = m.groups()
+            kv_name, kv_code = WALK_KV[kv]
+            smem = lib.attn_walk_smem_bytes(int(dk), kv_code, int(cons))
+            rows.append(
+                f"dk {dk} {WALK_FORM[form]} {kv_name} {rows_of}, {cons} "
+                f"consumer warpgroup{'s' if cons == '2' else ''}: "
+                f"{k['registers']} registers, {smem} B dynamic + "
+                f"{k['smem']} B static shared memory, spill stores/loads "
+                f"{k['spill_stores']}/{k['spill_loads']} B")
+        if not rows:
+            raise AssertionError(f"{lib_name}: no attn_walk_kernel in the "
+                                 "ptxas report")
+        _log(f"[build] {lib_name} mainloop instantiations ({len(rows)}): "
+             + "; ".join(rows))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1453,6 +1508,7 @@ def main():
     built = _build.build()
     _log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.1f} s "
          f"(one nvcc per source, in parallel)")
+    mainloop_report()
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     t0 = time.perf_counter()
@@ -1474,9 +1530,13 @@ def main():
     torch.cuda.empty_cache()
     del flush
     for name, row in rows.items():
+        lib = row.get("library_ms")
         _log(f"[kernels] {name}: {row['ms'] * 1e3:.1f} us (plain "
              f"{row['plain_ms'] * 1e3:.1f} us), bound "
-             f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}")
+             f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']} (share "
+             f"{row['bound_ms'] / row['ms']:.3f})"
+             + (f", scaled_dot_product_attention {lib * 1e3:.1f} us"
+                if lib else "") + f"; on {smi}")
     _log(f"[kernels] largest row relative L2 error of all checks "
          f"{_worst_rel[0]:.3e} (bound {REL_L2_BOUND:.3e})")
     _log(f"[kernels] tolerance: {TOL_NOTE}; with normalized p for "

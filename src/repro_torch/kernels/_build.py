@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -98,6 +99,32 @@ def build(names=KERNELS) -> dict[str, float]:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {n} ---\n{log}" for n, log in failed.items()))
     return seconds
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """What ``ptxas -v`` said of each kernel of built library ``name``:
+    ``[{"kernel": mangled name, "registers": n, "smem": static bytes,
+    "spill_stores": bytes, "spill_loads": bytes}]``, from the log kept
+    beside the library."""
+    log = library_path(name).with_suffix(".log").read_text()
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1), registers=0, smem=0,
+                       spill_stores=0, spill_loads=0)
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 @functools.cache

@@ -18,139 +18,50 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 * d * H flops
 // per visible (query, key) pair; causal qwen2-1.5b at b = 2, s = 4096 is
 // ~1.03e11 flops (~104 us) against ~40 MB of q/k/v/out (~12 us): compute-
-// bound, so both products run on tensor cores.
+// bound, so both products run on the tensor cores through wgmma.
 //
-// Design: the prefill kernel's (consmax_prefill.cu) tile walk with index 0
-// and the whole sequence as the chunk, through the same tile steps
-// (mma_tiles.cuh):
-// * GQA folded position-major (row r = pos * g + head-in-group): a block's
-//   64 rows share one KV head; query head ih reads KV head ih / g.
-// * One block per (64 folded rows, kv head, batch row) walks the KV tiles
-//   its rows can see, in order (causal and window reach; a skipped tile
-//   would add exact zeros), adding each tile's P V into registers.
-// * mma.sync m16n8k16 bf16 -> fp32 for S = Q K^T and O += P V, P rounded to
-//   bf16 first (the TPU kernel's p.astype(v.dtype)).
+// Design: consmax_prefill.cu's kernel with index 0 and the whole sequence
+// as the chunk, through the same mainloop (attn_mainloop.cuh: a producer
+// warpgroup's cp.async copies into a ring of shared-memory stages, the
+// consumer warpgroups' wgmma products, the ConSmax epilogue on the
+// accumulator):
+// * GQA folded position-major (row r = pos * g + head-in-group): a CTA's
+//   rows share one KV head; query head ih reads KV head ih / g.
+// * At head_dim <= 128 a CTA holds two consumer warpgroups, 128 folded rows:
+//   each K/V tile copied into shared memory serves both, which halves the
+//   copies' traffic (at qwen2-1.5b b 2 x s 4096 the 64-row design moved
+//   ~1.6 GB of K/V tiles from L2 for 8 MB of K/V), and one warpgroup's
+//   per-score work overlaps the other's products. 768 CTAs at that shape.
+// * One CTA per (128 or 64 folded rows, kv head, batch row) walks the KV
+//   tiles its rows can see, in order (causal and window reach; a skipped
+//   tile would add exact zeros), adding each tile's P V into registers.
 // * The form (Eq. 2 or 3) is a template parameter and each row's merged
-//   constant C is computed once (consmax_c / consmax_weight<kMerged>, as
-//   in the serving kernels): with the form chosen at run time, an exp and
-//   an IEEE division per score stayed in the tile loop, and merged ConSmax
-//   ran slower than the softmax kernel (measured in PERF.md).
-// * Blocks are issued heaviest first: under causal masking the last rows
-//   see the most tiles, so they start while the card is still filling.
+//   constant C is computed once (consmax_c / consmax_weight<kMerged>, as in
+//   the serving kernels).
+// * CTAs are issued heaviest first: under causal masking the last rows see
+//   the most tiles, so they start while the card is still filling.
 // With index 0, lengths sq and the same rows it gives consmax_prefill's
-// bits: the tiles, their order and the arithmetic are the same.
-// What it leaves for later: wgmma + TMA, cp.async double buffering and a
-// warp-specialized pipeline; the simple version stalls on its tile loads.
-#include "mma_tiles.cuh"
+// bits: the tiles, their order and the arithmetic are the same code.
+#include "attn_mainloop.cuh"
 
 namespace {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerBlock = 16 * kWarps;  // folded query rows per block
-
-template <int DK, bool kMerged>
-__global__ void __launch_bounds__(kThreads)
-    consmax_attn_kernel(const __nv_bfloat16* __restrict__ q,  // (b,sq,H,DK)
-                        const __nv_bfloat16* __restrict__ k,  // (b,skv,hkv,DK)
-                        const __nv_bfloat16* __restrict__ v,
-                        const float* __restrict__ beta,       // (H,)
-                        const float* __restrict__ gamma,
-                        __nv_bfloat16* __restrict__ out,      // (b,sq,H,DK)
-                        int sq, int skv, int H, int hkv, int causal,
-                        int window, float softcap, float scale) {
-  using T = Tile<DK>;
-  __shared__ __align__(16) __nv_bfloat16 k_s[T::BN * T::SROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[T::BN * T::SROW];
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = H / hkv;
-  const int rows_total = sq * g;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRowsPerBlock;
-
-  // the KV tiles this block's rows can see
-  const int pos_lo = r0 / g;
-  const int pos_hi = min(sq - 1, (r0 + kRowsPerBlock - 1) / g);
-  const int kv_end = causal ? min(skv, pos_hi + 1) : skv;
-  int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
-  kv_begin = (kv_begin / T::BN) * T::BN;
-
-  bool rvalid[2];
-  int qpos[2];
-  float bet[2], gam[2], cm[2];
-  const __nv_bfloat16* qrow[2];
-  __nv_bfloat16* orow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + warp * 16 + gid + 8 * i;
-    rvalid[i] = r < rows_total;
-    const int pos = rvalid[i] ? r / g : 0;
-    const int head = h * g + (rvalid[i] ? r % g : 0);
-    qpos[i] = pos;
-    bet[i] = beta[head];
-    gam[i] = gamma[head];
-    cm[i] = consmax_c(bet[i], gam[i]);
-    const size_t at = ((static_cast<size_t>(b) * sq + pos) * H + head) * DK;
-    qrow[i] = rvalid[i] ? q + at : nullptr;
-    orow[i] = rvalid[i] ? out + at : nullptr;
-  }
-
-  uint32_t qa[T::KS][4];
-  load_q_frags<DK>(qa, qrow, tig);
-
-  float o[T::DT][4];
-#pragma unroll
-  for (int dt = 0; dt < T::DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-
-  const size_t row_stride = static_cast<size_t>(hkv) * DK;
-  const __nv_bfloat16* kh = k + static_cast<size_t>(h) * DK;
-  const __nv_bfloat16* vh = v + static_cast<size_t>(h) * DK;
-
-  for (int j0 = kv_begin; j0 < kv_end; j0 += T::BN) {
-    __syncthreads();  // the previous tile is consumed
-    load_kv_tile<DK, kThreads>(k_s, v_s, kh, vh, row_stride, ContigRows{skv},
-                               b, j0, kv_end);
-    __syncthreads();
-
-    float s[T::NT][4];
-    qk_tile<DK>(s, qa, k_s, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int kpos = j0 + nt * 8 + tig * 2 + (e & 1);
-        s[nt][e] = rvalid[i] && kv_mask(qpos[i], kpos, skv, window, causal)
-                       ? consmax_weight<kMerged>(s[nt][e] * scale, bet[i],
-                                                 gam[i], cm[i], softcap)
-                       : 0.f;
-      }
-    }
-    pv_tile<DK>(o, s, v_s, gid, tig);
-  }
-  store_rows<DK>(orow, o, tig);
-}
 
 template <int DK>
 int launch(const void* q, const void* k, const void* v, const void* beta,
            const void* gamma, void* out, int b, int sq, int skv, int H,
            int hkv, int causal, int window, float softcap, float scale,
            int merged, void* stream) {
-  const int g = H / hkv;
-  dim3 grid((sq * g + kRowsPerBlock - 1) / kRowsPerBlock, hkv, b);
-  auto kernel = merged ? consmax_attn_kernel<DK, true>
-                       : consmax_attn_kernel<DK, false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const WalkArgs<__nv_bfloat16, ContigRows> a{
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(beta),
+      static_cast<const __nv_bfloat16*>(v), nullptr, nullptr,
+      ContigRows{skv}, nullptr, nullptr, static_cast<const float*>(beta),
       static_cast<const float*>(gamma), static_cast<__nv_bfloat16*>(out), sq,
-      skv, H, hkv, causal, window, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
+      H, hkv, skv, causal, window, /*fill_bound=*/1, /*reverse=*/1, softcap,
+      scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(merged ? launch_walk<DK, kFormEq3, true>(a, b, st)
+                                 : launch_walk<DK, kFormEq2, true>(a, b, st));
 }
 
 }  // namespace

@@ -699,3 +699,169 @@ def test_serving_ops_refuse_mismatched_scales_on_cuda(cuda):
     with pytest.raises(ValueError, match="float32 of shape"):
         consmax_prefill_op(qc, kq, vq, index - 3, torch.full_like(index, 4),
                            beta, gamma, k_scale=ks[:, :8], v_scale=vs[:, :8])
+
+
+# ------------------------------------------ the Hopper mainloop's edges ----
+# Walk lengths against the ring of shared-memory stages (3 stages; 2 at
+# head_dim 256 with a quantized cache): one 64-row tile, fewer tiles than
+# stages, exactly three tiles, and a ragged last tile.
+WALK = {"one-tile": 64, "fewer-than-stages": 128, "three-tiles": 192,
+        "ragged-last": 200}
+
+
+@pytest.mark.parametrize("dk", [32, 64, 128, 256])
+@pytest.mark.parametrize("walk", WALK)
+def test_mainloop_walk_lengths_attention(cuda, walk, dk):
+    """Non-causal, so every CTA walks all ceil(s / 64) tiles: both attention
+    kernels against their plain versions; causal, consmax_attention gives
+    the prefill kernel's bits."""
+    s = WALK[walk]
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=1, sq=s, skv=s, H=4, hkv=2,
+                                       dk=dk, seed=11)
+    for merged in (False, True):
+        got = consmax_attention_cuda(q, k, v, beta, gamma, causal=False,
+                                     merged=merged)
+        torch.cuda.synchronize()
+        kw = dict(causal=False, merged=merged)
+        _assert_within_bound(
+            got, _model_layout(consmax_attention_ref, q.float(), k, v, beta,
+                               gamma, **kw),
+            _model_layout(consmax_attention_ref, q.float(), k, v.abs(),
+                          beta, gamma, **kw))
+    got = softmax_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_within_bound(
+        got, _model_layout(softmax_attention_ref, q.float(), k, v,
+                           causal=False),
+        _model_layout(softmax_attention_ref, q.float(), k, v.abs(),
+                      causal=False))
+    qs = (q.float() * dk ** -0.5).to(torch.bfloat16)
+    kw = dict(merged=True, scale=1.0)
+    full = consmax_attention_cuda(qs, k, v, beta, gamma, causal=True, **kw)
+    pre = consmax_prefill_cuda(
+        qs, k, v, torch.zeros(1, dtype=torch.int32, device=cuda),
+        torch.full((1,), s, dtype=torch.int32, device=cuda), beta, gamma,
+        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(full, pre)
+
+
+@pytest.mark.parametrize("dk", [32, 64, 128, 256])
+@pytest.mark.parametrize("walk", WALK)
+def test_mainloop_walk_lengths_prefill(cuda, walk, dk):
+    """A 16-row chunk ending at fill s (each CTA walks ceil(s / 64) tiles):
+    bf16 against the plain version, int8 and fp8 bit-equal to the bf16
+    kernel on the dequantized cache, paged (page size 16) bit-equal to
+    contiguous."""
+    s, c = WALK[walk], 16
+    q, k, v, beta, gamma = _inputs(cuda, b=1, L=s, H=4, hkv=2, dk=dk, c=c,
+                                   seed=12)
+    index = torch.tensor([s - c], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([c], dtype=torch.int32, device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    kp, vp, table = _paginate(k, v, [s], 16)
+    paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                       beta, gamma, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, got)
+    _assert_within_bound(
+        got, consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, **kw),
+        consmax_prefill_ref(q, k, v.abs(), index, lengths, beta, gamma,
+                            **kw))
+    for name in QDTYPES:
+        kq, ks, kd = _quantized(k, name)
+        vq, vs, vd = _quantized(v, name)
+        quant = consmax_prefill_cuda(q, kq, vq, index, lengths, beta, gamma,
+                                     k_scale=ks, v_scale=vs, **kw)
+        yard = consmax_prefill_cuda(q, kd, vd, index, lengths, beta, gamma,
+                                    **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(quant, yard), name
+
+
+@pytest.mark.parametrize("dk", [64, 256])
+def test_mainloop_window_starting_mid_tile(cuda, dk):
+    """Windows whose first visible key falls inside a 64-row tile, for the
+    prefill kernel (chunk at 200, window 37: keys from 164) and both
+    attention kernels (s 300, window 100)."""
+    q, k, v, beta, gamma = _inputs(cuda, b=1, L=300, H=4, hkv=2, dk=dk,
+                                   c=32, seed=13)
+    index = torch.tensor([200], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([32], dtype=torch.int32, device=cuda)
+    kw = dict(window=37, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    torch.cuda.synchronize()
+    _assert_within_bound(
+        got, consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, **kw),
+        consmax_prefill_ref(q, k, v.abs(), index, lengths, beta, gamma,
+                            **kw))
+    q, k, v, beta, gamma = _seq_inputs(cuda, b=1, sq=300, skv=300, H=4,
+                                       hkv=2, dk=dk, seed=14)
+    got = consmax_attention_cuda(q, k, v, beta, gamma, window=100)
+    soft = softmax_attention_cuda(q, k, v, window=100)
+    torch.cuda.synchronize()
+    _assert_within_bound(
+        got, _model_layout(consmax_attention_ref, q.float(), k, v, beta,
+                           gamma, window=100),
+        _model_layout(consmax_attention_ref, q.float(), k, v.abs(), beta,
+                      gamma, window=100))
+    _assert_within_bound(
+        soft, _model_layout(softmax_attention_ref, q.float(), k, v,
+                            window=100),
+        _model_layout(softmax_attention_ref, q.float(), k, v.abs(),
+                      window=100))
+
+
+def test_prefill_engine_shape(cuda):
+    """The engine's chunk: qwen2-1.5b (12 heads, 2 KV heads, dk 128), b 1 x
+    c 512 at fill 4096 (index 3584) of an 8192-row cache: against the plain
+    version, paged (page size 256) bit-equal to contiguous, int8 bit-equal
+    to the bf16 kernel on the dequantized cache."""
+    q, k, v, beta, gamma = _inputs(cuda, b=1, L=8192, H=12, hkv=2, dk=128,
+                                   c=512, seed=15)
+    index = torch.tensor([3584], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([512], dtype=torch.int32, device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    kp, vp, table = _paginate(k, v, [4096], 256)
+    paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                       beta, gamma, **kw)
+    kq, ks, kd = _quantized(k, "int8")
+    vq, vs, vd = _quantized(v, "int8")
+    quant = consmax_prefill_cuda(q, kq, vq, index, lengths, beta, gamma,
+                                 k_scale=ks, v_scale=vs, **kw)
+    yard = consmax_prefill_cuda(q, kd, vd, index, lengths, beta, gamma, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, got) and torch.equal(quant, yard)
+    _assert_within_bound(
+        got, consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, **kw),
+        consmax_prefill_ref(q, k, v.abs(), index, lengths, beta, gamma,
+                            **kw))
+
+
+@pytest.mark.parametrize("ps", [4, 16, 64, 256])
+@pytest.mark.parametrize("name", QDTYPES)
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "dk256"])
+def test_prefill_paged_quantized_bits(cuda, shape, name, ps):
+    """Quantized page pools (codes and scales under one table) give the
+    contiguous quantized kernel's bits at every page size the tests use."""
+    b, c, L, H, hkv, dk = PREFILL[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=16)
+    kq, ks, _ = _quantized(k, name)
+    vq, vs, _ = _quantized(v, name)
+    index = torch.tensor([64 % (L - c), L - c][:b], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([c - 2, c][:b], dtype=torch.int32, device=cuda)
+    fills = (index + lengths).tolist()
+    kp, vp, table = _paginate(kq, vq, fills, ps)
+    ksp, vsp, _ = _paginate(ks, vs, fills, ps)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                       beta, gamma, k_scale=ksp, v_scale=vsp,
+                                       **kw)
+    cont = consmax_prefill_cuda(q, kq, vq, index, lengths, beta, gamma,
+                                k_scale=ks, v_scale=vs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, cont)

@@ -1,0 +1,160 @@
+"""Time the attention mainloop kernels of several source trees in one
+process, on one card, in turns.
+
+    python3 tools/mainloop_ab.py PARENT_ROOT CHANGE_ROOT [...]
+
+Each argument is a checkout of this repository (for example a
+``git archive`` of the parent commit unpacked into a directory that
+``.gitignore`` lists, and ``.`` for the working tree). For each tree the
+script compiles ``consmax_prefill``, ``consmax_attn`` and ``softmax_attn``
+from that tree's ``src/repro_torch/kernels`` with this tree's nvcc flags,
+all in parallel, into ``build/ab/<n>/``, and binds them through this tree's
+ops (the kernels' C entry points have kept their signatures). Then, per
+case (the shapes of ``chip_smoke.py``'s timed rows: the qwen2-1.5b prefill
+chunk c 512 at fill 4096, bf16, int8 and paged at page size 256; causal
+whole-prompt attention at qwen2-1.5b b 2 x s 4096, Eq. 2, Eq. 3 and
+softmax; the gemma2-2b local layer), it times the trees in the order
+given and then reversed (CUDA events, L2 flushed before each call), and
+prints each tree's times and its largest difference from the first tree's
+output. Prints the card's name and power limit first. Needs one card.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as CS  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+import repro_torch.kernels.consmax_attn.ops as AO  # noqa: E402
+import repro_torch.kernels.consmax_prefill.ops as PO  # noqa: E402
+import repro_torch.kernels.softmax_attn.ops as SO  # noqa: E402
+
+NAMES = {"consmax_prefill": PO, "consmax_attn": AO, "softmax_attn": SO}
+
+
+def build(trees):
+    """One nvcc per (tree, library), all at once; returns the library
+    paths, raising with the compiler's output if one fails."""
+    procs, libs = {}, {}
+    t0 = time.perf_counter()
+    for n, tree in enumerate(trees):
+        kdir = tree / "src/repro_torch/kernels"
+        out = ROOT / "build/ab" / str(n)
+        out.mkdir(parents=True, exist_ok=True)
+        for name in NAMES:
+            lib = out / f"lib{name}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{kdir / 'csrc'}",
+                   "-o", str(lib), str(kdir / name / "csrc" / f"{name}.cu")]
+            procs[n, name] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+            libs[n, name] = lib
+    for (n, name), p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {trees[n]} {name}:\n{log}")
+        regs = sorted({int(x) for x in re.findall(r"Used (\d+) registers",
+                                                   log)})
+        spills = sorted({int(x) for x in re.findall(
+            r"(\d+) bytes spill stores", log)})
+        print(f"[ab] built {trees[n]} {name}: registers {regs}, spill "
+              f"stores {spills} B ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return libs
+
+
+def bind(path, module):
+    """The library at ``path`` with ``module``'s argument types set."""
+    lib = ctypes.CDLL(str(path))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    load = _build.load
+    _build.load = lambda name: lib
+    try:
+        return module._lib.__wrapped__()
+    finally:
+        _build.load = load
+
+
+def cases():
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, hkv, dk, c, L = 12, 2, 128, 512, 8192
+    q1 = CS._rand(gen, (1, c, H, dk), dk ** -0.5)
+    k1, v1 = CS._rand(gen, (1, L, hkv, dk)), CS._rand(gen, (1, L, hkv, dk))
+    beta, gamma = CS._head_params(gen, H)
+    ti = torch.tensor([3584], dtype=torch.int32, device="cuda")
+    tn = torch.tensor([512], dtype=torch.int32, device="cuda")
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    kq, ks, _ = CS._quantize(k1, "int8")
+    vq, vs, _ = CS._quantize(v1, "int8")
+    (kp, vp), table = CS._paginate_rows([k1, v1], [8192], 256, 64, seed=7)
+    qa = CS._rand(gen, (2, 4096, H, dk))
+    ka, va = CS._rand(gen, (2, 4096, hkv, dk)), CS._rand(gen, (2, 4096, hkv,
+                                                                 dk))
+    qg = CS._rand(gen, (1, 8192, 8, 256))
+    kg, vg = CS._rand(gen, (1, 8192, 4, 256)), CS._rand(gen, (1, 8192, 4,
+                                                               256))
+    bg, gg = CS._head_params(gen, 8)
+    return {
+        "consmax_prefill bf16, c 512 at fill 4096": lambda: (
+            PO.consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw)),
+        "consmax_prefill int8, same chunk": lambda: PO.consmax_prefill_cuda(
+            q1, kq, vq, ti, tn, beta, gamma, k_scale=ks, v_scale=vs, **kw),
+        "consmax_prefill_paged bf16, page size 256": lambda: (
+            PO.consmax_prefill_paged_cuda(q1, kp, vp, table, ti, tn, beta,
+                                          gamma, **kw)),
+        "consmax_attention Eq. 2, qwen2-1.5b b 2 x s 4096": lambda: (
+            AO.consmax_attention_cuda(qa, ka, va, beta, gamma)),
+        "consmax_attention Eq. 3, same": lambda: AO.consmax_attention_cuda(
+            qa, ka, va, beta, gamma, merged=True),
+        "softmax_attention, same": lambda: SO.softmax_attention_cuda(
+            qa, ka, va),
+        "consmax_attention, gemma2-2b local dk 256 s 8192": lambda: (
+            AO.consmax_attention_cuda(qg, kg, vg, bg, gg, window=4096,
+                                      softcap=50.0)),
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("mainloop_ab: no CUDA device")
+    trees = [Path(a).resolve() for a in sys.argv[1:]]
+    if not trees:
+        raise SystemExit(__doc__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    paths = build(trees)
+    libs = {n: {name: bind(paths[n, name], mod)
+                for name, mod in NAMES.items()} for n in range(len(trees))}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    order = list(range(len(trees)))
+    order += order[::-1]
+    for case, fn in cases().items():
+        outs, ts = {}, {}
+        for n in order:
+            for name, mod in NAMES.items():
+                mod._lib = (lambda lib: (lambda: lib))(libs[n][name])
+            outs.setdefault(n, fn())
+            ts.setdefault(n, []).append(CS._time_ms(fn, flush, 20) * 1e3)
+        torch.cuda.synchronize()
+        ref = outs[0].float()
+        print(f"[ab] {case}: " + "; ".join(
+            f"{trees[n].name or trees[n]}: {ts[n][0]:.1f}, {ts[n][1]:.1f} us"
+            f" (max |diff| vs {trees[0].name} "
+            f"{float((outs[n].float() - ref).abs().max()):.3e})"
+            for n in ts), flush=True)
+
+
+if __name__ == "__main__":
+    main()
