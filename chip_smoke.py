@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero before the result line:
 1. header: the card's ``nvidia-smi`` name and power limit, torch and CUDA;
 2. build: every CUDA kernel of the path, from ``src/repro_torch`` (nvcc,
    one process per source, all at once); then, for each instantiation of
-   the shared attention mainloop (``attn_walk_kernel``), its registers,
-   dynamic and static shared memory and spills from ``ptxas -v``;
+   the shared attention mainloop (``attn_walk_kernel``) and of the decode
+   kernel (``decode_partials``), its registers, dynamic and static shared
+   memory and spills from ``ptxas -v``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (qwen2-1.5b: 8 slots x 8192 rows, 2 KV heads,
    GQA group 6, head_dim 128, bf16; prefill chunk 512) and the
@@ -28,9 +29,10 @@ Phases, in order; any failure exits non-zero before the result line:
    caches (codes + per-row fp32 scales) at the qwen2-1.5b and gpt2-consmax
    shapes above: bit-equal to the same kernel on the dequantized bf16
    cache, within the bounds of the plain version, paged == contiguous bits;
-   times beside the bf16 kernel, same data; then the LUT check (the int8
-   decode kernel on all 256 K codes == ``consmax_lut`` within one bf16
-   ulp);
+   times beside the bf16 kernel, same data (the decode kernels' int8 / bf16
+   and fp8 / bf16 time ratios, contiguous and paged); then the LUT check
+   (the int8 decode kernel on all 256 K codes == ``consmax_lut`` within one
+   bf16 ulp);
 4. model: full-width qwen2-1.5b logits with both kernels vs the plain
    walks on a small input;
 5. engine: full-width qwen2-1.5b (28 layers, random weights from a seed)
@@ -53,7 +55,8 @@ Phases, in order; any failure exits non-zero before the result line:
    of bf16-KV, fp8's printed.
 
 The trace phases print device busy ms per engine iteration and, within
-it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms.
+it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
+``decode_kernel``: the decode kernel's (``decode_partials``) ms.
 
 Launch counts: each serving path is run with the kernels' counts set to 0
 just before it and read just after (the bf16 contiguous kernels from phase
@@ -100,14 +103,19 @@ def _log(msg):
 
 
 def _time_ms(fn, flush, reps):
-    """Mean device time of ``fn`` over ``reps`` calls, each after a write
-    of ``flush`` that evicts the 50 MB L2 (the serving path reads every
-    layer's cache cold)."""
+    """Mean device time of ``fn`` over ``reps`` calls, each after a read of
+    ``flush`` (256 MB) that evicts the 50 MB L2 (the serving path reads
+    every layer's cache cold) and leaves it clean (a write would leave
+    50 MB of dirty lines, whose write-backs would double a short kernel's
+    DRAM traffic), then a device-side wait long enough for the host to
+    enqueue the call, so the events time the device work and not the
+    wrapper's host time (which can outlast the flush for a short kernel)."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        flush.max()
+        torch.cuda._sleep(500_000)     # ~0.25 ms at the H100's clocks
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
         fn()
@@ -641,6 +649,9 @@ def _quantized_times(flush, name, q, quant, deq, pools, table, lengths,
     kq, vq, ks, vs = quant
     kd, vd = deq
     kp, vp, ksp, vsp = pools
+    # the dequantized rows in bf16 pools of the same page size
+    (kpb, vpb), tb = _paginate_rows([kd, vd], lengths.tolist(), kp.shape[1],
+                                    kp.shape[0], seed=kp.shape[1])
     b, H, dk = q.shape
     hkv = kq.shape[2]
     sc, psc = dict(k_scale=ks, v_scale=vs), dict(k_scale=ksp, v_scale=vsp)
@@ -657,6 +668,9 @@ def _quantized_times(flush, name, q, quant, deq, pools, table, lengths,
             q, kq, vq, lengths, beta, gamma, **sc, **kw), flush, 5),
         "paged decode": _time_ms(lambda: consmax_decode_paged_cuda(
             q, kp, vp, table, lengths, beta, gamma, bk=256, **psc, **kw),
+            flush, 50),
+        "paged decode bf16": _time_ms(lambda: consmax_decode_paged_cuda(
+            q, kpb, vpb, tb, lengths, beta, gamma, bk=256, **kw),
             flush, 50),
         "paged decode plain": _time_ms(lambda: consmax_decode_paged_ref(
             q, kp, vp, table, lengths, beta, gamma, **psc, **kw), flush, 5)}
@@ -692,12 +706,17 @@ def _quantized_times(flush, name, q, quant, deq, pools, table, lengths,
                           4 * visible * H * dk)
     ppre_bound = _bound_ms(kvl * row_bytes + 2 * c * H * dk * 2
                            + t1.numel() * 4, 4 * visible * H * dk)
+    _log(f"[quantized] {name} qwen2-1.5b decode {name} / bf16 time ratio "
+         f"{t['decode'] / t['decode bf16']:.4f} contiguous, "
+         f"{t['paged decode'] / t['paged decode bf16']:.4f} paged (page "
+         f"size {kp.shape[1]}; bytes ratio {row_bytes / (hkv * dk * 4):.4f})")
     _log(f"[quantized] {name} qwen2-1.5b: decode {t['decode'] * 1e3:.1f} us "
          f"(bf16 kernel on the dequantized cache {t['decode bf16'] * 1e3:.1f}"
          f" us, ratio {t['decode'] / t['decode bf16']:.4f}; plain "
          f"{t['decode plain'] * 1e3:.1f} us; bound "
          f"{dec_bound[0] * 1e3:.2f} us by {dec_bound[1]}); paged decode "
-         f"{t['paged decode'] * 1e3:.1f} us; prefill c=512 at fill 4096 "
+         f"{t['paged decode'] * 1e3:.1f} us (bf16 "
+         f"{t['paged decode bf16'] * 1e3:.1f} us); prefill c=512 at fill 4096 "
          f"{t['prefill'] * 1e3:.1f} us (bf16 {t['prefill bf16'] * 1e3:.1f} "
          f"us, ratio {t['prefill'] / t['prefill bf16']:.4f}; bound "
          f"{pre_bound[0] * 1e3:.2f} us by {pre_bound[1]}); paged prefill "
@@ -1081,13 +1100,17 @@ def trace_steps(eng, arch, *, skip, steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     walk_ms = sum(e.time_range.elapsed_us() for e in dev
                   if "attn_walk_kernel" in e.name) / 1e3
+    dec_ms = sum(e.time_range.elapsed_us() for e in dev
+                 if "decode_partials" in e.name) / 1e3
     busy_ms = busy / 1e3
     _log(f"[trace] {arch}: {steps} engine iterations under torch.profiler: "
          f"wall {wall * 1e3 / steps:.1f} ms/iteration, device busy "
          f"{busy_ms / steps:.1f} ms/iteration (idle share "
          f"{1 - busy_ms / (wall * 1e3):.3f}), {len(dev) / steps:.0f} device "
          f"ops/iteration; prefill_kernel (the mainloop's "
-         f"attn_walk_kernel) {walk_ms / steps:.2f} ms/iteration; device "
+         f"attn_walk_kernel) {walk_ms / steps:.2f} ms/iteration; "
+         f"decode_kernel (decode_partials) {dec_ms / steps:.2f} "
+         f"ms/iteration; device "
          f"time by kernel: "
          + ", ".join(f"{n} {t / 1e3 / steps:.2f} ms" for n, t in top))
 
@@ -1485,6 +1508,38 @@ def mainloop_report():
              + "; ".join(rows))
 
 
+def decode_report():
+    """Each instantiation of the decode kernel (``decode_partials``,
+    consmax_decode.cu): registers, static and dynamic shared memory (at the
+    engine's shard, bk 256) and spills, as ``ptxas -v`` reported them in
+    this run's build."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.consmax_decode import ops as decode_ops
+    lib = decode_ops._lib()
+    rows = []
+    for k in _build.ptxas_report("consmax_decode"):
+        m = re.search(r"decode_partialsILi(\d+)ELb([01])E(13__nv_bfloat16|a|"
+                      r"13__nv_fp8_e4m3)\d+(Contig|Paged)Rows", k["kernel"])
+        if not m:
+            continue
+        dk, merged, kv, rows_of = m.groups()
+        kv_name, kv_code = WALK_KV[kv]
+        smem = lib.consmax_decode_smem_bytes(int(dk), kv_code,
+                                             int(rows_of == "Paged"), 256)
+        rows.append(f"dk {dk} {'Eq. 3' if merged == '1' else 'Eq. 2'} "
+                    f"{kv_name} {rows_of}: {k['registers']} registers, "
+                    f"{smem} B dynamic + {k['smem']} B static shared memory, "
+                    f"spill stores/loads {k['spill_stores']}/"
+                    f"{k['spill_loads']} B")
+    if len(rows) != 48:
+        raise AssertionError(f"consmax_decode: {len(rows)} decode_partials "
+                             "instantiations in the ptxas report, not 48")
+    _log(f"[build] consmax_decode decode_partials instantiations "
+         f"({len(rows)}): " + "; ".join(rows))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1509,6 +1564,7 @@ def main():
     _log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.1f} s "
          f"(one nvcc per source, in parallel)")
     mainloop_report()
+    decode_report()
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     t0 = time.perf_counter()

@@ -36,6 +36,7 @@ HEAD_DIMS = (32, 64, 128, 256)          # the head_dims the kernels compile
 # K/V element types of the serving kernels -> their kv_type code (KVCode in
 # csrc/consmax_common.cuh); int8 / fp8_e4m3 caches come with fp32 scales
 KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+SMEM_PER_BLOCK = 232_448               # bytes a Hopper block may opt in to
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

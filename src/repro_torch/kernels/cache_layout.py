@@ -10,8 +10,9 @@ the fill bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``)
 and the page gather of the paged kernels' plain versions
 (``gather_pages``), and the quantized KV cache contract
 (``quantize_kv`` / ``dequantize_kv`` / ``dequant_block``). The CUDA sources
-under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live``,
-``consmax_weights`` and ``dequant_block`` in device code; the tests hold the
+under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live`` (for the
+decode step, as a run of live shards), ``consmax_weights`` and
+``dequant_block`` in device code; the tests hold the
 kernels against the plain versions built from these helpers.
 
 KV caches are stored as bfloat16, int8 or fp8_e4m3

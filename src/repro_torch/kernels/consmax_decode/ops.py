@@ -14,6 +14,12 @@ without scales, or a bf16 cache with them, raises.
 
 ``consmax_decode_op.launches`` and ``consmax_decode_paged_op.launches``
 count kernel launches (CUDA only), each its own entry point.
+
+The kernel sums its shards' partials itself: the last shard of each (slot,
+KV head) to finish, found by an integer ticket, adds them in shard order.
+The tickets live in one zeroed int32 buffer per (device, stream)
+(``_tickets``), which every launch leaves zero again, so launches on one
+stream (and a CUDA graph captured on its own stream) may reuse it.
 """
 from __future__ import annotations
 
@@ -27,7 +33,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.consmax_decode.ref import (consmax_decode_paged_ref,
                                                    consmax_decode_ref)
 
-MAX_BLOCK = 512          # keeps the kernel's shared memory under 48 KB
+# The largest KV shard (kMaxBlock in the kernel): a paged CTA keeps its
+# shard's page-table entries, bk + 1 at most, in shared memory beside its
+# tiles (the tiles themselves do not grow with bk).
+MAX_BLOCK = 512
 
 
 @functools.cache
@@ -35,12 +44,39 @@ def _lib():
     lib = _build.load("consmax_decode")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.consmax_decode_launch.argtypes = ([p] * 10 + [i] * 7
-                                          + [f, f, i, i, i, p])
+                                          + [f, f, i, i, i, p, p])
     lib.consmax_decode_launch.restype = i
     lib.consmax_decode_paged_launch.argtypes = ([p] * 11 + [i] * 8
-                                                + [f, f, i, i, i, p])
+                                                + [f, f, i, i, i, p, p])
     lib.consmax_decode_paged_launch.restype = i
+    lib.consmax_decode_smem_bytes.argtypes = [i] * 4
+    lib.consmax_decode_smem_bytes.restype = i
     return lib
+
+
+_TICKETS = {}
+
+
+def _tickets(device, stream, n):
+    """The zeroed int32 ticket buffer of ``stream`` on ``device``, with at
+    least ``n`` entries (one per slot and KV head); kernels leave it
+    zero."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def _check_smem(lib, kernel, dk, kv_type, paged, bk):
+    """Raise before a launch the card would refuse for its shared memory
+    (the library's own byte count for this head_dim, cache type, row
+    address and shard size)."""
+    need = lib.consmax_decode_smem_bytes(dk, kv_type, int(paged), bk)
+    if not 0 < need <= _build.SMEM_PER_BLOCK:
+        raise ValueError(f"{kernel}: {need} B of shared memory at dk {dk}, "
+                         f"bk {bk}; a block may use {_build.SMEM_PER_BLOCK}")
 
 
 def _operands(kernel, q, k, v, lengths, beta, gamma, L, hkv, bk, scale,
@@ -80,12 +116,14 @@ def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
         "consmax_decode", q, k, v, lengths, beta, gamma, L, hkv, bk, scale,
         k_scale=k_scale, v_scale=v_scale)
     lib = _lib()
+    _check_smem(lib, "consmax_decode", dk, kv_type, False, bk)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.consmax_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.data_ptr(k_scale),
         _build.data_ptr(v_scale), lengths.data_ptr(), beta.data_ptr(),
         gamma.data_ptr(), partials.data_ptr(), out.data_ptr(), b, H, hkv, L,
         dk, bk, window, softcap, scale, int(merged), int(fill_bound),
-        kv_type, torch.cuda.current_stream(q.device).cuda_stream)
+        kv_type, stream, _tickets(q.device, stream, b * hkv).data_ptr())
     _build.check(lib, err, "consmax_decode")
     consmax_decode_op.launches += 1
     return out
@@ -141,13 +179,15 @@ def consmax_decode_paged_cuda(q, kp, vp, page_table, lengths, beta, gamma, *,
         hkv, bk, scale, page_table=page_table, k_scale=k_scale,
         v_scale=v_scale)
     lib = _lib()
+    _check_smem(lib, "consmax_decode_paged", dk, kv_type, True, bk)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.consmax_decode_paged_launch(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _build.data_ptr(k_scale),
         _build.data_ptr(v_scale), page_table.data_ptr(), lengths.data_ptr(),
         beta.data_ptr(), gamma.data_ptr(), partials.data_ptr(),
         out.data_ptr(), b, H, hkv, npg, ps, dk, bk, window, softcap, scale,
-        int(merged), int(fill_bound), kv_type,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(merged), int(fill_bound), kv_type, stream,
+        _tickets(q.device, stream, b * hkv).data_ptr())
     _build.check(lib, err, "consmax_decode_paged")
     consmax_decode_paged_op.launches += 1
     return out

@@ -1,13 +1,13 @@
 // Device-side twins of kernels/cache_layout.py, shared by the ConSmax
 // kernels and the softmax baseline: the one mask (kv_mask, causal or not),
-// the fill-bounding skip predicate (shard_live) and the ConSmax weights
-// (consmax_weight), the quantized cache's dequant (dequant_block), plus
-// small vector load helpers. Keep each formula identical to its Python
-// twin: the plain versions the kernels are tested against are built from
-// those.
+// the fill-bounding skip predicate (live_shards), the ConSmax weights
+// (consmax_weight) and the quantized cache's dequant (dequant_block). Keep
+// each formula identical to its Python twin: the plain versions the kernels
+// are tested against are built from those.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -25,14 +25,18 @@ __device__ __forceinline__ bool kv_mask(int qpos, int kpos, int kv_len,
   return m;
 }
 
-// cache_layout.shard_live: rows [start, start + size) can contribute for a
-// query in [qpos_lo, qpos_hi].
-__device__ __forceinline__ bool shard_live(int start, int size, int kv_len,
-                                           int qpos_hi, int qpos_lo,
-                                           int window) {
-  bool live = (start < kv_len) && (start <= qpos_hi);
-  if (window > 0) live = live && (start + size > qpos_lo - window + 1);
-  return live;
+// cache_layout.shard_live for a decode step (the query at row n - 1 of a
+// slot with n valid rows), over the shards of bk rows: the live shards are
+// one run [s0, s1) of the ns shards (shard_live is monotonic in the shard
+// start); every shard when fill_bound is off.
+__device__ __forceinline__ void live_shards(int n, int bk, int ns, int window,
+                                            int fill_bound, int* s0,
+                                            int* s1) {
+  *s0 = 0;
+  *s1 = ns;
+  if (!fill_bound) return;
+  *s1 = n > 0 ? min(ns, (n - 1) / bk + 1) : 0;
+  if (window > 0) *s0 = max(0, (n - window) / bk);
 }
 
 // The merged constant of Eq. 3, C = exp(-beta) / gamma: computed once per
@@ -87,24 +91,6 @@ struct PagedRows {
   }
 };
 
-// One aligned access of NBYTES bytes.
-template <int NBYTES> struct RawVec;
-template <> struct RawVec<1> { using T = uint8_t; };
-template <> struct RawVec<2> { using T = unsigned short; };
-template <> struct RawVec<4> { using T = unsigned int; };
-template <> struct RawVec<8> { using T = uint2; };
-template <> struct RawVec<16> { using T = uint4; };
-
-// N contiguous bf16 values as one aligned access, widened to fp32.
-template <int N>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
-  using V = typename RawVec<2 * N>::T;
-  V raw = *reinterpret_cast<const V*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = __bfloat162float(e[i]);
-}
-
 // The K/V element types a cache is stored in (cache_layout.KV_DTYPES):
 // bf16 as is; int8 and fp8_e4m3 codes with one fp32 scale per row and KV
 // head. KVType<T>::kScaled says whether a read multiplies by the scale.
@@ -124,42 +110,75 @@ __device__ __forceinline__ float code_value(__nv_fp8_e4m3 x) {
 // cache_layout.dequant_block for one code: the fp32 product code * scale
 // (__fmul_rn: never contracted into a later FMA), rounded to bf16 — the
 // compute dtype the cache is read in. So a kernel on a quantized cache
-// computes exactly what it computes on the dequantized bf16 cache.
+// computes exactly what it computes on the dequantized bf16 cache (a pair
+// rounded by one __floats2bfloat162_rn gets the same two values).
 __device__ __forceinline__ __nv_bfloat16 dequant(float code, float scale) {
   return __float2bfloat16_rn(__fmul_rn(code, scale));
 }
 
-// N contiguous K/V elements of type T as one aligned access, dequantized
-// with ``scale`` (ignored for bf16, which is read as stored) and widened to
-// fp32: the same values load_bf16 reads from the dequantized cache.
-template <class T, int N>
-__device__ __forceinline__ void load_kv(const T* p, float scale, float* out) {
-  if constexpr (!KVType<T>::kScaled) {
-    load_bf16<N>(p, out);
-  } else {
-    using V = typename RawVec<N>::T;  // one byte per code
-    V raw = *reinterpret_cast<const V*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
+// The four codes of a 32-bit word as fp32 values, exactly (code_value's
+// values) on the ALU and FMA pipes: int8 by placing each byte, offset by
+// 128, in the mantissa of 2^23 (one PRMT) and subtracting 2^23 + 128;
+// fp8_e4m3 two at a time through the e4m3x2 -> f16x2 conversion (every
+// e4m3 value is an f16 value).
+template <class T> __device__ void code_values4(uint32_t w, float* out);
+template <>
+__device__ __forceinline__ void code_values4<int8_t>(uint32_t w,
+                                                     float* out) {
+  const uint32_t u = w ^ 0x80808080u;  // code + 128 in each byte
 #pragma unroll
-    for (int i = 0; i < N; ++i)
-      out[i] = __bfloat162float(dequant(code_value(e[i]), scale));
+  for (int i = 0; i < 4; ++i)
+    out[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+             8388736.f;
+}
+template <>
+__device__ __forceinline__ void code_values4<__nv_fp8_e4m3>(uint32_t w,
+                                                            float* out) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> (16 * i)), __NV_E4M3);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
 }
 
 // 16 codes (one 16-byte access) dequantized to 16 bf16 values, as two
-// 16-byte words for a shared-memory tile row.
-template <class T>
+// 16-byte words for a shared-memory tile row. Two routes to the same bits
+// (dequant's product, rounded once to bf16): code by code through the
+// conversion unit (I2F / F2F, a quarter of the FMA rate), which the prefill
+// mainloop's producer takes so that it leaves the FMA pipe to the
+// consumers' epilogue; or, kAlu, code_values4 and one cvt.rn.bf16x2 per
+// pair on the ALU and FMA pipes, which the decode kernel takes, since all
+// its warps wait for the dequantized tile.
+template <class T, bool kAlu = false>
 __device__ __forceinline__ void dequant16(const T* p, float scale,
                                           uint4* lo, uint4* hi) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
   uint32_t w[8];
+  if constexpr (kAlu) {
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    __nv_bfloat162 t;
-    t.x = dequant(code_value(e[2 * i]), scale);
-    t.y = dequant(code_value(e[2 * i + 1]), scale);
-    w[i] = *reinterpret_cast<const uint32_t*>(&t);
+    for (int i = 0; i < 4; ++i) {
+      float c[4];
+      code_values4<T>(words[i], c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const __nv_bfloat162 t = __floats2bfloat162_rn(
+            __fmul_rn(c[2 * j], scale), __fmul_rn(c[2 * j + 1], scale));
+        w[2 * i + j] = *reinterpret_cast<const uint32_t*>(&t);
+      }
+    }
+  } else {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      __nv_bfloat162 t;
+      t.x = dequant(code_value(e[2 * i]), scale);
+      t.y = dequant(code_value(e[2 * i + 1]), scale);
+      w[i] = *reinterpret_cast<const uint32_t*>(&t);
+    }
   }
   *lo = make_uint4(w[0], w[1], w[2], w[3]);
   *hi = make_uint4(w[4], w[5], w[6], w[7]);

@@ -865,3 +865,108 @@ def test_prefill_paged_quantized_bits(cuda, shape, name, ps):
                                 k_scale=ks, v_scale=vs, **kw)
     torch.cuda.synchronize()
     assert torch.equal(paged, cont)
+
+
+# ------------------------------------------- the decode kernel's tile walk ----
+# The decode kernel walks each shard in 32-row tiles through a ring of
+# shared-memory stages, the g heads of a group (up to 16) as the rows of one
+# mma tile. Cases: b, L, H, hkv, dk, bk, page size, K/V dtype, fills, window.
+# Fills sit on and one past a tile boundary inside a shard (32 / 33 in
+# shard 0, bk + 32 / bk + 33 in shard 1); page size 4 makes every tile span
+# eight pages, 12 does not divide a tile.
+DECODE_WALK = {
+    "g6-dk128": (4, 320, 12, 2, 128, 128, 4, "bf16", [32, 33, 160, 161], 0),
+    "g10-dk256": (2, 256, 20, 2, 256, 128, 4, "bf16", [64, 97], 0),
+    "g16-dk128": (2, 256, 32, 2, 128, 128, 16, "bf16", [33, 161], 0),
+    "g17-two-groups": (2, 128, 34, 2, 64, 64, 8, "bf16", [32, 97], 0),
+    "g1-mha-dk64": (4, 300, 6, 6, 64, 128, 12, "bf16", [32, 33, 160, 161], 0),
+    "g6-window-mid-tile": (2, 320, 12, 2, 128, 128, 4, "bf16", [161, 300],
+                           37),
+    "dk32-int8": (4, 200, 8, 1, 32, 64, 4, "int8", [32, 33, 96, 97], 0),
+    "dk256-int8": (2, 256, 8, 2, 256, 128, 4, "int8", [64, 161], 0),
+    "dk256-fp8": (2, 256, 8, 2, 256, 128, 12, "fp8_e4m3", [33, 160], 0),
+}
+
+
+@pytest.mark.parametrize("case", DECODE_WALK)
+def test_decode_tile_walk_edges(cuda, case):
+    """Against the plain version; bounded == capacity sweep bits; paged ==
+    contiguous bits; a quantized cache == the bf16 kernel's bits on its
+    dequantized values."""
+    b, L, H, hkv, dk, bk, ps, kv, fills, window = DECODE_WALK[case]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
+                                   seed=17)
+    lengths = torch.tensor(fills, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=0.0, merged=True, scale=1.0, bk=bk)
+    sc, psc, kc, vc = {}, {}, k, v
+    if kv != "bf16":
+        kc, ks, k = _quantized(k, kv)
+        vc, vs, v = _quantized(v, kv)
+        sc = dict(k_scale=ks, v_scale=vs)
+        ksp, vsp, _ = _paginate(ks, vs, fills, ps)
+        psc = dict(k_scale=ksp, v_scale=vsp)
+    outs = [consmax_decode_cuda(q, kc, vc, lengths, beta, gamma,
+                                fill_bound=fb, **sc, **kw)
+            for fb in (True, False)]
+    kp, vp, table = _paginate(kc, vc, fills, ps)
+    paged = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta, gamma,
+                                      **psc, **kw)
+    yard = consmax_decode_cuda(q, k, v, lengths, beta, gamma, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(paged, outs[0])
+    assert torch.equal(outs[0], yard)            # bf16: the same call
+    del kw["bk"]
+    _assert_within_bound(
+        outs[0], consmax_decode_ref(q.float(), k, v, lengths, beta, gamma,
+                                    **kw),
+        consmax_decode_ref(q.float(), k, v.abs(), lengths, beta, gamma,
+                           **kw))
+
+
+def test_decode_ptxas_report(cuda):
+    """Every decode_partials instantiation (4 head dims x 2 forms x 3 K/V
+    types x 2 row addresses) builds without spills, and its static plus
+    dynamic shared memory at the largest shard fits a block."""
+    import re
+
+    from repro_torch.kernels.consmax_decode import ops as decode_ops
+    lib = decode_ops._lib()
+    kv_codes = {"13__nv_bfloat16": 0, "a": 1, "13__nv_fp8_e4m3": 2}
+    seen = 0
+    for r in _build.ptxas_report("consmax_decode"):
+        m = re.search(r"decode_partialsILi(\d+)ELb[01]E(13__nv_bfloat16|a|"
+                      r"13__nv_fp8_e4m3)\d+(Contig|Paged)Rows", r["kernel"])
+        if not m:
+            continue
+        seen += 1
+        dk, kv, rows = m.groups()
+        dyn = lib.consmax_decode_smem_bytes(int(dk), kv_codes[kv],
+                                            int(rows == "Paged"),
+                                            decode_ops.MAX_BLOCK)
+        assert r["spill_stores"] == r["spill_loads"] == 0, r
+        assert 0 < dyn and r["smem"] + dyn <= _build.SMEM_PER_BLOCK, (r, dyn)
+    assert seen == 48
+
+
+def test_decode_launch_replays_in_a_cuda_graph(cuda):
+    """The kernel reads the lengths on the device and leaves its tickets
+    zero, so one captured launch replays with new lengths and gives an
+    eager launch's bits each time."""
+    b, L, H, hkv, dk, bk = DECODE["qwen2-gqa"]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
+                                   seed=19)
+    lengths = torch.tensor([1, bk, bk + 7, L], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0, bk=bk)
+    consmax_decode_cuda(q, k, v, lengths, beta, gamma, **kw)   # built, warm
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = consmax_decode_cuda(q, k, v, lengths, beta, gamma, **kw)
+    for fills in ([3, 130, 300, 512], [0, 1, bk - 1, bk + 1],
+                  [1, bk, bk + 7, L]):
+        lengths.copy_(torch.tensor(fills, dtype=torch.int32))
+        graph.replay()
+        eager = consmax_decode_cuda(q, k, v, lengths.clone(), beta, gamma,
+                                    **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), fills

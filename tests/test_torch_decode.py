@@ -9,6 +9,10 @@
 * ``attention_apply``'s decode branch vs the reference's: the K/V row
   write at ``index``, inactive slots keeping their row and index, and the
   output with both kernel flags.
+* ``consmax_decode_op`` and ``consmax_decode_paged_op`` on the CPU at the
+  CUDA kernel's tile-walk edges (fills on and one past a 32-row tile
+  boundary inside a shard; page size 4, eight pages per tile, and 12,
+  which does not divide a tile) vs the reference's oracle.
 
 Inputs come from ``np.random.default_rng``. Tolerance at fp32: rtol 1e-5,
 atol 1e-5 — both sides compute the same fp32 products and differ only in
@@ -28,7 +32,8 @@ from repro_torch.configs.registry import get_config as tget
 from repro_torch.core import attention as TA
 from repro_torch.core.consmax import ConSmaxParams
 from repro_torch.configs.base import ConSmaxConfig
-from repro_torch.kernels.consmax_decode.ops import consmax_decode_op
+from repro_torch.kernels.consmax_decode.ops import (consmax_decode_op,
+                                                    consmax_decode_paged_op)
 from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -154,3 +159,50 @@ def test_attention_apply_decode_branch(decode_kernel):
     assert torch.equal(tnew["k"][1], torch.tensor(kc[1]).bfloat16())
     np.testing.assert_allclose(np.asarray(jout)[active],
                                tout.numpy()[active], rtol=1e-4, atol=1e-4)
+
+
+# the CUDA kernel walks each bk-row shard in 32-row tiles: fills on and one
+# past a tile boundary inside shard 0 (32, 33) and shard 1 (bk + 32, + 33)
+WALK_BK = 128
+WALK_FILLS = [32, 33, WALK_BK + 32, WALK_BK + 33]
+
+
+@pytest.mark.parametrize("ps", [4, 12])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ops_at_tile_walk_edges_match_reference_oracle(shape, ps):
+    """Both decode ops on CPU tensors (their plain versions), contiguous and
+    through a shuffled page table (-1 past each fill), at the kernel's tile
+    edges, against the reference's oracle on the contiguous rows."""
+    H, hkv = SHAPES[shape]
+    b, L = len(WALK_FILLS), 192
+    r = np.random.default_rng(7)
+    q = r.standard_normal((b, H, D)).astype(np.float32) * D ** -0.5
+    k = r.standard_normal((b, L, hkv, D)).astype(np.float32)
+    v = r.standard_normal((b, L, hkv, D)).astype(np.float32)
+    beta = r.uniform(0.5, 2.5, H).astype(np.float32)
+    gamma = np.full((H,), 100.0, np.float32)
+    lengths = np.array(WALK_FILLS, np.int32)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    ref = np.asarray(jref(q, k.swapaxes(1, 2), v.swapaxes(1, 2), lengths,
+                          beta, gamma, **kw))
+    npg = -(-L // ps)
+    perm = r.permutation(b * npg + 2)
+    table = np.full((b, npg), -1, np.int32)
+    kp = np.zeros((b * npg + 2, ps, hkv, D), np.float32)
+    vp = np.zeros_like(kp)
+    for s in range(b):
+        for j in range(-(-int(lengths[s]) // ps)):
+            table[s, j] = perm[s * npg + j]
+            n = min(ps, L - j * ps)
+            kp[table[s, j], :n] = k[s, j * ps:j * ps + n]
+            vp[table[s, j], :n] = v[s, j * ps:j * ps + n]
+    tq, tk, tv, tb, tg = _t(q, k, v, beta, gamma)
+    n0 = (consmax_decode_op.launches, consmax_decode_paged_op.launches)
+    got = consmax_decode_op(tq[:, None], tk, tv, torch.tensor(lengths - 1),
+                            tb, tg, bk=WALK_BK, **kw)[:, 0]
+    paged = consmax_decode_paged_op(tq[:, None], *_t(kp, vp, table, lengths),
+                                    tb, tg, bk=WALK_BK, **kw)[:, 0]
+    assert (consmax_decode_op.launches,
+            consmax_decode_paged_op.launches) == n0   # CPU: plain versions
+    np.testing.assert_allclose(ref, got.numpy(), **TOL)
+    np.testing.assert_allclose(ref, paged.numpy(), **TOL)

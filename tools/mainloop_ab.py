@@ -1,22 +1,27 @@
-"""Time the attention mainloop kernels of several source trees in one
-process, on one card, in turns.
+"""Time the hand-written attention kernels of several source trees in one
+process, on one card, in turns: the Hopper mainloop's (prefill and both
+full-sequence kernels) and the decode kernels.
 
     python3 tools/mainloop_ab.py PARENT_ROOT CHANGE_ROOT [...]
 
 Each argument is a checkout of this repository (for example a
 ``git archive`` of the parent commit unpacked into a directory that
 ``.gitignore`` lists, and ``.`` for the working tree). For each tree the
-script compiles ``consmax_prefill``, ``consmax_attn`` and ``softmax_attn``
-from that tree's ``src/repro_torch/kernels`` with this tree's nvcc flags,
-all in parallel, into ``build/ab/<n>/``, and binds them through this tree's
-ops (the kernels' C entry points have kept their signatures). Then, per
-case (the shapes of ``chip_smoke.py``'s timed rows: the qwen2-1.5b prefill
-chunk c 512 at fill 4096, bf16, int8 and paged at page size 256; causal
-whole-prompt attention at qwen2-1.5b b 2 x s 4096, Eq. 2, Eq. 3 and
-softmax; the gemma2-2b local layer), it times the trees in the order
-given and then reversed (CUDA events, L2 flushed before each call), and
-prints each tree's times and its largest difference from the first tree's
-output. Prints the card's name and power limit first. Needs one card.
+script compiles ``consmax_prefill``, ``consmax_attn``, ``softmax_attn`` and
+``consmax_decode`` from that tree's ``src/repro_torch/kernels`` with this
+tree's nvcc flags, all in parallel, into ``build/ab/<n>/``, and binds them
+through this tree's ops (the kernels' C entry points have kept their
+signatures; a library from before an entry point this tree's ops bind gets
+a stub of it, see ``OPTIONAL``). Then, per case (the shapes of
+``chip_smoke.py``'s timed rows: the qwen2-1.5b prefill chunk c 512 at fill
+4096, bf16, int8 and paged at page size 256; causal whole-prompt attention
+at qwen2-1.5b b 2 x s 4096, Eq. 2, Eq. 3 and softmax; the gemma2-2b local
+layer; qwen2-1.5b decode, b 8 x L 8192 at fills 1 .. 8192, bf16 and int8,
+contiguous and paged at page sizes 256 and 16), it times the trees in the
+order given and then reversed (CUDA events, L2 flushed before each call),
+and prints each tree's times and its largest difference from the first
+tree's output. Prints the card's name and power limit first. Needs one
+card.
 """
 from __future__ import annotations
 
@@ -36,10 +41,16 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 import repro_torch.kernels.consmax_attn.ops as AO  # noqa: E402
+import repro_torch.kernels.consmax_decode.ops as DO  # noqa: E402
 import repro_torch.kernels.consmax_prefill.ops as PO  # noqa: E402
 import repro_torch.kernels.softmax_attn.ops as SO  # noqa: E402
 
-NAMES = {"consmax_prefill": PO, "consmax_attn": AO, "softmax_attn": SO}
+NAMES = {"consmax_prefill": PO, "consmax_attn": AO, "softmax_attn": SO,
+         "consmax_decode": DO}
+# entry points this tree's ops bind that an older library may lack, and the
+# stub it gets (the decode kernel's shared-memory byte count: any size
+# passes the wrapper's check, and the older launch checks bk itself)
+OPTIONAL = {"consmax_decode_smem_bytes": lambda dk, kv, paged, bk: 1}
 
 
 def build(trees):
@@ -78,6 +89,9 @@ def bind(path, module):
     lib = ctypes.CDLL(str(path))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
+    for name, stub in OPTIONAL.items():
+        if not hasattr(lib, name):
+            setattr(lib, name, stub)
     load = _build.load
     _build.load = lambda name: lib
     try:
@@ -105,6 +119,29 @@ def cases():
     kg, vg = CS._rand(gen, (1, 8192, 4, 256)), CS._rand(gen, (1, 8192, 4,
                                                                256))
     bg, gg = CS._head_params(gen, 8)
+    # decode: the qwen2-1.5b timed case
+    fills = [1, 256, 257, 1000, 3000, 4096, 8191, 8192]
+    lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    qd = CS._rand(gen, (8, H, dk), dk ** -0.5)
+    kd, vd = CS._rand(gen, (8, L, hkv, dk)), CS._rand(gen, (8, L, hkv, dk))
+    kdq, kds, _ = CS._quantize(kd, "int8")
+    vdq, vds, _ = CS._quantize(vd, "int8")
+    dec = {}
+    for ps in (256, 16):
+        n_pages = sum(-(-f // ps) for f in fills) + 64
+        dec[ps] = CS._paginate_rows([kd, vd, kdq, vdq, kds, vds], fills, ps,
+                                    n_pages, seed=ps)
+    dkw = dict(kw, bk=256)
+
+    def paged(ps, quant):
+        (kp, vp, kqp, vqp, ksp, vsp), table = dec[ps]
+        if quant:
+            return lambda: DO.consmax_decode_paged_cuda(
+                qd, kqp, vqp, table, lens, beta, gamma, k_scale=ksp,
+                v_scale=vsp, **dkw)
+        return lambda: DO.consmax_decode_paged_cuda(qd, kp, vp, table, lens,
+                                                    beta, gamma, **dkw)
+
     return {
         "consmax_prefill bf16, c 512 at fill 4096": lambda: (
             PO.consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw)),
@@ -122,6 +159,15 @@ def cases():
         "consmax_attention, gemma2-2b local dk 256 s 8192": lambda: (
             AO.consmax_attention_cuda(qg, kg, vg, bg, gg, window=4096,
                                       softcap=50.0)),
+        "consmax_decode bf16, b 8 x L 8192 at fills 1 .. 8192": lambda: (
+            DO.consmax_decode_cuda(qd, kd, vd, lens, beta, gamma, **dkw)),
+        "consmax_decode int8, same": lambda: DO.consmax_decode_cuda(
+            qd, kdq, vdq, lens, beta, gamma, k_scale=kds, v_scale=vds,
+            **dkw),
+        "consmax_decode_paged bf16, page size 256": paged(256, False),
+        "consmax_decode_paged bf16, page size 16": paged(16, False),
+        "consmax_decode_paged int8, page size 256": paged(256, True),
+        "consmax_decode_paged int8, page size 16": paged(16, True),
     }
 
 
@@ -146,11 +192,11 @@ def main():
             for name, mod in NAMES.items():
                 mod._lib = (lambda lib: (lambda: lib))(libs[n][name])
             outs.setdefault(n, fn())
-            ts.setdefault(n, []).append(CS._time_ms(fn, flush, 20) * 1e3)
+            ts.setdefault(n, []).append(CS._time_ms(fn, flush, 50) * 1e3)
         torch.cuda.synchronize()
         ref = outs[0].float()
         print(f"[ab] {case}: " + "; ".join(
-            f"{trees[n].name or trees[n]}: {ts[n][0]:.1f}, {ts[n][1]:.1f} us"
+            f"{trees[n].name or trees[n]}: {ts[n][0]:.2f}, {ts[n][1]:.2f} us"
             f" (max |diff| vs {trees[0].name} "
             f"{float((outs[n].float() - ref).abs().max()):.3e})"
             for n in ts), flush=True)
