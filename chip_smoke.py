@@ -33,6 +33,10 @@ Phases, in order; any failure exits non-zero before the result line:
    and fp8 / bf16 time ratios, contiguous and paged); then the LUT check
    (the int8 decode kernel on all 256 K codes == ``consmax_lut`` within one
    bf16 ulp);
+3d. gemma2-2b kernels: the four serving kernels at a local layer's shapes
+   (8 x 8192 rows, 4 KV heads, head_dim 256, window 4096, softcap 50;
+   prefill chunk 512 at fills 0-8192; page size 256) against their plain
+   versions, paged == contiguous bits; times and bounds;
 4. model: full-width qwen2-1.5b logits with both kernels vs the plain
    walks on a small input;
 5. engine: full-width qwen2-1.5b (28 layers, random weights from a seed)
@@ -52,7 +56,21 @@ Phases, in order; any failure exits non-zero before the result line:
    == batched;
 10. perplexity: full-width gpt2-consmax teacher-forced through
    ``make_serve_fns``'s ``decode_step`` on 128 tokens; int8-KV within 1 %
-   of bf16-KV, fp8's printed.
+   of bf16-KV, fp8's printed;
+11. sampling: threefry2x32 against Random123's known answers and vectors
+   of the reference (``JAX_DRAWS``); keys, draws, uniforms and Gumbel noise
+   on the card == the CPU's bits; sampled tokens card vs CPU (flips only at
+   near-ties, counted); device ops of the greedy and the sampled epilogue;
+12. gemma2-2b at full width (dk 256, windows of 4096, softcaps) on the
+   contiguous and the paged engine, greedy and sampled requests mixed:
+   paged == contiguous, fused == host-sampling, solo == batched (a greedy
+   and a sampled request), one prefill and one decode signature; launches
+   of the four serving kernels at dk 256 (their times come from phase 3d);
+13. ``ServeSession`` at full-width qwen2-1.5b (fp32 compute): fused ==
+   host-sampling, ragged rows == prompts served alone, greedy == the
+   continuous engine;
+14. softmax and softermax: gpt2-consmax served through the plain online
+   walks, paged == contiguous tokens.
 
 The trace phases print device busy ms per engine iteration and, within
 it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
@@ -60,7 +78,8 @@ it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
 
 Launch counts: each serving path is run with the kernels' counts set to 0
 just before it and read just after (the bf16 contiguous kernels from phase
-5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9).
+5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9,
+the ``[gemma2-2b]`` rows from 12).
 
 Phase 3 covers the paged kernels too, at the paged engine's shapes (page
 size 256; then 16 and 64, a -1 hole, window / softcap / unmerged, and the
@@ -1469,6 +1488,520 @@ def perplexity_phase(*, seed=5, n_tokens=128):
         raise AssertionError("int8-KV perplexity gate failed")
 
 
+def gemma2_engine_phase(*, seed=6, new_tokens=16):
+    """Full-width gemma2-2b (26 layers, d 2304, 8 heads, 4 KV heads,
+    head_dim 256, vocab 256,000, local / global windows of 4096, attention
+    softcap 50, final softcap 30; random weights from ``seed``) with both
+    kernels and a bf16 KV cache: 8 slots x 8192 rows, chunk 512, on the
+    contiguous engine and on the paged engine (pages of 256, a 128-page
+    pool, prefix cache on). Six requests of 300-7000 prompt tokens, three
+    greedy and three sampled (temperature 0.8, top-k 50, top-p 0.95, min-p
+    0.05, each on its own seed), three of them behind a shared 2048-token
+    prefix (cached once the first has prefilled it). Checked: every request
+    finishes; paged == contiguous tokens; fused == host-sampling tokens on
+    the contiguous engine; one greedy and one sampled request served alone
+    == served among the others; one prefill and one decode signature per
+    engine; which kernels each engine launched. Returns the launch counts
+    of the contiguous fused run (rows 1-2) and of the paged run (rows
+    3-4)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_op, consmax_prefill_paged_op)
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = get_config("gemma2-2b")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    chunk, ps, npages, plen = 512, 256, 128, 2048
+    common = dict(max_slots=8, max_seq=8192, prefill_chunk=chunk,
+                  decode_kernel=True, prefill_kernel=True,
+                  score_norm=cfg.score_norm)
+    cfgs = {"contiguous": ServeConfig(**common),
+            "contiguous host-sampling": ServeConfig(**common,
+                                                    fused_sampling=False),
+            "paged": ServeConfig(**common, paged_kv=True, page_size=ps,
+                                 num_pages=npages)}
+    ops = {"consmax_decode": consmax_decode_op,
+           "consmax_prefill": consmax_prefill_op,
+           "consmax_decode_paged": consmax_decode_paged_op,
+           "consmax_prefill_paged": consmax_prefill_paged_op}
+    r = np.random.default_rng(seed)
+
+    def toks(n):
+        return r.integers(0, cfg.vocab_size, n).tolist()
+
+    P = toks(plen)
+    reqs = [(P + toks(300), None),
+            (toks(300), SamplingParams(**HOT, seed=101)),
+            (P + toks(952), None),
+            (toks(7000), None),
+            (P + toks(2000), SamplingParams(**HOT, seed=102)),
+            (toks(4500), SamplingParams(**HOT, seed=103))]
+
+    def serve(scfg, items, *, stage=True):
+        """A fresh engine serves ``items``, the first alone until its
+        prefill has covered P (when ``stage``)."""
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        uids = [eng.submit(items[0][0], new_tokens, sampling=items[0][1])]
+        for _ in range(plen // chunk if stage else 0):
+            eng.step()
+        uids += [eng.submit(p, new_tokens, sampling=sp)
+                 for p, sp in items[1:]]
+        results = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: op.launches for name, op in ops.items()}
+        return eng, [results.get(u) for u in uids], wall, counts
+
+    out, counts, checks = {}, {}, {}
+    for kind, scfg in cfgs.items():
+        eng, out[kind], wall, counts[kind] = serve(scfg, reqs)
+        gen = sum(len(t or []) for t in out[kind])
+        cold = sum(len(p) for p, _ in reqs)
+        hits = eng.pool.prefix_hit_rows if eng.pool is not None else 0
+        _log(f"[gemma2] gemma2-2b {kind} engine: {len(reqs)} requests, "
+             f"{cold} prompt tokens ({eng.prefilled_tokens} prefilled, "
+             f"{hits} rows from cached pages) + {gen} generated in "
+             f"{wall:.3f} s: {gen / wall:.1f} generated tok/s, "
+             f"{cold / wall:.1f} prompt tok/s, mean TTFT "
+             f"{np.mean(list(eng.ttft.values())):.3f} s; prefill / decode "
+             f"signatures {eng.prefill_cache_size} / "
+             f"{eng.decode_cache_size}; kernel launches {counts[kind]}")
+        checks[f"{kind}: every request finished"] = all(
+            t is not None and len(t) == new_tokens for t in out[kind])
+        checks[f"{kind}: prefill_cache_size == decode_cache_size == 1"] = (
+            eng.prefill_cache_size == eng.decode_cache_size == 1)
+        del eng
+        torch.cuda.empty_cache()
+    c, pg = counts["contiguous"], counts["paged"]
+    chunks = sum(-(-len(p) // chunk) for p, _ in reqs)
+    checks["contiguous: prefill launches == 26 x chunks, decode >= 26, no "
+           "paged kernel"] = (
+        c["consmax_prefill"] == cfg.n_layers * chunks
+        and c["consmax_decode"] >= cfg.n_layers
+        and not c["consmax_decode_paged"] and not c["consmax_prefill_paged"])
+    checks["paged: paged kernels only, each >= 26"] = (
+        min(pg["consmax_decode_paged"], pg["consmax_prefill_paged"])
+        >= cfg.n_layers and not pg["consmax_decode"]
+        and not pg["consmax_prefill"])
+    checks["paged tokens == contiguous tokens"] = (
+        out["paged"] == out["contiguous"])
+    checks["host-sampling tokens == fused tokens"] = (
+        out["contiguous host-sampling"] == out["contiguous"])
+    for i in (2, 1):                        # a greedy and a sampled request
+        _, alone, _, _ = serve(cfgs["contiguous"], [reqs[i]], stage=False)
+        kind = "sampled" if reqs[i][1] else "greedy"
+        checks[f"{kind} request {i} alone == served among the others"] = (
+            alone[0] == out["contiguous"][i])
+    for name, ok in checks.items():
+        _log(f"[gemma2] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("gemma2-2b engine checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+    return {**{k: c[k] for k in ("consmax_decode", "consmax_prefill")},
+            **{k: pg[k] for k in ("consmax_decode_paged",
+                                  "consmax_prefill_paged")}}
+
+
+def session_phase(*, seed=7, steps=32):
+    """``ServeSession`` at full-width qwen2-1.5b (random weights from
+    ``seed``), b 4 x 512-token prompts, ``steps`` tokens, compute in fp32
+    (TF32 off; the plain walks, since the kernels take bf16): fused ==
+    host-sampling tokens (sampled, whole prompts); row r of a ragged batch
+    (lengths 512, 200, 377, 64; sampled) == prompt r served alone (a batch
+    of one, its length given, seed + r); the session's greedy tokens
+    (ragged path) == the continuous engine's (4 slots) on the same prompts.
+
+    Why the ragged path for "alone", and fp32: whole-prompt prefill attends
+    the unrounded K/V and only writes the bf16 cache, while the ragged and
+    the engine's append paths attend the bf16 cache, so the two differ at
+    bf16 rounding and a sampled or greedy token of the random-weight model
+    can flip between them (seen on the card); and at bf16 compute a batch
+    of one goes through GEMMs of another shape than a batch of four, which
+    cuBLAS may sum in another order. fp32 keeps those near 1e-7."""
+    import dataclasses
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeSession
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b", compute_dtype="float32")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    scfg = ServeConfig(max_seq=512 + steps + 8, score_norm=cfg.score_norm)
+    r = np.random.default_rng(seed)
+    prompts = torch.tensor(r.integers(0, cfg.vocab_size, (4, 512)),
+                           dtype=torch.int32, device="cuda")
+    sp = SamplingParams(**HOT, seed=seed)
+    out, walls = {}, {}
+    for kind, fused in (("fused", True), ("host", False)):
+        sess = ServeSession(cfg, dataclasses.replace(
+            scfg, fused_sampling=fused), model, device="cuda")
+        sess.generate(prompts[:, :8], steps=2, sampling=sp)      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[kind] = sess.generate(prompts, steps=steps, sampling=sp).cpu()
+        walls[kind] = time.perf_counter() - t0
+    sess = ServeSession(cfg, scfg, model, device="cuda")
+    lens = [512, 200, 377, 64]
+    ragged = sess.generate(prompts, steps=steps, sampling=sp,
+                           lengths=lens).cpu()
+    alone = [sess.generate(prompts[i:i + 1, :n], steps=steps, lengths=[n],
+                           sampling=dataclasses.replace(sp, seed=sp.seed + i)
+                           ).cpu()[0] for i, n in enumerate(lens)]
+    whole = [sess.generate(prompts[i:i + 1, :n], steps=steps,
+                           sampling=dataclasses.replace(sp, seed=sp.seed + i)
+                           ).cpu()[0] for i, n in enumerate(lens)]
+    first = [next((t for t in range(steps) if w[t] != g[t]), None)
+             for w, g in zip(whole, ragged)]
+    _log(f"[session] not gated: prompt r alone through whole-prompt prefill "
+         f"(unrounded K/V) vs ragged row r (bf16 cache): first differing "
+         f"step per row {first} (None = equal)")
+    greedy = sess.generate(prompts, steps=steps, lengths=[512] * 4).cpu()
+    eng = ContinuousBatchingEngine(cfg, dataclasses.replace(
+        scfg, max_slots=4, prefill_chunk=512), model, device="cuda")
+    uids = [eng.submit(p.tolist(), steps) for p in prompts]
+    results = eng.run()
+    n = 4 * steps
+    _log(f"[session] qwen2-1.5b ServeSession (fp32 compute), b 4 x 512 "
+         f"prompt tokens, {steps} steps: fused {walls['fused']:.3f} s "
+         f"({n / walls['fused']:.1f} tok/s), host-sampling "
+         f"{walls['host']:.3f} s ({n / walls['host']:.1f} tok/s); continuous "
+         f"engine signatures {eng.prefill_cache_size} / "
+         f"{eng.decode_cache_size}")
+    checks = {
+        "fused == host-sampling tokens": torch.equal(out["fused"],
+                                                     out["host"]),
+        "ragged row r == prompt r served alone (all 4)": all(
+            torch.equal(ragged[i], a) for i, a in enumerate(alone)),
+        "greedy session tokens == continuous engine tokens": (
+            greedy.tolist() == [results[u] for u in uids]),
+        "continuous engine: one prefill and one decode signature":
+            eng.prefill_cache_size == eng.decode_cache_size == 1,
+    }
+    for name, ok in checks.items():
+        _log(f"[session] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("ServeSession checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+
+
+def softmax_engine_phase(*, seed=8, new_tokens=16):
+    """gpt2-consmax at full width served with ``score_norm`` softmax and
+    softermax through the plain online walks (the kernels are ConSmax only),
+    compute in fp32 (the contiguous decode materializes its score row, the
+    paged one walks pages, so bf16 rounding would differ): 6 requests of
+    20-999 prompt tokens on the contiguous engine (8 x 1024 rows, chunk 128)
+    and the paged engine (pages of 128). Gate: paged == contiguous
+    tokens."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.weights import init_params
+
+    checks = {}
+    for norm in ("softmax", "softermax"):
+        cfg = get_config("gpt2-consmax", score_norm=norm,
+                         compute_dtype="float32")
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda")
+        r = np.random.default_rng(seed)
+        prompts = [r.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (20, 700, 131, 256, 999, 64)]
+        common = dict(max_slots=8, max_seq=1024, prefill_chunk=128,
+                      kv_chunk=128, score_norm=norm)
+        toks = {}
+        for kind, scfg in (("contiguous", ServeConfig(**common)),
+                           ("paged", ServeConfig(**common, paged_kv=True,
+                                                 page_size=128,
+                                                 num_pages=64))):
+            eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+            uids = [eng.submit(p, new_tokens) for p in prompts]
+            t0 = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            toks[kind] = [results.get(u) for u in uids]
+            _log(f"[softmax] gpt2-consmax score_norm={norm} {kind}: "
+                 f"{len(prompts)} requests in {wall:.3f} s, signatures "
+                 f"{eng.prefill_cache_size} / {eng.decode_cache_size}")
+            checks[f"{norm} {kind}: every request finished, one shape "
+                   "each"] = (all(t is not None and len(t) == new_tokens
+                                  for t in toks[kind])
+                              and eng.prefill_cache_size
+                              == eng.decode_cache_size == 1)
+        checks[f"{norm}: paged tokens == contiguous tokens"] = (
+            toks["paged"] == toks["contiguous"])
+    for name, ok in checks.items():
+        _log(f"[softmax] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("softmax / softermax engine checks failed: "
+                             + ", ".join(n for n, ok in checks.items()
+                                         if not ok))
+
+
+# Random123's threefry2x32_20 known answers: (key, counter) -> output
+THREEFRY_KAT = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0))]
+# jax.random at jax 0.9.0 (jax_threefry_partitionable=True) on the CPU, for
+# (seed, position): the key fold_in(fold_in(key(0), seed), position), the
+# first four 32-bit draws random.bits(key, (4,)) and the fp32 bits of the
+# first four random.gumbel(key, (4,)) values
+JAX_DRAWS = {
+    (0, 0): ((0xF84E8312, 0x2FEF64F3),
+             (0x486056AF, 0xC9C0BF0F, 0x65C8094A, 0xEC729344),
+             (0xBE6F55E3, 0x3FB7AB8C, 0x3DA58A46, 0x40221658)),
+    (7, 4096): ((0x54962C14, 0x81D56FF2),
+                (0x1385F957, 0x3EA5C9FA, 0x342C533E, 0xE0406C37),
+                (0xBF71FEBE, 0xBEAF1093, 0xBEEDA0D0, 0x40016633)),
+    (2**31, 511): ((0x33EA24D9, 0x573DA4CC),
+                   (0x5945750F, 0x0E1C40F0, 0x7AFBFDFE, 0xD8C3BF75),
+                   (0xBD5576F7, 0xBF8834E0, 0x3E9EF2A6, 0x3FE593A9)),
+    (2**32 - 1, 8191): ((0xD159F6DD, 0xBBE1FFFE),
+                        (0xB2B890B3, 0xF2DFB949, 0xE7BABC66, 0x7FFD1B77),
+                        (0x3F830085, 0x403C709B, 0x40139E12, 0x3EBB96DB)),
+}
+HOT = dict(temperature=0.8, top_k=50, top_p=0.95, min_p=0.05)
+
+
+def _device_ops(fn):
+    """Device ops and device busy ms of one call of ``fn`` (torch.profiler,
+    after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):                 # the first session warms the tracer
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+
+
+def sampling_phase(*, vocab=256_000):
+    """The threefry draw on the card: Random123's known answers and the
+    reference's keys, draws and Gumbel bits (``JAX_DRAWS``); keys, 32-bit
+    draws, uniforms and Gumbel noise bit-equal to the CPU's over a grid of
+    16 seeds x 16 positions x 4099 draws; tokens on the card vs the CPU on
+    one (32, ``vocab``) logits tensor with mixed greedy and sampled rows at
+    two positions each (a flip must sit at a near-tie or a mask edge, and
+    is counted and printed); the device ops and time of one greedy and one
+    sampled epilogue over 8 rows, as a decode step runs it."""
+    from repro_torch.serve import sampling as S
+
+    def words(ws, dev):
+        return [torch.tensor([w], dtype=torch.int64, device=dev) for w in ws]
+
+    checks = {}
+    checks["threefry2x32 Random123 known answers"] = all(
+        tuple(int(w) for w in S.threefry2x32(*words(key + ctr, "cuda")))
+        == out for key, ctr, out in THREEFRY_KAT)
+    seeds = torch.tensor([sd for sd, _ in JAX_DRAWS], device="cuda")
+    pos = torch.tensor([ps for _, ps in JAX_DRAWS], device="cuda")
+    keys = S.slot_keys(seeds, pos)
+    bits = S.random_bits(keys, 4)
+    gum = S.gumbel(S.uniform(bits)).view(torch.int32).long() & 0xFFFFFFFF
+    want = list(JAX_DRAWS.values())
+    checks["keys, draws and Gumbel bits == jax.random's (4 vectors)"] = (
+        [(int(a), int(b)) for a, b in zip(*keys)] == [w[0] for w in want]
+        and bits.tolist() == [list(w[1]) for w in want]
+        and gum.tolist() == [list(w[2]) for w in want])
+
+    grid_s = torch.tensor([0, 1, 7, 99, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1]
+                          + list(range(10**9, 10**9 + 8)))
+    grid_p = torch.tensor([0, 1, 2, 511, 512, 4095, 4096, 8191]
+                          + list(range(70_000, 70_008)))
+    sd, ps = (t.reshape(-1) for t in torch.meshgrid(grid_s, grid_p,
+                                                    indexing="ij"))
+    per_dev = []
+    for dev in ("cpu", "cuda"):
+        k = S.slot_keys(sd.to(dev), ps.to(dev))
+        draws = S.random_bits(k, 4099)
+        u = S.uniform(draws)
+        per_dev.append([*k, draws, u.view(torch.int32),
+                        S.gumbel(u).view(torch.int32)])
+    same = all(torch.equal(x, y.cpu()) for x, y in zip(*per_dev))
+    checks["keys, draws, uniforms, Gumbel: card == CPU bits (256 keys x "
+           "4099 draws)"] = same
+
+    r = np.random.default_rng(11)
+    b = 32
+    logits = torch.tensor(r.standard_normal((b, vocab)) * 3,
+                          dtype=torch.float32)
+    logits[3, :2] = logits[3].max() + 0.25                  # a tie
+    rows = [S.SamplingParams() if i % 4 == 0 else S.SamplingParams(
+        temperature=float(r.choice([0.5, 0.8, 1.0, 1.5])),
+        top_k=int(r.choice([0, 1, 50, 1000])),
+        top_p=float(r.choice([1.0, 0.95, 0.5])),
+        min_p=float(r.choice([0.0, 0.05])), seed=int(r.integers(0, 2**32)))
+        for i in range(b)]
+    flips, unexplained, n = 0, [], 0
+    for step in range(2):
+        position = torch.tensor(r.integers(0, 8192, b), dtype=torch.int32)
+        bank = S.bank_of(rows, b)
+        cpu = S.sample_tokens(logits, bank, position)
+        gpu = S.sample_tokens(logits.cuda(), S.bank_of(rows, b, "cuda"),
+                              position.cuda()).cpu()
+        n += b
+        for i in torch.nonzero(cpu != gpu).flatten().tolist():
+            flips += 1
+            t = max(float(bank["temperature"][i]), 0.0) or 1.0
+            sc = S.apply_logits_masks(
+                logits[i:i + 1] / t, bank["top_k"][i:i + 1],
+                bank["top_p"][i:i + 1], bank["min_p"][i:i + 1])[0]
+            g = S.gumbel(S.uniform(S.random_bits(S.slot_keys(
+                bank["seed"][i:i + 1], position[i:i + 1]), vocab)))[0]
+            z = sc + g
+            a, c = int(cpu[i]), int(gpu[i])
+            near = bool(torch.isinf(z[c])) or float(z[a] - z[c]) <= 1e-5 * (
+                float(z[a].abs()) + 1.0)
+            _log(f"[sampling] token flip, row {i} step {step}: cpu {a} "
+                 f"card {c}, scores {float(z[a]):.7f} vs {float(z[c]):.7f} "
+                 f"({'near-tie or mask edge' if near else 'NOT a near-tie'})")
+            if not near:
+                unexplained.append((i, step))
+    checks[f"tokens card vs CPU: {flips} flips of {n} (all at near-ties)"] = (
+        not unexplained)
+
+    lg = logits[:8].cuda()
+    pos8 = torch.arange(8, dtype=torch.int32, device="cuda") * 1000
+    greedy, sampled = S.bank_init(8, "cuda"), S.bank_of(
+        S.SamplingParams(**HOT, seed=5), 8, "cuda")
+    ops = {}
+    for name, bank in (("greedy", greedy), ("sampled", sampled)):
+        n_ops, busy = _device_ops(lambda: S.sample_tokens(lg, bank, pos8))
+        ms = _time_ms(lambda: S.sample_tokens(lg, bank, pos8),
+                      torch.empty(1, device="cuda"), 20)
+        ops[name] = (n_ops, busy, ms)
+    _log(f"[sampling] epilogue over (8, {vocab}) logits: greedy "
+         f"{ops['greedy'][0]} device ops, {ops['greedy'][1]:.3f} ms busy, "
+         f"{ops['greedy'][2]:.3f} ms per call; sampled (temperature 0.8, "
+         f"top-k 50, top-p 0.95, min-p 0.05) {ops['sampled'][0]} device ops, "
+         f"{ops['sampled'][1]:.3f} ms busy, {ops['sampled'][2]:.3f} ms per "
+         f"call (CUDA events, includes the host's one read of the bank's "
+         f"temperatures)")
+    for name, ok in checks.items():
+        _log(f"[sampling] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("sampling checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+
+
+def _window_rows(lo_pos, hi_pos, kv_len, window):
+    """Keys a query at each position in [lo_pos, hi_pos) sees, summed:
+    rows < kv_len, causal, within ``window``."""
+    return sum(min(p + 1, kv_len) - max(0, p - window + 1)
+               for p in range(lo_pos, hi_pos))
+
+
+def gemma2_kernel_phase(flush):
+    """The four serving kernels at a gemma2-2b local layer's shapes (8 slots
+    x 8192 rows, 8 heads, 4 KV heads, head_dim 256, window 4096, softcap 50;
+    prefill chunk 512; page size 256): each against its plain version, the
+    paged ones also bit for bit against the contiguous ones; times and
+    bounds (the rows a window of 4096 leaves visible). Returns the rows of
+    the result line."""
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import (
+        consmax_decode_paged_ref, consmax_decode_ref)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import (
+        consmax_prefill_paged_ref, consmax_prefill_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    b, L, H, hkv, dk, bk, c, ps, win = 8, 8192, 8, 4, 256, 256, 512, 256, 4096
+    kw = dict(window=win, softcap=50.0, merged=True, scale=1.0)
+    rows = {}
+    lengths = torch.tensor([1, 300, 2348, 4096, 4097, 5000, 7016, 8192],
+                           dtype=torch.int32, device="cuda")
+    q = _rand(gen, (b, H, dk), dk ** -0.5)
+    k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+    beta, gamma = _head_params(gen, H)
+    err = _check("gemma2 decode dk=256 window=4096 softcap=50 b=8 L=8192",
+                 consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=bk,
+                                     **kw),
+                 consmax_decode_ref(q.float(), k, v, lengths, beta, gamma,
+                                    **kw),
+                 consmax_decode_ref(q.float(), k, v.abs(), lengths, beta,
+                                    gamma, **kw))
+    live = sum(min(int(n), win) for n in lengths.tolist())
+    io = 2 * b * H * dk * 2
+    times = {
+        "consmax_decode": (
+            err, lambda: consmax_decode_cuda(q, k, v, lengths, beta, gamma,
+                                             bk=bk, **kw),
+            lambda: consmax_decode_ref(q, k, v, lengths, beta, gamma, **kw),
+            live * hkv * dk * 2 * 2 + io, 4 * live * H * dk)}
+    perr, (kp, vp, table) = _paged_decode_case(
+        "gemma2 paged decode dk=256 window=4096 ps=256", q, k, v, lengths,
+        beta, gamma, kw, bk=bk, ps=ps, num_pages=256)
+    times["consmax_decode_paged"] = (
+        perr, lambda: consmax_decode_paged_cuda(q, kp, vp, table, lengths,
+                                                beta, gamma, bk=bk, **kw),
+        lambda: consmax_decode_paged_ref(q, kp, vp, table, lengths, beta,
+                                         gamma, **kw),
+        live * hkv * dk * 2 * 2 + io + table.numel() * 4, 4 * live * H * dk)
+
+    q1 = _rand(gen, (1, c, H, dk), dk ** -0.5)
+    k1, v1 = k[7:8].contiguous(), v[7:8].contiguous()
+    errs, perrs = [], []
+    for idx, n in [(0, 512), (3584, 512), (6144, 512), (7680, 512),
+                   (4000, 200)]:
+        ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
+        tn = torch.tensor([n], dtype=torch.int32, device="cuda")
+        errs.append(_check(
+            f"gemma2 prefill dk=256 window=4096 c=512 index={idx} len={n}",
+            consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw),
+            consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+            consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma,
+                                **kw)))
+        e, pools = _paged_prefill_case(
+            f"gemma2 paged prefill index={idx} len={n}", q1, k1, v1, ti, tn,
+            beta, gamma, kw, ps=ps, num_pages=64)
+        perrs.append(e)
+        if idx == 6144:
+            timed = (ti, tn, *pools)
+    ti, tn, kp1, vp1, t1 = timed
+    idx, n = 6144, 512
+    pairs = _window_rows(idx, idx + n, idx + n, win)
+    rows_read = idx + n - max(0, idx - win + 1)
+    pbytes = rows_read * hkv * dk * 2 * 2 + 2 * c * H * dk * 2
+    times["consmax_prefill"] = (
+        max(errs), lambda: consmax_prefill_cuda(q1, k1, v1, ti, tn, beta,
+                                                gamma, **kw),
+        lambda: consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+        pbytes, 4 * pairs * H * dk)
+    times["consmax_prefill_paged"] = (
+        max(perrs), lambda: consmax_prefill_paged_cuda(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw),
+        lambda: consmax_prefill_paged_ref(q1, kp1, vp1, t1, ti, tn, beta,
+                                          gamma, **kw),
+        pbytes + t1.numel() * 4, 4 * pairs * H * dk)
+    for name, (e, fn, plain, nbytes, flops) in times.items():
+        bound, by = _bound_ms(nbytes, flops)
+        rows[f"{name}[gemma2-2b]"] = dict(
+            max_abs_err=e, ms=_time_ms(fn, flush, 50),
+            plain_ms=_time_ms(plain, flush, 5), bound_ms=bound, bound_by=by)
+    return rows
+
+
 WALK_KV = {"13__nv_bfloat16": ("bf16", 0), "a": ("int8", 1),
            "13__nv_fp8_e4m3": ("fp8_e4m3", 2)}
 WALK_FORM = {"0": "Eq. 2", "1": "Eq. 3", "2": "softmax"}
@@ -1584,6 +2117,11 @@ def main():
     _log(f"[quantized] quantized kernel phase "
          f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows.update(gemma2_kernel_phase(flush))
+    _log(f"[kernels] gemma2-2b (dk 256) phase {time.perf_counter() - t0:.1f} "
+         f"s")
+    torch.cuda.empty_cache()
     del flush
     for name, row in rows.items():
         lib = row.get("library_ms")
@@ -1637,6 +2175,23 @@ def main():
     t0 = time.perf_counter()
     perplexity_phase()
     _log(f"[ppl] perplexity phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sampling_phase()
+    _log(f"[sampling] sampling phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update({f"{k}[gemma2-2b]": n
+                   for k, n in gemma2_engine_phase().items()})
+    _log(f"[gemma2] gemma2-2b engine phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    session_phase()
+    _log(f"[session] ServeSession phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    softmax_engine_phase()
+    _log(f"[softmax] softmax / softermax phase "
+         f"{time.perf_counter() - t0:.1f} s")
 
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
@@ -1656,8 +2211,8 @@ def main():
                            ref.format("consmax_lut", 47))}
     for name in ("consmax_decode", "consmax_prefill", "consmax_decode_paged",
                  "consmax_prefill_paged"):
-        for dt in QDTYPES:                  # the same kernels, K/V codes
-            src[f"{name}[{dt}]"] = src[name]
+        for dt in (*QDTYPES, "gemma2-2b"):  # the same kernels, K/V codes or
+            src[f"{name}[{dt}]"] = src[name]    # gemma2's shapes
     counts.update(paper_counts)
     kernels = [dict(name=name, route="cuda", source=src[name][0],
                     replaces=src[name][1], launches=counts[name],

@@ -13,7 +13,7 @@
   chunk at per-slot cache position ``index`` attends ``cache[0:index]`` plus
   itself. For consmax each KV block's ``p @ v`` partial is final (no
   running max, no denominator), so the walk's carry is the fp32 output
-  accumulator alone.
+  accumulator alone; softmax and softermax carry the online (m, l) state.
 * ``decode_attention`` — one-token decode against the cache, the score row
   materialized.
 * ``paged_attention`` — the same append walk over a shared page pool: block
@@ -40,8 +40,7 @@ them through the same row addressing; every read dequantizes block by
 block (``cache_layout.dequant_block``), in the plain walks as in the
 kernels, which take the scales as operands.
 
-Not ported yet (they raise ``NotImplementedError``): cross-attention, and
-the softmax/softermax online walks of chunked prefill and paged attention.
+Not ported yet (it raises ``NotImplementedError``): cross-attention.
 """
 from __future__ import annotations
 
@@ -251,11 +250,13 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
     (optional) masks a slot's whole block (a -1 page: the gather clamped it
     onto page 0). Products in fp32 of the compute-dtype operands, weights
     cast to the compute dtype before ``p @ v``, fp32 accumulator: the
-    reference's ``preferred_element_type=float32`` einsums."""
-    if norm_kind != "consmax":
-        raise NotImplementedError(
-            f"append walk for score_norm={norm_kind!r}: only the consmax "
-            "walk is ported")
+    reference's ``preferred_element_type=float32`` einsums.
+
+    For consmax the carry is the accumulator alone (each block's partial is
+    final); softmax and softermax (base 2) carry the online (m, l, acc)
+    state across blocks and divide by ``max(l, 1e-30)`` at the end."""
+    if norm_kind not in ("consmax", "softmax", "softermax"):
+        raise ValueError(f"unknown score_norm {norm_kind!r}")
     b, c, H, dk = q.shape
     g = H // hkv
     cdt = q.dtype
@@ -263,8 +264,13 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
     qpos = index[:, None] + torch.arange(c, device=q.device)    # (b, c)
     kv_len = index + lengths
     hi = min(int(((kv_len + kc - 1) // kc).max()), n_blocks)    # host bound
-    acc = torch.zeros((b, c, hkv, g, dk), dtype=torch.float32,
-                      device=q.device)
+    consmax = norm_kind == "consmax"
+    expf = torch.exp2 if norm_kind == "softermax" else torch.exp
+    acc = torch.zeros((b, c, hkv, g, dk) if consmax else (b, hkv, g, c, dk),
+                      dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, g, c), normalizers.NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
     for j in range(hi):
         k_blk, v_blk = gather(j)
         k_blk, v_blk = k_blk.to(cdt).float(), v_blk.to(cdt).float()
@@ -277,10 +283,24 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
                       kv_len[:, None, None], window)           # (b, c, n)
         if block_valid is not None:
             msk = msk & block_valid(j)[:, None, None]
-        p = normalizers.apply_norm(
-            "consmax", norm_params, s.reshape(b, H, c, n), msk[:, None],
-            head_axis=1, merged=merged).reshape(b, hkv, g, c, n)
-        acc += torch.einsum("bhgqc,bchd->bqhgd", p.to(cdt).float(), v_blk)
+        if consmax:
+            p = normalizers.apply_norm(
+                "consmax", norm_params, s.reshape(b, H, c, n), msk[:, None],
+                head_axis=1, merged=merged).reshape(b, hkv, g, c, n)
+            acc += torch.einsum("bhgqc,bchd->bqhgd", p.to(cdt).float(),
+                                v_blk)
+            continue
+        msk = msk[:, None, None]                              # (b,1,1,c,n)
+        s = torch.where(msk, s, normalizers.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = expf(m - m_new)
+        e = torch.where(msk, expf(s - m_new[..., None]), 0.0)
+        l = l * alpha + e.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqc,bchd->bhgqd", e.to(cdt).float(), v_blk)
+        m = m_new
+    if not consmax:
+        acc = (acc / l.clamp(min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     return acc.reshape(b, c, H, dk).to(cdt)
 
 

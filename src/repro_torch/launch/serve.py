@@ -1,42 +1,75 @@
-"""Serving launcher CLI of the port: the continuous-batching engine on random
-weights, on the CUDA card by default.
+"""Serving launcher CLI of the port, on random weights, on the CUDA card by
+default.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --steps 16 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
         --requests 12 --max-slots 4 --decode-kernel --prefill-kernel
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --temperature 0.8 --top-k 50 --top-p 0.95 --seed 7
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --paged --page-size 4 --prefill-chunk 8
-    PYTHONPATH=src python -m repro_torch.launch.serve --kv-dtype int8 \
-        --decode-kernel --prefill-kernel
+        --engine continuous --paged --page-size 4 --prefill-chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
+        --kv-dtype int8 --decode-kernel --prefill-kernel
 
-Serves the smoke config of ``--arch`` on random weights (``chip_smoke.py``
-serves the published widths). Requests are greedy (sampled streams are not
-ported yet).
+Serves the smoke config of ``--arch`` (``--kv-heads`` overrides its KV
+heads) on random weights (``chip_smoke.py`` serves the published widths).
+``--engine static`` (the default) runs the lockstep ``ServeSession`` over
+``--batch`` prompts; ``--engine continuous`` runs the slot-recycling
+``ContinuousBatchingEngine`` over ``--requests`` prompts of random lengths.
+The weights come from seed 0 and the prompts from seed 1, whatever the
+flags; ``--seed`` is the sampling seed: row / request i draws from
+``--seed + i``, so greedy runs (``--temperature 0``, the default) give the
+same tokens for every ``--seed``.
+
+Sampling (``--temperature`` / ``--top-k`` / ``--top-p`` / ``--min-p``) runs
+fused in the steps; ``--host-sampling`` takes the logits out of each step
+and samples after it, with the same streams.
 ``--decode-kernel`` / ``--prefill-kernel`` route attention through the
-ConSmax CUDA kernels (their plain versions on ``--device cpu``).
-``--paged`` serves from a shared page pool with the prefix cache on (a
-stats line reports its hits; the CLI's prompts are random, so they rarely
-share a prefix). ``--kv-dtype int8`` / ``fp8_e4m3`` stores the KV cache as
-codes with one fp32 scale per row and KV head (the stats line reports the
-cache's bytes).
+ConSmax CUDA kernels (their plain versions on ``--device cpu``); they raise
+on a softmax / softermax config.
+``--paged`` (continuous engine) serves from a shared page pool with the
+prefix cache on (a stats line reports its hits; the CLI's prompts are
+random, so they rarely share a prefix). ``--kv-dtype int8`` / ``fp8_e4m3``
+stores the KV cache as codes with one fp32 scale per row and KV head (a
+stats line reports the cache's bytes).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+WEIGHT_SEED, PROMPT_SEED = 0, 1
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
-    ap.add_argument("--engine", choices=("continuous",),
-                    default="continuous",
-                    help="only the continuous-batching engine is ported")
+    ap.add_argument("--kv-heads", type=int, default=0,
+                    help="override n_kv_heads (0 = the arch's)")
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="static")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="rows of the static engine's batch")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
+    # sampling knobs -> per-request SamplingParams
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples with the masks below")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep the k highest-score tokens (0 = disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass cutoff in (0, 1] (1 = disabled)")
+    ap.add_argument("--min-p", type=float, default=0.0,
+                    help="min prob relative to the max, [0, 1) "
+                         "(0 = disabled)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="sampling seed; row / request i draws from "
+                         "seed + i")
+    ap.add_argument("--host-sampling", action="store_true",
+                    help="sample on the logits after each step instead of "
+                         "in the step's epilogue")
+    # continuous-engine knobs
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=16,
@@ -54,8 +87,9 @@ def main(argv=None):
                     help="disable fill-bounded kernel walks (capacity-swept "
                          "baseline)")
     ap.add_argument("--paged", action="store_true",
-                    help="shared page-pool KV cache: slots map rows onto "
-                         "pool pages instead of owning max_seq rows")
+                    help="shared page-pool KV cache (continuous engine): "
+                         "slots map rows onto pool pages instead of owning "
+                         "max_seq rows")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV rows per pool page (must divide "
                          "--prefill-chunk)")
@@ -75,6 +109,11 @@ def main(argv=None):
                          "free list runs dry: lru = release order, fifo = "
                          "registration order")
     args = ap.parse_args(argv)
+    if args.paged and args.engine != "continuous":
+        raise SystemExit("--paged needs --engine continuous (the static "
+                         "session is the contiguous baseline)")
+
+    import dataclasses
 
     import numpy as np
     import torch
@@ -82,13 +121,46 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeSession
+    from repro_torch.serve.sampling import SamplingParams
     from repro_torch.weights import init_params
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=True)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    cfg = get_config(args.arch, smoke=True,
+                     **({"n_kv_heads": args.kv_heads} if args.kv_heads
+                        else {}))
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
     params = init_params(cfg, gen, device=device)
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, min_p=args.min_p, seed=args.seed)
+    fused = not args.host_sampling
+    rng = np.random.default_rng(PROMPT_SEED)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    kernels = dict(decode_kernel=args.decode_kernel,
+                   prefill_kernel=args.prefill_kernel,
+                   fill_bound=not args.no_fill_bound,
+                   kv_cache_dtype=args.kv_dtype, fused_sampling=fused,
+                   score_norm=cfg.score_norm)
+
+    if args.engine == "static":
+        sess = ServeSession(cfg, ServeConfig(
+            max_seq=args.prompt_len + args.steps + 8, **kernels), params,
+            device=device)
+        prompts = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                            (args.batch, args.prompt_len)),
+                               dtype=torch.int32, device=device)
+        t0 = time.perf_counter()
+        out = sess.generate(prompts, steps=args.steps, sampling=sp)
+        out = out.cpu()
+        dt = time.perf_counter() - t0
+        n = args.batch * args.steps
+        print(f"[serve] {cfg.arch_id} (smoke) on {where}: {n} tokens in "
+              f"{dt:.2f}s ({n / dt:.1f} tok/s), sampling={sp}, "
+              f"fused={fused}")
+        print("[serve] sample:", out[0].tolist())
+        return
+
     paged = dict(paged_kv=True, page_size=args.page_size,
                  num_pages=args.num_pages,
                  prefix_cache=not args.no_prefix_cache,
@@ -96,34 +168,32 @@ def main(argv=None):
     scfg = ServeConfig(max_seq=2 * (args.prompt_len + args.steps) + 8,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
-                       max_slots=args.max_slots,
-                       decode_kernel=args.decode_kernel,
-                       prefill_kernel=args.prefill_kernel,
-                       fill_bound=not args.no_fill_bound,
-                       kv_cache_dtype=args.kv_dtype,
-                       score_norm=cfg.score_norm, **paged)
+                       max_slots=args.max_slots, **kernels, **paged)
     eng = ContinuousBatchingEngine(cfg, scfg, params, device=device)
-    rng = np.random.default_rng(args.seed + 1)
     uids = []
-    for _ in range(args.requests):
+    for i in range(args.requests):
         plen = int(rng.integers(1, args.prompt_len + 1))
         steps = int(rng.integers(1, args.steps + 1))
         prompt = rng.integers(0, cfg.vocab_size, plen).tolist()
-        uids.append(eng.submit(prompt, steps))
+        # per-request stream: seed + i, reproducible under any scheduling
+        uids.append(eng.submit(prompt, steps, sampling=dataclasses.replace(
+            sp, seed=(args.seed + i) % 2**32)))
     t0 = time.perf_counter()
     results = eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     n = sum(len(v) for v in results.values())
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
     print(f"[serve/continuous] {cfg.arch_id} (smoke) on {where}: "
           f"{len(results)} requests, {n} tokens in {dt:.2f}s "
           f"({n / dt:.1f} tok/s) with {args.max_slots} slots, "
           f"decode_kernel={args.decode_kernel}, "
           f"prefill_kernel={args.prefill_kernel}, paged={args.paged}, "
-          f"kv_dtype={args.kv_dtype}")
+          f"kv_dtype={args.kv_dtype}, fused_sampling={fused}")
+    if args.temperature > 0:
+        print(f"[serve/continuous] sampling: temperature={args.temperature} "
+              f"top_k={args.top_k} top_p={args.top_p} min_p={args.min_p} "
+              f"seeds={args.seed}..{args.seed + args.requests - 1}")
     kv_bytes = sum(t.numel() * t.element_size() for sup in eng.caches
                    for blk in sup.values() for key, t in blk["attn"].items()
                    if key != "index")

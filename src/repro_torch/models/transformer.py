@@ -225,6 +225,26 @@ def write_slot_index(caches, slot_caches, slot: int):
         pool["index"][slot:slot + 1] = one["index"]
 
 
+def write_slot(caches, slot_caches, slot: int, length: int):
+    """Scatter a batch-1 prefilled cache into slot ``slot`` of a batched
+    cache, in place; ``index`` becomes ``length``, the real prompt length
+    and not the padded prefill length, so decode masking ignores pad rows.
+
+    The K/V (and scale) leaves of ``slot_caches`` may hold fewer rows than
+    the slot (a prefill-bucket cache): only that prefix is written, and its
+    rows ``>= length`` are zeroed on the way in, since a padded prefill
+    computes pad-token K/V there and copying it would leave keys in the
+    slot that an append-at-index chunk could later read."""
+    for pool, one in zip(_attn_caches(caches), _attn_caches(slot_caches)):
+        for key, t in pool.items():
+            if key == "index":
+                t[slot] = length
+                continue
+            n = one[key].shape[1]
+            t[slot, :n] = one[key][0].to(t.dtype)
+            t[slot, length:n].zero_()
+
+
 def reset_slot(caches, slot: int):
     """Zero slot ``slot`` in place (index back to 0, K/V rows and a
     quantized cache's scale rows cleared, as the reference does) so a

@@ -1,33 +1,48 @@
 """Serving over per-slot contiguous KV caches or a shared page pool — the
-reference's ``serve/engine.py``: ``make_serve_fns`` (the model steps) and
-``ContinuousBatchingEngine``.
+reference's ``serve/engine.py``: ``make_serve_fns`` (the model steps),
+``ServeSession`` (the static engine) and ``ContinuousBatchingEngine``.
 
 ``make_serve_fns`` returns the reference's four step functions:
 ``init_caches``, the whole-prompt ``prefill_step`` (through
 ``blockwise_attention``, then the cache fill), the one-token
 ``decode_step`` and the right-padded ``prefill_ragged`` (append-at-index
 chunks). With ``ServeConfig.fused_sampling`` (the default) each step ends
-in the greedy sampling epilogue and returns ``(b,)`` tokens; without it the
-steps return the last position's logits, as the reference's legacy
-signatures do (its perplexity walk reads them).
+in the sampling epilogue (``serve/sampling.sample_tokens``: greedy argmax,
+or the reference's threefry draw with keys folded on the post-step cache
+index) and returns ``(b,)`` tokens; without it the steps return the last
+position's logits, as the reference's legacy signatures do, and the
+callers sample outside the step through the same ``sample_tokens``.
+
+``ServeSession`` runs a static batch in lockstep: one prefill (whole
+prompts, or right-padded ragged prompts through ``prefill_ragged``), then
+``steps - 1`` decode steps over all rows.
 
 ``ContinuousBatchingEngine`` holds a fixed pool of ``max_slots`` cache
 slots. Each ``step``:
 
-1. admits queued requests into free slots (FIFO, ``serve/scheduler``),
+1. admits queued requests into free slots (FIFO, ``serve/scheduler``) and
+   writes each one's ``SamplingParams`` into the slot's bank row,
 2. runs at most one append-at-index prefill chunk per PREFILLING slot,
    bounded by ``prefill_budget`` tokens: always the one shape
    ``(1, prefill_chunk)``, pad rows zeroed before the cache write,
 3. runs ONE masked one-token decode step over all ``max_slots`` rows
    (inactive rows keep their cache rows and index; their tokens are
    discarded),
-4. samples inside the steps (greedy ``argmax``), so only the ``(b,)`` token
-   vector crosses to the host.
+4. samples inside the steps (fused), so only the ``(b,)`` token vector
+   crosses to the host; or, with ``fused_sampling=False``, takes the
+   logits out of the steps and samples the decoding rows after them.
+
+``prefill_cache_size`` / ``decode_cache_size`` count the distinct (shape,
+dtype) signatures of the tensors entering the prefill-chunk step and the
+decode step: 1 each for an engine's lifetime, the reference's
+one-compiled-shape rule.
 
 ConSmax serving uses the merged constant C = e^{-beta}/gamma (Eq. 3).
 ``ServeConfig.decode_kernel`` / ``prefill_kernel`` route attention through
 the ConSmax kernels (``kernels/consmax_decode``, ``kernels/consmax_prefill``)
-— CUDA kernels on the card, their plain versions on the CPU.
+— CUDA kernels on the card, their plain versions on the CPU. Softmax and
+softermax configs serve through the plain online walks
+(``core/attention``); the kernel flags refuse them.
 
 With ``ServeConfig.paged_kv`` the per-slot rows become ONE shared
 ``(num_pages, page_size)`` page pool per layer, mapped through the host-side
@@ -46,10 +61,9 @@ kernels as in the plain walks; ``kernels/cache_layout``).
 
 The KV caches are updated in place; ``_finish`` zeroes a recycled
 contiguous slot (a paged slot resets only its index). Not ported yet (they
-raise): the tensor/sequence mesh, the engine's host-side sampling
-(``fused_sampling=False``), sampled (temperature > 0) requests and draws,
-any ``ServeConfig`` field in ``_UNREAD`` set away from its default, and the
-paged fields in ``_PAGED`` set without ``paged_kv``.
+raise): the tensor/sequence mesh, any ``ServeConfig`` field in ``_UNREAD``
+set away from its default, and the paged fields in ``_PAGED`` set without
+``paged_kv``.
 """
 from __future__ import annotations
 
@@ -68,10 +82,42 @@ from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import PagePool, Scheduler
 
 # ServeConfig fields that mirror the reference but that nothing in the port
-# reads; the engine refuses a config that sets one away from its default
-_UNREAD = ("batch", "q_chunk", "seq_shard_kv", "prefill_kv_block")
+# reads; the engines refuse a config that sets one away from its default
+# (q_chunk only in the continuous engine: the static one's whole-prompt
+# prefill reads it)
+_UNREAD = ("batch", "seq_shard_kv", "prefill_kv_block")
 # read only by a paged engine: refused away from their defaults otherwise
 _PAGED = ("page_size", "num_pages", "prefix_cache", "prefix_evict")
+
+
+def _signature(tree) -> tuple:
+    """The (shape, dtype) of every tensor in a nested dict / list / tuple,
+    in order, with the tree's structure: what a tracing compiler would key
+    its cache on."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(x) for x in tree)
+    return (type(tree).__name__,)
+
+
+def _refuse_unread(scfg: ServeConfig, refused, what: str):
+    unread = [f.name for f in dataclasses.fields(scfg)
+              if f.name in refused and getattr(scfg, f.name) != f.default]
+    if unread:
+        raise NotImplementedError(
+            f"ServeConfig {unread}: the port's {what} does not read these "
+            "(the Pallas prefill grid's KV block, the mesh's KV sharding, "
+            "the batch knob no engine reads; the paged fields only with "
+            "paged_kv=True); leave them at their defaults")
+
+
+def _refuse_mesh(scfg: ServeConfig):
+    if scfg.tp > 1 or scfg.seq_shards > 1:
+        raise NotImplementedError("mesh serving (tp / seq_shards > 1) is "
+                                  "not ported yet")
 
 
 def _check_kernel_flags(cfg: ModelConfig, scfg: ServeConfig):
@@ -89,7 +135,7 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
     reference's step functions on ``device`` (default cuda).
 
     With ``scfg.fused_sampling`` (the default) every step takes a trailing
-    ``sampling`` bank (``serve/sampling.bank_init``; greedy rows only) and
+    ``sampling`` bank (``serve/sampling.bank_init`` / ``bank_of``) and
     returns ``(tokens (b,) int32, caches)``; the decode step takes
     ``batch_inputs["tokens"]`` as the (b,) last-token vector and returns
     the input token for rows whose ``active`` entry is False. With
@@ -109,15 +155,11 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
                              device=device)
 
     def _epilogue(sampling):
-        """Greedy tokens of the last kept row (the reference samples with
-        keys folded on the post-step cache index; its draws are not ported,
-        so a bank row with temperature > 0 raises)."""
+        """Fused logits -> token tail: sample the last kept row with per-slot
+        keys folded on the POST-step cache index (= prompt + generated so
+        far, a pure function of the request's own stream)."""
         if not fused:
             return None
-        if sampling is not None and bool((sampling["temperature"] > 0).any()):
-            raise NotImplementedError(
-                "sampled draws (temperature > 0) need the reference's "
-                "threefry fold_in keys, which are not ported yet")
 
         def epi(logits, new_caches):
             return S.sample_tokens(logits[:, -1], sampling,
@@ -176,6 +218,105 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
     return init_caches, prefill_step, decode_step, prefill_ragged
 
 
+class ServeSession:
+    """Static-batch generation: every row prefills and decodes in lockstep,
+    so the batch runs as long as its longest member (the reference's
+    ``ServeSession``). Token frontends over pure-attention archs, which
+    is all the port serves; sampling runs fused in the steps or, with
+    ``fused_sampling=False``, on the logits after each step, through the
+    same ``serve/sampling`` code (the streams are identical).
+
+    ``params`` is the port's ``LM``, already on ``device`` (default
+    cuda)."""
+
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: T.LM, *,
+                 device=None):
+        if scfg.paged_kv:
+            raise NotImplementedError(
+                "ServeSession is the static contiguous baseline; paged KV "
+                "serving lives in ContinuousBatchingEngine")
+        _check_kernel_flags(cfg, scfg)
+        _refuse_mesh(scfg)
+        _refuse_unread(scfg, _UNREAD + _PAGED, "ServeSession")
+        self.device = resolve_device(device)
+        if params.device != self.device:
+            raise ValueError(f"params live on {params.device}, session on "
+                             f"{self.device}: move them first")
+        self.cfg, self.scfg = cfg, scfg
+        self.params = params
+        self._fused = scfg.fused_sampling
+        (self._init_caches, self._prefill, self._decode,
+         self._prefill_ragged) = make_serve_fns(cfg, scfg, device=self.device)
+
+    def generate(self, prompts, *, steps: int, sampling=None,
+                 temperature: float = 0.0, seed: int = 0, lengths=None):
+        """prompts: (b, s) int tokens. Returns (b, steps) int32 tokens.
+
+        sampling: a ``SamplingParams`` (broadcast: row r draws from ``seed +
+        r``) or a per-row sequence of them; ``None`` builds one from the
+        legacy ``temperature`` / ``seed`` scalars (0 = greedy).
+        lengths: optional (b,) real prompt lengths of a right-padded ragged
+        batch: prefill leaves pad rows out of the caches and each row
+        decodes from its own position, so row r's output equals serving
+        prompt r alone."""
+        if steps < 1:
+            raise ValueError(
+                f"generate: steps must be >= 1, got {steps} — the prefill "
+                "step always samples one token, so steps=0 cannot mean "
+                "'no tokens'")
+        prompts = torch.as_tensor(prompts, dtype=torch.int32,
+                                  device=self.device)
+        b, s = prompts.shape
+        if sampling is None:
+            sampling = SamplingParams(temperature=float(temperature),
+                                      seed=seed)
+        bank = S.bank_of(sampling, b, device=self.device)
+        caches = self._init_caches(b)
+        inputs = {"tokens": prompts}
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                      device=self.device)
+        if self._fused:
+            return self._generate_fused(caches, inputs, bank, steps, lengths)
+        return self._generate_host(caches, inputs, bank, steps, s, lengths)
+
+    def _generate_fused(self, caches, inputs, bank, steps, lengths):
+        """The steps emit (b,) tokens and the loop feeds them straight
+        back."""
+        if lengths is None:
+            tok, caches = self._prefill(self.params, caches, inputs, bank)
+        else:
+            tok, caches = self._prefill_ragged(self.params, caches, inputs,
+                                               lengths, bank)
+        outs = [tok]
+        for _ in range(steps - 1):
+            tok, caches = self._decode(self.params, caches, {"tokens": tok},
+                                       bank)
+            outs.append(tok)
+        return torch.stack(outs, dim=1)
+
+    def _generate_host(self, caches, inputs, bank, steps, s, lengths):
+        """Logits out of each step, sampled after it: row r at step t folds
+        (seed_r, prompt_len_r + t), so the streams match the fused path."""
+        b = bank["seed"].shape[0]
+        if lengths is None:
+            logits, caches = self._prefill(self.params, caches, inputs)
+            pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
+        else:
+            logits, caches = self._prefill_ragged(self.params, caches,
+                                                  inputs, lengths)
+            pos = lengths
+        tok = S.sample_tokens(logits, bank, pos)
+        outs = [tok]
+        for _ in range(steps - 1):
+            logits, caches = self._decode(self.params, caches,
+                                          {"tokens": tok[:, None]})
+            pos = pos + 1
+            tok = S.sample_tokens(logits, bank, pos)
+            outs.append(tok)
+        return torch.stack(outs, dim=1)
+
+
 class ContinuousBatchingEngine:
     """Slot-recycling serving engine: ``submit`` requests, then ``run``.
 
@@ -195,30 +336,16 @@ class ContinuousBatchingEngine:
                 f"pattern (got {cfg.block_pattern}, "
                 f"cross_attn={cfg.cross_attn})")
         _check_kernel_flags(cfg, scfg)
-        if scfg.tp > 1 or scfg.seq_shards > 1:
-            raise NotImplementedError("mesh serving (tp / seq_shards > 1) "
-                                      "is not ported yet")
-        if not scfg.fused_sampling:
-            raise NotImplementedError(
-                "host-side sampling (fused_sampling=False) is not ported "
-                "yet")
-        refused = _UNREAD if scfg.paged_kv else _UNREAD + _PAGED
-        unread = [f.name for f in dataclasses.fields(scfg)
-                  if f.name in refused
-                  and getattr(scfg, f.name) != f.default]
-        if unread:
-            raise NotImplementedError(
-                f"ServeConfig {unread}: the port's engine does not read "
-                "these (static ServeSession, the Pallas prefill grid's KV "
-                "block; the paged fields only with paged_kv=True); leave "
-                "them at their defaults")
-        S.require_greedy(default_sampling)
+        _refuse_mesh(scfg)
+        _refuse_unread(scfg, _UNREAD + ("q_chunk",)
+                       + (() if scfg.paged_kv else _PAGED), "engine")
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"params live on {params.device}, engine on "
                              f"{self.device}: move them first")
         self.cfg, self.scfg = cfg, scfg
         self.params = params
+        self.fused = scfg.fused_sampling
         self.default_sampling = default_sampling
         self.paged = scfg.paged_kv
         if self.paged:
@@ -252,6 +379,9 @@ class ContinuousBatchingEngine:
         self.bank = S.bank_init(scfg.max_slots, device=self.device)
         self._last = torch.zeros((scfg.max_slots,), dtype=torch.int32,
                                  device=self.device)
+        # (shape, dtype) signatures seen entering each step
+        self._prefill_shapes: set = set()
+        self._decode_shapes: set = set()
 
     def _lm(self, tokens, caches, **kw):
         s = self.scfg
@@ -265,8 +395,11 @@ class ContinuousBatchingEngine:
     def submit(self, prompt, max_new_tokens: int, eos_id: int | None = None,
                sampling: SamplingParams | None = None,
                n: int = 1) -> int | list[int]:
-        """Queue a request; returns its uid (key into ``results``). Greedy
-        only: a sampled request (temperature > 0) raises here.
+        """Queue a request; returns its uid (key into ``results``).
+
+        ``sampling`` defaults to the engine's ``default_sampling``, a
+        policy: request k (in submit order) draws from ``seed + k``. An
+        explicit ``sampling`` pins the stream; greedy when both are None.
 
         ``n > 1`` queues n streams of the same prompt and returns their
         uids. On a paged engine with the prefix cache they share the
@@ -291,7 +424,6 @@ class ContinuousBatchingEngine:
             sp = dataclasses.replace(
                 self.default_sampling,
                 seed=(self.default_sampling.seed + self._submits) % 2**32)
-        S.require_greedy(sp)
         self._submits += 1
         uid = self.scheduler.submit(prompt, max_new_tokens, eos_id,
                                     sampling=sp)
@@ -329,6 +461,20 @@ class ContinuousBatchingEngine:
             self._prefill_one(slot, start, n)
         if self.scheduler.decoding():
             self._decode_once()
+
+    @property
+    def prefill_cache_size(self) -> int:
+        """Distinct (shape, dtype) signatures that entered the prefill-chunk
+        step so far: 1 for the engine's lifetime (the reference's compiled
+        prefill variants)."""
+        return len(self._prefill_shapes)
+
+    @property
+    def decode_cache_size(self) -> int:
+        """Distinct signatures that entered the decode step so far: 1 for
+        the lifetime (the page table and the sampling bank are values,
+        never shapes)."""
+        return len(self._decode_shapes)
 
     @property
     def page_occupancy(self) -> float:
@@ -374,18 +520,22 @@ class ContinuousBatchingEngine:
             self._write_window(slot, start, start + n)
             kw["page_table"] = self._device_table()[slot:slot + 1]
         slot_caches = T.slot_view(self.caches, slot, paged=self.paged)
-        row = S.bank_take(self.bank, slice(slot, slot + 1))
+        tokens = torch.tensor([chunk], dtype=torch.int32, device=self.device)
+        lengths = torch.tensor([n], dtype=torch.int32, device=self.device)
+        row = (S.bank_take(self.bank, slice(slot, slot + 1)) if self.fused
+               else None)
+        self._prefill_shapes.add(_signature((slot_caches, tokens, lengths,
+                                             row, kw.get("page_table"))))
+        epi = None
+        if self.fused:
+            def epi(logits, new_caches):
+                return S.sample_tokens(logits[:, -1], row,
+                                       T.cache_index(new_caches))
 
-        def epi(logits, new_caches):
-            return S.sample_tokens(logits[:, -1], row,
-                                   T.cache_index(new_caches))
-
-        out, slot_caches = self._lm(
-            torch.tensor([chunk], dtype=torch.int32, device=self.device),
-            slot_caches,
-            prefill_append=torch.tensor([n], dtype=torch.int32,
-                                        device=self.device),
-            logits_index=n - 1, logits_epilogue=epi, **kw)
+        out, slot_caches = self._lm(tokens, slot_caches,
+                                    prefill_append=lengths,
+                                    logits_index=n - 1, logits_epilogue=epi,
+                                    **kw)
         T.write_slot_index(self.caches, slot_caches, slot)
         self.prefilled_tokens += n
         done = self.scheduler.record_prefill(slot, n)
@@ -396,8 +546,17 @@ class ContinuousBatchingEngine:
                                     self.scheduler.slots[slot].filled)
         if done:
             # prompt complete: this chunk's token is the request's first
-            tok = int(out[0])
-            self._last[slot] = tok
+            # (sampled in the step when fused; from its logits otherwise,
+            # at the same position: the slot's fill)
+            if self.fused:
+                tok = int(out[0])
+                self._last[slot] = tok
+            else:
+                filled = self.scheduler.slots[slot].filled
+                tok = int(S.sample_tokens(
+                    out[:, 0], S.bank_take(self.bank, slice(slot, slot + 1)),
+                    torch.tensor([filled], dtype=torch.int32,
+                                 device=self.device))[0])
             uid = self.scheduler.slots[slot].request.uid
             if uid in self._t_submit:
                 self.ttft[uid] = time.perf_counter() - self._t_submit.pop(uid)
@@ -421,16 +580,39 @@ class ContinuousBatchingEngine:
             kw["page_table"] = self._device_table()
         active = torch.from_numpy(active).to(self.device)
         index = T.cache_index(self.caches)
+        if self.fused:
+            # device-side feedback: last tokens in, next tokens out; only
+            # the (max_slots,) token vector reaches the host
+            tokens, bank = self._last[:, None], self.bank
 
-        def epi(logits, new_caches):
-            return S.sample_tokens(logits[:, -1], self.bank,
-                                   T.cache_index(new_caches))
-
+            def epi(logits, new_caches):
+                return S.sample_tokens(logits[:, -1], bank,
+                                       T.cache_index(new_caches))
+        else:
+            # the A/B baseline: (max_slots, vocab) logits out of the step,
+            # the decoding rows sampled after it through the same schedule
+            toks = np.zeros((self.scfg.max_slots, 1), np.int32)
+            for slot, state in decoding:
+                toks[slot, 0] = state.last_token
+            tokens = torch.from_numpy(toks).to(self.device)
+            bank = epi = None
+        self._decode_shapes.add(_signature((self.caches, tokens, active, bank,
+                                            kw.get("page_table"))))
         out, self.caches = self._lm(
-            self._last[:, None], self.caches, positions=index[:, None],
+            tokens, self.caches, positions=index[:, None],
             decode_active=active, logits_epilogue=epi, **kw)
-        self._last = torch.where(active, out, self._last)
-        sampled = self._last.cpu().numpy()
+        if self.fused:
+            self._last = torch.where(active, out, self._last)
+            sampled = self._last.cpu().numpy()
+        else:
+            rows = [slot for slot, _ in decoding]
+            pos = torch.tensor([st.filled + len(st.generated)
+                                for _, st in decoding], dtype=torch.int32,
+                               device=self.device)
+            drawn = S.sample_tokens(out[rows, -1],
+                                    S.bank_take(self.bank, rows), pos)
+            sampled = np.zeros((self.scfg.max_slots,), np.int32)
+            sampled[rows] = drawn.cpu().numpy()
         for slot, _ in decoding:
             if self.scheduler.record(slot, int(sampled[slot])):
                 self._finish(slot)

@@ -2,15 +2,17 @@
 and the port's package rules.
 
 * Greedy tokens of the port's ``ContinuousBatchingEngine`` equal the
-  reference engine's on the qwen2 and gpt2-consmax smoke configs, with
-  prompts longer than ``prefill_chunk`` (multi-chunk admissions interleaved
-  with decode) and more requests than slots (recycling). Compared at
-  ``compute_dtype="float32"``, where the two packages' logits agree to
-  ~1e-6 (test_torch_model.py), so a greedy token cannot flip; with the
-  kernel flags on or off in the port (their plain versions on the CPU).
+  reference engine's on the qwen2, gpt2-consmax, gemma2, chatglm3 and
+  granite smoke configs, with prompts longer than ``prefill_chunk``
+  (multi-chunk admissions interleaved with decode) and more requests than
+  slots (recycling). Compared at ``compute_dtype="float32"``, where the two
+  packages' logits agree to ~1e-6 (gemma2 ~2e-5, XLA's tanh;
+  test_torch_model.py), far from flipping a greedy token; with the kernel
+  flags on or off in the port (their plain versions on the CPU).
 * Inside the port, at the bf16 serving default: a request served among
   others gets the same tokens as served alone.
-* Unported options raise instead of serving something else; entry points
+* Unported options raise instead of serving something else (sampled
+  requests and host-side sampling are served); entry points
   need a card unless asked for the CPU; no module of the port, nor
   ``chip_smoke.py``, imports JAX or the reference package.
 """
@@ -54,7 +56,8 @@ def _serve(engine, prompts, budgets):
     return [results[u] for u in uids]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gpt2-consmax"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gpt2-consmax", "gemma2-2b",
+                                  "chatglm3-6b", "granite-3-2b"])
 def test_greedy_tokens_match_reference_engine(arch):
     jc = jget(arch, smoke=True, compute_dtype="float32")
     tc = tget(arch, smoke=True, compute_dtype="float32")
@@ -90,13 +93,16 @@ def test_unported_options_raise():
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     eng = ContinuousBatchingEngine(cfg, ServeConfig(**SERVE), model,
                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7))
+    # sampled requests and host-side sampling are served
+    # (tests/test_torch_sampling.py)
+    eng.submit([1, 2, 3], 4, sampling=SamplingParams(temperature=0.7))
+    ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, fused_sampling=False),
+                             model, device="cpu")
     # fields the port mirrors but does not read refuse non-default values;
-    # the paged fields are read only with paged_kv=True
+    # the paged fields are read only with paged_kv=True, q_chunk only by
+    # the static session's whole-prompt prefill
     paged = dict(paged_kv=True, page_size=4)
-    for kw in (dict(paged, q_chunk=16), dict(fused_sampling=False),
-               dict(prefill_kv_block=64),
+    for kw in (dict(paged, q_chunk=16), dict(prefill_kv_block=64),
                dict(q_chunk=16), dict(batch=4), dict(seq_shard_kv=True),
                dict(page_size=4), dict(prefix_cache=False),
                dict(paged, num_pages=24, seq_shards=2), dict(tp=2)):
@@ -126,15 +132,22 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 
 def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch.serve import main
-    main(["--device", "cpu", "--arch", "gpt2-consmax", "--requests", "3",
-          "--max-slots", "2", "--prompt-len", "10", "--steps", "4",
-          "--prefill-chunk", "4", "--decode-kernel", "--prefill-kernel"])
+    main(["--device", "cpu", "--engine", "continuous", "--arch",
+          "gpt2-consmax", "--requests", "3", "--max-slots", "2",
+          "--prompt-len", "10", "--steps", "4", "--prefill-chunk", "4",
+          "--decode-kernel", "--prefill-kernel"])
     assert "3 requests" in capsys.readouterr().out
-    main(["--device", "cpu", "--requests", "3", "--max-slots", "2",
-          "--prompt-len", "10", "--steps", "4", "--prefill-chunk", "8",
-          "--paged", "--page-size", "4", "--prefix-evict", "fifo"])
+    main(["--device", "cpu", "--engine", "continuous", "--requests", "3",
+          "--max-slots", "2", "--prompt-len", "10", "--steps", "4",
+          "--prefill-chunk", "8", "--paged", "--page-size", "4",
+          "--prefix-evict", "fifo"])
     out = capsys.readouterr().out
     assert "paged=True" in out and "prefix cache (fifo)" in out
+    # the static session is the default engine
+    main(["--device", "cpu", "--batch", "2", "--prompt-len", "6",
+          "--steps", "3"])
+    assert "[serve] qwen2-1.5b (smoke) on cpu: 6 tokens" in \
+        capsys.readouterr().out
 
 
 def _port_files():
@@ -186,7 +199,8 @@ def test_logits_masks_and_sampling_params_match_reference():
     np.testing.assert_array_equal(np.isfinite(np.asarray(ref)),
                                   torch.isfinite(got).numpy())
     bank = TS.bank_init(6)
-    assert TS.sample_tokens(torch.tensor(scores), bank).tolist() == \
+    assert TS.sample_tokens(torch.tensor(scores), bank,
+                            torch.zeros(6, dtype=torch.int32)).tolist() == \
         np.asarray(JS.sample_tokens(jnp.asarray(scores), JS.bank_init(6),
                                     jnp.zeros(6, jnp.int32))).tolist()
     for kw in (dict(temperature=-1.0), dict(top_k=-1), dict(top_p=0.0),

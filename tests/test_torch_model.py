@@ -1,14 +1,26 @@
 """The port's model against the JAX reference: the weight bridge, random
 init, and teacher-forced ``lm_apply`` logits — one ragged append chunk, then
 one-token decode steps — on the qwen2 (GQA, RoPE, QKV bias, SiLU-GLU,
-RMSNorm) and gpt2-consmax (MHA, sinusoidal positions, GELU, LayerNorm)
+RMSNorm), gpt2-consmax (MHA, sinusoidal positions, GELU, LayerNorm),
+gemma2 (local/global windows, attention softcap 50, final softcap 30,
+sandwich norms, embedding scale), chatglm3 (2 KV heads, QKV bias,
+interleaved RoPE on half of each head) and granite (GQA, 8 KV heads)
 smoke configs.
 
 Tolerances, as fractions of the largest reference logit:
 
 * ``compute_dtype="float32"``: 1e-5. Both sides run the same fp32 ops (the
   KV cache is bf16 on both, written from the same fp32 rows); they differ in
-  summation order only.
+  summation order only. The greedy token of every step is equal.
+* gemma2 at fp32: 5e-5, and equal greedy tokens. Its attention softcap runs
+  every score through ``tanh``, where XLA's CPU approximation is off by up
+  to 2.9e-7 relative against float64 and ``torch.tanh`` by 6.3e-8 (measured
+  on N(0, 0.05^2) inputs): a per-score difference ~5x the fp32 rounding the
+  1e-5 bound covers, which the post-block norms carry to the logits on the
+  small attention outputs. Measured: 1.23e-6, 3.00e-6, 9.07e-6, 1.81e-5 of
+  the largest logit over the chunk and three decode steps; with ``jnp.tanh``
+  put in at the port's softcap sites, 1.20e-6 at step 3. So 5 x 1e-5, which
+  leaves 2.8x over the measured drift. The port is not held to XLA's tanh.
 * ``compute_dtype="bfloat16"`` (the serving default): 2^-4. Each matmul
   accumulates in fp32 in another order and rounds to bf16 (8-bit mantissa),
   so after a few layers the logits differ by a few bf16 ulps; measured
@@ -28,7 +40,8 @@ from repro_torch.configs.registry import get_config as tget
 from repro_torch.models import transformer as TT
 from repro_torch.weights import from_jax_params, init_params
 
-ARCHS = ["qwen2-1.5b", "gpt2-consmax"]
+ARCHS = ["qwen2-1.5b", "gpt2-consmax", "gemma2-2b", "chatglm3-6b",
+         "granite-3-2b"]
 B, L, C, STEPS = 2, 32, 8, 3
 
 
@@ -87,11 +100,15 @@ def _torch_logits(jc, tc, tp, **kw):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("cd,frac", [("float32", 1e-5), ("bfloat16", 2 ** -4)])
 def test_teacher_forced_logits_match_reference(arch, cd, frac):
+    if cd == "float32" and arch == "gemma2-2b":
+        frac = 5e-5                   # XLA's tanh, see the module docstring
     jc, tc, p, tp = _params(arch, cd)
     for j, t in zip(_jax_logits(jc, p), _torch_logits(jc, tc, tp)):
         assert t.shape == j.shape and np.isfinite(t).all()
         np.testing.assert_allclose(t, j, rtol=0,
                                    atol=frac * np.abs(j).max())
+        if cd == "float32":
+            np.testing.assert_array_equal(t.argmax(-1), j.argmax(-1))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
