@@ -70,7 +70,28 @@ Phases, in order; any failure exits non-zero before the result line:
    host-sampling, ragged rows == prompts served alone, greedy == the
    continuous engine;
 14. softmax and softermax: gpt2-consmax served through the plain online
-   walks, paged == contiguous tokens.
+   walks, paged == contiguous tokens;
+15. train (no kernel runs in training: it goes through the torch
+   ``blockwise_attention`` with autograd, as the reference trains through
+   jnp):
+   15a. gpt2-consmax at the paper's width (6 L, d 384, vocab 8,192; b 8 x
+   s 256, bf16) trained 200 steps with ConSmax and with Softmax through
+   ``Trainer``: finite losses that fall; the gap, ms per step, tokens/s,
+   how far beta / gamma moved; then 10 fp32 steps on the card against the
+   same 10 on the CPU, per-step loss within ``CARD_VS_CPU_RTOL``;
+   15b. resume, in a process of its own under deterministic algorithms:
+   k steps, save, a new ``Trainer`` resumes at k and its next losses equal
+   an uninterrupted run's bit for bit (ops that warn are named);
+   15c. qwen2-1.5b at full width (b 4 x s 2048): 3 steps with remat
+   "full", one more traced (device time of the bf16 GEMMs, the fp32
+   attention einsums and the rest), then step 0 with "dots"; the step-0
+   loss in its band and bit-equal across the two; peak memory beside the
+   reckoning, ms per step, tokens/s, model-FLOP share;
+   15d. the model trained in 15a served through the kernels: each kernel
+   against its plain version on every layer's trained K/V and learned
+   beta / gamma; contiguous and paged engines (paged == contiguous, solo ==
+   batched, launches counted per run); the int8 / fp8 perplexity gate; no
+   parameter gets a ``.grad``.
 
 The trace phases print device busy ms per engine iteration and, within
 it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
@@ -1441,23 +1462,30 @@ def gpt2_fp8_engine_phase(*, seed=3, new_tokens=16):
     return counts
 
 
-def perplexity_phase(*, seed=5, n_tokens=128):
+def perplexity_phase(*, seed=5, n_tokens=128, model=None, toks=None,
+                     what="random weights"):
     """The reference's quantized-cache accuracy gate
     (``tests/test_quantized_kv.py:285``) on the card, at full width:
-    gpt2-consmax with random weights from ``seed``, a ``n_tokens``-token
-    sequence teacher-forced through ``make_serve_fns``'s logits-returning
+    gpt2-consmax with random weights from ``seed`` (or ``model``), a
+    ``n_tokens``-token sequence (random from ``seed``, or ``toks``)
+    teacher-forced through ``make_serve_fns``'s logits-returning
     ``decode_step`` (both kernels on, so every K/V row is written to and
     read back from the cache dtype). int8-KV perplexity within 1 % of
-    bf16-KV's; fp8_e4m3's printed beside them."""
+    bf16-KV's; fp8_e4m3's printed beside them. Returns the perplexities."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import make_serve_fns
     from repro_torch.weights import init_params
 
     cfg = get_config("gpt2-consmax")
-    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
-                        device="cuda")
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, n_tokens)
+    if model is None:
+        model = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+    if toks is None:
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                    n_tokens)
+    n_tokens = len(toks)
     ppl = {}
     for kv in ("bfloat16", "int8", "fp8_e4m3"):
         scfg = ServeConfig(max_seq=n_tokens + 2, max_slots=1,
@@ -1478,7 +1506,7 @@ def perplexity_phase(*, seed=5, n_tokens=128):
     rel = {kv: abs(ppl[kv] - ppl["bfloat16"]) / ppl["bfloat16"]
            for kv in ("int8", "fp8_e4m3")}
     ok = all(np.isfinite(list(ppl.values()))) and rel["int8"] <= 0.01
-    _log(f"[ppl] gpt2-consmax (full width, seed {seed}), {n_tokens} tokens "
+    _log(f"[ppl] gpt2-consmax (full width, {what}), {n_tokens} tokens "
          f"teacher-forced through make_serve_fns decode_step: perplexity "
          f"bf16-KV {ppl['bfloat16']:.4f}, int8-KV {ppl['int8']:.4f} "
          f"(relative {rel['int8']:.3e}, gate 1e-2), fp8_e4m3-KV "
@@ -1486,6 +1514,7 @@ def perplexity_phase(*, seed=5, n_tokens=128):
          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("int8-KV perplexity gate failed")
+    return ppl
 
 
 def gemma2_engine_phase(*, seed=6, new_tokens=16):
@@ -2073,6 +2102,427 @@ def decode_report():
          f"({len(rows)}): " + "; ".join(rows))
 
 
+# ------------------------------------------------------------- training ----
+# the paper's experiment (the port's examples/train_gpt2_consmax.py --paper)
+GPT2_TRAIN = dict(global_batch=8, seq_len=256, lr=1e-3, warmup_steps=20,
+                  total_steps=200, remat="none")
+CARD_VS_CPU_RTOL = 1e-4
+CARD_VS_CPU_NOTE = (
+    "both sides run the same fp32 ops (TF32 off), summed in other orders "
+    "by cuBLAS and the CPU BLAS: a dot product of K terms differs by up to "
+    "~sqrt(K) u (u = 6e-8; K <= 2,048 tokens in a weight gradient) relative, "
+    "~3e-6, and the loss, a mean over 2,048 tokens, by less; Adam's first "
+    "steps are ~lr * sign(g) (lr <= 4.5e-4 in steps 0-9 of the warmup), so "
+    "a component whose gradient sits at that noise level moves by ~1e-3 at "
+    "most, which moves the loss by well under 1e-4 of itself; the CPU "
+    "parity tests hold 8 steps to 1e-5 against the reference")
+RESUME_RTOL = 1e-3          # only where an op has no deterministic kernel
+
+
+def _hist_stats(hist, tokens, skip=5):
+    """(mean ms per step past the first ``skip`` steps, tokens/s)."""
+    sec = float(np.mean([h["sec"] for h in hist[skip:]]))
+    return 1e3 * sec, tokens / sec
+
+
+def _beta_gamma(model):
+    sn = [blk.attn.score_norm for sup in model.blocks for blk in sup.values()]
+    return (torch.cat([m.beta.detach().float() for m in sn]).cpu(),
+            torch.cat([m.gamma.detach().float() for m in sn]).cpu())
+
+
+def train_gpt2_phase(smi, *, steps=200):
+    """15a: the paper's experiment on the card — gpt2-consmax at the
+    paper's width (6 L, d 384, 6 heads, vocab 8,192), b 8 x s 256, bf16
+    compute, trained with ConSmax and with Softmax for ``steps`` steps each
+    through ``Trainer`` (weights from seed 0, the synthetic corpus of seed
+    0). Gates: every loss finite, the last-10 mean below the first-10 mean
+    for both. Printed: the ConSmax - Softmax gap beside the paper's, ms per
+    step, tokens/s, how far beta and gamma moved. Returns the trained
+    ConSmax ``LM``, its config and corpus."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.trainer import Trainer
+
+    tcfg = TrainConfig(**GPT2_TRAIN)
+    tokens = tcfg.global_batch * tcfg.seq_len
+    last, keep = {}, None
+    for norm in ("consmax", "softmax"):
+        cfg = get_config("gpt2-consmax", score_norm=norm)
+        tr = Trainer(cfg, tcfg, device="cuda", log_every=100)
+        model = tr.state["params"]
+        if norm == "consmax":
+            beta0, gamma0 = _beta_gamma(model)
+        t0 = time.perf_counter()
+        hist = tr.run(steps)
+        wall = time.perf_counter() - t0
+        losses = np.array([h["loss"] for h in hist])
+        first, last[norm] = losses[:10].mean(), losses[-10:].mean()
+        ms, tps = _hist_stats(hist, tokens)
+        ok = bool(np.isfinite(losses).all()) and last[norm] < first
+        _log(f"[train] 15a gpt2-consmax ({norm}), b 8 x s 256, bf16, {steps} "
+             f"steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first-10 "
+             f"mean {first:.4f}, last-10 mean {last[norm]:.4f}); "
+             f"{ms:.2f} ms/step, {tps:.0f} tokens/s (steps 5-{steps - 1}), "
+             f"{wall:.1f} s wall; on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gpt2-consmax ({norm}) did not train")
+        if norm == "consmax":
+            beta1, gamma1 = _beta_gamma(model)
+            db = (beta1 - beta0).abs()
+            _log(f"[train] 15a learned ConSmax parameters, 36 heads: |beta "
+                 f"- beta0| max {float(db.max()):.4f} mean "
+                 f"{float(db.mean()):.4f} (beta0 in [{float(beta0.min()):.3f},"
+                 f" {float(beta0.max()):.3f}]); gamma {float(gamma0.min()):.1f}"
+                 f" -> [{float(gamma1.min()):.4f}, {float(gamma1.max()):.4f}]")
+            keep = (model, cfg, tr.corpus)
+        del tr
+    gap = (last["consmax"] - last["softmax"]) / last["softmax"]
+    _log(f"[train] 15a ConSmax - Softmax gap, last-10 means: "
+         f"{last['consmax'] - last['softmax']:+.4f} ({100 * gap:+.2f} %) "
+         f"after {steps} steps (paper: < 0.9 % after 10k iterations)")
+    return keep
+
+
+def card_vs_cpu_phase(smi, *, steps=10):
+    """15a: the same ``steps`` training steps on the card and on the CPU —
+    gpt2-consmax at the paper's width, fp32 compute (TF32 off), the same
+    weights (drawn on the CPU from seed 0) and batches. Per-step loss
+    within ``CARD_VS_CPU_RTOL`` relative."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.weights import init_params
+
+    cfg = get_config("gpt2-consmax", compute_dtype="float32")
+    tcfg = TrainConfig(**GPT2_TRAIN)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    card_model = LM(cfg, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    out = {}
+    for name, model in (("card", card_model), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        out[name] = [h["loss"] for h in Trainer(
+            cfg, tcfg, model=model, log_every=10 ** 9).run(steps)]
+        _log(f"[train] 15a {steps} fp32 steps on the {name}: "
+             f"{time.perf_counter() - t0:.1f} s (card: {smi})")
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["card"], out["cpu"])]
+    ok = all(np.isfinite(out["card"])) and max(rel) <= CARD_VS_CPU_RTOL
+    _log(f"[train] 15a card vs CPU, gpt2-consmax fp32, {steps} steps: "
+         f"losses card {[round(x, 6) for x in out['card']]}, largest "
+         f"relative difference {max(rel):.3e} at step {int(np.argmax(rel))} "
+         f"(gate {CARD_VS_CPU_RTOL:g}: {CARD_VS_CPU_NOTE}) "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("card and CPU training disagree")
+
+
+def resume_child(*, k=5, n=5):
+    """15b, run in its own process (``python3 chip_smoke.py
+    --train-resume``) so that ``CUBLAS_WORKSPACE_CONFIG`` is set before
+    CUDA starts and no other phase runs under deterministic algorithms:
+    gpt2-consmax at the paper's width trains k + n steps straight; a
+    second run trains k steps, saves, and a new ``Trainer`` on the same
+    directory resumes at step k for n steps. Prints one JSON line: both
+    runs' last n losses and the ops that warned that they have no
+    deterministic implementation."""
+    import tempfile
+    import warnings
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = get_config("gpt2-consmax")
+    tcfg = TrainConfig(**GPT2_TRAIN)
+    kw = dict(device="cuda", log_every=10 ** 9)
+    with warnings.catch_warnings(record=True) as caught, \
+            tempfile.TemporaryDirectory() as d:
+        warnings.simplefilter("always")
+        straight = [h["loss"] for h in Trainer(cfg, tcfg, **kw).run(k + n)]
+        Trainer(cfg, tcfg, ckpt_dir=d, ckpt_every=k, **kw).run(k)
+        tr = Trainer(cfg, tcfg, ckpt_dir=d, **kw)
+        at = tr.step_index()
+        resumed = [h["loss"] for h in tr.run(n)]
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    print(json.dumps({"resume": {"k": k, "at": at, "straight": straight[k:],
+                                 "resumed": resumed, "warned": ops}}),
+          flush=True)
+
+
+def resume_phase():
+    """15b: runs ``resume_child`` and holds its result: the new trainer
+    resumed at step k, and its losses equal the uninterrupted run's bit for
+    bit, or, if an op warned that it is not deterministic, within
+    ``RESUME_RTOL`` relative (the op is named)."""
+    import os
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--train-resume"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the resume run failed:\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["resume"]
+    bits = res["resumed"] == res["straight"]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(res["resumed"], res["straight"]))
+    ok = res["at"] == res["k"] and (bits or (res["warned"]
+                                            and rel <= RESUME_RTOL))
+    _log(f"[train] 15b resume (gpt2-consmax bf16, its own process, "
+         f"use_deterministic_algorithms(True, warn_only=True), "
+         f"CUBLAS_WORKSPACE_CONFIG=:4096:8): resumed at step {res['at']} "
+         f"(saved at {res['k']}); next losses {res['resumed']} vs "
+         f"uninterrupted {res['straight']}: bit-equal {bits}, largest "
+         f"relative difference {rel:.3e}; ops without a deterministic "
+         f"implementation: {res['warned'] or 'none'} "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a resumed run differs from an uninterrupted "
+                             "one")
+
+
+def _op_device_ms(prof, names):
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key in names:
+            total += getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0.0)
+    return total / 1e3
+
+
+def train_qwen2_phase(smi, *, steps=3):
+    """15c: qwen2-1.5b at its published width, depth not cut (28 L, d 1536,
+    vocab 151,936; random weights from seed 0), b 4 x s 2048, bf16 compute,
+    ``steps`` steps with ``remat="full"``, one more under
+    ``torch.profiler`` (device time of the bf16 projections ``aten::mm``,
+    the fp32 attention einsums ``aten::bmm``, and the rest), then the same
+    first step with ``remat="dots"``. Gates: finite losses; step-0 loss in
+    [ln V + z, ln V + 1.5 + z] (logits of the tied head over the unit-RMS
+    normed stream are ~N(0, 1), adding ~1/2 to ln V; z = 1e-4 (ln V)^2 is
+    the z-loss); "full" and "dots" step-0 losses bit-equal."""
+    import gc
+    import math
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config("qwen2-1.5b")
+    b, s, V = 4, 2048, cfg.vocab_size
+    tokens = b * s
+    lo = math.log(V) + 1e-4 * math.log(V) ** 2
+    hi = lo + 1.5
+    step0 = {}
+    for remat, n in (("full", steps), ("dots", 1)):
+        tcfg = TrainConfig(global_batch=b, seq_len=s, remat=remat,
+                           warmup_steps=2, total_steps=steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, tcfg, device="cuda", log_every=1)
+        n_params = sum(p.numel() for p in tr.state["params"].parameters())
+        hist = tr.run(n)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in hist]
+        step0[remat] = losses[0]
+        secs = [h["sec"] for h in hist]
+        sec = float(np.mean(secs[1:])) if n > 1 else secs[0]
+        mfu = 6 * n_params * tokens / (sec * PEAK_BF16_FLOPS)
+        reckon = 16 * n_params + b * s * V * 4
+        _log(f"[train] 15c qwen2-1.5b, remat {remat!r}, b {b} x s {s}, "
+             f"{n_params / 1e9:.4f} B parameters: losses "
+             f"{[round(x, 5) for x in losses]}; step times "
+             f"{[round(1e3 * t, 1) for t in secs]} ms; "
+             f"{1e3 * sec:.1f} ms/step "
+             f"({'steps 1-' + str(n - 1) if n > 1 else 'step 0'}), "
+             f"{tokens / sec:.0f} tokens/s, model-FLOP share "
+             f"6 N tokens / (t x 989 TFLOP/s) = {mfu:.4f}; peak memory "
+             f"{peak / 1e9:.2f} GB (max_memory_allocated) vs the reckoning "
+             f"16 B x N = {16 * n_params / 1e9:.2f} GB + fp32 logits "
+             f"{b * s * V * 4 / 1e9:.2f} GB = {reckon / 1e9:.2f} GB; on {smi}")
+        if not all(np.isfinite(losses)) or not lo <= losses[0] <= hi:
+            raise AssertionError(f"qwen2-1.5b ({remat}) step-0 loss "
+                                 f"{losses[0]} outside [{lo:.3f}, {hi:.3f}]")
+        if remat == "full":
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr.run(1)
+                wall = time.perf_counter() - t0
+            dev = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            busy, end = 0.0, float("-inf")
+            for e in sorted(dev, key=lambda e: e.time_range.start):
+                busy += max(0.0, e.time_range.end - max(e.time_range.start,
+                                                        end))
+                end = max(end, e.time_range.end)
+            busy /= 1e3
+            total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+            mm = _op_device_ms(prof, ("aten::mm", "aten::addmm"))
+            bmm = _op_device_ms(prof, ("aten::bmm", "aten::baddbmm"))
+            _log(f"[train] 15c where a qwen2-1.5b step's device time goes "
+                 f"(one more step under torch.profiler): wall "
+                 f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+                 f"{1 - busy / (1e3 * wall):.3f}), {len(dev)} device ops; "
+                 f"kernel time {total:.1f} ms: aten::mm (bf16 projections, "
+                 f"unembed) {mm:.1f} ms, aten::bmm (fp32 score and p.v "
+                 f"einsums of blockwise_attention) {bmm:.1f} ms, the rest "
+                 f"(elementwise, reductions, copies) {total - mm - bmm:.1f} "
+                 f"ms; on {smi}")
+        del tr, hist
+    ok = step0["full"] == step0["dots"]
+    _log(f"[train] 15c step-0 loss band [{lo:.4f}, {hi:.4f}]: full "
+         f"{step0['full']!r}, dots {step0['dots']!r}, bit-equal {ok} "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("remat 'full' and 'dots' losses differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def trained_serving_phase(model, cfg, corpus, *, new_tokens=16):
+    """15d: the ConSmax model trained in 15a, the same ``LM`` object in
+    place, served with both kernels: each kernel against its plain version
+    on every layer's trained K/V and learned beta/gamma; the contiguous and
+    the paged engine on held-out corpus prompts (paged == contiguous
+    tokens, solo == batched, each run through its two kernels, counts set
+    to 0 before each run and read after); the int8 / fp8 perplexity gate
+    on a held-out corpus sequence. The engines run under ``no_grad``: no
+    parameter gets a ``.grad`` and none is written."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_op, consmax_prefill_paged_op)
+    from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    params = list(model.parameters())
+    versions = [p._version for p in params]
+    grads = [p.grad for p in params]
+    held = corpus.global_batch_arrays(10 ** 6)["tokens"]   # never trained on
+
+    # ---- the kernels on the trained K/V: 8 corpus rows prefilled through
+    # the plain walks, then each layer's cache against random queries
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fills = torch.tensor([1, 17, 64, 100, 128, 200, 255, 256],
+                         dtype=torch.int32, device="cuda")
+    caches = T.init_caches(cfg, 8, 1024, device="cuda")
+    with torch.no_grad():
+        T.lm_apply(model, cfg, caches=caches, prefill_append=fills,
+                   tokens=torch.tensor(held, device="cuda"), merged=True)
+    H, dk = cfg.n_heads, cfg.head_dim_
+    for i, sup in enumerate(model.blocks):
+        attn = caches[i]["b0"]["attn"]
+        k, v = attn["k"], attn["v"]
+        beta = sup["b0"].attn.score_norm.beta.detach()
+        gamma = sup["b0"].attn.score_norm.gamma.detach()
+        for merged in (True, False):
+            kw = dict(window=0, softcap=0.0, merged=merged, scale=1.0)
+            q = _rand(gen, (8, H, dk), dk ** -0.5)
+            _check(f"15d layer {i} decode (trained K/V, merged={merged})",
+                   consmax_decode_cuda(q, k, v, fills, beta, gamma, bk=256,
+                                       **kw),
+                   consmax_decode_ref(q.float(), k, v, fills, beta, gamma,
+                                      **kw),
+                   consmax_decode_ref(q.float(), k, v.abs(), fills, beta,
+                                      gamma, **kw))
+            q1 = _rand(gen, (1, 128, H, dk), dk ** -0.5)
+            k1, v1 = k[7:8].contiguous(), v[7:8].contiguous()
+            ti = torch.tensor([128], dtype=torch.int32, device="cuda")
+            tn = torch.tensor([128], dtype=torch.int32, device="cuda")
+            _check(f"15d layer {i} prefill (trained K/V, merged={merged})",
+                   consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma,
+                                        **kw),
+                   consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+                   consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma,
+                                       **kw))
+    del caches
+
+    # ---- both engines on held-out prompts
+    lens = [20, 256, 131, 200, 64, 255]
+    prompts = [held[i, :n].tolist() for i, n in enumerate(lens)]
+    common = dict(max_slots=8, max_seq=1024, prefill_chunk=128,
+                  decode_kernel=True, prefill_kernel=True,
+                  score_norm=cfg.score_norm)
+    cfgs = {"contiguous": ServeConfig(**common),
+            "paged": ServeConfig(**common, paged_kv=True, page_size=128,
+                                 num_pages=64)}
+    ops = {"consmax_decode": consmax_decode_op,
+           "consmax_prefill": consmax_prefill_op,
+           "consmax_decode_paged": consmax_decode_paged_op,
+           "consmax_prefill_paged": consmax_prefill_paged_op}
+
+    def serve(scfg, batch):
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        uids = [eng.submit(prompts[i], new_tokens) for i in batch]
+        for op in ops.values():
+            op.launches = 0
+        results = eng.run()
+        torch.cuda.synchronize()
+        return ([results.get(u) for u in uids],
+                {name: op.launches for name, op in ops.items()})
+
+    toks, counts = {}, {}
+    for kind, scfg in cfgs.items():
+        toks[kind], counts[kind] = serve(scfg, range(len(prompts)))
+    alone, _ = serve(cfgs["contiguous"], [2])
+    # how often the trained model's greedy token follows the corpus's
+    # affine bigram map (the learnable part of the synthetic corpus)
+    follows = np.mean([(a * corpus.mult + corpus.add) % cfg.vocab_size == b_
+                       for t in toks["contiguous"]
+                       for a, b_ in zip(t[:-1], t[1:])])
+    ppl = perplexity_phase(model=model, toks=held[0, :128],
+                           what="trained 200 steps in 15a, a held-out "
+                                "corpus row")
+    checks = {
+        "every request finished": all(
+            t is not None and len(t) == new_tokens
+            for t in toks["contiguous"] + toks["paged"]),
+        "paged tokens == contiguous tokens":
+            toks["paged"] == toks["contiguous"],
+        "request 2 alone == served among the others":
+            alone[0] == toks["contiguous"][2],
+        "contiguous run: both contiguous kernels, no paged one": min(
+            counts["contiguous"]["consmax_decode"],
+            counts["contiguous"]["consmax_prefill"]) >= cfg.n_layers
+            and not counts["contiguous"]["consmax_decode_paged"]
+            and not counts["contiguous"]["consmax_prefill_paged"],
+        "paged run: both paged kernels, no contiguous one": min(
+            counts["paged"]["consmax_decode_paged"],
+            counts["paged"]["consmax_prefill_paged"]) >= cfg.n_layers
+            and not counts["paged"]["consmax_decode"]
+            and not counts["paged"]["consmax_prefill"],
+        "no parameter got a .grad or was written": all(
+            p.grad is g for p, g in zip(params, grads)) and [
+            p._version for p in params] == versions,
+    }
+    _log(f"[train] 15d trained gpt2-consmax served: kernel launches "
+         f"{counts}; greedy tokens follow the corpus's bigram map "
+         f"{follows:.3f} of the time (the corpus draws it with p 0.8); "
+         f"perplexity bf16 {ppl['bfloat16']:.4f}, int8 {ppl['int8']:.4f}, "
+         f"fp8_e4m3 {ppl['fp8_e4m3']:.4f}")
+    for name, ok in checks.items():
+        _log(f"[train] 15d check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("trained-model serving checks failed: " + ", "
+                             .join(n for n, ok in checks.items() if not ok))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2173,7 +2623,7 @@ def main():
         for k in names})
     _log(f"[fp8] gpt2-consmax fp8 phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    perplexity_phase()
+    perplexity_phase(what="random weights from seed 5")
     _log(f"[ppl] perplexity phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2192,6 +2642,22 @@ def main():
     softmax_engine_phase()
     _log(f"[softmax] softmax / softermax phase "
          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t15 = t0 = time.perf_counter()
+    model, cfg, corpus = train_gpt2_phase(smi)
+    card_vs_cpu_phase(smi)
+    _log(f"[train] 15a {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resume_phase()
+    _log(f"[train] 15b {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_qwen2_phase(smi)
+    _log(f"[train] 15c {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained_serving_phase(model, cfg, corpus)
+    _log(f"[train] 15d {time.perf_counter() - t0:.1f} s")
+    _log(f"[train] phase 15 {time.perf_counter() - t15:.1f} s")
 
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
@@ -2225,4 +2691,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--train-resume"]:
+        resume_child()
+    else:
+        main()

@@ -1,5 +1,5 @@
-"""Model/serve configuration dataclasses — the port's own copy of the
-reference's ``configs/base.py``.
+"""Model/train/serve configuration dataclasses — the port's own copy of
+the reference's ``configs/base.py``.
 
 Field names, defaults and ``ServeConfig.__post_init__`` checks match the
 reference one for one, so a config built here and one built there from the
@@ -7,7 +7,8 @@ same arguments describe the same run. ``pdtype``/``cdtype`` return
 ``torch.dtype``s. The serving fields the port does not read yet (the static
 session's, paged KV's, the Pallas prefill grid's) stay for that parity; the
 port's engine refuses a config that sets one away from its default
-(``serve/engine.py``).
+(``serve/engine.py``). ``TrainConfig.fsdp`` has no effect until mesh
+training is ported.
 """
 from __future__ import annotations
 
@@ -119,6 +120,26 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    remat: str = "full"              # "none" | "full" | "dots"
+    microbatch: int = 0              # 0 = no gradient accumulation
+    fsdp: bool = True                # kept for parity; no mesh training yet
+    grad_compression: str = "none"   # "none" | "int8_ef" (error feedback)
+    q_chunk: int = 2048              # blockwise-attention tile sizes
+    kv_chunk: int = 1024
+    seed: int = 0
 
 
 @dataclass(frozen=True)

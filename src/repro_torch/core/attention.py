@@ -5,10 +5,12 @@
   whole-prompt prefill): query chunks against the KV chunks their causal /
   window reach allows. For consmax the KV loop's carry is the fp32 output
   accumulator alone; softmax and softermax (base 2) carry the online
-  (m, l, acc) state. Plain PyTorch, forward only (no checkpointing), not
-  routed through a kernel, as the reference does not route it through one
-  (``kernels/consmax_attn`` and ``kernels/softmax_attn`` are the tiled
-  kernels of this loop).
+  (m, l, acc) state. Plain PyTorch, not routed through a kernel, as the
+  reference does not route it through one (``kernels/consmax_attn`` and
+  ``kernels/softmax_attn`` are the tiled kernels of this loop, forward
+  only). Training differentiates it with autograd, as the reference
+  differentiates its jnp walk; the in-place ``acc +=`` is safe there, since
+  an add saves no tensor for backward.
 * ``append_attention`` — chunked append-at-index prefill: a fixed-size
   chunk at per-slot cache position ``index`` attends ``cache[0:index]`` plus
   itself. For consmax each KV block's ``p @ v`` partial is final (no

@@ -4,8 +4,10 @@
 ``LM`` holds the parameters under the reference's tree names
 (``embed``, ``blocks[i][f"b{j}"]``, ``final_norm``; ``blocks[i]`` is super-
 layer ``i``, the reference's leading ``n_super`` axis). ``lm_apply`` is the
-forward pass with the serving options of the reference's ``lm_apply``; a
-Python loop over super-layers replaces ``lax.scan``.
+forward pass with the serving and training options of the reference's
+``lm_apply``; a Python loop over super-layers replaces ``lax.scan``, and
+``torch.utils.checkpoint`` around each super-layer replaces its
+``jax.checkpoint`` (``remat``).
 
 Caches are a list over super-layers of ``{f"b{j}": {"attn": {k, v,
 index}}}``: per-slot ``(b, max_seq, hkv, dk)`` rows (``init_caches``) or,
@@ -18,8 +20,11 @@ place too.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -52,11 +57,40 @@ class LM(nn.Module):
         return self.embed.table.device
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of plain 2-D matmuls (the
+    projections and the MLP), recompute the rest — batched products such as
+    the attention scores included. The counterpart of the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` recomputed in backward per ``remat`` (``"none"``, ``"full"``
+    or ``"dots"``); remat changes no value."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        context_fn = ckpt.noop_context_fn
+    elif remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    else:
+        raise ValueError(f"unknown remat {remat!r}")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
+
+
 def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
-             positions=None, merged=False, q_chunk=2048, kv_chunk=1024,
-             logits_index=None, decode_kernel=False, decode_kv_block=256,
-             prefill_kernel=False, fill_bound=True, prefill_append=None,
-             decode_active=None, page_table=None, logits_epilogue=None):
+             positions=None, merged=False, remat="none", q_chunk=2048,
+             kv_chunk=1024, logits_index=None, decode_kernel=False,
+             decode_kv_block=256, prefill_kernel=False, fill_bound=True,
+             prefill_append=None, decode_active=None, page_table=None,
+             logits_epilogue=None):
     """Forward pass over a (b, s) token batch, against per-slot caches or
     (``caches=None``) without any: the whole-sequence forward.
 
@@ -76,6 +110,10 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
     logits_index: int or (b,) — unembed only that row (per batch row).
     logits_epilogue: ``(logits, new_caches) -> out`` returned in place of
     the logits (the serving sampling hook; it reads the post-step index).
+    remat: ``"none"`` | ``"full"`` | ``"dots"`` — how each super-layer of
+    the whole-sequence forward (``caches=None``) is recomputed in backward
+    while autograd records (``_remat``); ignored otherwise. The trainer
+    passes ``TrainConfig.remat``.
     Returns (logits | epilogue out, new_caches).
     """
     b, s = tokens.shape
@@ -86,23 +124,33 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
         positions = idx[:, None] + torch.arange(s, device=tokens.device)
     x = FE.frontend_apply(p.embed, cfg, tokens=tokens, positions=positions)
 
-    new_caches = []
-    for i, sup in enumerate(p.blocks):
-        cache_in = caches[i] if caches is not None else None
-        co = {}
-        for name in sup:
-            x, co[name] = B.block_apply(
-                sup[name], x, cfg, positions=positions,
-                cache=cache_in[name] if cache_in is not None else None,
-                merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                decode_kernel=decode_kernel,
-                decode_kv_block=decode_kv_block,
-                prefill_kernel=prefill_kernel, fill_bound=fill_bound,
-                prefill_append=prefill_append, decode_active=decode_active,
-                page_table=page_table)
-        new_caches.append(co)
     if caches is None:
+        def super_step(x, sup):
+            for name in sup:
+                x, _ = B.block_apply(sup[name], x, cfg, positions=positions,
+                                     merged=merged, q_chunk=q_chunk,
+                                     kv_chunk=kv_chunk)
+            return x
+
+        if torch.is_grad_enabled():
+            super_step = _remat(super_step, remat)
+        for sup in p.blocks:
+            x = super_step(x, sup)
         new_caches = None
+    else:
+        new_caches = []
+        for sup, cache_in in zip(p.blocks, caches):
+            co = {}
+            for name in sup:
+                x, co[name] = B.block_apply(
+                    sup[name], x, cfg, positions=positions,
+                    cache=cache_in[name], merged=merged, q_chunk=q_chunk,
+                    kv_chunk=kv_chunk, decode_kernel=decode_kernel,
+                    decode_kv_block=decode_kv_block,
+                    prefill_kernel=prefill_kernel, fill_bound=fill_bound,
+                    prefill_append=prefill_append,
+                    decode_active=decode_active, page_table=page_table)
+            new_caches.append(co)
 
     x = p.final_norm(x)
     if logits_index is not None:

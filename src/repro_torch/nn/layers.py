@@ -8,7 +8,9 @@ so the weight bridge maps one pytree leaf onto one parameter.
 The reference casts every fp32 weight to the compute dtype on each call.
 ``cast`` does that cast once and keeps the copy on the parameter: the cast
 is deterministic, so the result is the same, and a bf16 serving step does
-not re-read the fp32 weights.
+not re-read the fp32 weights. While autograd records (training), a
+parameter that requires grad is cast afresh, so its gradient flows.
+Parameters are made with ``requires_grad=False``; the trainer turns it on.
 """
 from __future__ import annotations
 
@@ -25,9 +27,12 @@ def cast(p: torch.Tensor | None, dtype: torch.dtype):
     its version counter and storage pointer). Write parameters through the
     tensor itself (``load_state_dict``, or ``p.copy_`` under ``no_grad``):
     a write through ``p.data`` bumps another version counter and is not
-    seen."""
+    seen. Under grad mode a parameter that requires grad gets the
+    differentiable ``p.to(dtype)`` instead, and nothing is kept."""
     if p is None or p.dtype == dtype:
         return p
+    if p.requires_grad and torch.is_grad_enabled():
+        return p.to(dtype)
     key = (dtype, p._version, p.data_ptr())
     cached = getattr(p, "_cast_copy", None)
     if cached is None or cached[0] != key:

@@ -6,7 +6,8 @@ The reference's ``lm_init`` returns nested dicts (``embed/table``,
 are stacked on a leading ``n_super`` axis (``nn/module.py`` ``vmap_init``).
 ``LM``'s parameter names are the same paths with the stack index spelled
 out (``blocks.{i}.b{j}.attn.q.w``), so the bridge is a renaming plus a
-split of the stacked leaves.
+split of the stacked leaves (``from_jax_params``), or a renaming plus a
+restack (``to_jax_params``, for checkpoints the reference can read).
 """
 from __future__ import annotations
 
@@ -27,11 +28,18 @@ def _flatten(tree, prefix=""):
             yield path, val
 
 
-def from_jax_params(tree: dict, cfg: ModelConfig, device=None) -> LM:
-    """The reference's ``T.lm_init`` pytree, converted to numpy (nested
-    dicts of arrays), as the port's ``LM`` on ``device`` (default cuda).
-    Every leaf must map onto exactly one parameter and vice versa."""
-    device = resolve_device(device)
+def ref_leaf(name: str) -> str:
+    """The reference leaf that holds parameter ``name``: every
+    ``blocks.{i}.rest`` is one slice of the stacked ``blocks.rest``."""
+    if name.startswith("blocks."):
+        return "blocks." + name[len("blocks."):].split(".", 1)[1]
+    return name
+
+
+def split_jax_tree(tree: dict, cfg: ModelConfig) -> dict:
+    """A parameter-shaped reference tree (parameters, or an optimizer
+    moment), nested dicts of arrays, as ``{LM parameter name: fp32 CPU
+    tensor}``: the ``blocks`` leaves split along their ``n_super`` axis."""
     state = {}
     for path, leaf in _flatten(tree):
         arr = np.array(leaf, dtype=np.float32)        # a writable copy
@@ -44,9 +52,49 @@ def from_jax_params(tree: dict, cfg: ModelConfig, device=None) -> LM:
                 state[f"blocks.{i}.{rest}"] = torch.from_numpy(arr[i])
         else:
             state[path] = torch.from_numpy(arr)
+    return state
+
+
+def from_jax_params(tree: dict, cfg: ModelConfig, device=None) -> LM:
+    """The reference's ``T.lm_init`` pytree, converted to numpy (nested
+    dicts of arrays), as the port's ``LM`` on ``device`` (default cuda).
+    Every leaf must map onto exactly one parameter and vice versa."""
+    device = resolve_device(device)
     model = LM(cfg, device=device)
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(split_jax_tree(tree, cfg), strict=True)
     return model
+
+
+def to_jax_params(named, cfg: ModelConfig) -> dict:
+    """The inverse of ``split_jax_tree``: an ``LM`` (its parameters) or a
+    ``{parameter name: tensor}`` dict of the same names (an optimizer
+    moment) as the reference's nested tree of numpy arrays, the
+    ``blocks.{i}.*`` leaves restacked on the leading ``n_super`` axis.
+    Every array is a host copy."""
+    if isinstance(named, LM):
+        named = dict(named.named_parameters())
+    flat, stacks = {}, {}
+    for name, t in named.items():
+        arr = t.detach().to("cpu", copy=True).numpy()
+        if name.startswith("blocks."):
+            i, rest = name[len("blocks."):].split(".", 1)
+            stacks.setdefault(rest, {})[int(i)] = arr
+        else:
+            flat[name] = arr
+    for rest, per_layer in stacks.items():
+        if sorted(per_layer) != list(range(cfg.n_super_layers)):
+            raise ValueError(f"blocks.*.{rest}: super-layers "
+                             f"{sorted(per_layer)} of {cfg.n_super_layers}")
+        flat[f"blocks.{rest}"] = np.stack(
+            [per_layer[i] for i in range(cfg.n_super_layers)])
+    tree: dict = {}
+    for path, arr in flat.items():
+        node = tree
+        *parents, leaf = path.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
