@@ -92,6 +92,27 @@ Phases, in order; any failure exits non-zero before the result line:
    beta / gamma; contiguous and paged engines (paged == contiguous, solo ==
    batched, launches counted per run); the int8 / fp8 perplexity gate; no
    parameter gets a ``.grad``.
+16. the model families of the ninth slice (random weights from seeds):
+   16a. phi3.5-moe-42b-a6.6b at its published widths (d 4096, 32 heads, 8
+   KV heads, 16 experts top-2 of ff 6400, vocab 32,064), depth cut from 32
+   to 4 layers: the four serving kernels at its shapes (16 slots x 8192
+   rows, GQA group 4, dk 128) against their plain versions, times and
+   bounds (the ``[phi3.5-moe]`` rows); the continuous engine, contiguous
+   and paged, bf16 KV, chunk 512, greedy and sampled requests of 512-2048
+   prompt tokens: paged == contiguous, solo == batched, one signature per
+   step, launches per run, router near-ties counted, wall ms per
+   iteration and tok/s, one iteration traced (the MoE layers' device ms
+   by expert ``bmm``, router, dispatch); a short int8-KV run;
+   16b. phi3.5-moe training at full width, 2 layers, two ``make_train_fns``
+   steps with a non-zero aux, in its own process under deterministic
+   algorithms, twice (bit-equal); ms per step, peak memory vs reckoning;
+   16c. xlstm-1.3b at full width (48 blocks): ``ServeSession`` ms per
+   token; fp32 decode-step logits vs one whole-sequence ``lm_apply``;
+   16d. musicgen-large at full width, 8 of 48 layers: frame embeddings,
+   cross-attention over 256 cond tokens, decode steps through the decode
+   kernel (dk 64) vs the whole pass and vs the plain walk;
+   16e. the six new archs' smoke configs, card vs CPU logits, whole and
+   through caches.
 
 The trace phases print device busy ms per engine iteration and, within
 it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
@@ -100,7 +121,7 @@ it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
 Launch counts: each serving path is run with the kernels' counts set to 0
 just before it and read just after (the bf16 contiguous kernels from phase
 5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9,
-the ``[gemma2-2b]`` rows from 12).
+the ``[gemma2-2b]`` rows from 12, the ``[phi3.5-moe]`` rows from 16a).
 
 Phase 3 covers the paged kernels too, at the paged engine's shapes (page
 size 256; then 16 and 64, a -1 hole, window / softcap / unmerged, and the
@@ -1085,13 +1106,13 @@ def model_phase():
             kw = dict(decode_kernel=kernels, prefill_kernel=kernels,
                       merged=True)
             caches = T.init_caches(cfg, 2, 1024, device="cuda")
-            lg, caches = T.lm_apply(model, cfg, tokens=toks[:, :64],
+            lg, caches, _ = T.lm_apply(model, cfg, tokens=toks[:, :64],
                                     caches=caches, prefill_append=lens,
                                     logits_index=lens - 1, **kw)
             seq = [lg.float()]
             for t in range(4):
                 idx = T.cache_index(caches)
-                lg, caches = T.lm_apply(model, cfg,
+                lg, caches, _ = T.lm_apply(model, cfg,
                                         tokens=toks[:, 64 + t:65 + t],
                                         caches=caches,
                                         positions=idx[:, None], **kw)
@@ -1250,10 +1271,6 @@ def paged_engine_phase(*, seed=4, new_tokens=32, kv_dtype="bfloat16"):
     paged run and of the contiguous run."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.consmax_decode.ops import (
-        consmax_decode_op, consmax_decode_paged_op)
-    from repro_torch.kernels.consmax_prefill.ops import (
-        consmax_prefill_op, consmax_prefill_paged_op)
     from repro_torch.serve.engine import ContinuousBatchingEngine
     from repro_torch.weights import init_params
 
@@ -1264,10 +1281,7 @@ def paged_engine_phase(*, seed=4, new_tokens=32, kv_dtype="bfloat16"):
     common = dict(max_slots=16, max_seq=8192, prefill_chunk=chunk,
                   decode_kernel=True, prefill_kernel=True,
                   score_norm=cfg.score_norm, kv_cache_dtype=kv_dtype)
-    ops = {"consmax_decode": consmax_decode_op,
-           "consmax_prefill": consmax_prefill_op,
-           "consmax_decode_paged": consmax_decode_paged_op,
-           "consmax_prefill_paged": consmax_prefill_paged_op}
+    ops = _serving_ops()
     tag = f"[paged {kv_dtype}]"
     paged_cfg = ServeConfig(**common, paged_kv=True, page_size=ps,
                             num_pages=npages, prefix_cache=True,
@@ -1398,10 +1412,6 @@ def gpt2_fp8_engine_phase(*, seed=3, new_tokens=16):
     runs."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.consmax_decode.ops import (
-        consmax_decode_op, consmax_decode_paged_op)
-    from repro_torch.kernels.consmax_prefill.ops import (
-        consmax_prefill_op, consmax_prefill_paged_op)
     from repro_torch.serve.engine import ContinuousBatchingEngine
     from repro_torch.weights import init_params
 
@@ -1417,10 +1427,7 @@ def gpt2_fp8_engine_phase(*, seed=3, new_tokens=16):
     r = np.random.default_rng(seed)
     prompts = [r.integers(0, cfg.vocab_size, n).tolist()
                for n in (20, 700, 131, 256, 999, 64)]
-    ops = {"consmax_decode": consmax_decode_op,
-           "consmax_prefill": consmax_prefill_op,
-           "consmax_decode_paged": consmax_decode_paged_op,
-           "consmax_prefill_paged": consmax_prefill_paged_op}
+    ops = _serving_ops()
 
     def serve(scfg, batch):
         eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
@@ -1535,10 +1542,6 @@ def gemma2_engine_phase(*, seed=6, new_tokens=16):
     3-4)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.consmax_decode.ops import (
-        consmax_decode_op, consmax_decode_paged_op)
-    from repro_torch.kernels.consmax_prefill.ops import (
-        consmax_prefill_op, consmax_prefill_paged_op)
     from repro_torch.serve.engine import ContinuousBatchingEngine
     from repro_torch.serve.sampling import SamplingParams
     from repro_torch.weights import init_params
@@ -1555,10 +1558,7 @@ def gemma2_engine_phase(*, seed=6, new_tokens=16):
                                                     fused_sampling=False),
             "paged": ServeConfig(**common, paged_kv=True, page_size=ps,
                                  num_pages=npages)}
-    ops = {"consmax_decode": consmax_decode_op,
-           "consmax_prefill": consmax_prefill_op,
-           "consmax_decode_paged": consmax_decode_paged_op,
-           "consmax_prefill_paged": consmax_prefill_paged_op}
+    ops = _serving_ops()
     r = np.random.default_rng(seed)
 
     def toks(n):
@@ -2402,11 +2402,9 @@ def trained_serving_phase(model, cfg, corpus, *, new_tokens=16):
     on a held-out corpus sequence. The engines run under ``no_grad``: no
     parameter gets a ``.grad`` and none is written."""
     from repro_torch.configs.base import ServeConfig
-    from repro_torch.kernels.consmax_decode.ops import (
-        consmax_decode_cuda, consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_decode.ops import consmax_decode_cuda
     from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
-    from repro_torch.kernels.consmax_prefill.ops import (
-        consmax_prefill_cuda, consmax_prefill_op, consmax_prefill_paged_op)
+    from repro_torch.kernels.consmax_prefill.ops import consmax_prefill_cuda
     from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ContinuousBatchingEngine
@@ -2462,10 +2460,7 @@ def trained_serving_phase(model, cfg, corpus, *, new_tokens=16):
     cfgs = {"contiguous": ServeConfig(**common),
             "paged": ServeConfig(**common, paged_kv=True, page_size=128,
                                  num_pages=64)}
-    ops = {"consmax_decode": consmax_decode_op,
-           "consmax_prefill": consmax_prefill_op,
-           "consmax_decode_paged": consmax_decode_paged_op,
-           "consmax_prefill_paged": consmax_prefill_paged_op}
+    ops = _serving_ops()
 
     def serve(scfg, batch):
         eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
@@ -2521,6 +2516,690 @@ def trained_serving_phase(model, cfg, corpus, *, new_tokens=16):
     if not all(checks.values()):
         raise AssertionError("trained-model serving checks failed: " + ", "
                              .join(n for n, ok in checks.items() if not ok))
+
+
+# ------------------------------------------------------------ phase 16 ----
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_DEPTH = 4           # of 32: weights and KV of 4 full-width layers fit
+MUSICGEN_DEPTH = 8      # of 48
+NEAR_TIE = 1e-6         # router k-th vs (k+1)-th probability gap counted
+SMOKE_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b", "jamba-1.5-large-398b",
+               "xlstm-1.3b", "musicgen-large", "phi-3-vision-4.2b")
+SMOKE_WHOLE_TOL = 1e-4  # card vs CPU logits, fraction of the largest
+SMOKE_CACHED_TOL = 1e-3
+SMOKE_NOTE = ("fp32 compute, TF32 off, the same weights: the card and the "
+              "CPU differ in summation order (cuBLAS tiling) and libm ulps "
+              "only (the CPU tests measure <= 4.2e-6 between two such "
+              "orders); through caches a K/V row on a bf16 rounding "
+              "boundary of the cache may round the other way (<= 2.7e-5 "
+              "there)")
+
+
+def _serving_ops():
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_op, consmax_prefill_paged_op)
+    return {"consmax_decode": consmax_decode_op,
+            "consmax_prefill": consmax_prefill_op,
+            "consmax_decode_paged": consmax_decode_paged_op,
+            "consmax_prefill_paged": consmax_prefill_paged_op}
+
+
+def moe_kernel_phase():
+    """16a, kernels: the four serving kernels at the phi3.5-moe engine's
+    shapes (16 slots x 8192 rows, 32 heads, 8 KV heads: GQA group 4,
+    head_dim 128, bf16; prefill chunk 512; pages of 256) against their
+    plain versions, the paged ones also bit for bit against the contiguous
+    ones; times and bounds. Returns the ``[phi3.5-moe]`` rows of the result
+    line."""
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import (
+        consmax_decode_paged_ref, consmax_decode_ref)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import (
+        consmax_prefill_paged_ref, consmax_prefill_ref)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    b, L, H, hkv, dk, bk, c, ps = 16, 8192, 32, 8, 128, 256, 512, 256
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    lengths = torch.tensor([1, 300, 512, 513, 1024, 2048, 2049, 3000, 4096,
+                            4097, 5000, 6000, 7000, 7500, 8191, 8192],
+                           dtype=torch.int32, device="cuda")
+    q = _rand(gen, (b, H, dk), dk ** -0.5)
+    k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+    beta, gamma = _head_params(gen, H)
+    err = _check("phi3.5-moe decode b=16 L=8192 H=32 hkv=8 dk=128",
+                 consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=bk,
+                                     **kw),
+                 consmax_decode_ref(q.float(), k, v, lengths, beta, gamma,
+                                    **kw),
+                 consmax_decode_ref(q.float(), k, v.abs(), lengths, beta,
+                                    gamma, **kw))
+    fill = int(lengths.sum())
+    io = 2 * b * H * dk * 2
+    times = {"consmax_decode": (
+        err, lambda: consmax_decode_cuda(q, k, v, lengths, beta, gamma,
+                                         bk=bk, **kw),
+        lambda: consmax_decode_ref(q, k, v, lengths, beta, gamma, **kw),
+        fill * hkv * dk * 2 * 2 + io, 4 * fill * H * dk)}
+    perr, (kp, vp, table) = _paged_decode_case(
+        "phi3.5-moe paged decode ps=256", q, k, v, lengths, beta, gamma, kw,
+        bk=bk, ps=ps, num_pages=b * L // ps)
+    times["consmax_decode_paged"] = (
+        perr, lambda: consmax_decode_paged_cuda(q, kp, vp, table, lengths,
+                                                beta, gamma, bk=bk, **kw),
+        lambda: consmax_decode_paged_ref(q, kp, vp, table, lengths, beta,
+                                         gamma, **kw),
+        fill * hkv * dk * 2 * 2 + io + table.numel() * 4, 4 * fill * H * dk)
+
+    q1 = _rand(gen, (1, c, H, dk), dk ** -0.5)
+    k1, v1 = k[15:16].contiguous(), v[15:16].contiguous()
+    errs, perrs = [], []
+    for idx, n in [(0, 512), (3584, 512), (7680, 512), (4000, 200)]:
+        ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
+        tn = torch.tensor([n], dtype=torch.int32, device="cuda")
+        errs.append(_check(
+            f"phi3.5-moe prefill c=512 index={idx} len={n}",
+            consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw),
+            consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+            consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma,
+                                **kw)))
+        e, pools = _paged_prefill_case(
+            f"phi3.5-moe paged prefill index={idx} len={n}", q1, k1, v1, ti,
+            tn, beta, gamma, kw, ps=ps, num_pages=64)
+        perrs.append(e)
+        if idx == 3584:
+            timed = (ti, tn, *pools)
+    ti, tn, kp1, vp1, t1 = timed
+    kvl = 3584 + c
+    visible = sum(min(3584 + i + 1, kvl) for i in range(c))
+    pbytes = kvl * hkv * dk * 2 * 2 + 2 * c * H * dk * 2
+    times["consmax_prefill"] = (
+        max(errs), lambda: consmax_prefill_cuda(q1, k1, v1, ti, tn, beta,
+                                                gamma, **kw),
+        lambda: consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+        pbytes, 4 * visible * H * dk)
+    times["consmax_prefill_paged"] = (
+        max(perrs), lambda: consmax_prefill_paged_cuda(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw),
+        lambda: consmax_prefill_paged_ref(q1, kp1, vp1, t1, ti, tn, beta,
+                                          gamma, **kw),
+        pbytes + t1.numel() * 4, 4 * visible * H * dk)
+    rows = {}
+    for name, (e, fn, plain, nbytes, flops) in times.items():
+        bound, by = _bound_ms(nbytes, flops)
+        rows[f"{name}[phi3.5-moe]"] = dict(
+            max_abs_err=e, ms=_time_ms(fn, flush, 50),
+            plain_ms=_time_ms(plain, flush, 5), bound_ms=bound, bound_by=by)
+    return rows
+
+
+class _RouterTies:
+    """Counts, on the device, router rows whose k-th and (k+1)-th
+    probabilities lie within ``NEAR_TIE`` (a flip there moves a token's
+    output by O(1)), while installed over ``models.moe.route``."""
+
+    def __init__(self):
+        from repro_torch.models import moe as MOE
+        self.moe, self.route = MOE, MOE.route
+        self.ties = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.rows = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def __enter__(self):
+        def counted(p, x, cfg):
+            out = self.route(p, x, cfg)
+            probs = torch.softmax(x.float() @ p.router, dim=-1)
+            srt = probs.sort(dim=-1, descending=True).values
+            k = cfg.moe.top_k
+            self.ties += ((srt[..., k - 1] - srt[..., k]) < NEAR_TIE).sum()
+            self.rows += srt[..., 0].numel()
+            return out
+        self.moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def _moe_trace(eng, smi, *, skip):
+    """One engine iteration (after ``skip``) under ``torch.profiler``, each
+    MoE layer inside a ``moe_layer`` range: wall and device busy ms, idle
+    share, device ops; the MoE layers' device ms split into the expert
+    ``bmm``s, the router, the dispatch and the rest."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as MOE
+
+    for _ in range(skip):
+        eng.step()
+    torch.cuda.synchronize()
+    apply = MOE.moe_apply
+
+    def ranged(*a, **kw):
+        with record_function("moe_layer"):
+            return apply(*a, **kw)
+    MOE.moe_apply = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        MOE.moe_apply = apply
+    # the range also shows as a device-side annotation: not an op
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name != "moe_layer"]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    busy /= 1e3
+    groups = {"expert bmm": ("aten::bmm",),
+              "router": ("aten::matmul", "aten::mm", "aten::softmax",
+                         "aten::_softmax", "aten::exp", "aten::sum"),
+              "dispatch": ("aten::sort", "aten::argsort", "aten::cumsum",
+                           "aten::gather", "aten::one_hot",
+                           "aten::index_put", "aten::index_put_",
+                           "aten::index", "aten::scatter_",
+                           "aten::floor_divide", "aten::where",
+                           "aten::clamp", "aten::zeros")}
+    split, by_op, layer = defaultdict(float), defaultdict(float), 0.0
+    ranges = [e for e in prof.events() if e.name == "moe_layer"
+              and e.device_type == DeviceType.CPU]
+    for r in ranges:
+        layer += r.device_time_total
+        for ch in r.cpu_children:
+            by_op[ch.name] += ch.device_time_total
+            g = next((g for g, names in groups.items() if ch.name in names),
+                     "rest (activation, gating, weighting, copies)")
+            split[g] += ch.device_time_total
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
+    _log(f"[moe] one traced engine iteration (torch.profiler): wall "
+         f"{wall:.1f} ms, device busy {busy:.2f} ms (idle share "
+         f"{1 - busy / wall:.3f}), {len(dev)} device ops; {len(ranges)} MoE "
+         f"layer calls, {layer / 1e3:.2f} ms device: "
+         + ", ".join(f"{g} {t / 1e3:.3f} ms" for g, t in split.items())
+         + "; by op: " + ", ".join(f"{n} {t / 1e3:.3f}" for n, t in top)
+         + f"; on {smi}")
+    if not ranges or layer <= 0:
+        raise AssertionError("the trace saw no MoE layer on the device")
+
+
+def moe_engine_phase(smi, *, seed=9, new_tokens=24):
+    """16a: phi3.5-moe-42b-a6.6b at its published widths (d 4096, 32 heads,
+    8 KV heads, 16 experts top-2 of ff 6400, vocab 32,064, layernorm,
+    silu-GLU), depth cut from 32 to ``MOE_DEPTH`` layers, random weights
+    from ``seed``; the continuous engine with both kernels and a bf16 KV
+    cache: 16 slots x 8192 rows, chunk 512 (expert capacity 80 per chunk,
+    2 per decode step). Eight requests of 512-2048 prompt tokens, four
+    greedy and four sampled (each on its own seed), on the contiguous
+    engine and on the paged one (pages of 256, a 160-page pool). Checked:
+    every request finishes; paged == contiguous tokens; a greedy and a
+    sampled request served alone == served among the others; one prefill
+    and one decode signature per engine; the kernels each engine launched.
+    Printed: wall ms per iteration, tok/s, the launches, router near-ties,
+    one traced iteration (``_moe_trace``); then a short int8-KV run.
+    Returns the launch counts of the contiguous run (rows 1-2) and of the
+    paged run (rows 3-4)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = get_config(MOE_ARCH, n_layers=MOE_DEPTH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    m = cfg.moe
+    c512, c1 = (capacity(s, m.top_k, m.n_experts, m.capacity_factor)
+                for s in (512, 1))
+    _log(f"[moe] {MOE_ARCH} at its published widths, {cfg.n_layers} of 32 "
+         f"layers: {n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.2f}"
+         f" GB fp32; the bf16 copies are made at first use), drawn in "
+         f"{time.perf_counter() - t0:.1f} s; capacity per expert: {c512} for "
+         f"a 512-token chunk, {c1} for a decode step")
+    chunk, ps, npages = 512, 256, 160
+    common = dict(max_slots=16, max_seq=8192, prefill_chunk=chunk,
+                  decode_kernel=True, prefill_kernel=True,
+                  score_norm=cfg.score_norm)
+    cfgs = {"contiguous": ServeConfig(**common),
+            "paged": ServeConfig(**common, paged_kv=True, page_size=ps,
+                                 num_pages=npages)}
+    ops = _serving_ops()
+    r = np.random.default_rng(seed)
+    reqs = [(r.integers(0, cfg.vocab_size, n).tolist(),
+             None if i % 2 == 0 else SamplingParams(**HOT, seed=200 + i))
+            for i, n in enumerate((512, 2048, 1000, 1536, 700, 1800, 600,
+                                   1300))]
+
+    def serve(scfg, items):
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        for op in ops.values():
+            op.launches = 0
+        uids = [eng.submit(p, new_tokens, sampling=sp) for p, sp in items]
+        t0, iters = time.perf_counter(), 0
+        while eng.scheduler.has_work():
+            eng.step()
+            iters += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: op.launches for name, op in ops.items()}
+        return eng, [eng.results.get(u) for u in uids], wall, iters, counts
+
+    out, counts, checks = {}, {}, {}
+    for kind, scfg in cfgs.items():
+        with _RouterTies() as ties:
+            eng, out[kind], wall, iters, counts[kind] = serve(scfg, reqs)
+        gen = sum(len(t or []) for t in out[kind])
+        cold = sum(len(p) for p, _ in reqs)
+        _log(f"[moe] {kind} engine: {len(reqs)} requests, {cold} prompt + "
+             f"{gen} generated tokens in {wall:.3f} s, {iters} iterations: "
+             f"{1e3 * wall / iters:.1f} ms/iteration, {gen / wall:.1f} "
+             f"generated tok/s, {cold / wall:.1f} prompt tok/s, mean TTFT "
+             f"{np.mean(list(eng.ttft.values())):.3f} s; prefill / decode "
+             f"signatures {eng.prefill_cache_size} / "
+             f"{eng.decode_cache_size}; kernel launches {counts[kind]}; "
+             f"router rows {int(ties.rows)}, near-ties (gap < {NEAR_TIE:g}) "
+             f"{int(ties.ties)}; allocated "
+             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; on {smi}")
+        checks[f"{kind}: every request finished"] = all(
+            t is not None and len(t) == new_tokens for t in out[kind])
+        checks[f"{kind}: prefill_cache_size == decode_cache_size == 1"] = (
+            eng.prefill_cache_size == eng.decode_cache_size == 1)
+        del eng
+        torch.cuda.empty_cache()
+    c, pg = counts["contiguous"], counts["paged"]
+    chunks = sum(-(-len(p) // chunk) for p, _ in reqs)
+    checks[f"contiguous: prefill launches == {cfg.n_layers} x {chunks} "
+           f"chunks, decode >= {cfg.n_layers}, no paged kernel"] = (
+        c["consmax_prefill"] == cfg.n_layers * chunks
+        and c["consmax_decode"] >= cfg.n_layers
+        and not c["consmax_decode_paged"] and not c["consmax_prefill_paged"])
+    checks["paged: paged kernels only"] = (
+        pg["consmax_prefill_paged"] == cfg.n_layers * chunks
+        and pg["consmax_decode_paged"] >= cfg.n_layers
+        and not pg["consmax_decode"] and not pg["consmax_prefill"])
+    checks["paged tokens == contiguous tokens"] = (
+        out["paged"] == out["contiguous"])
+    for i in (2, 1):                        # a greedy and a sampled request
+        _, alone, _, _, _ = serve(cfgs["contiguous"], [reqs[i]])
+        kind = "sampled" if reqs[i][1] else "greedy"
+        checks[f"{kind} request {i} alone == served among the others"] = (
+            alone[0] == out["contiguous"][i])
+
+    eng = ContinuousBatchingEngine(cfg, cfgs["contiguous"], model,
+                                   device="cuda")
+    for p, sp in reqs:
+        eng.submit(p, new_tokens, sampling=sp)
+    _moe_trace(eng, smi, skip=6)
+    del eng
+    torch.cuda.empty_cache()
+
+    scfg8 = ServeConfig(**common, kv_cache_dtype="int8")
+    eng, toks8, wall, iters, c8 = serve(scfg8, reqs[:4])
+    same = sum(a == b for a, b in zip(toks8, out["contiguous"][:4]))
+    _log(f"[moe] int8 KV, contiguous: 4 requests in {wall:.3f} s, "
+         f"{iters} iterations; launches {c8}; {same} of 4 token streams "
+         f"equal the bf16 engine's (int8 K/V round differently; not gated)")
+    checks["int8: every request finished, one signature each"] = (
+        all(t is not None and len(t) == new_tokens for t in toks8)
+        and eng.prefill_cache_size == eng.decode_cache_size == 1
+        and c8["consmax_decode"] >= cfg.n_layers)
+    del eng, model
+    torch.cuda.empty_cache()
+    for name, ok in checks.items():
+        _log(f"[moe] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("phi3.5-moe engine checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+    return {**{k: c[k] for k in ("consmax_decode", "consmax_prefill")},
+            **{k: pg[k] for k in ("consmax_decode_paged",
+                                  "consmax_prefill_paged")}}
+
+
+# no warmup: the schedule's step-0 rate would be 0 and step 1 would repeat
+# step 0's weights
+MOE_TRAIN = dict(global_batch=2, seq_len=2048, warmup_steps=0, total_steps=2,
+                 remat="full")
+
+
+def moe_train_child(*, depth=2, steps=2):
+    """16b, run in its own process (``python3 chip_smoke.py --train-moe``,
+    ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts) under
+    ``use_deterministic_algorithms(True, warn_only=True)``:
+    phi3.5-moe-42b-a6.6b at full width and ``depth`` layers, ``steps``
+    ``make_train_fns`` steps (b 2 x s 2048, bf16, remat "full"), twice from
+    the same seed. Prints one JSON line: both runs' losses, ce and aux, ms
+    per step, peak memory, the parameter count and the ops that warned."""
+    import warnings
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.step import make_train_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = get_config(MOE_ARCH, n_layers=depth)
+    tcfg = TrainConfig(**MOE_TRAIN)
+    b, s = tcfg.global_batch, tcfg.seq_len
+    r = np.random.default_rng(13)
+    batch = {"tokens": torch.tensor(r.integers(0, cfg.vocab_size, (b, s)),
+                                    dtype=torch.int32, device="cuda"),
+             "labels": torch.tensor(r.integers(0, cfg.vocab_size, (b, s)),
+                                    dtype=torch.int32, device="cuda")}
+    runs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            init_state, train_step = make_train_fns(cfg, tcfg, device="cuda")
+            state = init_state()
+            n_params = sum(p.numel() for p in state["params"].parameters())
+            hist, secs = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = train_step(state, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                hist.append({k: float(met[k]) for k in ("loss", "ce", "aux")})
+            runs.append({"hist": hist, "ms": [1e3 * t for t in secs],
+                         "peak": torch.cuda.max_memory_allocated()})
+            del state, init_state, train_step
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    print(json.dumps({"moe_train": {"runs": runs, "n_params": n_params,
+                                    "warned": ops}}), flush=True)
+
+
+def moe_train_phase(smi):
+    """16b: runs ``moe_train_child`` and holds its result: finite losses,
+    the step-0 loss in the band of 15c, a non-zero aux in every step, the
+    second run equal to the first bit for bit (or, where an op warned that
+    it is not deterministic, within ``RESUME_RTOL``); peak memory beside
+    the reckoning of 18 B per parameter (fp32 weights, gradients, two
+    moments, the bf16 copies of the forward)."""
+    import math
+    import os
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--train-moe"], env=env, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"the MoE training run failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["moe_train"]
+    a, b = (run["hist"] for run in res["runs"])
+    losses = [h["loss"] for h in a]
+    V = 32064
+    lo = math.log(V) + 1e-4 * math.log(V) ** 2
+    bits = a == b
+    rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+              for x, y in zip(a, b))
+    n = res["n_params"]
+    checks = {
+        "finite losses, step 0 in its band": (
+            all(np.isfinite(losses)) and lo <= losses[0] <= lo + 1.5),
+        "aux > 0 in every step, loss == ce + aux": all(
+            h["aux"] > 0 and abs(h["loss"] - h["ce"] - h["aux"])
+            <= 1e-5 * h["loss"] for h in a),
+        "second run == first": bits or (bool(res["warned"])
+                                        and rel <= RESUME_RTOL)}
+    run = res["runs"][0]
+    _log(f"[moe-train] 16b {MOE_ARCH} full width, 2 of 32 layers, "
+         f"{n / 1e9:.4f} B parameters, b {MOE_TRAIN['global_batch']} x s "
+         f"{MOE_TRAIN['seq_len']}, bf16, remat full, deterministic "
+         f"algorithms (its own process): steps {a} (second run bit-equal "
+         f"{bits}, largest relative difference {rel:.3e}); step times "
+         f"{[round(t, 1) for t in run['ms']]} ms; peak memory "
+         f"{run['peak'] / 1e9:.2f} GB (max_memory_allocated) vs the "
+         f"reckoning 18 B x N = {18 * n / 1e9:.2f} GB; ops without a "
+         f"deterministic implementation: {res['warned'] or 'none'}; on {smi}")
+    for name, ok in checks.items():
+        _log(f"[moe-train] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("MoE training checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+
+
+XLSTM_LOGIT_TOL = 1e-3
+
+
+def xlstm_phase(smi, *, seed=10, prompt=256, steps=32, held=8):
+    """16c: xlstm-1.3b at full width, all 48 blocks (42 mLSTM, 6 sLSTM; d
+    2048, 4 heads, vocab 50,304), random weights from ``seed``.
+    ``ServeSession`` (host sampling: the arch has no attention cache)
+    generates ``steps`` greedy tokens for 2 prompts of ``prompt`` tokens at
+    bf16; ms per token. Then at fp32 compute (TF32 off) the decode steps'
+    logits (``make_serve_fns``: whole-prompt prefill, ``held`` one-token
+    steps on the generated tokens) are held against one whole-sequence
+    ``lm_apply`` of the same tokens, within ``XLSTM_LOGIT_TOL`` of the
+    largest logit: the chunkwise and the recurrent mLSTM are the same
+    function, so only fp32 rounding separates them; and every greedy
+    token equals the argmax of its decode step."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeSession, make_serve_fns
+    from repro_torch.weights import init_params
+
+    cfg = get_config("xlstm-1.3b")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, prompt)), dtype=torch.int32, device="cuda")
+    sess = ServeSession(cfg, ServeConfig(max_seq=prompt + steps), model,
+                        device="cuda")
+    sess.generate(toks, steps=2)                       # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = sess.generate(toks, steps=steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    _log(f"[xlstm] xlstm-1.3b full width, 48 blocks, {n_params / 1e9:.3f} B "
+         f"parameters (drawn in {t1 - t0:.1f} s with the warm-up): "
+         f"ServeSession b 2 x {prompt} prompt tokens, {steps} greedy tokens "
+         f"in {dt:.3f} s = {1e3 * dt / steps:.1f} ms per token step "
+         f"(fused={sess.fused}); allocated "
+         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; on {smi}")
+
+    f32 = cfg.replace(compute_dtype="float32")
+    _, prefill, decode, _ = make_serve_fns(
+        f32, ServeConfig(max_seq=prompt + steps, fused_sampling=False),
+        device="cuda")
+    caches = T.init_caches(f32, 2, prompt + steps, device="cuda")
+    logits, caches = prefill(model, caches, {"tokens": toks})
+    got = [logits]
+    gen = out[:, :held].to(torch.int32)
+    for t in range(held - 1):
+        logits, caches = decode(model, caches, {"tokens": gen[:, t:t + 1]})
+        got.append(logits)
+    got = torch.stack(got, 1).float()
+    with torch.no_grad():
+        whole, _, _ = T.lm_apply(model, f32, tokens=torch.cat(
+            [toks, gen[:, :held - 1]], 1))
+    whole = whole[:, prompt - 1:].float()
+    err = float((got - whole).abs().max() / whole.abs().max())
+    f32_tokens = got.argmax(-1)
+    agree = float((f32_tokens == out[:, :held]).float().mean())
+    ok = err <= XLSTM_LOGIT_TOL and bool(torch.isfinite(got).all())
+    _log(f"[xlstm] fp32: {held} decode-step logits vs one whole-sequence "
+         f"lm_apply: max |diff| / max |logit| {err:.3e} (gate "
+         f"{XLSTM_LOGIT_TOL:g}) {'ok' if ok else 'FAIL'}; fp32 argmax == "
+         f"the bf16 session's greedy tokens on {agree:.3f} of them "
+         f"(printed, not gated: bf16 and fp32 round differently)")
+    del sess, model, caches
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("xlstm decode steps disagree with the whole "
+                             "sequence")
+
+
+MUSICGEN_TOL = 2.0 ** -4      # bf16 steps vs the whole pass
+MUSICGEN_KERNEL_TOL = 2.0 ** -6
+
+
+def musicgen_phase(smi, *, seed=11, prompt=512, steps=8):
+    """16d: musicgen-large at full width (d 2048, 32 heads: head_dim 64,
+    MHA, ff 8192, vocab 2048, 256 cond tokens, layernorm, gelu, sinusoidal
+    positions, cross-attention), depth cut from 48 to ``MUSICGEN_DEPTH``,
+    random weights from ``seed``, bf16. Frame embeddings and the cond
+    stream are drawn from ``seed`` (the stub frontend takes precomputed
+    embeddings). One whole-sequence ``lm_apply`` over prompt + steps frames;
+    then a whole-prompt prefill and ``steps`` one-token decode steps with
+    ``decode_kernel`` (row 1 at dk 64; cross-attention decodes through the
+    plain walk over the cond K/V, as the reference does), and the same
+    steps without the kernel on a copy of the caches. Gates: each kernel
+    step's logits within ``MUSICGEN_TOL`` of the whole pass's (the whole
+    pass attends unrounded K/V, the steps the bf16 cache) and within
+    ``MUSICGEN_KERNEL_TOL`` of the plain steps; decode kernel launches ==
+    steps x layers."""
+    import copy
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.consmax_decode.ops import consmax_decode_op
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import init_params
+
+    cfg = get_config("musicgen-large", n_layers=MUSICGEN_DEPTH)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn((2, prompt + steps, cfg.d_model), generator=gen,
+                         device="cuda")
+    cond = torch.randn((2, cfg.n_cond_tokens, cfg.d_model), generator=gen,
+                       device="cuda")
+    with torch.no_grad():
+        whole, _, _ = T.lm_apply(model, cfg, embeds=frames, cond=cond)
+        caches = T.init_caches(cfg, 2, prompt + steps, device="cuda")
+        _, caches, _ = T.lm_apply(
+            model, cfg, embeds=frames[:, :prompt], cond=cond, caches=caches,
+            positions=torch.arange(prompt, device="cuda")[None],
+            logits_index=prompt - 1)
+        plain_caches = copy.deepcopy(caches)
+        consmax_decode_op.launches = 0
+        t0 = time.perf_counter()
+        got = []
+        for t in range(steps):
+            idx = T.cache_index(caches)
+            lg, caches, _ = T.lm_apply(
+                model, cfg, embeds=frames[:, prompt + t:prompt + t + 1],
+                cond=cond, caches=caches, positions=idx[:, None],
+                merged=True, decode_kernel=True)
+            got.append(lg[:, 0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = consmax_decode_op.launches
+        plain = []
+        for t in range(steps):
+            idx = T.cache_index(plain_caches)
+            lg, plain_caches, _ = T.lm_apply(
+                model, cfg, embeds=frames[:, prompt + t:prompt + t + 1],
+                cond=cond, caches=plain_caches, positions=idx[:, None],
+                merged=True)
+            plain.append(lg[:, 0])
+    got, plain = torch.stack(got, 1).float(), torch.stack(plain, 1).float()
+    ref = whole[:, prompt:].float()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    kerr = float((got - plain).abs().max() / plain.abs().max())
+    ok = (err <= MUSICGEN_TOL and kerr <= MUSICGEN_KERNEL_TOL
+          and launches == steps * cfg.n_layers
+          and bool(torch.isfinite(got).all()))
+    _log(f"[musicgen] musicgen-large full width, {cfg.n_layers} of 48 "
+         f"layers, frames b 2 x {prompt} + {steps} decode steps with the "
+         f"decode kernel (dk 64) and cross-attention over "
+         f"{cfg.n_cond_tokens} cond tokens: {1e3 * dt / steps:.1f} ms per "
+         f"step; logits vs the whole pass {err:.3e} (gate "
+         f"{MUSICGEN_TOL:g}), vs the plain decode walk {kerr:.3e} (gate "
+         f"{MUSICGEN_KERNEL_TOL:g}); decode kernel launches {launches} "
+         f"(expected {steps * cfg.n_layers}) {'ok' if ok else 'FAIL'}; "
+         f"on {smi}")
+    del model, caches, plain_caches
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("musicgen decode checks failed")
+
+
+def smoke_archs_phase(*, seed=12, s=16, steps=4):
+    """16e: the smoke config of every arch this slice ports, fp32 compute,
+    the same weights on the card and the CPU (drawn on the CPU from
+    ``seed``): whole-sequence logits over s + steps inputs, then a
+    whole-prompt prefill of s and ``steps`` one-token steps through the
+    caches, card vs CPU within ``SMOKE_WHOLE_TOL`` / ``SMOKE_CACHED_TOL``
+    of the largest logit (``SMOKE_NOTE``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import init_params
+
+    bad = []
+    for arch in SMOKE_ARCHS:
+        cfg = get_config(arch, smoke=True, compute_dtype="float32")
+        r = np.random.default_rng(seed)
+        x = {}
+        if cfg.frontend == "tokens":
+            x["tokens"] = torch.tensor(r.integers(0, cfg.vocab_size,
+                                                  (2, s + steps)),
+                                       dtype=torch.int32)
+        else:
+            x["embeds"] = torch.tensor(r.standard_normal(
+                (2, s + steps, cfg.d_model)), dtype=torch.float32)
+        cond = (torch.tensor(r.standard_normal((2, cfg.n_cond_tokens,
+                                                cfg.d_model)),
+                             dtype=torch.float32) if cfg.cross_attn else None)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = init_params(cfg, torch.Generator().manual_seed(seed),
+                                device=dev)
+            xd = {k: v.to(dev) for k, v in x.items()}
+            cd = None if cond is None else cond.to(dev)
+            with torch.no_grad():
+                whole, _, aux = T.lm_apply(model, cfg, cond=cd, **xd)
+                caches = T.init_caches(cfg, 2, s + steps, device=dev)
+                outs = []
+                for t in range(steps + 1):
+                    sl = slice(0, s) if t == 0 else slice(s + t - 1, s + t)
+                    idx = T.cache_index(caches)
+                    pos = (torch.arange(s, device=dev)[None] if t == 0 else
+                           None if idx is None else idx[:, None])
+                    lg, caches, _ = T.lm_apply(
+                        model, cfg, cond=cd, caches=caches, positions=pos,
+                        merged=True, **{k: v[:, sl] for k, v in xd.items()})
+                    outs.append(lg[:, -1])
+            res[dev] = (whole.cpu(), torch.stack(outs, 1).cpu(), float(aux))
+        (wg, cg, ag), (wc, cc, ac) = res["cuda"], res["cpu"]
+        ew = float((wg - wc).abs().max() / wc.abs().max())
+        ec = float((cg - cc).abs().max() / cc.abs().max())
+        ok = (ew <= SMOKE_WHOLE_TOL and ec <= SMOKE_CACHED_TOL
+              and bool(torch.isfinite(wg).all() and torch.isfinite(cg).all())
+              and abs(ag - ac) <= 1e-4 * max(abs(ac), 1e-30))
+        _log(f"[smoke] {arch} (smoke, fp32): card vs CPU logits whole "
+             f"{ew:.3e} (gate {SMOKE_WHOLE_TOL:g}), through caches {ec:.3e} "
+             f"(gate {SMOKE_CACHED_TOL:g}); aux card {ag:.6g} CPU {ac:.6g} "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(arch)
+    _log(f"[smoke] tolerance: {SMOKE_NOTE}")
+    if bad:
+        raise AssertionError(f"card and CPU disagree on {bad}")
 
 
 def main():
@@ -2659,6 +3338,33 @@ def main():
     _log(f"[train] 15d {time.perf_counter() - t0:.1f} s")
     _log(f"[train] phase 15 {time.perf_counter() - t15:.1f} s")
 
+    t16 = t0 = time.perf_counter()
+    moe_rows = moe_kernel_phase()
+    rows.update(moe_rows)
+    for name, row in moe_rows.items():
+        _log(f"[moe] {name}: {row['ms'] * 1e3:.1f} us (plain "
+             f"{row['plain_ms'] * 1e3:.1f} us), bound "
+             f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']} (share "
+             f"{row['bound_ms'] / row['ms']:.3f}); on {smi}")
+    torch.cuda.empty_cache()
+    counts.update({f"{k}[phi3.5-moe]": n
+                   for k, n in moe_engine_phase(smi).items()})
+    _log(f"[moe] 16a {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_train_phase(smi)
+    _log(f"[moe-train] 16b {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xlstm_phase(smi)
+    _log(f"[xlstm] 16c {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    musicgen_phase(smi)
+    _log(f"[musicgen] 16d {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smoke_archs_phase()
+    _log(f"[smoke] 16e {time.perf_counter() - t0:.1f} s")
+    _log(f"[moe] phase 16 {time.perf_counter() - t16:.1f} s")
+
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
     ref_dec = "src/repro/kernels/consmax_decode/kernel.py"
@@ -2677,8 +3383,10 @@ def main():
                            ref.format("consmax_lut", 47))}
     for name in ("consmax_decode", "consmax_prefill", "consmax_decode_paged",
                  "consmax_prefill_paged"):
-        for dt in (*QDTYPES, "gemma2-2b"):  # the same kernels, K/V codes or
-            src[f"{name}[{dt}]"] = src[name]    # gemma2's shapes
+        # the same kernels: on K/V codes, or at gemma2's / phi3.5-moe's
+        # shapes
+        for dt in (*QDTYPES, "gemma2-2b", "phi3.5-moe"):
+            src[f"{name}[{dt}]"] = src[name]
     counts.update(paper_counts)
     kernels = [dict(name=name, route="cuda", source=src[name][0],
                     replaces=src[name][1], launches=counts[name],
@@ -2693,5 +3401,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--train-resume"]:
         resume_child()
+    elif sys.argv[1:] == ["--train-moe"]:
+        moe_train_child()
     else:
         main()

@@ -42,7 +42,8 @@ them through the same row addressing; every read dequantizes block by
 block (``cache_layout.dequant_block``), in the plain walks as in the
 kernels, which take the scales as operands.
 
-Not ported yet (it raises ``NotImplementedError``): cross-attention.
+Cross-attention (``cond``, musicgen) attends the conditioning stream's
+K/V without RoPE and writes no cache (``_cross_attention``).
 """
 from __future__ import annotations
 
@@ -389,6 +390,35 @@ def decode_attention(q, k, v, index, *, norm_kind, norm_params, window=0,
 
 
 # ----------------------------------------------------------- module api ----
+def _cross_attention(p: Attention, x, cond, cfg: ModelConfig, *, cache,
+                     merged, q_chunk, kv_chunk):
+    """Cross-attention of x: (b, s, d) over the conditioning stream cond:
+    (b, n_cond, d), no RoPE and no cache write (the reference's ``cond``
+    branch). Without a cache, or with s > 1, every query attends every
+    cond row through ``blockwise_attention`` (non-causal); a one-token
+    decode step (``cache`` is the block's dummy ``{"index"}``) runs
+    ``decode_attention`` over the full cond K/V at ``kv_index = n_cond -
+    1``. Returns (out, cache)."""
+    b, s, _ = x.shape
+    dk, cdt = cfg.head_dim_, cfg.cdtype()
+    q = p.q(x, cdt) * torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
+    k = p.k(cond, cdt)
+    v = p.v(cond, cdt)
+    if cache is None or s > 1:
+        out = blockwise_attention(
+            q, k, v, norm_kind=cfg.score_norm, norm_params=p.score_norm,
+            causal=False, softcap=cfg.attn_softcap, merged=merged,
+            q_chunk=q_chunk, kv_chunk=kv_chunk)
+        cache = None
+    else:
+        kv_index = torch.full((b,), k.shape[1] - 1, dtype=torch.int32,
+                              device=x.device)
+        out = decode_attention(q, k, v, kv_index, norm_kind=cfg.score_norm,
+                               norm_params=p.score_norm,
+                               softcap=cfg.attn_softcap, merged=merged)
+    return p.o(out, cdt), cache
+
+
 def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                     kind: str = "global", positions=None, cache=None,
                     cond=None, merged=False, q_chunk: int = 2048,
@@ -423,10 +453,13 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     prefill and one-token decode, where the active mask doubles as the
     chunk length: an inactive slot writes nothing and reads a fully masked
     row whose output is discarded.
+    cond: (b, n_cond, d) — cross-attention over this conditioning stream
+    (``_cross_attention``); ``cache`` is then None or the block's dummy.
     Returns (out, new_cache).
     """
     if cond is not None:
-        raise NotImplementedError("cross-attention is not ported yet")
+        return _cross_attention(p, x, cond, cfg, cache=cache, merged=merged,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk)
     b, s, _ = x.shape
     H, dk = cfg.n_heads, cfg.head_dim_
     cdt = cfg.cdtype()

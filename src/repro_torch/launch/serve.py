@@ -12,7 +12,10 @@ default.
         --kv-dtype int8 --decode-kernel --prefill-kernel
 
 Serves the smoke config of ``--arch`` (``--kv-heads`` overrides its KV
-heads) on random weights (``chip_smoke.py`` serves the published widths).
+heads) on random weights (``chip_smoke.py`` serves the published widths):
+the dense and MoE archs on either engine, the recurrent ones (jamba,
+xlstm) on the static engine only, as in the reference; the stub-frontend
+archs (phi-3-vision, musicgen) take embeddings and are not served here.
 ``--engine static`` (the default) runs the lockstep ``ServeSession`` over
 ``--batch`` prompts; ``--engine continuous`` runs the slot-recycling
 ``ContinuousBatchingEngine`` over ``--requests`` prompts of random lengths.
@@ -129,6 +132,10 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=True,
                      **({"n_kv_heads": args.kv_heads} if args.kv_heads
                         else {}))
+    if cfg.frontend != "tokens":
+        raise SystemExit(f"{args.arch}: the stub vlm / audio frontends take "
+                         "precomputed embeddings, which this demo does not "
+                         "make (chip_smoke.py drives them through lm_apply)")
     gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
     params = init_params(cfg, gen, device=device)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -155,9 +162,11 @@ def main(argv=None):
         out = out.cpu()
         dt = time.perf_counter() - t0
         n = args.batch * args.steps
+        # the session's own mode: an arch without attention samples on the
+        # host whatever --host-sampling says
         print(f"[serve] {cfg.arch_id} (smoke) on {where}: {n} tokens in "
               f"{dt:.2f}s ({n / dt:.1f} tok/s), sampling={sp}, "
-              f"fused={fused}")
+              f"fused={sess.fused}")
         print("[serve] sample:", out[0].tolist())
         return
 

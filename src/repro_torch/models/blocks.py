@@ -1,7 +1,18 @@
-"""MLP variants and the dense residual block (pre-norm, optional gemma2
-sandwich post-norms) — the reference's ``models/blocks.py`` for the block
-kinds ``attn`` / ``global`` / ``local``. MoE, Mamba and xLSTM blocks are not
-ported yet and raise."""
+"""MLP variants and residual block assembly (pre-norm, optional gemma2
+sandwich post-norms) — the reference's ``models/blocks.py``. Block kinds:
+
+* ``attn`` / ``global`` / ``local``: attention + dense MLP;
+* ``attn_moe``: attention + MoE (``models/moe.py``);
+* ``mamba`` / ``mamba_moe``: the Mamba SSM (+ MoE instead of the implicit
+  MLP; ``models/mamba.py``);
+* ``mlstm`` / ``slstm``: xLSTM cells (``models/xlstm.py``); an sLSTM block
+  carries a 4/3-factor GLU FFN after the cell;
+* any attention kind with ``cfg.cross_attn``: a cross-attention sub-block
+  over the conditioning stream (musicgen).
+
+The reference takes the expert-parallel all-to-all MoE under a mesh only;
+on one device it runs ``moe_apply``, as here.
+"""
 from __future__ import annotations
 
 import torch
@@ -10,19 +21,24 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as ATT
+from repro_torch.models import mamba as MB
+from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 from repro_torch.nn import layers as L
 
-ATTN_KINDS = ("attn", "global", "local")
+ATTN_KINDS = ("attn", "attn_moe", "global", "local")
 
 
 class MLP(nn.Module):
-    """``silu_glu`` / ``gelu_glu`` (gate, up, down) or ``gelu`` (up, down)."""
+    """``silu_glu`` / ``gelu_glu`` (gate, up, down) or ``gelu`` (up, down);
+    hidden width ``d_ff`` (default ``cfg.d_ff``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, d_ff: int | None = None, *,
+                 device=None):
         super().__init__()
         if cfg.mlp not in ("silu_glu", "gelu_glu", "gelu"):
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
-        d, ff = cfg.d_model, cfg.d_ff
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
         self.kind = cfg.mlp
         if cfg.mlp != "gelu":
             self.gate = L.Linear(d, ff, device=device)
@@ -44,26 +60,49 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """attention + dense MLP, pre-norm residuals."""
+    """One block of kind ``kind``, its sub-modules named as the reference's
+    ``block_init`` tree."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device=None):
         super().__init__()
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (dense attention "
-                f"blocks {ATTN_KINDS} only)")
-        if cfg.cross_attn:
-            raise NotImplementedError("cross-attention is not ported yet")
         d = cfg.d_model
         self.kind = kind
-        self.attn_norm = L.Norm(d, kind=cfg.norm, device=device)
-        self.attn = ATT.Attention(cfg, device=device)
-        if cfg.post_block_norm:
-            self.attn_post_norm = L.Norm(d, kind=cfg.norm, device=device)
-        self.mlp_norm = L.Norm(d, kind=cfg.norm, device=device)
-        self.mlp = MLP(cfg, device=device)
-        if cfg.post_block_norm:
-            self.mlp_post_norm = L.Norm(d, kind=cfg.norm, device=device)
+
+        def norm():
+            return L.Norm(d, kind=cfg.norm, device=device)
+
+        if kind in ATTN_KINDS:
+            self.attn_norm = norm()
+            self.attn = ATT.Attention(cfg, device=device)
+            if cfg.post_block_norm:
+                self.attn_post_norm = norm()
+            if cfg.cross_attn:
+                self.xattn_norm = norm()
+                self.xattn = ATT.Attention(cfg, device=device)
+            self.mlp_norm = norm()
+            if kind == "attn_moe":
+                self.moe = MOE.MoE(cfg, device=device)
+            else:
+                self.mlp = MLP(cfg, device=device)
+            if cfg.post_block_norm:
+                self.mlp_post_norm = norm()
+        elif kind in ("mamba", "mamba_moe"):
+            self.mamba_norm = norm()
+            self.mamba = MB.Mamba(cfg, device=device)
+            if kind == "mamba_moe":
+                self.moe_norm = norm()
+                self.moe = MOE.MoE(cfg, device=device)
+        elif kind == "mlstm":
+            self.norm = norm()
+            self.mlstm = XL.MLSTM(cfg, device=device)
+        elif kind == "slstm":
+            self.norm = norm()
+            self.slstm = XL.SLSTM(cfg, device=device)
+            self.mlp_norm = norm()
+            self.mlp = MLP(cfg, d_ff=-(-(4 * d) // (3 * 64)) * 64,
+                           device=device)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
 
     def reset_parameters(self, generator: torch.Generator):
         for m in self.children():
@@ -71,28 +110,75 @@ class Block(nn.Module):
 
 
 def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
-                cache=None, merged=False, q_chunk=2048, kv_chunk=1024,
-                decode_kernel=False, decode_kv_block=256,
+                cache=None, cond=None, merged=False, q_chunk=2048,
+                kv_chunk=1024, decode_kernel=False, decode_kv_block=256,
                 prefill_kernel=False, fill_bound=True, prefill_append=None,
                 decode_active=None, page_table=None):
-    """Returns (x, new_cache); new_cache is None without a cache (the
-    whole-sequence forward). ``page_table``: (b, npg) int32 for paged
-    caches (see ``core.attention.attention_apply``)."""
-    akind = p.kind if p.kind in ("local", "global") else "global"
+    """Returns (x, new_cache, aux): new_cache is None without a cache (the
+    whole-sequence forward); aux is the MoE load-balance loss (0-d fp32),
+    None for a block without experts (no device op for a zero). ``cond``
+    (b, n_cond, d): the conditioning stream of a cross-attention config.
+    ``page_table``: (b, npg) int32 for paged caches (see
+    ``core.attention``)."""
+    aux = None
     cdt = cfg.cdtype()
-    h = p.attn_norm(x)
-    h, attn_cache = ATT.attention_apply(
-        p.attn, h, cfg, kind=akind, positions=positions,
-        cache=cache["attn"] if cache is not None else None, merged=merged,
-        q_chunk=q_chunk, kv_chunk=kv_chunk, decode_kernel=decode_kernel,
-        decode_kv_block=decode_kv_block, prefill_kernel=prefill_kernel,
-        fill_bound=fill_bound, prefill_append=prefill_append,
-        decode_active=decode_active, page_table=page_table)
-    if cfg.post_block_norm:
-        h = p.attn_post_norm(h)
-    x = x + h
-    h = p.mlp(p.mlp_norm(x), cdt)
-    if cfg.post_block_norm:
-        h = p.mlp_post_norm(h)
-    x = x + h
-    return x, (None if cache is None else dict(cache, attn=attn_cache))
+    kind = p.kind
+    new_cache = None
+
+    if kind in ATTN_KINDS:
+        akind = kind if kind in ("local", "global") else "global"
+        h, attn_cache = ATT.attention_apply(
+            p.attn, p.attn_norm(x), cfg, kind=akind, positions=positions,
+            cache=cache["attn"] if cache is not None else None,
+            merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            decode_kernel=decode_kernel, decode_kv_block=decode_kv_block,
+            prefill_kernel=prefill_kernel, fill_bound=fill_bound,
+            prefill_append=prefill_append, decode_active=decode_active,
+            page_table=page_table)
+        if cfg.post_block_norm:
+            h = p.attn_post_norm(h)
+        x = x + h
+        if cfg.cross_attn and cond is not None:
+            # one-token decode hands cross-attention a dummy cache, as the
+            # reference does: it only tells decode from the whole sequence
+            xc = ({"index": cache["attn"]["index"] - 1}
+                  if cache is not None else None)
+            h, _ = ATT.attention_apply(p.xattn, p.xattn_norm(x), cfg,
+                                       cond=cond, cache=xc, merged=merged)
+            x = x + h
+        h = p.mlp_norm(x)
+        if kind == "attn_moe":
+            h, aux = MOE.moe_apply(p.moe, h, cfg)
+        else:
+            h = p.mlp(h, cdt)
+        if cfg.post_block_norm:
+            h = p.mlp_post_norm(h)
+        x = x + h
+        if cache is not None:
+            new_cache = dict(cache, attn=attn_cache)
+    elif kind in ("mamba", "mamba_moe"):
+        h, mc = MB.mamba_apply(p.mamba, p.mamba_norm(x), cfg,
+                               cache=cache["mamba"] if cache is not None
+                               else None)
+        x = x + h
+        if kind == "mamba_moe":
+            h, aux = MOE.moe_apply(p.moe, p.moe_norm(x), cfg)
+            x = x + h
+        if cache is not None:
+            new_cache = dict(cache, mamba=mc)
+    elif kind == "mlstm":
+        h, mc = XL.mlstm_apply(p.mlstm, p.norm(x), cfg,
+                               cache=cache["mlstm"] if cache is not None
+                               else None)
+        x = x + h
+        if cache is not None:
+            new_cache = dict(cache, mlstm=mc)
+    else:                                                    # slstm
+        h, sc = XL.slstm_apply(p.slstm, p.norm(x), cfg,
+                               cache=cache["slstm"] if cache is not None
+                               else None)
+        x = x + h
+        x = x + p.mlp(p.mlp_norm(x), cdt)
+        if cache is not None:
+            new_cache = dict(cache, slstm=sc)
+    return x, new_cache, aux

@@ -1,6 +1,9 @@
-"""Token frontend: embedding, ``embed_scale``, and sinusoidal absolute
-positions for archs without RoPE (gpt2-consmax) — the reference's
-``models/frontends.py`` for ``frontend="tokens"``."""
+"""Modality frontends — the reference's ``models/frontends.py``. The token
+frontend embeds ids; the vlm (``"patches"``) and audio (``"frames"``)
+frontends are stubs, as in the reference: the caller passes precomputed
+patch / frame embeddings at ``d_model`` and the backbone consumes them.
+Then ``embed_scale`` and, for archs without RoPE (gpt2-consmax,
+musicgen), sinusoidal absolute positions."""
 from __future__ import annotations
 
 import math
@@ -21,14 +24,15 @@ def sinusoidal_pos(positions, d: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def frontend_apply(embedding: L.Embedding, cfg: ModelConfig, *, tokens,
-                   positions=None):
-    """Returns the (b, s, d) input stream for the backbone."""
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported yet (tokens only)")
+def frontend_apply(embedding: L.Embedding, cfg: ModelConfig, *,
+                   tokens=None, embeds=None, positions=None):
+    """Returns the (b, s, d) input stream for the backbone: ``tokens``
+    (b, s) ids for the token frontend, ``embeds`` (b, s, d) otherwise."""
     cdt = cfg.cdtype()
-    x = L.embed(embedding.table, tokens, dtype=cdt)
+    if cfg.frontend == "tokens":
+        x = L.embed(embedding.table, tokens, dtype=cdt)
+    else:
+        x = embeds.to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
     if cfg.sinusoidal_pos and positions is not None:

@@ -1,22 +1,24 @@
-"""Decoder LM assembled from dense blocks — the reference's
-``models/transformer.py`` for the serving path.
+"""Decoder LM assembled from the block zoo — the reference's
+``models/transformer.py``.
 
 ``LM`` holds the parameters under the reference's tree names
 (``embed``, ``blocks[i][f"b{j}"]``, ``final_norm``; ``blocks[i]`` is super-
 layer ``i``, the reference's leading ``n_super`` axis). ``lm_apply`` is the
 forward pass with the serving and training options of the reference's
-``lm_apply``; a Python loop over super-layers replaces ``lax.scan``, and
-``torch.utils.checkpoint`` around each super-layer replaces its
-``jax.checkpoint`` (``remat``).
+``lm_apply``, and returns its summed MoE aux loss; a Python loop over
+super-layers replaces ``lax.scan``, and ``torch.utils.checkpoint`` around
+each super-layer replaces its ``jax.checkpoint`` (``remat``).
 
-Caches are a list over super-layers of ``{f"b{j}": {"attn": {k, v,
-index}}}``: per-slot ``(b, max_seq, hkv, dk)`` rows (``init_caches``) or,
-for paged serving, shared ``(num_pages + 1, page_size, hkv, dk)`` page
-pools (``init_paged_caches``). An int8 / fp8_e4m3 cache adds fp32
-``k_scale``/``v_scale`` leaves of the same shape without dk, one scale per
-row and KV head; a bf16 cache has none. Forward passes update K/V (and
-scales) in place and rebind ``index``; the slot utilities below update in
-place too.
+Caches are a list over super-layers of ``{f"b{j}": {kind: leaves}}``. An
+attention block's ``{"attn": {k, v, index}}`` holds per-slot ``(b, max_seq,
+hkv, dk)`` rows (``init_caches``) or, for paged serving, shared
+``(num_pages + 1, page_size, hkv, dk)`` page pools (``init_paged_caches``).
+An int8 / fp8_e4m3 cache adds fp32 ``k_scale``/``v_scale`` leaves of the
+same shape without dk, one scale per row and KV head; a bf16 cache has
+none. Recurrent blocks hold their state: ``{"mamba": {conv, h}}``,
+``{"mlstm": {conv, C, n, m}}``, ``{"slstm": {h, c, n, m}}``. Forward
+passes update K/V (and scales) in place, rebind ``index`` and return the
+recurrent state anew; the slot utilities below update in place.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.models import blocks as B
 from repro_torch.models import frontends as FE
+from repro_torch.models import mamba as MB
+from repro_torch.models import xlstm as XL
 from repro_torch.nn import layers as L
 
 
@@ -85,25 +89,37 @@ def _remat(fn, remat: str):
                              context_fn=context_fn)
 
 
-def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
-             positions=None, merged=False, remat="none", q_chunk=2048,
-             kv_chunk=1024, logits_index=None, decode_kernel=False,
-             decode_kv_block=256, prefill_kernel=False, fill_bound=True,
-             prefill_append=None, decode_active=None, page_table=None,
-             logits_epilogue=None):
-    """Forward pass over a (b, s) token batch, against per-slot caches or
-    (``caches=None``) without any: the whole-sequence forward.
+def _sum(terms):
+    """The blocks' aux terms of one super-layer summed in order (the
+    reference's loop), None where no block has experts."""
+    terms = [t for t in terms if t is not None]
+    return sum(terms[1:], terms[0]) if terms else None
 
-    With caches and neither ``prefill_append`` nor a one-token batch,
-    ``tokens`` is a whole prompt that fills cache rows [0, s) (the
-    reference's whole-prompt prefill; the caller passes ``positions``).
+
+def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
+             cond=None, caches=None, positions=None, merged=False,
+             remat="none", q_chunk=2048, kv_chunk=1024, logits_index=None,
+             decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
+             fill_bound=True, prefill_append=None, decode_active=None,
+             page_table=None, logits_epilogue=None):
+    """Forward pass over a (b, s) token batch (``tokens``) or, for the stub
+    vlm / audio frontends, (b, s, d) precomputed ``embeds``; ``cond`` (b,
+    n_cond, d) is the conditioning stream of a cross-attention config.
+    Against per-slot caches or (``caches=None``) without any: the
+    whole-sequence forward.
+
+    With caches and neither ``prefill_append`` nor a one-token batch, the
+    input is a whole prompt that fills cache rows [0, s) and the recurrent
+    state (the reference's whole-prompt prefill; the caller passes
+    ``positions``).
 
     prefill_append: (b,) int32 real chunk lengths — ``tokens`` is a
-    fixed-size chunk written into each cache at its per-slot ``index``
-    (which then advances by the real length); positions default to
-    ``index + arange(s)``. Otherwise a one-token decode step: the caller
-    passes ``positions`` (= cache index) and optionally ``decode_active``
-    (b,) bool — slots where False keep their cache rows and index.
+    fixed-size chunk written into each attention cache at its per-slot
+    ``index`` (which then advances by the real length); positions default
+    to ``index + arange(s)``. Otherwise a one-token decode step: the caller
+    passes ``positions`` (= cache index; None for an attention-free arch)
+    and optionally ``decode_active`` (b,) bool — slots where False keep
+    their cache rows and index.
     page_table: (b, npg) int32 — paged caches (``init_paged_caches``): each
     slot's logical rows live on the pool pages its table row maps; all
     layers fill in lockstep, so one table serves the whole stack.
@@ -114,43 +130,56 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
     the whole-sequence forward (``caches=None``) is recomputed in backward
     while autograd records (``_remat``); ignored otherwise. The trainer
     passes ``TrainConfig.remat``.
-    Returns (logits | epilogue out, new_caches).
+    Returns (logits | epilogue out, new_caches, aux): aux is the sum of the
+    blocks' MoE load-balance losses (0-d fp32; 0 without experts).
     """
-    b, s = tokens.shape
+    src = tokens if tokens is not None else embeds
+    s, dev = src.shape[1], src.device
     if positions is None and caches is None:
-        positions = torch.arange(s, device=tokens.device)[None, :]
+        positions = torch.arange(s, device=dev)[None, :]
     elif positions is None and prefill_append is not None:
         idx = cache_index(caches)                      # per-slot fill level
-        positions = idx[:, None] + torch.arange(s, device=tokens.device)
-    x = FE.frontend_apply(p.embed, cfg, tokens=tokens, positions=positions)
+        positions = idx[:, None] + torch.arange(s, device=dev)
+    x = FE.frontend_apply(p.embed, cfg, tokens=tokens, embeds=embeds,
+                          positions=positions)
+    auxes = []                  # per super-layer MoE aux (experts only)
 
     if caches is None:
         def super_step(x, sup):
+            a = []
             for name in sup:
-                x, _ = B.block_apply(sup[name], x, cfg, positions=positions,
-                                     merged=merged, q_chunk=q_chunk,
-                                     kv_chunk=kv_chunk)
-            return x
+                x, _, ab = B.block_apply(
+                    sup[name], x, cfg, positions=positions, cond=cond,
+                    merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                a.append(ab)
+            return x, _sum(a)
 
         if torch.is_grad_enabled():
             super_step = _remat(super_step, remat)
         for sup in p.blocks:
-            x = super_step(x, sup)
+            x, a = super_step(x, sup)
+            auxes.append(a)
         new_caches = None
     else:
         new_caches = []
         for sup, cache_in in zip(p.blocks, caches):
-            co = {}
+            co, a = {}, []
             for name in sup:
-                x, co[name] = B.block_apply(
+                x, co[name], ab = B.block_apply(
                     sup[name], x, cfg, positions=positions,
-                    cache=cache_in[name], merged=merged, q_chunk=q_chunk,
-                    kv_chunk=kv_chunk, decode_kernel=decode_kernel,
+                    cache=cache_in[name], cond=cond, merged=merged,
+                    q_chunk=q_chunk, kv_chunk=kv_chunk,
+                    decode_kernel=decode_kernel,
                     decode_kv_block=decode_kv_block,
                     prefill_kernel=prefill_kernel, fill_bound=fill_bound,
                     prefill_append=prefill_append,
                     decode_active=decode_active, page_table=page_table)
+                a.append(ab)
             new_caches.append(co)
+            auxes.append(_sum(a))
+    auxes = [a for a in auxes if a is not None]
+    aux = (torch.stack(auxes).sum() if auxes else
+           torch.zeros((), dtype=torch.float32, device=dev))
 
     x = p.final_norm(x)
     if logits_index is not None:
@@ -164,8 +193,8 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens, caches=None,
         logits = cfg.final_softcap * torch.tanh(logits.float()
                                                 / cfg.final_softcap)
     if logits_epilogue is not None:
-        return logits_epilogue(logits, new_caches), new_caches
-    return logits, new_caches
+        return logits_epilogue(logits, new_caches), new_caches, aux
+    return logits, new_caches, aux
 
 
 # --------------------------------------------------------------- caches ----
@@ -184,11 +213,13 @@ def _kv_leaves(rows: tuple, hkv: int, dk: int, dtype, device) -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 kv_dtype="bfloat16", *, device=None):
-    """Per-super-layer contiguous KV caches: for every attention block
-    zero ``k``/``v`` (batch, max_seq, hkv, dk) in ``kv_dtype`` (bfloat16,
-    int8 or fp8_e4m3, ``cache_layout.kv_cache_dtype``), for a quantized
-    dtype fp32 ``k_scale``/``v_scale`` (batch, max_seq, hkv) of ones, and a
-    zero ``index`` (batch,) int32, on ``device`` (default cuda)."""
+    """Per-super-layer caches: for every attention block zero ``k``/``v``
+    (batch, max_seq, hkv, dk) in ``kv_dtype`` (bfloat16, int8 or fp8_e4m3,
+    ``cache_layout.kv_cache_dtype``), for a quantized dtype fp32
+    ``k_scale``/``v_scale`` (batch, max_seq, hkv) of ones, and a zero
+    ``index`` (batch,) int32; for every recurrent block its zero state
+    (``mamba_cache_init``, ``mlstm_cache_init``, ``slstm_cache_init``). On
+    ``device`` (default cuda)."""
     dtype = CL.kv_cache_dtype(kv_dtype)
     device = resolve_device(device)
     hkv, dk = cfg.n_kv_heads, cfg.head_dim_
@@ -196,14 +227,23 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     def one_super():
         c = {}
         for j, kind in enumerate(cfg.block_pattern):
-            if kind not in B.ATTN_KINDS:
-                raise NotImplementedError(
-                    f"caches for block kind {kind!r} are not ported yet")
-            c[f"b{j}"] = {"attn": {
-                **_kv_leaves((batch, max_seq), hkv, dk, dtype, device),
-                "index": torch.zeros((batch,), dtype=torch.int32,
-                                     device=device),
-            }}
+            if kind in B.ATTN_KINDS:
+                c[f"b{j}"] = {"attn": {
+                    **_kv_leaves((batch, max_seq), hkv, dk, dtype, device),
+                    "index": torch.zeros((batch,), dtype=torch.int32,
+                                         device=device),
+                }}
+            elif kind in ("mamba", "mamba_moe"):
+                c[f"b{j}"] = {"mamba": MB.mamba_cache_init(
+                    cfg, batch, device=device)}
+            elif kind == "mlstm":
+                c[f"b{j}"] = {"mlstm": XL.mlstm_cache_init(
+                    cfg, batch, device=device)}
+            elif kind == "slstm":
+                c[f"b{j}"] = {"slstm": XL.slstm_cache_init(
+                    cfg, batch, device=device)}
+            else:
+                raise ValueError(f"unknown block kind {kind!r}")
         return c
 
     return [one_super() for _ in range(cfg.n_super_layers)]
@@ -247,23 +287,27 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
 def _attn_caches(caches):
     for sup in caches:
         for blk in sup.values():
-            yield blk["attn"]
+            if "attn" in blk:
+                yield blk["attn"]
 
 
 def cache_index(caches):
     """Per-slot decode positions (b,) int32 from the first attention cache
-    (all layers agree)."""
-    return next(_attn_caches(caches))["index"]
+    (all layers agree); None for an attention-free arch."""
+    return next(_attn_caches(caches), {}).get("index")
 
 
 def slot_view(caches, slot: int, *, paged: bool = False):
-    """Batch-1 view of slot ``slot``: K/V are views into the pool (writes
-    land in place), ``index`` a (1,) view. ``paged``: the K/V page pools
-    are shared by every slot and stay whole."""
-    return [{name: {"attn": {
-        key: t if paged and key != "index" else t[slot:slot + 1]
-        for key, t in blk["attn"].items()}}
-        for name, blk in sup.items()} for sup in caches]
+    """Batch-1 view of slot ``slot``: K/V and recurrent state are views into
+    the pool (writes land in place), ``index`` a (1,) view. ``paged``: the
+    K/V page pools are shared by every slot and stay whole."""
+    def view(kind, key, t):
+        if paged and kind == "attn" and key != "index":
+            return t
+        return t[slot:slot + 1]
+    return [{name: {kind: {key: view(kind, key, t) for key, t in c.items()}
+                    for kind, c in blk.items()}
+             for name, blk in sup.items()} for sup in caches]
 
 
 def write_slot_index(caches, slot_caches, slot: int):
@@ -282,24 +326,32 @@ def write_slot(caches, slot_caches, slot: int, length: int):
     the slot (a prefill-bucket cache): only that prefix is written, and its
     rows ``>= length`` are zeroed on the way in, since a padded prefill
     computes pad-token K/V there and copying it would leave keys in the
-    slot that an append-at-index chunk could later read."""
-    for pool, one in zip(_attn_caches(caches), _attn_caches(slot_caches)):
-        for key, t in pool.items():
-            if key == "index":
-                t[slot] = length
-                continue
-            n = one[key].shape[1]
-            t[slot, :n] = one[key][0].to(t.dtype)
-            t[slot, length:n].zero_()
+    slot that an append-at-index chunk could later read. Recurrent state
+    is copied whole."""
+    for sup, one_sup in zip(caches, slot_caches):
+        for name, blk in sup.items():
+            for kind, pool in blk.items():
+                one = one_sup[name][kind]
+                for key, t in pool.items():
+                    if key == "index":
+                        t[slot] = length
+                    elif kind != "attn":
+                        t[slot] = one[key][0].to(t.dtype)
+                    else:
+                        n = one[key].shape[1]
+                        t[slot, :n] = one[key][0].to(t.dtype)
+                        t[slot, length:n].zero_()
 
 
 def reset_slot(caches, slot: int):
-    """Zero slot ``slot`` in place (index back to 0, K/V rows and a
-    quantized cache's scale rows cleared, as the reference does) so a
-    recycled slot cannot leak a previous request's context."""
-    for attn in _attn_caches(caches):
-        for t in attn.values():
-            t[slot].zero_()
+    """Zero slot ``slot`` in place (index back to 0, K/V rows, a quantized
+    cache's scale rows and recurrent state cleared, as the reference does)
+    so a recycled slot cannot leak a previous request's context."""
+    for sup in caches:
+        for blk in sup.values():
+            for c in blk.values():
+                for t in c.values():
+                    t[slot].zero_()
 
 
 def reset_slot_paged(caches, slot: int):

@@ -41,18 +41,27 @@ def cast(p: torch.Tensor | None, dtype: torch.dtype):
     return cached[1]
 
 
-def _param(*shape, device=None):
+def param(*shape, device=None):
+    """A zero fp32 parameter of ``shape`` (``()`` for a scalar), made with
+    ``requires_grad=False`` (serving); the trainer turns grads on."""
     return nn.Parameter(torch.zeros(shape, device=device),
                         requires_grad=False)
 
 
-def _normal_(p: torch.Tensor, std: float, generator: torch.Generator):
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator):
     with torch.no_grad():
         p.copy_(torch.randn(p.shape, generator=generator,
                             device=generator.device) * std)
 
 
-def _zero_(p: torch.Tensor | None):
+def fan_in_normal_(p: torch.Tensor, generator: torch.Generator, *,
+                   axis: int = 0, scale: float = 1.0):
+    """The reference's ``fan_in_normal(scale, axis)``: std = scale /
+    sqrt(fan_in), fan_in the product of the dims up to ``axis`` inclusive."""
+    normal_(p, scale / math.sqrt(math.prod(p.shape[:axis + 1])), generator)
+
+
+def zero_(p: torch.Tensor | None):
     if p is not None:
         with torch.no_grad():
             p.zero_()
@@ -85,12 +94,12 @@ class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  device=None):
         super().__init__()
-        self.w = _param(d_in, d_out, device=device)
-        self.b = _param(d_out, device=device) if bias else None
+        self.w = param(d_in, d_out, device=device)
+        self.b = param(d_out, device=device) if bias else None
 
     def reset_parameters(self, generator: torch.Generator, scale=1.0):
-        _normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
-        _zero_(self.b)
+        normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
+        zero_(self.b)
 
     def forward(self, x, dtype=torch.bfloat16):
         return linear(x, self.w, self.b, dtype=dtype)
@@ -102,12 +111,12 @@ class HeadsProj(nn.Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *,
                  bias: bool = False, device=None):
         super().__init__()
-        self.w = _param(d_model, n_heads, head_dim, device=device)
-        self.b = _param(n_heads, head_dim, device=device) if bias else None
+        self.w = param(d_model, n_heads, head_dim, device=device)
+        self.b = param(n_heads, head_dim, device=device) if bias else None
 
     def reset_parameters(self, generator: torch.Generator, scale=1.0):
-        _normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
-        _zero_(self.b)
+        normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
+        zero_(self.b)
 
     def forward(self, x, dtype=torch.bfloat16):
         return heads_proj(x, self.w, self.b, dtype=dtype)
@@ -119,13 +128,13 @@ class HeadsOut(nn.Module):
     def __init__(self, n_heads: int, head_dim: int, d_model: int, *,
                  device=None):
         super().__init__()
-        self.w = _param(n_heads, head_dim, d_model, device=device)
+        self.w = param(n_heads, head_dim, d_model, device=device)
 
     def reset_parameters(self, generator: torch.Generator, scale=1.0):
         # fan-in over (heads, head_dim), as the reference's fan_in_normal
         # with axis=1
         fan_in = self.w.shape[0] * self.w.shape[1]
-        _normal_(self.w, scale / math.sqrt(fan_in), generator)
+        normal_(self.w, scale / math.sqrt(fan_in), generator)
 
     def forward(self, x, dtype=torch.bfloat16):
         return heads_out(x, self.w, dtype=dtype)
@@ -162,13 +171,13 @@ class Norm(nn.Module):
         if kind not in ("rmsnorm", "layernorm"):
             raise ValueError(f"unknown norm {kind!r}")
         self.kind = kind
-        self.scale = _param(d, device=device)
-        self.bias = _param(d, device=device) if kind == "layernorm" else None
+        self.scale = param(d, device=device)
+        self.bias = param(d, device=device) if kind == "layernorm" else None
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         with torch.no_grad():
             self.scale.fill_(0.0 if self.kind == "rmsnorm" else 1.0)
-        _zero_(self.bias)
+        zero_(self.bias)
 
     def forward(self, x):
         if self.kind == "rmsnorm":
@@ -189,8 +198,8 @@ def unembed(table, x, *, dtype=torch.bfloat16):
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, *, device=None):
         super().__init__()
-        self.table = _param(vocab, d, device=device)
+        self.table = param(vocab, d, device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         # 1/sqrt(d) keeps tied-unembed logits O(1) at init
-        _normal_(self.table, self.table.shape[1] ** -0.5, generator)
+        normal_(self.table, self.table.shape[1] ** -0.5, generator)

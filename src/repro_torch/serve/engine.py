@@ -60,10 +60,20 @@ every cache write, dequantized block by block at every read, inside the
 kernels as in the plain walks; ``kernels/cache_layout``).
 
 The KV caches are updated in place; ``_finish`` zeroes a recycled
-contiguous slot (a paged slot resets only its index). Not ported yet (they
-raise): the tensor/sequence mesh, any ``ServeConfig`` field in ``_UNREAD``
-set away from its default, and the paged fields in ``_PAGED`` set without
-``paged_kv``.
+contiguous slot (a paged slot resets only its index).
+
+Archs: the continuous engine serves what the reference's does, the
+attention-only token archs (``attn`` / ``global`` / ``local`` and the MoE
+``attn_moe`` blocks, ``_attention_only``); recurrent blocks (mamba, xLSTM)
+and cross-attention stay on ``ServeSession``. ``ServeSession`` samples in
+the steps when the arch has an attention cache to fold the keys on and a
+token frontend; otherwise on the host, through the same code. As in the
+reference, it generates from token frontends only and refuses ragged
+prompts for archs with recurrent state.
+
+Not ported yet (they raise): the tensor/sequence mesh, any ``ServeConfig``
+field in ``_UNREAD`` set away from its default, and the paged fields in
+``_PAGED`` set without ``paged_kv``.
 """
 from __future__ import annotations
 
@@ -77,6 +87,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.models import transformer as T
+from repro_torch.models.blocks import ATTN_KINDS
 from repro_torch.serve import sampling as S
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import PagePool, Scheduler
@@ -88,6 +99,28 @@ from repro_torch.serve.scheduler import PagePool, Scheduler
 _UNREAD = ("batch", "seq_shard_kv", "prefill_kv_block")
 # read only by a paged engine: refused away from their defaults otherwise
 _PAGED = ("page_size", "num_pages", "prefix_cache", "prefix_evict")
+
+
+def _has_attention(cfg: ModelConfig) -> bool:
+    return any(k in ATTN_KINDS for k in cfg.block_pattern)
+
+
+def _attention_only(cfg: ModelConfig) -> bool:
+    return all(k in ATTN_KINDS for k in cfg.block_pattern)
+
+
+def _model_inputs(cfg: ModelConfig, batch_inputs: dict) -> dict:
+    """``lm_apply``'s input arguments from a step's ``batch_inputs``:
+    ``tokens`` or, for the stub frontends, ``embeds``; and ``cond`` for a
+    cross-attention config."""
+    kw = {}
+    if cfg.frontend == "tokens":
+        kw["tokens"] = batch_inputs["tokens"]
+    else:
+        kw["embeds"] = batch_inputs["embeds"]
+    if cfg.cross_attn:
+        kw["cond"] = batch_inputs["cond"]
+    return kw
 
 
 def _signature(tree) -> tuple:
@@ -140,13 +173,28 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
     ``batch_inputs["tokens"]`` as the (b,) last-token vector and returns
     the input token for rows whose ``active`` entry is False. With
     ``fused_sampling=False`` the steps return ``(logits (b, vocab),
-    caches)``, decode tokens given as (b, 1). ``decode_step`` also takes an
-    optional ``batch_inputs["page_table"]`` for paged caches. Each step runs
-    under ``torch.no_grad`` and updates the caches in place."""
+    caches)``, decode tokens given as (b, 1) (or ``embeds`` (b, 1, d) for
+    the stub frontends; a cross-attention config takes ``cond`` in every
+    step). ``decode_step`` also takes an optional
+    ``batch_inputs["page_table"]`` for paged caches. Each step runs under
+    ``torch.no_grad``, updates the KV caches in place and returns the
+    caches with the new recurrent state. Fused sampling needs a token
+    frontend and an attention block (the sample positions come from its
+    cache index): otherwise ValueError, as in the reference."""
     _check_kernel_flags(cfg, scfg)
-    if cfg.frontend != "tokens":
-        raise NotImplementedError("make_serve_fns: token frontends only")
     fused = scfg.fused_sampling
+    if fused and cfg.frontend != "tokens":
+        raise ValueError(
+            f"ServeConfig.fused_sampling=True requires the token frontend "
+            f"(got {cfg.frontend!r} for {cfg.arch_id}): the fused steps "
+            "emit token ids. Pass fused_sampling=False for the logits-"
+            "returning steps.")
+    if fused and not _has_attention(cfg):
+        raise ValueError(
+            f"ServeConfig.fused_sampling=True requires at least one "
+            f"attention block (got {cfg.block_pattern} for {cfg.arch_id}): "
+            "the per-slot sample positions are derived from the attention "
+            "cache index. Pass fused_sampling=False to sample host-side.")
     kv_dtype = CL.kv_cache_dtype(scfg.kv_cache_dtype)
     device = resolve_device(device)
 
@@ -170,13 +218,14 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
     def prefill_step(params, caches, batch_inputs, sampling=None):
         """Whole-prompt prefill into fresh caches; returns (first tokens |
         last-position logits, caches)."""
-        tokens = batch_inputs["tokens"]
-        s = tokens.shape[1]
-        out, caches = T.lm_apply(
-            params, cfg, tokens=tokens, caches=caches, merged=True,
-            positions=torch.arange(s, device=tokens.device)[None, :],
+        kw = _model_inputs(cfg, batch_inputs)
+        src = kw.get("tokens", kw.get("embeds"))
+        s = src.shape[1]
+        out, caches, _ = T.lm_apply(
+            params, cfg, caches=caches, merged=True,
+            positions=torch.arange(s, device=src.device)[None, :],
             logits_index=s - 1, logits_epilogue=_epilogue(sampling),
-            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk)
+            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk, **kw)
         return (out if fused else out[:, -1]), caches
 
     @torch.no_grad()
@@ -184,12 +233,12 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
         """Right-padded ragged batch prefill through the append-at-index
         path: pad K/V never enters the cache, each slot's index lands on its
         real length, and the output is taken at ``lengths - 1``."""
-        out, caches = T.lm_apply(
-            params, cfg, tokens=batch_inputs["tokens"], caches=caches,
-            merged=True, prefill_append=lengths, logits_index=lengths - 1,
-            prefill_kernel=scfg.prefill_kernel, fill_bound=scfg.fill_bound,
-            logits_epilogue=_epilogue(sampling), q_chunk=scfg.q_chunk,
-            kv_chunk=scfg.kv_chunk)
+        out, caches, _ = T.lm_apply(
+            params, cfg, caches=caches, merged=True, prefill_append=lengths,
+            logits_index=lengths - 1, prefill_kernel=scfg.prefill_kernel,
+            fill_bound=scfg.fill_bound, logits_epilogue=_epilogue(sampling),
+            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk,
+            **_model_inputs(cfg, batch_inputs))
         return (out if fused else out[:, 0]), caches
 
     @torch.no_grad()
@@ -198,16 +247,19 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
         rows where ``active`` is False passed through (their cache rows and
         index stay untouched). Legacy: ``tokens`` (b, 1) -> (b, vocab)
         logits."""
-        toks = batch_inputs["tokens"]
+        toks = batch_inputs.get("tokens")
+        if fused:
+            batch_inputs = dict(batch_inputs, tokens=toks[:, None])
         index = T.cache_index(caches)
-        out, caches = T.lm_apply(
-            params, cfg, tokens=toks[:, None] if fused else toks,
-            caches=caches, merged=True, positions=index[:, None],
+        out, caches, _ = T.lm_apply(
+            params, cfg, caches=caches, merged=True,
+            positions=None if index is None else index[:, None],
             decode_kernel=scfg.decode_kernel,
             decode_kv_block=scfg.decode_kv_block, fill_bound=scfg.fill_bound,
             decode_active=batch_inputs.get("active"),
             page_table=batch_inputs.get("page_table"),
-            logits_epilogue=_epilogue(sampling))
+            logits_epilogue=_epilogue(sampling),
+            **_model_inputs(cfg, batch_inputs))
         if not fused:
             return out[:, -1], caches
         active = batch_inputs.get("active")
@@ -221,10 +273,11 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
 class ServeSession:
     """Static-batch generation: every row prefills and decodes in lockstep,
     so the batch runs as long as its longest member (the reference's
-    ``ServeSession``). Token frontends over pure-attention archs, which
-    is all the port serves; sampling runs fused in the steps or, with
+    ``ServeSession``). Sampling runs fused in the steps or, with
     ``fused_sampling=False``, on the logits after each step, through the
-    same ``serve/sampling`` code (the streams are identical).
+    same ``serve/sampling`` code (the streams are identical); an arch with
+    no attention block (xLSTM) or a stub frontend samples on the host
+    whatever ``fused_sampling`` says, as in the reference.
 
     ``params`` is the port's ``LM``, already on ``device`` (default
     cuda)."""
@@ -244,21 +297,29 @@ class ServeSession:
                              f"{self.device}: move them first")
         self.cfg, self.scfg = cfg, scfg
         self.params = params
-        self._fused = scfg.fused_sampling
+        self.fused = (scfg.fused_sampling and cfg.frontend == "tokens"
+                      and _has_attention(cfg))
+        fns_scfg = (scfg if self.fused == scfg.fused_sampling
+                    else dataclasses.replace(scfg, fused_sampling=False))
         (self._init_caches, self._prefill, self._decode,
-         self._prefill_ragged) = make_serve_fns(cfg, scfg, device=self.device)
+         self._prefill_ragged) = make_serve_fns(cfg, fns_scfg,
+                                                device=self.device)
 
     def generate(self, prompts, *, steps: int, sampling=None,
-                 temperature: float = 0.0, seed: int = 0, lengths=None):
+                 temperature: float = 0.0, seed: int = 0, cond=None,
+                 lengths=None):
         """prompts: (b, s) int tokens. Returns (b, steps) int32 tokens.
 
         sampling: a ``SamplingParams`` (broadcast: row r draws from ``seed +
         r``) or a per-row sequence of them; ``None`` builds one from the
         legacy ``temperature`` / ``seed`` scalars (0 = greedy).
+        cond: the (b, n_cond, d) conditioning stream of a cross-attention
+        config, passed to every step.
         lengths: optional (b,) real prompt lengths of a right-padded ragged
         batch: prefill leaves pad rows out of the caches and each row
         decodes from its own position, so row r's output equals serving
-        prompt r alone."""
+        prompt r alone. Attention-only archs only: recurrent state would
+        scan the pad tokens."""
         if steps < 1:
             raise ValueError(
                 f"generate: steps must be >= 1, got {steps} — the prefill "
@@ -273,14 +334,31 @@ class ServeSession:
         bank = S.bank_of(sampling, b, device=self.device)
         caches = self._init_caches(b)
         inputs = {"tokens": prompts}
+        if cond is not None:
+            inputs["cond"] = cond
+        if self.cfg.frontend != "tokens":
+            raise NotImplementedError("embedding-frontend generation")
         if lengths is not None:
+            if not _attention_only(self.cfg):
+                raise NotImplementedError(
+                    "ragged generate(lengths=...) requires a pure-attention "
+                    f"block pattern (got {self.cfg.block_pattern})")
             lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                       device=self.device)
-        if self._fused:
-            return self._generate_fused(caches, inputs, bank, steps, lengths)
-        return self._generate_host(caches, inputs, bank, steps, s, lengths)
+        if self.fused:
+            return self._generate_fused(caches, inputs, bank, steps, cond,
+                                        lengths)
+        return self._generate_host(caches, inputs, bank, steps, s, cond,
+                                   lengths)
 
-    def _generate_fused(self, caches, inputs, bank, steps, lengths):
+    @staticmethod
+    def _step_inputs(tok, cond):
+        step_in = {"tokens": tok}
+        if cond is not None:
+            step_in["cond"] = cond
+        return step_in
+
+    def _generate_fused(self, caches, inputs, bank, steps, cond, lengths):
         """The steps emit (b,) tokens and the loop feeds them straight
         back."""
         if lengths is None:
@@ -290,12 +368,12 @@ class ServeSession:
                                                lengths, bank)
         outs = [tok]
         for _ in range(steps - 1):
-            tok, caches = self._decode(self.params, caches, {"tokens": tok},
-                                       bank)
+            tok, caches = self._decode(self.params, caches,
+                                       self._step_inputs(tok, cond), bank)
             outs.append(tok)
         return torch.stack(outs, dim=1)
 
-    def _generate_host(self, caches, inputs, bank, steps, s, lengths):
+    def _generate_host(self, caches, inputs, bank, steps, s, cond, lengths):
         """Logits out of each step, sampled after it: row r at step t folds
         (seed_r, prompt_len_r + t), so the streams match the fused path."""
         b = bank["seed"].shape[0]
@@ -309,8 +387,8 @@ class ServeSession:
         tok = S.sample_tokens(logits, bank, pos)
         outs = [tok]
         for _ in range(steps - 1):
-            logits, caches = self._decode(self.params, caches,
-                                          {"tokens": tok[:, None]})
+            logits, caches = self._decode(
+                self.params, caches, self._step_inputs(tok[:, None], cond))
             pos = pos + 1
             tok = S.sample_tokens(logits, bank, pos)
             outs.append(tok)
@@ -329,12 +407,10 @@ class ContinuousBatchingEngine:
                  device=None):
         if cfg.frontend != "tokens":
             raise NotImplementedError("continuous batching: token frontends")
-        if cfg.cross_attn or not all(k in ("attn", "global", "local")
-                                     for k in cfg.block_pattern):
+        if cfg.cross_attn or not _attention_only(cfg):
             raise NotImplementedError(
-                "continuous batching requires a pure dense-attention block "
-                f"pattern (got {cfg.block_pattern}, "
-                f"cross_attn={cfg.cross_attn})")
+                "continuous batching requires a pure-attention block pattern "
+                f"(got {cfg.block_pattern}, cross_attn={cfg.cross_attn})")
         _check_kernel_flags(cfg, scfg)
         _refuse_mesh(scfg)
         _refuse_unread(scfg, _UNREAD + ("q_chunk",)
@@ -384,12 +460,15 @@ class ContinuousBatchingEngine:
         self._decode_shapes: set = set()
 
     def _lm(self, tokens, caches, **kw):
+        """One engine step through ``lm_apply``: (out, caches); the MoE aux
+        loss is not served."""
         s = self.scfg
-        return T.lm_apply(
+        out, caches, _ = T.lm_apply(
             self.params, self.cfg, tokens=tokens, caches=caches, merged=True,
             kv_chunk=s.kv_chunk, decode_kernel=s.decode_kernel,
             decode_kv_block=s.decode_kv_block,
             prefill_kernel=s.prefill_kernel, fill_bound=s.fill_bound, **kw)
+        return out, caches
 
     # --------------------------------------------------------- frontend ----
     def submit(self, prompt, max_new_tokens: int, eos_id: int | None = None,

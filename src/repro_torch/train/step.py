@@ -7,8 +7,10 @@ state = {"params": LM (requires_grad on), "opt": {"m", "v", "count"},
 "step", and "ef" (the compression residuals) with ``int8_ef``}. ``m``,
 ``v`` and ``ef`` are dicts keyed by the ``LM``'s parameter names; ``count``
 and ``step`` are 0-d int32 tensors. ``train_step`` updates the state in
-place and returns it with 0-d tensor metrics ``ce``, ``aux`` (0: the dense
-blocks have no auxiliary loss), ``loss``, ``lr`` and ``grad_norm``.
+place and returns it with 0-d tensor metrics ``ce``, ``aux`` (the MoE
+load-balance loss, 0 without experts), ``loss`` (= ce + aux), ``lr`` and
+``grad_norm``. A batch holds ``labels`` and ``tokens`` or, for the stub
+vlm / audio frontends, ``embeds``; a cross-attention config adds ``cond``.
 
 ``state_tree`` / ``load_state_tree`` convert to and from the reference's
 state tree (numpy, block leaves stacked on ``n_super``), the form
@@ -43,11 +45,17 @@ def cross_entropy(logits, labels, *, z_weight: float = 1e-4):
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     def loss_fn(model: T.LM, batch):
-        logits, _ = T.lm_apply(model, cfg, tokens=batch["tokens"],
-                               remat=tcfg.remat, q_chunk=tcfg.q_chunk,
-                               kv_chunk=tcfg.kv_chunk)
+        kw = {}
+        if cfg.frontend == "tokens":
+            kw["tokens"] = batch["tokens"]
+        else:
+            kw["embeds"] = batch["embeds"]
+        if cfg.cross_attn:
+            kw["cond"] = batch["cond"]
+        logits, _, aux = T.lm_apply(model, cfg, remat=tcfg.remat,
+                                    q_chunk=tcfg.q_chunk,
+                                    kv_chunk=tcfg.kv_chunk, **kw)
         ce = cross_entropy(logits, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + aux, {"ce": ce, "aux": aux}
     return loss_fn
 
@@ -90,7 +98,7 @@ def make_train_fns(cfg: ModelConfig, tcfg: TrainConfig, *, device=None,
         n = tcfg.microbatch
         if not (n and n > 1):
             return grads_of(model, params, batch)
-        b = batch["tokens"].shape[0]
+        b = batch["labels"].shape[0]
         if b % n:
             raise ValueError(f"batch {b} not divisible by microbatch {n}")
         g32 = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)

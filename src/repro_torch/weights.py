@@ -49,7 +49,10 @@ def split_jax_tree(tree: dict, cfg: ModelConfig) -> dict:
                                  f"n_super {cfg.n_super_layers}")
             rest = path[len("blocks."):]
             for i in range(arr.shape[0]):
-                state[f"blocks.{i}.{rest}"] = torch.from_numpy(arr[i])
+                # a slice, not arr[i], which is a numpy scalar for the
+                # stacked 0-d leaves (the MoE router's beta / gamma)
+                one = arr[i:i + 1].reshape(arr.shape[1:])
+                state[f"blocks.{i}.{rest}"] = torch.from_numpy(one)
         else:
             state[path] = torch.from_numpy(arr)
     return state

@@ -167,8 +167,8 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
     ref_logits, _, _ = JT.lm_apply(state["params"], jc,
                                    tokens=jnp.asarray(TOKENS), remat="none")
     with torch.no_grad():
-        got, _ = TT.lm_apply(tr.state["params"], tc,
-                             tokens=torch.tensor(TOKENS))
+        got, _, _ = TT.lm_apply(tr.state["params"], tc,
+                                tokens=torch.tensor(TOKENS))
     _logits_close(ref_logits, got)
     jtr = JTrainer(jc, JTrainConfig(**TRAIN), ckpt_dir=ck, log_every=1000)
     assert jtr.step_index() == 4
@@ -194,8 +194,8 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
     ref_logits, _, _ = JT.lm_apply(jtr.state["params"], jc,
                                    tokens=jnp.asarray(TOKENS), remat="none")
     with torch.no_grad():
-        got, _ = TT.lm_apply(tr.state["params"], tc,
-                             tokens=torch.tensor(TOKENS))
+        got, _, _ = TT.lm_apply(tr.state["params"], tc,
+                                tokens=torch.tensor(TOKENS))
     _logits_close(ref_logits, got)
     ht, hj = tr.run(3), jtr.run(3)[-3:]
     np.testing.assert_allclose([h["loss"] for h in ht],

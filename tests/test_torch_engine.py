@@ -2,8 +2,10 @@
 and the port's package rules.
 
 * Greedy tokens of the port's ``ContinuousBatchingEngine`` equal the
-  reference engine's on the qwen2, gpt2-consmax, gemma2, chatglm3 and
-  granite smoke configs, with prompts longer than ``prefill_chunk``
+  reference engine's on the qwen2, gpt2-consmax, gemma2, chatglm3,
+  granite, phi3.5-moe and grok smoke configs (the MoE ones route each
+  chunk and decode step with the capacity of its own length, as the
+  reference does), with prompts longer than ``prefill_chunk``
   (multi-chunk admissions interleaved with decode) and more requests than
   slots (recycling). Compared at ``compute_dtype="float32"``, where the two
   packages' logits agree to ~1e-6 (gemma2 ~2e-5, XLA's tanh;
@@ -57,7 +59,8 @@ def _serve(engine, prompts, budgets):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gpt2-consmax", "gemma2-2b",
-                                  "chatglm3-6b", "granite-3-2b"])
+                                  "chatglm3-6b", "granite-3-2b",
+                                  "phi3.5-moe-42b-a6.6b", "grok-1-314b"])
 def test_greedy_tokens_match_reference_engine(arch):
     jc = jget(arch, smoke=True, compute_dtype="float32")
     tc = tget(arch, smoke=True, compute_dtype="float32")
@@ -68,9 +71,10 @@ def test_greedy_tokens_match_reference_engine(arch):
     for kernels in (False, True):
         scfg = ServeConfig(**SERVE, decode_kernel=kernels,
                            prefill_kernel=kernels, decode_kv_block=16)
-        got = _serve(ContinuousBatchingEngine(tc, scfg, model, device="cpu"),
-                     prompts, BUDGETS)
+        eng = ContinuousBatchingEngine(tc, scfg, model, device="cpu")
+        got = _serve(eng, prompts, BUDGETS)
         assert got == ref, kernels
+        assert eng.prefill_cache_size == eng.decode_cache_size == 1
     assert [len(t) for t in ref] == BUDGETS
 
 

@@ -82,7 +82,7 @@ def _torch_logits(jc, tc, tp, **kw):
     """The port's logits over the same chunk and decodes."""
     toks, lens = _tokens(jc)
     cache = TT.init_caches(tc, B, L, device="cpu")
-    lg, cache = TT.lm_apply(tp, tc, tokens=torch.tensor(toks[:, :C]),
+    lg, cache, _ = TT.lm_apply(tp, tc, tokens=torch.tensor(toks[:, :C]),
                             caches=cache, merged=True,
                             prefill_append=torch.tensor(lens),
                             logits_index=torch.tensor(lens - 1), **kw)
@@ -90,7 +90,7 @@ def _torch_logits(jc, tc, tp, **kw):
     for t in range(STEPS):
         idx = TT.cache_index(cache)
         np.testing.assert_array_equal(idx.numpy(), lens + t)
-        lg, cache = TT.lm_apply(tp, tc, tokens=torch.tensor(
+        lg, cache, _ = TT.lm_apply(tp, tc, tokens=torch.tensor(
             toks[:, C + t:C + t + 1]), caches=cache, merged=True,
             positions=idx[:, None], **kw)
         out.append(lg)

@@ -271,14 +271,14 @@ def _torch_paged(jc, tc, tp, **kw):
     cache = TT.init_paged_caches(tc, NB, NPAGES, 4, device="cpu")
     out = []
     for i, ln in enumerate(lens):
-        lg, cache = TT.lm_apply(
+        lg, cache, _ = TT.lm_apply(
             tp, tc, tokens=torch.tensor(toks[:, i * C:(i + 1) * C]),
             caches=cache, merged=True, prefill_append=torch.tensor(ln),
             logits_index=torch.tensor(ln - 1), page_table=table, **kw)
         out.append(lg.float().numpy())
     for t in range(STEPS):
         idx = TT.cache_index(cache)
-        lg, cache = TT.lm_apply(
+        lg, cache, _ = TT.lm_apply(
             tp, tc, tokens=torch.tensor(toks[:, 2 * C + t:2 * C + t + 1]),
             caches=cache, merged=True, positions=idx[:, None],
             decode_active=torch.tensor(ACTIVE[t]), page_table=table, **kw)

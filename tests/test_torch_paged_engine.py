@@ -3,10 +3,10 @@ paged engine, against its own contiguous engine, and through the prefix
 cache, copy-on-write, ``submit(n=K)`` and pool pressure.
 
 * Greedy tokens equal the reference's paged engine on the qwen2,
-  gpt2-consmax, gemma2, chatglm3 and granite smoke configs at
-  ``compute_dtype="float32"`` (the two packages' logits agree to ~1e-6
-  there, gemma2's to ~2e-5: far from flipping a greedy token), with the
-  port's kernel flags on and off (their plain versions on the
+  gpt2-consmax, gemma2, chatglm3, granite, phi3.5-moe and grok smoke
+  configs at ``compute_dtype="float32"`` (the two packages' logits agree
+  to ~1e-6 there, gemma2's to ~2e-5: far from flipping a greedy token),
+  with the port's kernel flags on and off (their plain versions on the
   CPU). The pool is smaller than ``max_slots x max_pages_per_slot``, so
   admission waits for released pages. The prompts share no prefix, which
   keeps this traffic clear of the reference's ``reserve_prefix`` admission
@@ -37,7 +37,7 @@ from repro_torch.serve.engine import ContinuousBatchingEngine
 from repro_torch.weights import from_jax_params, init_params
 
 ARCHS = ["qwen2-1.5b", "gpt2-consmax", "gemma2-2b", "chatglm3-6b",
-         "granite-3-2b"]
+         "granite-3-2b", "phi3.5-moe-42b-a6.6b", "grok-1-314b"]
 PROMPT_LENS = [5, 13, 3, 11, 7]
 BUDGETS = [4, 6, 3, 5, 6]
 # the reference's paged parity parameters (tests/test_paged_kv.py:324)
@@ -79,6 +79,7 @@ def test_paged_greedy_tokens_match_reference_paged_engine(arch):
         eng = ContinuousBatchingEngine(tc, scfg, model, device="cpu")
         assert _serve(eng, prompts, BUDGETS) == ref, kernels
         assert eng.pool.free_pages == scfg.num_pages     # all returned
+        assert eng.prefill_cache_size == eng.decode_cache_size == 1
         assert eng.pool.peak_in_use <= scfg.num_pages
     assert [len(t) for t in ref] == BUDGETS
 

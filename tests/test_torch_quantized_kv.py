@@ -21,7 +21,8 @@ on the CPU.
   Both packages quantize the same fp32 rows; a code sits on a rounding
   boundary only if the two rows differ there, which these inputs never hit.
 * Greedy engine tokens equal the reference engine's at int8, contiguous and
-  paged (fp32 compute), and a warm prefix-cache serve equals a cold one.
+  paged (fp32 compute; the phi3.5-moe smoke config too), and a warm
+  prefix-cache serve equals a cold one.
 * ``make_serve_fns``: the teacher-forced perplexity of the reference's
   ``_cache_ppl`` walk (legacy logits-returning ``decode_step``) to 1e-4
   relative at fp32, int8 within 1 % of bf16 (the reference's gate), and the
@@ -392,14 +393,14 @@ def test_lm_apply_logits_with_quantized_cache_match_reference(arch, name):
         kw = dict(decode_kernel=kernels, prefill_kernel=kernels)
         cache = TT.init_caches(tc, B, L, name, device="cpu")
         with torch.no_grad():
-            lg, cache = TT.lm_apply(tp, tc, tokens=torch.tensor(toks[:, :C]),
-                                    caches=cache, merged=True,
-                                    prefill_append=torch.tensor(lens),
-                                    logits_index=torch.tensor(lens - 1), **kw)
+            lg, cache, _ = TT.lm_apply(
+                tp, tc, tokens=torch.tensor(toks[:, :C]), caches=cache,
+                merged=True, prefill_append=torch.tensor(lens),
+                logits_index=torch.tensor(lens - 1), **kw)
             got = [lg]
             for t in range(STEPS):
                 idx = TT.cache_index(cache)
-                lg, cache = TT.lm_apply(tp, tc, tokens=torch.tensor(
+                lg, cache, _ = TT.lm_apply(tp, tc, tokens=torch.tensor(
                     toks[:, C + t:C + t + 1]), caches=cache, merged=True,
                     positions=idx[:, None], **kw)
                 got.append(lg)
@@ -440,7 +441,7 @@ def _serve(engine, prompts, budgets):
     return [results[u] for u in uids]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [*ARCHS, "phi3.5-moe-42b-a6.6b"])
 @pytest.mark.parametrize("paged", [False, True])
 def test_int8_engine_tokens_match_reference_engine(arch, paged):
     jc, tc, p, tp = _params(arch)
@@ -517,7 +518,7 @@ def test_whole_sequence_forward_matches_reference(arch):
     ref, _, _ = JT.lm_apply(p, jc, tokens=jnp.asarray(toks, jnp.int32),
                             merged=True)
     with torch.no_grad():
-        got, caches = TT.lm_apply(tp, tc, tokens=torch.tensor(toks),
+        got, caches, _ = TT.lm_apply(tp, tc, tokens=torch.tensor(toks),
                                   merged=True)
     assert caches is None
     ref = np.asarray(ref, np.float32)

@@ -7,7 +7,16 @@ sampling seed, against the JAX reference.
   ``temperature`` / ``seed`` scalars): the reference session's tokens on the
   qwen2 and gemma2 smoke configs at fp32 compute; row r of a ragged batch
   equals prompt r served alone; broadcast rows draw independent streams.
-* The refusals: ``steps < 1`` and paged KV, with the reference's messages.
+* The recurrent archs (jamba: Mamba + MoE + one attention block; xlstm: no
+  attention at all): the reference session's tokens, whole prompts, greedy
+  and sampled. jamba samples in the steps; xlstm on the host whatever
+  ``fused_sampling`` says (no attention cache to fold the keys on), as in
+  the reference.
+* The refusals: ``steps < 1`` and paged KV, with the reference's messages;
+  and, as the reference: ragged prompts on an arch with recurrent state,
+  generation from the stub vlm / audio frontends, the continuous engine for
+  recurrent, cross-attention or stub-frontend archs, and fused sampling in
+  ``make_serve_fns`` without a token frontend or an attention block.
 * ``write_slot`` — the index set to the real length, the rows past it
   zeroed, a shorter bucket written as a prefix: the reference's caches.
 * ``launch/serve.py --seed`` is the sampling seed (request i on seed + i):
@@ -118,6 +127,59 @@ def test_broadcast_rows_draw_independent_streams():
     assert broad[0].tolist() != broad[1].tolist()
     pinned = sess.generate(batch, steps=6, sampling=[sp, sp])
     assert pinned[0].tolist() == pinned[1].tolist()
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_recurrent_session_tokens_match_reference(arch, fused):
+    """Whole 16-token prompts (one chunk of the smoke's scans), 6 steps."""
+    jc, tc, p, model = _pair(arch)
+    toks, _ = _batch(jc.vocab_size, [16, 16, 16], 16, seed=8)
+    jsess = JSession(jc, JServeConfig(max_seq=24, fused_sampling=fused), p)
+    sess = ServeSession(tc, ServeConfig(max_seq=24, fused_sampling=fused),
+                        model, device="cpu")
+    assert sess.fused == jsess._fused == (fused and arch != "xlstm-1.3b")
+    for kw, jkw in (({}, {}), (dict(sampling=SamplingParams(**SAMPLED)),
+                               dict(sampling=JSP(**SAMPLED)))):
+        ref = np.asarray(jsess.generate(jnp.asarray(toks), steps=6, **jkw))
+        got = sess.generate(toks, steps=6, **kw)
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_arch_refusals_match_reference():
+    from repro.serve.engine import ContinuousBatchingEngine as JEngine
+    from repro.serve.engine import make_serve_fns as jfns
+    from repro_torch.serve.engine import make_serve_fns as tfns
+    for arch in ("jamba-1.5-large-398b", "xlstm-1.3b", "musicgen-large",
+                 "phi-3-vision-4.2b"):
+        jc, tc, p, model = _pair(arch)
+        scfg, jscfg = ServeConfig(max_seq=32), JServeConfig(max_seq=32)
+        with pytest.raises(NotImplementedError):
+            JEngine(jc, jscfg, p)
+        with pytest.raises(NotImplementedError):
+            ContinuousBatchingEngine(tc, scfg, model, device="cpu")
+        has_attn = arch != "xlstm-1.3b"
+        tokens = jc.frontend == "tokens"
+        for fns, c, kw in ((jfns, jc, {}), (tfns, tc, dict(device="cpu"))):
+            if tokens and has_attn:
+                fns(c, jscfg if fns is jfns else scfg, **kw)
+            else:
+                with pytest.raises(ValueError, match="fused_sampling"):
+                    fns(c, jscfg if fns is jfns else scfg, **kw)
+        toks, lens = _batch(jc.vocab_size, [16, 8], 16)
+        jsess = JSession(jc, jscfg, p)
+        sess = ServeSession(tc, scfg, model, device="cpu")
+        if not tokens:
+            with pytest.raises(NotImplementedError, match="embedding"):
+                jsess.generate(jnp.asarray(toks), steps=2)
+            with pytest.raises(NotImplementedError, match="embedding"):
+                sess.generate(toks, steps=2)
+            continue
+        with pytest.raises(NotImplementedError, match="ragged"):
+            jsess.generate(jnp.asarray(toks), steps=2,
+                           lengths=jnp.asarray(lens))
+        with pytest.raises(NotImplementedError, match="ragged"):
+            sess.generate(toks, steps=2, lengths=lens)
 
 
 def test_session_refusals():

@@ -18,6 +18,8 @@ inputs from numpy seeds. Tolerances, each argued where it is used:
   At bf16: 1e-3 relative (each matmul rounds to bf16, 2^-9 relative, in
   another accumulation order; measured <= 1.5e-4).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +46,7 @@ from repro_torch.optim import compression as TCMP
 from repro_torch.train import step as TS
 from repro_torch.train.trainer import StragglerMonitor
 from repro_torch.train.trainer import Trainer as TTrainer
-from repro_torch.weights import from_jax_params, to_jax_params
+from repro_torch.weights import from_jax_params, split_jax_tree, to_jax_params
 
 SMALL = dict(vocab_size=256, n_layers=2, d_model=64, n_heads=4,
              n_kv_heads=4, d_ff=128)
@@ -171,14 +173,43 @@ def test_cast_differentiable_under_grad_cached_otherwise():
 
 
 # ---------------------------------------------------------------- AdamW ----
-def test_decay_mask_matches_reference_tree():
-    """Every ``blocks.*`` leaf decays (the reference's stacked leaves are
-    >= 2-D: norm scales, biases and ConSmax beta/gamma too); the
-    top-level 1-D ``final_norm`` leaves do not; the embedding does. Checked
-    by running both AdamW updates with zero gradients on a real tree, its
-    leaves shifted by 1 so that none is zero (a zero leaf decays to
-    itself)."""
-    jc, tc = _configs(compute_dtype="float32")
+# the MoE, Mamba and xLSTM trees, each with the scalars of its consmax
+# variant: the MoE router's 0-d beta / gamma, mLSTM's mu / gamma, sLSTM's mu
+TREES = {
+    "phi3.5-moe-42b-a6.6b": dict(moe="consmax"),
+    "jamba-1.5-large-398b": {},
+    "xlstm-1.3b": dict(stabilizer="consmax"),
+}
+
+
+def _tree_configs(arch):
+    if arch == "gpt2-consmax":
+        return _configs(compute_dtype="float32")
+    jc, tc = _configs(arch, smoke=True, compute_dtype="float32")
+    variant = TREES[arch]
+    if "moe" in variant:
+        jc = jc.replace(moe=dataclasses.replace(jc.moe, router_norm="consmax"))
+        tc = tc.replace(moe=dataclasses.replace(tc.moe, router_norm="consmax"))
+    if "stabilizer" in variant:
+        jc = jc.replace(xlstm=dataclasses.replace(jc.xlstm,
+                                                  stabilizer="consmax"))
+        tc = tc.replace(xlstm=dataclasses.replace(tc.xlstm,
+                                                  stabilizer="consmax"))
+    return jc, tc
+
+
+@pytest.mark.parametrize("arch", ["gpt2-consmax", *TREES])
+def test_decay_mask_matches_reference_tree(arch):
+    """Every ``blocks.*`` leaf of a per-layer tensor of >= 1 dim decays (the
+    reference's stacked leaves are >= 2-D: norm scales, biases, ConSmax
+    beta/gamma, the MoE router and experts, Mamba's ``A_log`` / ``D`` /
+    ``dt_bias``, the xLSTM gates and ``mu`` / ``gamma`` too); a 0-d
+    per-layer scalar (the consmax MoE router's beta / gamma, stacked to
+    ``(n_super,)``) does not, nor the top-level 1-D ``final_norm`` leaves;
+    the embedding does. Checked by running both AdamW updates with zero
+    gradients on a real tree, its leaves shifted by 1 so that none is zero
+    (a zero leaf decays to itself)."""
+    jc, tc = _tree_configs(arch)
     p = jax.tree.map(lambda a: a + 1.0,
                      JT.lm_init(Ctx(random.key(0)), jc))
     model = from_jax_params(jax.tree.map(np.asarray, p), tc, device="cpu")
@@ -199,8 +230,18 @@ def test_decay_mask_matches_reference_tree():
          for k, v in got_moved.items()}, tc))
     for k, moved in ref_moved.items():
         assert bool(got_tree[k].all()) == moved, k
-        assert moved == (not k.startswith("['final_norm']")), k
-    assert any("score_norm" in k for k in ref_moved)
+        assert moved == (not k.startswith("['final_norm']")
+                         and not k.endswith(("['moe']['beta']",
+                                             "['moe']['gamma']"))), k
+    pinned = {"gpt2-consmax": ("score_norm",),
+              "phi3.5-moe-42b-a6.6b": ("['router']", "['gate']",
+                                       "['down']", "['moe']['beta']"),
+              "jamba-1.5-large-398b": ("['A_log']", "['D']", "['dt_bias']",
+                                       "['router']"),
+              "xlstm-1.3b": ("['w_ig']", "['b_fg']", "['mlstm']['mu']",
+                             "['slstm']['mu']", "['r']")}[arch]
+    for name in pinned:
+        assert any(name in k for k in ref_moved), name
     for name, t in params.items():
         assert TA.decayed(name, t) == got_moved[name], name
 
@@ -236,6 +277,35 @@ def test_adam_update_matches_reference_over_the_schedule():
                 np.testing.assert_allclose(got[k], ref[k], atol=1e-6,
                                            err_msg=f"{name}{k} step {step}")
         assert int(topt["count"]) == int(jopt["count"]) == step + 1
+
+
+@pytest.mark.parametrize("arch", list(TREES))
+def test_int8_ef_matches_reference_on_model_trees(arch):
+    """The same bits on the MoE, Mamba and xLSTM parameter trees (0-d
+    MoE router scalars included): random gradients and residuals per
+    leaf, the port's per-layer tensors sharing their stacked leaf's
+    scale."""
+    jc, tc = _tree_configs(arch)
+    p = JT.lm_init(Ctx(random.key(0)), jc)
+    r = np.random.default_rng(5)
+    g, e = ({path: (r.standard_normal(np.shape(a))
+                    * 10.0 ** r.integers(-3, 3)).astype(np.float32)
+             for path, a in jax.tree_util.tree_flatten_with_path(p)[0]}
+            for _ in range(2))
+    treedef = jax.tree.structure(p)
+    jg, je = (jax.tree.unflatten(treedef, [jnp.asarray(v)
+                                           for v in d.values()])
+              for d in (g, e))
+    jd, jn = JCMP.ef_compress_grads(jg, je)
+    tg, te = (split_jax_tree(jax.tree.map(np.asarray, t), tc)
+              for t in (jg, je))
+    td, tn = TCMP.ef_compress_grads(tg, te)
+    for ref, got in ((jd, td), (jn, tn)):
+        got = dict(jax.tree_util.tree_flatten_with_path(
+            to_jax_params(got, tc))[0])
+        for path, a in jax.tree_util.tree_flatten_with_path(ref)[0]:
+            np.testing.assert_array_equal(got[path], np.asarray(a),
+                                          err_msg=jax.tree_util.keystr(path))
 
 
 def test_int8_ef_matches_reference():
