@@ -3202,6 +3202,441 @@ def smoke_archs_phase(*, seed=12, s=16, steps=4):
         raise AssertionError(f"card and CPU disagree on {bad}")
 
 
+# ------------------------------------------------------------ 17: mesh ----
+MESH_ARCH = "qwen2-1.5b"
+MESH_SEED = 0                 # phase 5's weights
+MESH_NEW = 16
+MESH_LENS = [300, 1200, 2500, 700, 3000, 1800, 150, 3900]   # + 16 < 4096
+MESH_SPILL = 4400             # + 16 rows > one seq block (4096 rows)
+MESH_CONTIG = dict(max_slots=8, max_seq=8192, prefill_chunk=512,
+                   decode_kernel=True, prefill_kernel=True)
+MESH_PAGED = dict(max_slots=16, max_seq=8192, prefill_chunk=512,
+                  paged_kv=True, page_size=256, decode_kernel=True,
+                  prefill_kernel=True)
+MESH_TRAIN = dict(global_batch=8, seq_len=256, lr=1e-3, warmup_steps=2,
+                  total_steps=50, remat="none")
+MESH_TRAIN_STEPS = 5
+MESH_TRAIN_RTOL = 1e-4        # fp32, TF32 off: the ranks' gradient means
+                              # regroup one card's sum (CARD_VS_CPU_RTOL)
+MESH_CP_TOL = 1e-5            # fp32 context-parallel decode vs one rank
+MESH_TIMEOUT = 400            # seconds for one world of ranks
+MESH_KERNELS = ("consmax_decode", "consmax_prefill", "consmax_decode_paged",
+                "consmax_prefill_paged")
+
+
+def _mesh_traffic(vocab):
+    """8 requests inside one seq block, greedy and sampled alternately; and
+    one request that spills past it."""
+    r = np.random.default_rng(17)
+    prompts = [r.integers(0, vocab, n).tolist() for n in MESH_LENS]
+    sampling = [None if i % 2 == 0 else
+                dict(temperature=0.8, top_k=50, seed=100 + i)
+                for i in range(len(prompts))]
+    spill = r.integers(0, vocab, MESH_SPILL).tolist()
+    return prompts, sampling, spill
+
+
+def _kernel_ops():
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_op, consmax_decode_paged_op)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_op, consmax_prefill_paged_op)
+    return dict(zip(MESH_KERNELS, (consmax_decode_op, consmax_prefill_op,
+                                   consmax_decode_paged_op,
+                                   consmax_prefill_paged_op)))
+
+
+def _mesh_serve(cfg, scfg, model, prompts, sampling, spill=None):
+    """Serve the traffic through a ``ContinuousBatchingEngine`` (on this
+    process's rank of the mesh when ``scfg`` asks for one); returns the
+    engine and what the run showed."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+    uids = [eng.submit(p, MESH_NEW, sampling=SamplingParams(**s)
+                       if s else None) for p, s in zip(prompts, sampling)]
+    ops = _kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    torch.cuda.synchronize()
+    t0, iters = time.perf_counter(), 0
+    while eng.scheduler.has_work():
+        eng.step()
+        iters += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(tokens=[eng.results[u] for u in uids], iters=iters,
+               wall=wall, launches={k: op.launches for k, op in ops.items()},
+               signatures=[eng.prefill_cache_size, eng.decode_cache_size],
+               collectives=json.loads(json.dumps(eng.collectives)),
+               steps=eng.model_steps,
+               kv_bytes=_cache_bytes(eng.caches))
+    if spill is not None:
+        uid = eng.submit(spill, MESH_NEW)
+        eng.run()
+        out["spill"] = eng.results[uid]
+    return eng, out
+
+
+def _param_bytes(model, dtype_bytes):
+    return sum(p.numel() for p in model.parameters()) * dtype_bytes
+
+
+def mesh_child(spec_path, rank):
+    """One rank of phase 17 (``python3 chip_smoke.py --mesh-rank <spec>
+    <rank>``), on the one card the ranks share (cuda:0 unless the spec
+    gives each rank its own card) over the spec's backend: serve the traffic
+    on its rank of the mesh; then, as the spec asks, the context-parallel
+    decode over the whole world and FSDP training. Prints its result as one
+    JSON line."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import ServeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import attention as A
+    from repro_torch.core import context_parallel as CP
+    from repro_torch.core.consmax import ConSmaxParams
+    from repro_torch.distributed import comm as COMM
+    from repro_torch.launch.mesh import init_distributed, train_mesh
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.weights import init_params
+
+    spec = json.loads(Path(spec_path).read_text())
+    device = torch.device("cuda", rank if spec["own_cards"] else 0)
+    init_distributed(spec["backend"], rank=rank, world_size=spec["world"],
+                     init_method=f"file://{spec['store']}", device=device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+
+    cfg = get_config(MESH_ARCH)
+    scfg = ServeConfig(**spec["serve"], tp=spec["tp"], seq_shards=spec["ns"],
+                       score_norm=cfg.score_norm)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(
+        MESH_SEED), device=device)
+    full_bytes = _param_bytes(model, 4)
+    eng, res = _mesh_serve(cfg, scfg, model, spec["prompts"],
+                           spec["sampling"], spec.get("spill"))
+    out["serve"] = res
+    out["peak"] = torch.cuda.max_memory_allocated(device)
+    out["reckon"] = dict(full=full_bytes, local=_param_bytes(eng.params, 4),
+                         bf16=_param_bytes(eng.params, 2),
+                         kv=res["kv_bytes"])
+    del model, eng
+    torch.cuda.empty_cache()
+
+    if spec.get("cp"):
+        comm = COMM.Comm()
+        b, L, H, hkv, dk = 8, 8192, 12, 2, 128
+        gen = torch.Generator(device=device).manual_seed(7)
+        q = torch.randn((b, 1, H, dk), generator=gen, device=device) * 0.1
+        k = torch.randn((b, L, hkv, dk), generator=gen, device=device)
+        v = torch.randn((b, L, hkv, dk), generator=gen, device=device)
+        index = torch.randint(L // 2, L, (b,), generator=gen, device=device)
+        params = ConSmaxParams(H, cfg.consmax, device=device)
+        params.reset_parameters(gen)
+        lo, hi = rank * L // comm.size, (rank + 1) * L // comm.size
+        cp = {}
+        for kind in ("consmax", "softmax"):
+            fn = CP.make_cp_decode(comm, kind, params,
+                                   merged=kind == "consmax")
+            COMM.reset_counts()
+            o = fn(q, k[:, lo:hi], v[:, lo:hi], index)
+            counts = COMM.counts()
+            ref = A.decode_attention(q, k, v, index, norm_kind=kind,
+                                     norm_params=params,
+                                     merged=kind == "consmax")
+            err = float((o - ref).abs().max() / ref.abs().max())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn(q, k[:, lo:hi], v[:, lo:hi], index)
+            torch.cuda.synchronize()
+            cp[kind] = dict(err=err, counts=counts,
+                            ms=(time.perf_counter() - t0) * 100)
+        out["cp"] = cp
+        del q, k, v
+
+    if spec.get("train"):
+        tcfg_model = get_config("gpt2-consmax", compute_dtype="float32")
+        model = init_params(tcfg_model, torch.Generator(
+            device=device).manual_seed(0), device=device)
+        tr = Trainer(tcfg_model, TrainConfig(**MESH_TRAIN), model=model,
+                     device=device, mesh=train_mesh(device=device),
+                     log_every=10 ** 9)
+        hist = tr.run(MESH_TRAIN_STEPS)
+        out["train"] = dict(loss=[h["loss"] for h in hist],
+                            ms=[h["sec"] * 1e3 for h in hist])
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _run_world(tmp, name, world, **spec):
+    from repro_torch.launch.mesh import run_ranks
+    spec = dict(spec, world=world, store=str(tmp / f"{name}.store"))
+    path = tmp / f"{name}.json"
+    path.write_text(json.dumps(spec))
+    outs = run_ranks([[sys.executable, str(Path(__file__).resolve()),
+                       "--mesh-rank", str(path), str(r)]
+                      for r in range(world)], timeout=MESH_TIMEOUT)
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def _head_and_hole_checks():
+    """The launch of a head slice gives the full launch's bits for those
+    heads (no launch parameter follows the head count), and a request whose
+    pages fill a whole seq block, with -1 holes on the other rank's
+    localized table, sums (fp32) to the one-pool bits: decode and prefill,
+    contiguous and paged, at qwen2-1.5b's shapes."""
+    from repro_torch.kernels import cache_layout as CL
+    ops = _kernel_ops()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    # the head slice's projections are column slices of the full GEMM: the
+    # tokens stay single-device's only while cuBLAS gives those columns
+    # the same bits (printed; the token gates below hold the consequence)
+    same = {}
+    for m in (1, 8, 16, 512):
+        x = _rand(gen, (m, 1536))
+        for n in (1536, 256):
+            w = _rand(gen, (1536, n))
+            full = x @ w
+            same[(m, n)] = all(torch.equal(
+                x @ w[:, r * n // 2:(r + 1) * n // 2].contiguous(),
+                full[:, r * n // 2:(r + 1) * n // 2]) for r in range(2))
+    _log(f"[mesh] 17a bf16 GEMM column halves == the full GEMM's columns "
+         f"(rows, cols): {same}")
+    b, L, H, hkv, dk, c, ps = 8, 8192, 12, 2, 128, 512, 256
+    q = _rand(gen, (b, 1, H, dk))
+    qc = _rand(gen, (b, c, H, dk))
+    k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+    beta, gamma = _head_params(gen, H)
+    idx = torch.tensor([4095, 4000, 100, 3000, 8191, 5000, 2047, 4096],
+                       dtype=torch.int32, device="cuda")
+    pidx = torch.tensor([3584, 0, 1024, 3000, 7000, 512, 2048, 4096],
+                        dtype=torch.int32, device="cuda")
+    lens = torch.full((b,), c, dtype=torch.int32, device="cuda")
+    g = H // hkv
+    full_d = ops["consmax_decode"](q, k, v, idx, beta, gamma)
+    full_p = ops["consmax_prefill"](qc, k, v, pidx, lens, beta, gamma)
+    for j in range(hkv):
+        hs = slice(j * g, (j + 1) * g)
+        ks = slice(j, j + 1)
+        part_d = ops["consmax_decode"](
+            q[:, :, hs].contiguous(), k[:, :, ks].contiguous(),
+            v[:, :, ks].contiguous(), idx, beta[hs].contiguous(),
+            gamma[hs].contiguous())
+        part_p = ops["consmax_prefill"](
+            qc[:, :, hs].contiguous(), k[:, :, ks].contiguous(),
+            v[:, :, ks].contiguous(), pidx, lens, beta[hs].contiguous(),
+            gamma[hs].contiguous())
+        _same_bits(f"consmax_decode head slice {j}", part_d, full_d[:, :, hs],
+                   "the 12-head launch")
+        _same_bits(f"consmax_prefill head slice {j}", part_p,
+                   full_p[:, :, hs], "the 12-head launch")
+    # pages: slot s's logical page j on page s * 32 + j of a 256 + 256 pool;
+    # the pool split in two seq blocks of 16 positions each (block map)
+    npg, pps = L // ps, (b * (L // ps)) // 2
+    table = torch.full((b, npg), -1, dtype=torch.int32, device="cuda")
+    kp = torch.zeros((2 * pps + 1, ps, hkv, dk), dtype=k.dtype,
+                     device="cuda")
+    vp = torch.zeros_like(kp)
+    nxt = [0, pps]
+    for s in range(b):
+        for j in range(npg):
+            d = min(j // (npg // 2), 1)
+            page = nxt[d]
+            nxt[d] += 1
+            table[s, j] = page
+            kp[page] = k[s, j * ps:(j + 1) * ps]
+            vp[page] = v[s, j * ps:(j + 1) * ps]
+    one_d = ops["consmax_decode_paged"](q, kp, vp, table, idx + 1, beta,
+                                        gamma)
+    one_p = ops["consmax_prefill_paged"](qc, kp, vp, table, pidx, lens, beta,
+                                         gamma)
+    sum_d = sum_p = 0
+    for d in range(2):
+        lt = CL.localize_page_table(table, d, pps)
+        kl = torch.cat([kp[d * pps:(d + 1) * pps], kp[-1:]])
+        vl = torch.cat([vp[d * pps:(d + 1) * pps], vp[-1:]])
+        sum_d = sum_d + ops["consmax_decode_paged"](
+            q, kl, vl, lt, idx + 1, beta, gamma).float()
+        sum_p = sum_p + ops["consmax_prefill_paged"](
+            qc, kl, vl, lt, pidx, lens, beta, gamma).float()
+    within = [s for s in range(b) if int(idx[s]) < L // 2]
+    pwithin = [s for s in range(b) if int(pidx[s]) + c <= L // 2]
+    _same_bits("consmax_decode_paged seq-sharded sum (slots within one "
+               "block)", sum_d.to(one_d.dtype)[within], one_d[within],
+               "one pool")
+    _same_bits("consmax_prefill_paged seq-sharded sum (slots within one "
+               "block)", sum_p.to(one_p.dtype)[pwithin], one_p[pwithin],
+               "one pool")
+    spill_d = float((sum_d.to(one_d.dtype).float() - one_d.float()).abs()
+                    .max())
+    _log(f"[mesh] 17a kernels: decode / prefill launches of a 6-head, 1 KV "
+         f"head slice == the 12-head launch's bits for those heads; the "
+         f"paged kernels summed over two seq blocks == one pool's bits for "
+         f"the {len(within)} decode / {len(pwithin)} prefill slots within "
+         f"one block (incl. a slot filling the whole block, fill 4096); "
+         f"slots that spill: max |diff| {spill_d:.3e} (fp32 sums regroup)")
+
+
+def mesh_phase(smi):
+    """17: the device mesh on the card (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.configs.base import ServeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.weights import init_params
+
+    t17 = time.perf_counter()
+    _head_and_hole_checks()
+    cfg = get_config(MESH_ARCH)
+    prompts, sampling, spill = _mesh_traffic(cfg.vocab_size)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        MESH_SEED), device="cuda")
+    single = {}
+    for name, sc in (("contiguous", MESH_CONTIG), ("paged", MESH_PAGED)):
+        scfg = ServeConfig(**sc, score_norm=cfg.score_norm)
+        eng, single[name] = _mesh_serve(
+            cfg, scfg, model, prompts, sampling,
+            spill if name == "paged" else None)
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    tcfg_model = get_config("gpt2-consmax", compute_dtype="float32")
+    tr = Trainer(tcfg_model, TrainConfig(**MESH_TRAIN), device="cuda",
+                 model=init_params(tcfg_model, torch.Generator(
+                     device="cuda").manual_seed(0), device="cuda"),
+                 log_every=10 ** 9)
+    one_card = [h["loss"] for h in tr.run(MESH_TRAIN_STEPS)]
+    del tr
+    torch.cuda.empty_cache()
+    _log(f"[mesh] 17 single-device baselines {time.perf_counter() - t17:.1f}"
+         f" s; ranks below share this one card ({smi}) over gloo: every "
+         "tensor and kernel stays on the card, the collectives' transport "
+         "goes through gloo, so the times below measure correctness and "
+         "collective counts, not multi-card speed")
+    base = dict(backend="gloo", own_cards=False, prompts=prompts,
+                sampling=sampling)
+    n_chunks = sum(-(-n // MESH_CONTIG["prefill_chunk"]) for n in MESH_LENS)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        w2 = _run_world(tmp, "tp2", 2, tp=2, ns=1, serve=MESH_CONTIG,
+                        cp=True, train=True, **base)
+        _log(f"[mesh] 17 world of 2 ranks (tp 2, contiguous; cp over 2; "
+             f"FSDP training) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        w4 = _run_world(tmp, "tp2xseq2", 4, tp=2, ns=2, serve=MESH_PAGED,
+                        cp=True, spill=spill, **base)
+        _log(f"[mesh] 17 world of 4 ranks (tp 2 x seq 2, paged; cp over 4) "
+             f"{time.perf_counter() - t0:.1f} s")
+        for label, ranks, name, kernels, tp, ns in (
+                ("17a tp 2, contiguous", w2, "contiguous",
+                 ("consmax_decode", "consmax_prefill"), 2, 1),
+                ("17a tp 2 x seq 2, paged", w4, "paged",
+                 ("consmax_decode_paged", "consmax_prefill_paged"), 2, 2)):
+            _mesh_gates(label, ranks, single[name], kernels, tp, ns, cfg,
+                        n_chunks)
+        for r in w4:
+            same = r["serve"]["spill"] == single["paged"]["spill"]
+            _log(f"[mesh] 17a spill: a {MESH_SPILL}-token prompt + "
+                 f"{MESH_NEW} new (18 pages: 16 on seq rank 0, 2 on seq "
+                 f"rank 1) served on rank {r['rank']}: {r['serve']['spill']}"
+                 f" (== single device: {same}; not gated)")
+        for world, ranks in ((2, w2), (4, w4)):
+            for r in ranks:
+                cp = r["cp"]
+                _log(f"[mesh] 17b context-parallel decode, {world} ranks, "
+                     f"rank {r['rank']} (b 8, L 8192, 12 / 2 heads, dk 128, "
+                     f"fp32): ConSmax err {cp['consmax']['err']:.2e} "
+                     f"{cp['consmax']['counts']}, {cp['consmax']['ms']:.3f} "
+                     f"ms; softmax err {cp['softmax']['err']:.2e} "
+                     f"{cp['softmax']['counts']}, {cp['softmax']['ms']:.3f} "
+                     f"ms (ranks sharing one card)")
+                n_cs = sum(c["calls"] for c in cp["consmax"]["counts"]
+                           .values())
+                n_sm = sum(c["calls"] for c in cp["softmax"]["counts"]
+                           .values())
+                if (n_cs != 1 or n_sm != 3 or cp["consmax"]["err"] > MESH_CP_TOL
+                        or cp["softmax"]["err"] > MESH_CP_TOL):
+                    raise AssertionError(f"17b: rank {r['rank']} of {world}: "
+                                         f"{cp}")
+        for r in w2:
+            got = r["train"]["loss"]
+            rel = float(np.max(np.abs(np.array(got) / np.array(one_card)
+                                      - 1)))
+            _log(f"[mesh] 17c FSDP training, gpt2-consmax (6 L, d 384, fp32,"
+                 f" b 8 x s 256), rank {r['rank']} of 2: losses {got} vs one "
+                 f"card {one_card}: max rel diff {rel:.2e} (tol "
+                 f"{MESH_TRAIN_RTOL}); ms/step {np.round(r['train']['ms'], 1)}"
+                 f" (ranks sharing one card)")
+            if rel > MESH_TRAIN_RTOL:
+                raise AssertionError("17c: 2-rank FSDP training != one card")
+        if torch.cuda.device_count() >= 2:
+            t0 = time.perf_counter()
+            wn = _run_world(tmp, "nccl", 2, tp=2, ns=1, serve=MESH_CONTIG,
+                            **dict(base, backend="nccl", own_cards=True))
+            _mesh_gates("17d tp 2 over NCCL, one card per rank", wn,
+                        single["contiguous"],
+                        ("consmax_decode", "consmax_prefill"), 2, 1, cfg,
+                        n_chunks)
+            _log(f"[mesh] 17d {time.perf_counter() - t0:.1f} s")
+        else:
+            _log(f"[mesh] 17d NCCL across cards: this machine has "
+                 f"{torch.cuda.device_count()} card; it waits for a machine "
+                 "with two (not run, not a failure)")
+    _log(f"[mesh] phase 17 {time.perf_counter() - t17:.1f} s")
+
+
+def _mesh_gates(label, ranks, single, kernels, tp, ns, cfg, n_chunks):
+    """Every rank: tokens == the single-device engine's, each of its
+    kernels launched (prefill once per chunk and layer), one signature per
+    step, the collectives' bytes == the reckoning from the shapes. Prints
+    memory, collectives per step and wall ms per iteration."""
+    H, dk, L = cfg.n_heads, cfg.head_dim_, cfg.n_layers
+    for r in ranks:
+        s = r["serve"]
+        n_dec = s["steps"] - n_chunks
+        rows = n_chunks * MESH_CONTIG["prefill_chunk"] + n_dec * (
+            MESH_PAGED["max_slots"] if ns > 1 else MESH_CONTIG["max_slots"])
+        want = {"all_gather": (L * s["steps"] if tp > 1 else 0,
+                               L * rows * H * dk * 2 if tp > 1 else 0),
+                "all_reduce": (L * s["steps"] if ns > 1 else 0,
+                               L * rows * (H // tp) * dk * 4 if ns > 1
+                               else 0),
+                "all_to_all": (0, 0)}
+        got = {k: (c["calls"], c["bytes"]) for k, c in
+               s["collectives"].items()}
+        ok = (s["tokens"] == single["tokens"] and s["signatures"] == [1, 1]
+              and got == want
+              and all(s["launches"][k] > 0 for k in kernels)
+              and s["launches"][kernels[1]] == n_chunks * L)
+        rk = r["reckon"]
+        _log(f"[mesh] {label}, rank {r['rank']}: tokens == single device "
+             f"{s['tokens'] == single['tokens']}; launches "
+             f"{ {k: s['launches'][k] for k in kernels} }; signatures "
+             f"{s['signatures']}; per model step ({s['steps']} steps: "
+             f"{n_chunks} prefill chunks of {MESH_CONTIG['prefill_chunk']}, "
+             f"{n_dec} decode) "
+             + ", ".join(f"{k} {c / s['steps']:.0f} calls / "
+                         f"{b / s['steps'] / 2**20:.3f} MiB" for k, (c, b)
+                         in got.items() if c)
+             + f" (reckoning: all-gather rows x {H} x {dk} x 2 B, seq "
+               f"all-reduce rows x {H // tp} x {dk} x 4 B, per layer: "
+               f"{'equal' if got == want else want}); peak "
+             f"{r['peak'] / 2**30:.2f} GiB (reckoning: full fp32 model "
+             f"{rk['full'] / 2**30:.2f} at construction + its head slice "
+             f"{rk['local'] / 2**30:.2f} + bf16 copies <= "
+             f"{rk['bf16'] / 2**30:.2f} + local KV {rk['kv'] / 2**30:.3f}); "
+             f"{1e3 * s['wall'] / s['iters']:.1f} ms / iteration vs "
+             f"{1e3 * single['wall'] / single['iters']:.1f} single device "
+             f"(ranks sharing one card) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rank {r['rank']} failed its gates")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3365,6 +3800,9 @@ def main():
     _log(f"[smoke] 16e {time.perf_counter() - t0:.1f} s")
     _log(f"[moe] phase 16 {time.perf_counter() - t16:.1f} s")
 
+    torch.cuda.empty_cache()
+    mesh_phase(smi)
+
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
     ref_dec = "src/repro/kernels/consmax_decode/kernel.py"
@@ -3403,5 +3841,7 @@ if __name__ == "__main__":
         resume_child()
     elif sys.argv[1:] == ["--train-moe"]:
         moe_train_child()
+    elif sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_child(sys.argv[2], int(sys.argv[3]))
     else:
         main()

@@ -12,6 +12,14 @@ passes the reference's tree (``train.step.state_tree``: parameters and
 moments restacked by ``weights.to_jax_params``). ``restore`` returns
 nested dicts of numpy arrays.
 
+Elastic restore: the files hold whole arrays, whatever the number of
+ranks that trained. Under a data-parallel mesh ``train.step.state_tree``
+gathers the sharded state whole on every rank and rank 0 saves it;
+``restore`` returns the whole tree on every rank, and
+``train.step.load_state_tree`` takes each rank's shard of it. So a
+checkpoint saved on 2 ranks restores on 1 and the reverse, and either
+package restores the other's.
+
 The manifest comes from ``packb`` below, a msgpack writer for the types the
 manifest holds (maps, strings, non-negative integers, lists); its bytes
 equal ``msgpack.packb``'s, and the port does not depend on msgpack.

@@ -4,11 +4,12 @@ the reference's ``configs/base.py``.
 Field names, defaults and ``ServeConfig.__post_init__`` checks match the
 reference one for one, so a config built here and one built there from the
 same arguments describe the same run. ``pdtype``/``cdtype`` return
-``torch.dtype``s. The serving fields the port does not read yet (the static
-session's, paged KV's, the Pallas prefill grid's) stay for that parity; the
-port's engine refuses a config that sets one away from its default
-(``serve/engine.py``). ``TrainConfig.fsdp`` has no effect until mesh
-training is ported.
+``torch.dtype``s. The serving fields the port does not read (the batch
+knob, the KV sharding of the reference's dry run, the Pallas prefill
+grid's block) stay for that parity; the port's engine refuses a config
+that sets one away from its default (``serve/engine.py``).
+``TrainConfig.fsdp`` picks FSDP2 sharding of the parameters or replicated
+parameters under a training mesh (``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -135,7 +136,8 @@ class TrainConfig:
     b2: float = 0.95
     remat: str = "full"              # "none" | "full" | "dots"
     microbatch: int = 0              # 0 = no gradient accumulation
-    fsdp: bool = True                # kept for parity; no mesh training yet
+    fsdp: bool = True                # under a mesh: shard params (FSDP2) or
+                                     # replicate them (grads all-reduced)
     grad_compression: str = "none"   # "none" | "int8_ef" (error feedback)
     q_chunk: int = 2048              # blockwise-attention tile sizes
     kv_chunk: int = 1024
@@ -175,7 +177,7 @@ class ServeConfig:
     num_pages: int = 0
     prefix_cache: bool = True
     prefix_evict: str = "lru"
-    # --- device mesh (not in the port yet: the engine raises) ---
+    # --- device mesh (ContinuousBatchingEngine, distributed/serve_mesh) ---
     tp: int = 1
     seq_shards: int = 1
 
@@ -253,6 +255,12 @@ class ServeConfig:
                 raise ValueError(
                     f"ServeConfig: seq_shards ({self.seq_shards}) must "
                     f"divide num_pages ({self.num_pages})")
+
+    @property
+    def mesh_shape(self) -> tuple:
+        """(tp, seq_shards): the ("model", "seq") serving mesh; (1, 1) is
+        one device."""
+        return (self.tp, self.seq_shards)
 
     @property
     def max_pages_per_slot(self) -> int:

@@ -425,7 +425,7 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                     kv_chunk: int = 1024, decode_kernel: bool = False,
                     decode_kv_block: int = 256, prefill_kernel: bool = False,
                     fill_bound: bool = True, prefill_append=None,
-                    decode_active=None, page_table=None):
+                    decode_active=None, page_table=None, attn_mesh=None):
     """Self-attention over x: (b, s, d), with or without a per-slot KV
     cache.
 
@@ -455,6 +455,12 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     row whose output is discarded.
     cond: (b, n_cond, d) — cross-attention over this conditioning stream
     (``_cross_attention``); ``cache`` is then None or the block's dummy.
+    attn_mesh: a serving mesh's ``distributed.comm.AttentionMesh`` — ``p``
+    holds this rank's head slice (its o-projection all heads), the cache
+    its heads and, sequence-sharded, its pages; the per-rank output goes
+    through ``attn_mesh.combine`` (an fp32 all-reduce over ``seq``, an
+    all-gather of the heads over ``model``) before the full o-projection,
+    as at the reference's ``psum_axes``.
     Returns (out, new_cache).
     """
     if cond is not None:
@@ -507,6 +513,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
             _quantized_write(fill, cache, k, v)
             new_cache = dict(cache, index=torch.full(
                 (b,), s, dtype=torch.int32, device=x.device))
+        if attn_mesh is not None:
+            out = attn_mesh.combine(out, cdt)
         return p.o(out, cdt), new_cache
 
     k_cache, v_cache = cache["k"], cache["v"]
@@ -586,5 +594,7 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                                    **scales)
         step = 1 if decode_active is None else decode_active.to(idx.dtype)
         new_index = idx + step
+    if attn_mesh is not None:
+        out = attn_mesh.combine(out, cdt)
     out = p.o(out, cdt)
     return out, dict(cache, index=new_index)

@@ -9,7 +9,9 @@ the GQA folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``),
 the fill bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``)
 and the page gather of the paged kernels' plain versions
 (``gather_pages``), and the quantized KV cache contract
-(``quantize_kv`` / ``dequantize_kv`` / ``dequant_block``). The CUDA sources
+(``quantize_kv`` / ``dequantize_kv`` / ``dequant_block``), and the page
+ownership of a sequence-sharded pool (``page_shard`` /
+``position_shard`` / ``localize_page_table``). The CUDA sources
 under ``kernels/*/csrc`` restate ``kv_mask``, ``shard_live`` (for the
 decode step, as a run of live shards), ``consmax_weights`` and
 ``dequant_block`` in device code; the tests hold the
@@ -133,6 +135,41 @@ def consmax_weights(s, beta, gamma, merged: bool):
     if merged:
         return torch.exp(-beta) / gamma * torch.exp(s)
     return torch.exp(s - beta) / gamma
+
+
+# ------------------------------------------------ sequence-sharded pages ----
+# Under ServeConfig.seq_shards = ns > 1 the page pool is split into ns
+# contiguous per-rank blocks: seq rank d owns physical pages
+# [d * P/ns, (d+1) * P/ns). The host allocator (serve/scheduler.PagePool)
+# backs slot page position j with a page of rank j // ceil(max_pages/ns),
+# the engine keeps ONE global page table, and each rank localizes it in the
+# step: its own entries become indices into its pool slice, every other
+# entry becomes -1, the unmapped page the kernels read as zeros.
+
+
+def page_shard(page: int, pages_per_shard: int) -> int:
+    """Owning seq rank of physical page ``page`` (host-side allocator
+    math)."""
+    return page // pages_per_shard
+
+
+def position_shard(pos: int, position_block: int, seq_shards: int) -> int:
+    """Seq rank that must back slot page position ``pos``: the block map,
+    ``position_block = ceil(max_pages_per_slot / seq_shards)`` positions
+    per rank. A request within one block lives on one rank (every other
+    rank adds exactly +0.0 to its attention output); a longer one spills
+    block by block."""
+    return min(pos // position_block, seq_shards - 1)
+
+
+def localize_page_table(table, shard, pages_per_shard: int):
+    """The global page table -> seq rank ``shard``'s view: owned entries
+    become indices into its pool slice, foreign (and -1) entries become -1.
+    The identity when one rank owns the pool. ``table``: an int32 tensor,
+    on the device of the step that reads it."""
+    owned = (table >= 0) & (table // pages_per_shard == shard)
+    return torch.where(owned, table - shard * pages_per_shard,
+                       -1).to(table.dtype)
 
 
 KV_DTYPES = {

@@ -10,6 +10,9 @@ default.
         --engine continuous --paged --page-size 4 --prefill-chunk 8
     PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \
         --kv-dtype int8 --decode-kernel --prefill-kernel
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --engine continuous --tp 2 --seq-shards 2 --paged --kv-heads 4 \
+        --device cpu --dist-backend gloo
 
 Serves the smoke config of ``--arch`` (``--kv-heads`` overrides its KV
 heads) on random weights (``chip_smoke.py`` serves the published widths):
@@ -35,6 +38,15 @@ prefix cache on (a stats line reports its hits; the CLI's prompts are
 random, so they rarely share a prefix). ``--kv-dtype int8`` / ``fp8_e4m3``
 stores the KV cache as codes with one fp32 scale per row and KV head (a
 stats line reports the cache's bytes).
+
+``--tp`` / ``--seq-shards`` serve the continuous engine on a ``(tp,
+seq_shards)`` mesh (``distributed/serve_mesh``), one process per rank
+under ``torchrun --nproc-per-node tp*seq_shards``, over the process-group
+backend ``--dist-backend`` names (required: ``nccl`` for ranks with a card
+each, ``gloo`` on the CPU or for ranks that share one card). A rank on
+cuda takes card ``LOCAL_RANK`` modulo the cards there are. Every rank
+serves the same requests and samples the same tokens; rank 0 prints the
+report, and a line of the collectives per model step.
 """
 from __future__ import annotations
 
@@ -111,7 +123,21 @@ def main(argv=None):
                     help="reclaim order of refcount-0 cached pages when the "
                          "free list runs dry: lru = release order, fifo = "
                          "registration order")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: attention heads split "
+                         "over the mesh's 'model' axis")
+    ap.add_argument("--seq-shards", type=int, default=1,
+                    help="sequence-sharded ranks: the page pool split over "
+                         "the mesh's 'seq' axis (needs --paged)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    help="process-group backend of a mesh run (required "
+                         "when --tp * --seq-shards > 1)")
     args = ap.parse_args(argv)
+    mesh = args.tp * args.seq_shards > 1
+    if mesh and (args.engine != "continuous" or not args.dist_backend):
+        raise SystemExit("--tp / --seq-shards need --engine continuous and "
+                         "an explicit --dist-backend, under torchrun "
+                         "--nproc-per-node tp*seq_shards")
     if args.paged and args.engine != "continuous":
         raise SystemExit("--paged needs --engine continuous (the static "
                          "session is the contiguous baseline)")
@@ -129,6 +155,16 @@ def main(argv=None):
     from repro_torch.weights import init_params
 
     device = resolve_device(args.device)
+    rank = 0
+    if mesh:
+        import os
+
+        from repro_torch.launch.mesh import init_distributed
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                                  % torch.cuda.device_count())
+        init_distributed(args.dist_backend, device=device)
+        rank = torch.distributed.get_rank()
     cfg = get_config(args.arch, smoke=True,
                      **({"n_kv_heads": args.kv_heads} if args.kv_heads
                         else {}))
@@ -177,7 +213,8 @@ def main(argv=None):
     scfg = ServeConfig(max_seq=2 * (args.prompt_len + args.steps) + 8,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
-                       max_slots=args.max_slots, **kernels, **paged)
+                       max_slots=args.max_slots, tp=args.tp,
+                       seq_shards=args.seq_shards, **kernels, **paged)
     eng = ContinuousBatchingEngine(cfg, scfg, params, device=device)
     uids = []
     for i in range(args.requests):
@@ -192,6 +229,9 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
+    if rank:
+        torch.distributed.destroy_process_group()
+        return
     n = sum(len(v) for v in results.values())
     print(f"[serve/continuous] {cfg.arch_id} (smoke) on {where}: "
           f"{len(results)} requests, {n} tokens in {dt:.2f}s "
@@ -217,8 +257,17 @@ def main(argv=None):
                   f"{eng.pool.prefix_hit_rows} prompt rows served from "
                   f"cached pages, {eng.pool.cow_copies} cow copies, "
                   f"{eng.pool.evictions} evictions")
+    if mesh:
+        per = {k: (c["calls"] / eng.model_steps, c["bytes"] / eng.model_steps)
+               for k, c in eng.collectives.items() if c["calls"]}
+        print(f"[serve/continuous] mesh tp={args.tp} x seq_shards="
+              f"{args.seq_shards} over {args.dist_backend}: per model step "
+              + ", ".join(f"{k} {c:.1f} calls / {b:.0f} bytes"
+                          for k, (c, b) in per.items()))
     if uids:
         print("[serve/continuous] sample:", results[uids[0]])
+    if mesh:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ sandwich post-norms) — the reference's ``models/blocks.py``. Block kinds:
 * any attention kind with ``cfg.cross_attn``: a cross-attention sub-block
   over the conditioning stream (musicgen).
 
-The reference takes the expert-parallel all-to-all MoE under a mesh only;
-on one device it runs ``moe_apply``, as here.
+The MoE FFN runs ``moe_apply``, or the expert-parallel all-to-all
+``moe_apply_ep`` where an expert-parallel context asks for it and its
+group size divides the expert count (``_moe_apply``, as the reference's).
 """
 from __future__ import annotations
 
@@ -21,12 +22,24 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as ATT
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
+from repro_torch.models import moe_ep as MOE_EP
 from repro_torch.models import xlstm as XL
 from repro_torch.nn import layers as L
 
 ATTN_KINDS = ("attn", "attn_moe", "global", "local")
+
+
+def _moe_apply(p, h, cfg: ModelConfig):
+    """The expert-parallel all-to-all MoE when the expert-parallel context
+    asks for it and its group size divides the expert count; else
+    ``moe_apply``."""
+    comm = SH.ep_info()
+    if comm is not None and cfg.moe.n_experts % comm.size == 0:
+        return MOE_EP.moe_apply_ep(p, h, cfg, comm)
+    return MOE.moe_apply(p, h, cfg)
 
 
 class MLP(nn.Module):
@@ -108,18 +121,28 @@ class Block(nn.Module):
         for m in self.children():
             m.reset_parameters(generator)
 
+    def forward(self, x, cfg: ModelConfig, **kw):
+        """``block_apply`` on this block. The whole-sequence forward calls
+        blocks through here, so hooks on the module (FSDP2's unshard and
+        reshard) run around it."""
+        return block_apply(self, x, cfg, **kw)
+
 
 def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
                 cache=None, cond=None, merged=False, q_chunk=2048,
                 kv_chunk=1024, decode_kernel=False, decode_kv_block=256,
                 prefill_kernel=False, fill_bound=True, prefill_append=None,
-                decode_active=None, page_table=None):
+                decode_active=None, page_table=None, attn_mesh=None):
     """Returns (x, new_cache, aux): new_cache is None without a cache (the
     whole-sequence forward); aux is the MoE load-balance loss (0-d fp32),
     None for a block without experts (no device op for a zero). ``cond``
     (b, n_cond, d): the conditioning stream of a cross-attention config.
-    ``page_table``: (b, npg) int32 for paged caches (see
-    ``core.attention``)."""
+    ``page_table``: (b, npg) int32 for paged caches and ``attn_mesh`` the
+    serving mesh's attention handle (see ``core.attention``); the MoE FFN
+    stays replicated under it, as in the reference. Under an
+    expert-parallel context (``distributed/sharding.ep_info``) whose group
+    size divides ``n_experts``, the MoE FFN runs through ``models/moe_ep``.
+    """
     aux = None
     cdt = cfg.cdtype()
     kind = p.kind
@@ -134,7 +157,7 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
             decode_kernel=decode_kernel, decode_kv_block=decode_kv_block,
             prefill_kernel=prefill_kernel, fill_bound=fill_bound,
             prefill_append=prefill_append, decode_active=decode_active,
-            page_table=page_table)
+            page_table=page_table, attn_mesh=attn_mesh)
         if cfg.post_block_norm:
             h = p.attn_post_norm(h)
         x = x + h
@@ -148,7 +171,7 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
             x = x + h
         h = p.mlp_norm(x)
         if kind == "attn_moe":
-            h, aux = MOE.moe_apply(p.moe, h, cfg)
+            h, aux = _moe_apply(p.moe, h, cfg)
         else:
             h = p.mlp(h, cdt)
         if cfg.post_block_norm:
@@ -162,7 +185,7 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
                                else None)
         x = x + h
         if kind == "mamba_moe":
-            h, aux = MOE.moe_apply(p.moe, p.moe_norm(x), cfg)
+            h, aux = _moe_apply(p.moe, p.moe_norm(x), cfg)
             x = x + h
         if cache is not None:
             new_cache = dict(cache, mamba=mc)

@@ -60,6 +60,11 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def forward(self, cfg: ModelConfig, **kw):
+        """``lm_apply`` on this model; the trainer calls the model through
+        here, so hooks on the module (FSDP2's) run around it."""
+        return lm_apply(self, cfg, **kw)
+
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -101,7 +106,7 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
              remat="none", q_chunk=2048, kv_chunk=1024, logits_index=None,
              decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
              fill_bound=True, prefill_append=None, decode_active=None,
-             page_table=None, logits_epilogue=None):
+             page_table=None, logits_epilogue=None, attn_mesh=None):
     """Forward pass over a (b, s) token batch (``tokens``) or, for the stub
     vlm / audio frontends, (b, s, d) precomputed ``embeds``; ``cond`` (b,
     n_cond, d) is the conditioning stream of a cross-attention config.
@@ -123,6 +128,9 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
     page_table: (b, npg) int32 — paged caches (``init_paged_caches``): each
     slot's logical rows live on the pool pages its table row maps; all
     layers fill in lockstep, so one table serves the whole stack.
+    attn_mesh: the serving mesh's ``distributed.comm.AttentionMesh``,
+    threaded to every attention block (the reference's ``psum_axes``):
+    ``p`` is then a rank's head slice (``distributed/serve_mesh``).
     logits_index: int or (b,) — unembed only that row (per batch row).
     logits_epilogue: ``(logits, new_caches) -> out`` returned in place of
     the logits (the serving sampling hook; it reads the post-step index).
@@ -148,8 +156,8 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
         def super_step(x, sup):
             a = []
             for name in sup:
-                x, _, ab = B.block_apply(
-                    sup[name], x, cfg, positions=positions, cond=cond,
+                x, _, ab = sup[name](
+                    x, cfg, positions=positions, cond=cond,
                     merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk)
                 a.append(ab)
             return x, _sum(a)
@@ -173,7 +181,8 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
                     decode_kv_block=decode_kv_block,
                     prefill_kernel=prefill_kernel, fill_bound=fill_bound,
                     prefill_append=prefill_append,
-                    decode_active=decode_active, page_table=page_table)
+                    decode_active=decode_active, page_table=page_table,
+                    attn_mesh=attn_mesh)
                 a.append(ab)
             new_caches.append(co)
             auxes.append(_sum(a))

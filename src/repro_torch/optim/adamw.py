@@ -8,7 +8,10 @@ here ``step = (m / bc1) / (sqrt(v / bc2) + 1e-8) + wd * p`` and
 
 Parameters, gradients and moments are dicts keyed by the port's parameter
 names (``LM.named_parameters()``); the update writes parameters and
-moments in place.
+moments in place. Under FSDP (``train/step.py`` with a mesh) parameters
+and moments are DTensors holding this rank's shard: the update runs on the
+local shards, elementwise, and the one cross-rank quantity, the global
+gradient norm, sums its squares over ``comm``'s group.
 
 The decay mask follows the reference's *behaviour*, not its docstring. The
 reference decays a leaf when its ``ndim >= 2``, and its block leaves are
@@ -23,9 +26,16 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.weights import ref_leaf
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (under ``no_grad``: the shard's own
+    storage, so in-place writes reach the DTensor), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def warmup_cosine(tcfg: TrainConfig) -> Callable:
@@ -49,24 +59,33 @@ def decayed(name: str, p: torch.Tensor) -> bool:
 
 
 def adam_init(params: dict) -> dict:
+    """fp32 zero moments shaped (and, for DTensors, sharded) like each
+    parameter."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    device = next(iter(params.values())).device
+        return torch.zeros_like(p, dtype=torch.float32).detach()
+    device = local(next(iter(params.values()))).device
     return {"m": {k: zeros32(p) for k, p in params.items()},
             "v": {k: zeros32(p) for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+def global_norm(grads: dict, comm=None) -> torch.Tensor:
+    """The L2 norm of all gradients; with ``comm``, of the shards every
+    rank of its group holds."""
+    sq = sum(local(g).float().square().sum() for g in grads.values())
+    if comm is not None:
+        sq = comm.all_reduce(sq.reshape(1))[0]
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
 def adam_update(grads: dict, opt: dict, params: dict, *, lr,
-                tcfg: TrainConfig) -> dict:
+                tcfg: TrainConfig, comm=None) -> dict:
     """One AdamW step in place on ``params`` and ``opt``; ``lr`` a 0-d
-    fp32 tensor (``warmup_cosine``). Returns ``{"grad_norm": gnorm}``."""
-    gnorm = global_norm(grads)
+    fp32 tensor (``warmup_cosine``). ``comm``: the group whose ranks hold
+    the other shards of sharded (FSDP) state. Returns ``{"grad_norm":
+    gnorm}``."""
+    gnorm = global_norm(grads, comm)
     scale = (torch.clamp(tcfg.grad_clip / gnorm.clamp(min=1e-9), max=1.0)
              if tcfg.grad_clip > 0 else torch.ones_like(gnorm))
     opt["count"] += 1
@@ -75,9 +94,10 @@ def adam_update(grads: dict, opt: dict, params: dict, *, lr,
     bc1 = 1 - b1 ** count
     bc2 = 1 - b2 ** count
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m = opt["m"][name].mul_(b1).add_((1 - b1) * g)
-        v = opt["v"][name].mul_(b2).add_((1 - b2) * g * g)
+        g = local(grads[name]).float() * scale
+        p = local(p)
+        m = local(opt["m"][name]).mul_(b1).add_((1 - b1) * g)
+        v = local(opt["v"][name]).mul_(b2).add_((1 - b2) * g * g)
         step = (m / bc1) / (torch.sqrt(v / bc2) + 1e-8)
         if tcfg.weight_decay > 0 and decayed(name, p):
             step = step + tcfg.weight_decay * p.float()

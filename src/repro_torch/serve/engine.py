@@ -71,9 +71,19 @@ token frontend; otherwise on the host, through the same code. As in the
 reference, it generates from token frontends only and refuses ragged
 prompts for archs with recurrent state.
 
-Not ported yet (they raise): the tensor/sequence mesh, any ``ServeConfig``
-field in ``_UNREAD`` set away from its default, and the paged fields in
-``_PAGED`` set without ``paged_kv``.
+Device mesh (``ServeConfig.tp`` / ``seq_shards``, ``distributed/
+serve_mesh``): ``ContinuousBatchingEngine`` serves on its rank of a
+``(tp, seq_shards)`` mesh, one process per rank, every rank running the
+same host loop. It keeps its head slice of the parameters, a KV cache of
+its KV heads (paged: a pool of its ``pages_per_shard`` pages), and
+localizes the one global page table in each step; each attention block
+ends in the mesh's combine (``distributed.comm.AttentionMesh``). Tokens
+equal single-device serving's on every rank for requests within one seq
+block. ``ServeSession`` refuses a mesh, as the reference's builds none.
+
+Not ported (they raise): any ``ServeConfig`` field in ``_UNREAD`` set away
+from its default, and the paged fields in ``_PAGED`` set without
+``paged_kv``.
 """
 from __future__ import annotations
 
@@ -85,6 +95,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.distributed import comm as COMM
+from repro_torch.distributed import serve_mesh as SM
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.models import transformer as T
 from repro_torch.models.blocks import ATTN_KINDS
@@ -147,12 +159,6 @@ def _refuse_unread(scfg: ServeConfig, refused, what: str):
             "paged_kv=True); leave them at their defaults")
 
 
-def _refuse_mesh(scfg: ServeConfig):
-    if scfg.tp > 1 or scfg.seq_shards > 1:
-        raise NotImplementedError("mesh serving (tp / seq_shards > 1) is "
-                                  "not ported yet")
-
-
 def _check_kernel_flags(cfg: ModelConfig, scfg: ServeConfig):
     for flag, name in ((scfg.decode_kernel, "decode_kernel"),
                        (scfg.prefill_kernel, "prefill_kernel")):
@@ -163,9 +169,14 @@ def _check_kernel_flags(cfg: ModelConfig, scfg: ServeConfig):
                 "serving kernels have no softmax/softermax path")
 
 
-def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
+def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
+                   attn_mesh=None):
     """Returns (init_caches, prefill_step, decode_step, prefill_ragged), the
-    reference's step functions on ``device`` (default cuda).
+    reference's step functions on ``device`` (default cuda). Under a
+    serving mesh, ``cfg`` is the rank's local config (``MeshPlan.
+    cfg_local``), the steps take the rank's parameters and caches, and
+    ``attn_mesh`` (``MeshPlan.attn``) is threaded to every attention block
+    (the reference's ``psum_axes``).
 
     With ``scfg.fused_sampling`` (the default) every step takes a trailing
     ``sampling`` bank (``serve/sampling.bank_init`` / ``bank_of``) and
@@ -225,7 +236,8 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
             params, cfg, caches=caches, merged=True,
             positions=torch.arange(s, device=src.device)[None, :],
             logits_index=s - 1, logits_epilogue=_epilogue(sampling),
-            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk, **kw)
+            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk,
+            attn_mesh=attn_mesh, **kw)
         return (out if fused else out[:, -1]), caches
 
     @torch.no_grad()
@@ -237,7 +249,7 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
             params, cfg, caches=caches, merged=True, prefill_append=lengths,
             logits_index=lengths - 1, prefill_kernel=scfg.prefill_kernel,
             fill_bound=scfg.fill_bound, logits_epilogue=_epilogue(sampling),
-            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk,
+            q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk, attn_mesh=attn_mesh,
             **_model_inputs(cfg, batch_inputs))
         return (out if fused else out[:, 0]), caches
 
@@ -258,7 +270,7 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
             decode_kv_block=scfg.decode_kv_block, fill_bound=scfg.fill_bound,
             decode_active=batch_inputs.get("active"),
             page_table=batch_inputs.get("page_table"),
-            logits_epilogue=_epilogue(sampling),
+            logits_epilogue=_epilogue(sampling), attn_mesh=attn_mesh,
             **_model_inputs(cfg, batch_inputs))
         if not fused:
             return out[:, -1], caches
@@ -289,7 +301,12 @@ class ServeSession:
                 "ServeSession is the static contiguous baseline; paged KV "
                 "serving lives in ContinuousBatchingEngine")
         _check_kernel_flags(cfg, scfg)
-        _refuse_mesh(scfg)
+        if scfg.tp > 1 or scfg.seq_shards > 1:
+            raise NotImplementedError(
+                "ServeSession serves on one device: the reference's session "
+                "never builds a mesh (only ContinuousBatchingEngine calls "
+                "plan_mesh); serve tp / seq_shards > 1 through "
+                "ContinuousBatchingEngine")
         _refuse_unread(scfg, _UNREAD + _PAGED, "ServeSession")
         self.device = resolve_device(device)
         if params.device != self.device:
@@ -400,7 +417,10 @@ class ContinuousBatchingEngine:
 
     ``params`` is the port's ``LM`` (``weights.init_params`` /
     ``weights.from_jax_params``); it must already live on ``device``
-    (default cuda)."""
+    (default cuda). With ``tp * seq_shards > 1`` the engine serves on this
+    process's rank of the serving mesh, built over the initialized process
+    group (``distributed/serve_mesh.plan_mesh``): ``params`` is the full
+    model, of which it keeps the head slice."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: T.LM, *,
                  default_sampling: SamplingParams | None = None,
@@ -412,7 +432,6 @@ class ContinuousBatchingEngine:
                 "continuous batching requires a pure-attention block pattern "
                 f"(got {cfg.block_pattern}, cross_attn={cfg.cross_attn})")
         _check_kernel_flags(cfg, scfg)
-        _refuse_mesh(scfg)
         _refuse_unread(scfg, _UNREAD + ("q_chunk",)
                        + (() if scfg.paged_kv else _PAGED), "engine")
         self.device = resolve_device(device)
@@ -420,26 +439,36 @@ class ContinuousBatchingEngine:
             raise ValueError(f"params live on {params.device}, engine on "
                              f"{self.device}: move them first")
         self.cfg, self.scfg = cfg, scfg
-        self.params = params
+        # the device-mesh plan: None at tp = seq_shards = 1 (the single-
+        # device code paths, bit for bit); otherwise this rank's head slice
+        # of the parameters, caches of its KV heads (and pages), and the
+        # combine at the end of every attention block
+        self.plan = plan = SM.plan_mesh(cfg, scfg, device=self.device)
+        self.mcfg = mcfg = cfg if plan is None else plan.cfg_local
+        self.params = params if plan is None else plan.shard_params(params)
+        self._attn_mesh = None if plan is None else plan.attn
         self.fused = scfg.fused_sampling
         self.default_sampling = default_sampling
         self.paged = scfg.paged_kv
         if self.paged:
             # one shared pool of num_pages x page_size rows serves every
             # slot; the PagePool maps (slot, logical page) -> pool page
+            # (per seq rank under sequence sharding: the device pool holds
+            # this rank's pages_per_shard of them)
             self.pool = PagePool(scfg.num_pages, scfg.page_size,
                                  scfg.max_slots, scfg.max_pages_per_slot,
                                  prefix_cache=scfg.prefix_cache,
-                                 evict=scfg.prefix_evict)
+                                 evict=scfg.prefix_evict,
+                                 seq_shards=scfg.seq_shards)
             self.scheduler = Scheduler(scfg.max_slots, scfg.max_seq,
                                        page_pool=self.pool)
             self.caches = T.init_paged_caches(
-                cfg, scfg.max_slots, scfg.num_pages, scfg.page_size,
-                scfg.kv_cache_dtype, device=self.device)
+                mcfg, scfg.max_slots, self.pool.pages_per_shard,
+                scfg.page_size, scfg.kv_cache_dtype, device=self.device)
         else:
             self.pool = None
             self.scheduler = Scheduler(scfg.max_slots, scfg.max_seq)
-            self.caches = T.init_caches(cfg, scfg.max_slots, scfg.max_seq,
+            self.caches = T.init_caches(mcfg, scfg.max_slots, scfg.max_seq,
                                         scfg.kv_cache_dtype,
                                         device=self.device)
         self._table_dev = None             # device page table, re-uploaded
@@ -455,19 +484,31 @@ class ContinuousBatchingEngine:
         self.bank = S.bank_init(scfg.max_slots, device=self.device)
         self._last = torch.zeros((scfg.max_slots,), dtype=torch.int32,
                                  device=self.device)
+        # model steps run (prefill chunks and decode steps) and the
+        # collectives they ran, by kind: {kind: {"calls", "bytes"}}
+        self.model_steps = 0
+        self.collectives = {kind: {"calls": 0, "bytes": 0}
+                            for kind in COMM.KINDS}
         # (shape, dtype) signatures seen entering each step
         self._prefill_shapes: set = set()
         self._decode_shapes: set = set()
 
     def _lm(self, tokens, caches, **kw):
         """One engine step through ``lm_apply``: (out, caches); the MoE aux
-        loss is not served."""
+        loss is not served. Counts the step and, under a mesh, adds the
+        collectives it ran to ``collectives``."""
         s = self.scfg
+        before = COMM.counts()
         out, caches, _ = T.lm_apply(
-            self.params, self.cfg, tokens=tokens, caches=caches, merged=True,
-            kv_chunk=s.kv_chunk, decode_kernel=s.decode_kernel,
+            self.params, self.mcfg, tokens=tokens, caches=caches,
+            merged=True, kv_chunk=s.kv_chunk, decode_kernel=s.decode_kernel,
             decode_kv_block=s.decode_kv_block,
-            prefill_kernel=s.prefill_kernel, fill_bound=s.fill_bound, **kw)
+            prefill_kernel=s.prefill_kernel, fill_bound=s.fill_bound,
+            attn_mesh=self._attn_mesh, **kw)
+        self.model_steps += 1
+        for kind, c in COMM.counts().items():
+            for key in c:
+                self.collectives[kind][key] += c[key] - before[kind][key]
         return out, caches
 
     # --------------------------------------------------------- frontend ----
@@ -582,12 +623,29 @@ class ContinuousBatchingEngine:
             self._table_version = self.pool.version
         return self._table_dev
 
+    def _step_table(self, rows: slice):
+        """The page table rows a step reads: the global table's, localized
+        on the device under sequence sharding (this rank's pages become
+        local pool indices, the others -1), as the reference does in its
+        step."""
+        table = self._device_table()[rows]
+        if self.scfg.seq_shards > 1:
+            table = CL.localize_page_table(table, self.plan.seq_rank,
+                                           self.pool.pages_per_shard)
+        return table
+
     def _write_window(self, slot: int, start: int, stop: int):
         """Back rows [0, stop) of a paged slot and copy-on-write every page
         of [start, stop) it still shares, before anything writes there."""
         _, copies = self.pool.ensure_writable(slot, start, stop)
+        pps = self.pool.pages_per_shard
         for src, dst in copies:
-            T.copy_kv_page(self.caches, src, dst)
+            # a copy stays on one seq rank (the replacement page backs the
+            # same slot position); the rank owning it copies in its pool
+            if self.pool.page_shard(src) == self.pool.page_shard(dst) == (
+                    self.plan.seq_rank if self.scfg.seq_shards > 1 else 0):
+                off = self.pool.page_shard(src) * pps
+                T.copy_kv_page(self.caches, src - off, dst - off)
 
     def _prefill_one(self, slot: int, start: int, n: int):
         prompt = self.scheduler.slots[slot].request.prompt
@@ -597,7 +655,7 @@ class ContinuousBatchingEngine:
             # a fully cached prompt's 1-token tail re-score lands in its
             # shared last page: that page is copied before this chunk writes
             self._write_window(slot, start, start + n)
-            kw["page_table"] = self._device_table()[slot:slot + 1]
+            kw["page_table"] = self._step_table(slice(slot, slot + 1))
         slot_caches = T.slot_view(self.caches, slot, paged=self.paged)
         tokens = torch.tensor([chunk], dtype=torch.int32, device=self.device)
         lengths = torch.tensor([n], dtype=torch.int32, device=self.device)
@@ -656,7 +714,7 @@ class ContinuousBatchingEngine:
                 rows = state.filled + len(state.generated)
                 self._write_window(slot, rows - 1, rows)
         if self.paged:
-            kw["page_table"] = self._device_table()
+            kw["page_table"] = self._step_table(slice(None))
         active = torch.from_numpy(active).to(self.device)
         index = T.cache_index(self.caches)
         if self.fused:

@@ -108,9 +108,16 @@ def test_unported_options_raise():
     paged = dict(paged_kv=True, page_size=4)
     for kw in (dict(paged, q_chunk=16), dict(prefill_kv_block=64),
                dict(q_chunk=16), dict(batch=4), dict(seq_shard_kv=True),
-               dict(page_size=4), dict(prefix_cache=False),
-               dict(paged, num_pages=24, seq_shards=2), dict(tp=2)):
+               dict(page_size=4), dict(prefix_cache=False)):
         with pytest.raises(NotImplementedError):
+            ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **kw), model,
+                                     device="cpu")
+    # the mesh is served (tests/test_torch_mesh.py); here, in one process,
+    # it refuses what plan_mesh refuses: too few ranks, and tp not dividing
+    # the smoke config's one KV head
+    for kw, match in ((dict(paged, num_pages=24, seq_shards=2), "ranks"),
+                      (dict(tp=2), "divide")):
+        with pytest.raises(ValueError, match=match):
             ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **kw), model,
                                      device="cpu")
     ContinuousBatchingEngine(cfg, ServeConfig(**SERVE, **paged,

@@ -491,9 +491,27 @@ def test_straggler_monitor():
 
 
 def test_trainer_refuses_a_mesh():
-    _, tc = _configs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TTrainer(tc, _tcfg()[1], mesh=object(), device="cpu")
+    """Mesh training is served (tests/test_torch_mesh_train.py); the trainer
+    refuses a mesh without exactly one data axis, and on the one-rank host
+    mesh (FSDP over one rank) it trains as on one device."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import host_mesh
+    jc, tc = _configs()
+    try:
+        mesh = host_mesh()
+        with pytest.raises(ValueError, match="one data axis"):
+            TTrainer(tc, _tcfg()[1], device="cpu", mesh=init_device_mesh(
+                "cpu", (1,), mesh_dim_names=("model",)))
+        ref = TTrainer(tc, _tcfg()[1], model=_models(jc, tc)[1],
+                       device="cpu", log_every=1000).run(3)
+        got = TTrainer(tc, _tcfg()[1], model=_models(jc, tc)[1],
+                       device="cpu", log_every=1000, mesh=mesh).run(3)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose([h["loss"] for h in got],
+                               [h["loss"] for h in ref], rtol=1e-6)
 
 
 def test_engine_after_training_builds_no_graph():
