@@ -113,6 +113,25 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel (dk 64) vs the whole pass and vs the plain walk;
    16e. the six new archs' smoke configs, card vs CPU logits, whole and
    through caches.
+17. the device mesh, ranks sharing the one card over gloo (children
+   ``chip_smoke.py --mesh-rank <spec> <rank>``): 17a qwen2-1.5b at tp 2
+   (contiguous) and tp 2 x seq 2 (paged) == one device's tokens, head-slice
+   and seq-block kernel bits, collective bytes == the reckoning; 17b
+   context-parallel decode; 17c 2-rank FSDP training; 17d NCCL only with
+   two cards; 17e tp 2 == one device's tokens past qwen2's bf16 widths:
+   chatglm3-6b (d 4096, 4 of 28 layers) and qwen2-1.5b at fp32 compute (8
+   of 28 layers, plain walks).
+18. the eleventh slice: 18a the six attention kernels at phi-3-vision's
+   head_dim 96 against their plain versions (bit gates: bounded ==
+   capacity, paged == contiguous, int8 == dequantized, consmax_attention
+   == consmax_prefill), times and bounds; 18b the two full-sequence kernels
+   on fp32 operands within the reference's atol 2e-5; 18c
+   phi-3-vision-4.2b at full width (its phi3 backbone on tokens) through
+   the continuous engine, contiguous and paged, rows 1-4 at dk 96, every
+   fused step under ``torch.cuda.set_sync_debug_mode("error")``; 18d the
+   analysis gate ``repro_torch.launch.analyze --device cuda`` (0
+   violations; ``--self-test`` exit 1, every rule fired) and every launch
+   plan's shared memory == the library's.
 
 The trace phases print device busy ms per engine iteration and, within
 it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
@@ -121,7 +140,9 @@ it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
 Launch counts: each serving path is run with the kernels' counts set to 0
 just before it and read just after (the bf16 contiguous kernels from phase
 5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9,
-the ``[gemma2-2b]`` rows from 12, the ``[phi3.5-moe]`` rows from 16a).
+the ``[gemma2-2b]`` rows from 12, the ``[phi3.5-moe]`` rows from 16a, the
+``[phi-3-vision]`` rows from 18c; the ``[dk96]`` / ``[fp32]`` rows of the
+full-sequence kernels count their calls in 18a / 18b).
 
 Phase 3 covers the paged kernels too, at the paged engine's shapes (page
 size 256; then 16 and 64, a -1 hole, window / softcap / unmerged, and the
@@ -2095,9 +2116,9 @@ def decode_report():
                     f"{smem} B dynamic + {k['smem']} B static shared memory, "
                     f"spill stores/loads {k['spill_stores']}/"
                     f"{k['spill_loads']} B")
-    if len(rows) != 48:
+    if len(rows) != 60:
         raise AssertionError(f"consmax_decode: {len(rows)} decode_partials "
-                             "instantiations in the ptxas report, not 48")
+                             "instantiations in the ptxas report, not 60")
     _log(f"[build] consmax_decode decode_partials instantiations "
          f"({len(rows)}): " + "; ".join(rows))
 
@@ -3222,6 +3243,15 @@ MESH_CP_TOL = 1e-5            # fp32 context-parallel decode vs one rank
 MESH_TIMEOUT = 400            # seconds for one world of ranks
 MESH_KERNELS = ("consmax_decode", "consmax_prefill", "consmax_decode_paged",
                 "consmax_prefill_paged")
+# 17e: token identity past qwen2-1.5b's bf16 widths — chatglm3-6b at its
+# published widths (d 4096, 32 heads, 2 KV heads), depth cut from 28 to 4
+# layers so that two ranks (each the full fp32 model at construction) and
+# the baseline fit the one card; and qwen2-1.5b at fp32 compute (the
+# kernels take bf16 only, so the plain walks), depth cut to 8 layers
+MESH_WIDE = (("chatglm3-6b", dict(n_layers=4), True),
+             ("qwen2-1.5b", dict(n_layers=8, compute_dtype="float32"), False))
+MESH_WIDE_LENS = [300, 1200, 700, 150]
+MESH_WIDE_NEW = 8
 
 
 def _mesh_traffic(vocab):
@@ -3246,14 +3276,15 @@ def _kernel_ops():
                                    consmax_prefill_paged_op)))
 
 
-def _mesh_serve(cfg, scfg, model, prompts, sampling, spill=None):
+def _mesh_serve(cfg, scfg, model, prompts, sampling, spill=None,
+                new=MESH_NEW):
     """Serve the traffic through a ``ContinuousBatchingEngine`` (on this
     process's rank of the mesh when ``scfg`` asks for one); returns the
     engine and what the run showed."""
     from repro_torch.serve.engine import ContinuousBatchingEngine
     from repro_torch.serve.sampling import SamplingParams
     eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
-    uids = [eng.submit(p, MESH_NEW, sampling=SamplingParams(**s)
+    uids = [eng.submit(p, new, sampling=SamplingParams(**s)
                        if s else None) for p, s in zip(prompts, sampling)]
     ops = _kernel_ops()
     for op in ops.values():
@@ -3308,7 +3339,7 @@ def mesh_child(spec_path, rank):
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": rank}
 
-    cfg = get_config(MESH_ARCH)
+    cfg = get_config(spec.get("arch", MESH_ARCH), **spec.get("over", {}))
     scfg = ServeConfig(**spec["serve"], tp=spec["tp"], seq_shards=spec["ns"],
                        score_norm=cfg.score_norm)
     torch.cuda.reset_peak_memory_stats(device)
@@ -3316,7 +3347,8 @@ def mesh_child(spec_path, rank):
         MESH_SEED), device=device)
     full_bytes = _param_bytes(model, 4)
     eng, res = _mesh_serve(cfg, scfg, model, spec["prompts"],
-                           spec["sampling"], spec.get("spill"))
+                           spec["sampling"], spec.get("spill"),
+                           spec.get("new", MESH_NEW))
     out["serve"] = res
     out["peak"] = torch.cuda.max_memory_allocated(device)
     out["reckon"] = dict(full=full_bytes, local=_param_bytes(eng.params, 4),
@@ -3574,6 +3606,7 @@ def mesh_phase(smi):
                  f" (ranks sharing one card)")
             if rel > MESH_TRAIN_RTOL:
                 raise AssertionError("17c: 2-rank FSDP training != one card")
+        mesh_wide_phase(tmp)
         if torch.cuda.device_count() >= 2:
             t0 = time.perf_counter()
             wn = _run_world(tmp, "nccl", 2, tp=2, ns=1, serve=MESH_CONTIG,
@@ -3590,19 +3623,84 @@ def mesh_phase(smi):
     _log(f"[mesh] phase 17 {time.perf_counter() - t17:.1f} s")
 
 
+def _column_slice_probe():
+    """Does cuBLAS give a column half of a GEMM the full GEMM's bits? At
+    the widths 17e serves: chatglm3-6b's q projection (bf16, K 4096, N 4096
+    -> 2048) and qwen2-1.5b's at fp32 (K 1536, N 1536 -> 768). Printed, not
+    gated: the mesh takes its heads' columns of the whole GEMM instead
+    (distributed/serve_mesh), which holds whatever this prints."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    same = {}
+    for dtype, kdim in ((torch.bfloat16, 4096), (torch.float32, 1536)):
+        for m in (1, 8, 16, 512):
+            x = torch.randn((m, kdim), generator=gen, device="cuda").to(dtype)
+            w = torch.randn((kdim, kdim), generator=gen,
+                            device="cuda").to(dtype)
+            full = x @ w
+            h = kdim // 2
+            same[(str(dtype).replace("torch.", ""), m, kdim)] = all(
+                torch.equal(x @ w[:, r * h:(r + 1) * h].contiguous(),
+                            full[:, r * h:(r + 1) * h]) for r in range(2))
+    _log(f"[mesh] 17e GEMM column halves == the full GEMM's columns "
+         f"(dtype, rows, K = N): {same} (not gated: the ranks take their "
+         "heads' columns of the whole q/k/v GEMMs)")
+
+
+def mesh_wide_phase(tmp):
+    """17e: tp 2 tokens == one device's past qwen2-1.5b's bf16 widths:
+    chatglm3-6b (d 4096, 4 of 28 layers, both kernels) and qwen2-1.5b at
+    fp32 compute (8 of 28 layers, plain walks); 4 requests, greedy and
+    sampled, on the contiguous engine; the gates of 17a."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.weights import init_params
+
+    t0 = time.perf_counter()
+    _column_slice_probe()
+    for arch, over, kernels in MESH_WIDE:
+        cfg = get_config(arch, **over)
+        r = np.random.default_rng(31)
+        prompts = [r.integers(0, cfg.vocab_size, n).tolist()
+                   for n in MESH_WIDE_LENS]
+        sampling = [None if i % 2 == 0 else
+                    dict(temperature=0.8, top_k=50, seed=200 + i)
+                    for i in range(len(prompts))]
+        serve = dict(MESH_CONTIG, decode_kernel=kernels,
+                     prefill_kernel=kernels)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            MESH_SEED), device="cuda")
+        eng, single = _mesh_serve(cfg, ServeConfig(
+            **serve, score_norm=cfg.score_norm), model, prompts, sampling,
+            new=MESH_WIDE_NEW)
+        del eng, model
+        torch.cuda.empty_cache()
+        ranks = _run_world(tmp, f"wide-{arch}", 2, tp=2, ns=1, serve=serve,
+                           arch=arch, over=over, backend="gloo",
+                           own_cards=False, prompts=prompts,
+                           sampling=sampling, new=MESH_WIDE_NEW)
+        n_chunks = sum(-(-n // MESH_CONTIG["prefill_chunk"])
+                       for n in MESH_WIDE_LENS)
+        _mesh_gates(f"17e {arch} {over} tp 2, contiguous", ranks, single,
+                    ("consmax_decode", "consmax_prefill") if kernels else (),
+                    2, 1, cfg, n_chunks)
+    _log(f"[mesh] 17e {time.perf_counter() - t0:.1f} s")
+
+
 def _mesh_gates(label, ranks, single, kernels, tp, ns, cfg, n_chunks):
     """Every rank: tokens == the single-device engine's, each of its
     kernels launched (prefill once per chunk and layer), one signature per
     step, the collectives' bytes == the reckoning from the shapes. Prints
-    memory, collectives per step and wall ms per iteration."""
+    memory, collectives per step and wall ms per iteration. ``kernels``
+    empty: a plain-walk engine (fp32 compute), no launch to count."""
     H, dk, L = cfg.n_heads, cfg.head_dim_, cfg.n_layers
+    eb = torch.empty((), dtype=cfg.cdtype()).element_size()
     for r in ranks:
         s = r["serve"]
         n_dec = s["steps"] - n_chunks
         rows = n_chunks * MESH_CONTIG["prefill_chunk"] + n_dec * (
             MESH_PAGED["max_slots"] if ns > 1 else MESH_CONTIG["max_slots"])
         want = {"all_gather": (L * s["steps"] if tp > 1 else 0,
-                               L * rows * H * dk * 2 if tp > 1 else 0),
+                               L * rows * H * dk * eb if tp > 1 else 0),
                 "all_reduce": (L * s["steps"] if ns > 1 else 0,
                                L * rows * (H // tp) * dk * 4 if ns > 1
                                else 0),
@@ -3612,7 +3710,7 @@ def _mesh_gates(label, ranks, single, kernels, tp, ns, cfg, n_chunks):
         ok = (s["tokens"] == single["tokens"] and s["signatures"] == [1, 1]
               and got == want
               and all(s["launches"][k] > 0 for k in kernels)
-              and s["launches"][kernels[1]] == n_chunks * L)
+              and (not kernels or s["launches"][kernels[1]] == n_chunks * L))
         rk = r["reckon"]
         _log(f"[mesh] {label}, rank {r['rank']}: tokens == single device "
              f"{s['tokens'] == single['tokens']}; launches "
@@ -3623,11 +3721,12 @@ def _mesh_gates(label, ranks, single, kernels, tp, ns, cfg, n_chunks):
              + ", ".join(f"{k} {c / s['steps']:.0f} calls / "
                          f"{b / s['steps'] / 2**20:.3f} MiB" for k, (c, b)
                          in got.items() if c)
-             + f" (reckoning: all-gather rows x {H} x {dk} x 2 B, seq "
+             + f" (reckoning: all-gather rows x {H} x {dk} x {eb} B, seq "
                f"all-reduce rows x {H // tp} x {dk} x 4 B, per layer: "
                f"{'equal' if got == want else want}); peak "
              f"{r['peak'] / 2**30:.2f} GiB (reckoning: full fp32 model "
-             f"{rk['full'] / 2**30:.2f} at construction + its head slice "
+             f"{rk['full'] / 2**30:.2f} at construction + the rank's copy "
+             f"(whole q/k/v/o, its heads' beta/gamma) "
              f"{rk['local'] / 2**30:.2f} + bf16 copies <= "
              f"{rk['bf16'] / 2**30:.2f} + local KV {rk['kv'] / 2**30:.3f}); "
              f"{1e3 * s['wall'] / s['iters']:.1f} ms / iteration vs "
@@ -3635,6 +3734,451 @@ def _mesh_gates(label, ranks, single, kernels, tp, ns, cfg, n_chunks):
              f"(ranks sharing one card) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rank {r['rank']} failed its gates")
+
+
+# ------------------------------------- 18: head_dim 96, fp32, the gate ----
+PHI3V = "phi-3-vision-4.2b"
+# its phi3 backbone on the token frontend: neither package's continuous
+# engine serves the stub patch frontend
+PHI3V_OVER = dict(frontend="tokens")
+PHI3V_LENS = [300, 1200, 700, 2000, 150, 900]
+F32_ATOL = 2e-5               # the reference's fp32 kernel tolerance
+
+
+def dk96_kernel_phase(flush):
+    """The six attention kernels at phi-3-vision-4.2b's head_dim 96 (32
+    heads, 32 KV heads: MHA): decode 8 slots x 4096 rows (bk 256), prefill
+    chunk 512 at fills 0-4096, page size 256; each against its plain
+    version; bounded == capacity sweep, paged == contiguous, int8 ==
+    dequantized bits; the full-sequence kernels at b 1 x s 4096 causal,
+    consmax_attention == consmax_prefill bits. Times and bounds; the
+    full-sequence kernels' launches are their calls here (the ``dk96``
+    path). Returns the rows of the result line and those counts."""
+    from repro_torch.kernels import cache_layout as CL
+    from repro_torch.kernels.consmax_attn.ops import consmax_attention_op
+    from repro_torch.kernels.consmax_attn.ref import consmax_attention_ref
+    from repro_torch.kernels.consmax_decode.ops import (
+        consmax_decode_cuda, consmax_decode_paged_cuda)
+    from repro_torch.kernels.consmax_decode.ref import (
+        consmax_decode_paged_ref, consmax_decode_ref)
+    from repro_torch.kernels.consmax_prefill.ops import (
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
+    from repro_torch.kernels.consmax_prefill.ref import (
+        consmax_prefill_paged_ref, consmax_prefill_ref)
+    from repro_torch.kernels.softmax_attn.ops import softmax_attention_op
+    from repro_torch.kernels.softmax_attn.ref import softmax_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    b, L, H, hkv, dk, bk, c, ps = 8, 4096, 32, 32, 96, 256, 512, 256
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    lengths = torch.tensor([1, 256, 257, 1000, 2048, 3000, 4095, 4096],
+                           dtype=torch.int32, device="cuda")
+    q = _rand(gen, (b, H, dk), dk ** -0.5)
+    k, v = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+    beta, gamma = _head_params(gen, H)
+    got = consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=bk, **kw)
+    err = _check("phi-3-vision decode dk=96 b=8 L=4096", got,
+                 consmax_decode_ref(q.float(), k, v, lengths, beta, gamma,
+                                    **kw),
+                 consmax_decode_ref(q.float(), k, v.abs(), lengths, beta,
+                                    gamma, **kw))
+    _same_bits("phi-3-vision decode dk=96 capacity sweep",
+               consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=bk,
+                                   fill_bound=False, **kw), got,
+               "the fill-bounded launch")
+    kq, ksc = CL.quantize_kv(k, torch.int8)
+    vq, vsc = CL.quantize_kv(v, torch.int8)
+    _same_bits("phi-3-vision decode dk=96 int8 codes",
+               consmax_decode_cuda(q, kq, vq, lengths, beta, gamma, bk=bk,
+                                   k_scale=ksc, v_scale=vsc, **kw),
+               consmax_decode_cuda(q, CL.dequant_block(kq, ksc, q.dtype),
+                                   CL.dequant_block(vq, vsc, q.dtype),
+                                   lengths, beta, gamma, bk=bk, **kw),
+               "the bf16 kernel on the dequantized cache")
+    del kq, vq, ksc, vsc
+    live = int(lengths.sum())
+    io = 2 * b * H * dk * 2
+    times = {"consmax_decode": (
+        err, lambda: consmax_decode_cuda(q, k, v, lengths, beta, gamma,
+                                         bk=bk, **kw),
+        lambda: consmax_decode_ref(q, k, v, lengths, beta, gamma, **kw),
+        live * hkv * dk * 2 * 2 + io, 4 * live * H * dk)}
+    perr, (kp, vp, table) = _paged_decode_case(
+        "phi-3-vision paged decode dk=96 ps=256", q, k, v, lengths, beta,
+        gamma, kw, bk=bk, ps=ps, num_pages=128)
+    times["consmax_decode_paged"] = (
+        perr, lambda: consmax_decode_paged_cuda(q, kp, vp, table, lengths,
+                                                beta, gamma, bk=bk, **kw),
+        lambda: consmax_decode_paged_ref(q, kp, vp, table, lengths, beta,
+                                         gamma, **kw),
+        live * hkv * dk * 2 * 2 + io + table.numel() * 4, 4 * live * H * dk)
+    q1 = _rand(gen, (1, c, H, dk), dk ** -0.5)
+    k1, v1 = k[7:8].contiguous(), v[7:8].contiguous()
+    errs, perrs = [], []
+    for idx, n in [(0, 512), (1536, 512), (3584, 512), (3000, 200)]:
+        ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
+        tn = torch.tensor([n], dtype=torch.int32, device="cuda")
+        errs.append(_check(
+            f"phi-3-vision prefill dk=96 c=512 index={idx} len={n}",
+            consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw),
+            consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+            consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma,
+                                **kw)))
+        e, pools = _paged_prefill_case(
+            f"phi-3-vision paged prefill dk=96 index={idx} len={n}", q1, k1,
+            v1, ti, tn, beta, gamma, kw, ps=ps, num_pages=32)
+        perrs.append(e)
+        if idx == 1536:
+            timed = (ti, tn, *pools)
+    ti, tn, kp1, vp1, t1 = timed
+    idx, n = 1536, 512
+    kvl = idx + n
+    pairs = sum(min(idx + i + 1, kvl) for i in range(c))
+    pbytes = kvl * hkv * dk * 2 * 2 + 2 * c * H * dk * 2
+    times["consmax_prefill"] = (
+        max(errs), lambda: consmax_prefill_cuda(q1, k1, v1, ti, tn, beta,
+                                                gamma, **kw),
+        lambda: consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+        pbytes, 4 * pairs * H * dk)
+    times["consmax_prefill_paged"] = (
+        max(perrs), lambda: consmax_prefill_paged_cuda(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw),
+        lambda: consmax_prefill_paged_ref(q1, kp1, vp1, t1, ti, tn, beta,
+                                          gamma, **kw),
+        pbytes + t1.numel() * 4, 4 * pairs * H * dk)
+    rows = {}
+    for name, (e, fn, plain, nbytes, flops) in times.items():
+        bound, by = _bound_ms(nbytes, flops)
+        rows[f"{name}[phi-3-vision]"] = dict(
+            max_abs_err=e, ms=_time_ms(fn, flush, 50),
+            plain_ms=_time_ms(plain, flush, 5), bound_ms=bound, bound_by=by)
+    del k, v, kp, vp, k1, v1, kp1, vp1
+
+    # the full-sequence kernels at dk 96: b 1 x s 4096, causal
+    def T(x):
+        return x.transpose(1, 2)
+
+    shape = (1, 4096, 4096, H, hkv, dk)
+    qa = _rand(gen, (1, 4096, H, dk))
+    ka, va = _rand(gen, (1, 4096, hkv, dk)), _rand(gen, (1, 4096, hkv, dk))
+    consmax_attention_op.launches = softmax_attention_op.launches = 0
+    out_c = consmax_attention_op(qa, ka, va, beta, gamma)
+    out_s = softmax_attention_op(qa, ka, va)
+    torch.cuda.synchronize()
+    counts = {"consmax_attention[dk96]": consmax_attention_op.launches,
+              "softmax_attention[dk96]": softmax_attention_op.launches}
+    ec = _check("consmax_attention dk=96 b=1 s=4096 causal", out_c,
+                T(consmax_attention_ref(T(qa.float()), T(ka), T(va), beta,
+                                        gamma)),
+                T(consmax_attention_ref(T(qa.float()), T(ka), T(va.abs()),
+                                        beta, gamma)))
+    es = _check("softmax_attention dk=96 b=1 s=4096 causal", out_s,
+                T(softmax_attention_ref(T(qa.float()), T(ka), T(va))),
+                T(softmax_attention_ref(T(qa.float()), T(ka), T(va.abs()))))
+    qs = (qa[:, :1024].float() * dk ** -0.5).to(torch.bfloat16)
+    ks, vs = ka[:, :1024].contiguous(), va[:, :1024].contiguous()
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    _same_bits("consmax_attention dk=96 s=1024 merged scale=1",
+               consmax_attention_op(qs, ks, vs, beta, gamma, merged=True,
+                                    scale=1.0),
+               consmax_prefill_cuda(qs, ks, vs, one, one + 1024, beta, gamma,
+                                    merged=True, scale=1.0),
+               "consmax_prefill (index 0, lengths s)")
+    bound, by = _attn_bound(*shape, causal=True)
+    rows["consmax_attention[dk96]"] = dict(
+        max_abs_err=ec, ms=_time_ms(lambda: consmax_attention_op(
+            qa, ka, va, beta, gamma), flush, 10),
+        plain_ms=_time_ms(lambda: consmax_attention_ref(
+            T(qa), T(ka), T(va), beta, gamma), flush, 3),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    rows["softmax_attention[dk96]"] = dict(
+        max_abs_err=es, ms=_time_ms(lambda: softmax_attention_op(qa, ka, va),
+                                    flush, 10),
+        plain_ms=_time_ms(lambda: softmax_attention_ref(T(qa), T(ka), T(va)),
+                          flush, 3),
+        bound_ms=bound, bound_by=by,
+        library_ms=_time_ms(lambda: torch.nn.functional.
+                            scaled_dot_product_attention(
+                                T(qa), T(ka), T(va), is_causal=True),
+                            flush, 10))
+    return rows, counts
+
+
+def fp32_kernel_phase(flush):
+    """The full-sequence kernels on fp32 operands (the SIMT kernel of
+    csrc/attn_f32.cuh) at the paper's qwen2-1.5b shape (b 2 x s 4096, 12
+    heads, 2 KV heads, dk 128, causal), then windowed / softcapped,
+    non-causal cross-length, unmerged and dk 96 cases: each within the
+    reference's fp32 atol 2e-5 of its plain version (fp32, TF32 off), the
+    same bits on a second run. Times beside the plain versions and
+    scaled_dot_product_attention at fp32; bounds on the fp32 (non-tensor)
+    peak. Launches: the calls of the checks (the ``fp32`` path)."""
+    from repro_torch.kernels.consmax_attn.ops import consmax_attention_op
+    from repro_torch.kernels.consmax_attn.ref import consmax_attention_ref
+    from repro_torch.kernels.softmax_attn.ops import softmax_attention_op
+    from repro_torch.kernels.softmax_attn.ref import softmax_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+
+    def T(x):
+        return x.transpose(1, 2)
+
+    def inputs(b, sq, skv, H, hkv, dk):
+        q = torch.randn((b, sq, H, dk), generator=gen, device="cuda")
+        k = torch.randn((b, skv, hkv, dk), generator=gen, device="cuda")
+        v = torch.randn((b, skv, hkv, dk), generator=gen, device="cuda")
+        return (q, k, v, *_head_params(gen, H))
+
+    def within(name, got, ref):
+        err = float((got - ref).abs().max())
+        ok = (got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+              and err <= F32_ATOL)
+        _log(f"[fp32] {name}: max_abs_err {err:.3e} (atol {F32_ATOL}, max "
+             f"|plain| {float(ref.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: fp32 kernel disagrees with plain")
+        return err
+
+    cases = [("qwen2-1.5b b=2 s=4096 causal", (2, 4096, 4096, 12, 2, 128),
+              {}),
+             ("window 300 softcap 30 s=1024", (1, 1024, 1024, 12, 2, 128),
+              dict(window=300, softcap=30.0)),
+             ("non-causal sq=200 skv=700", (1, 200, 700, 8, 2, 64),
+              dict(causal=False)),
+             ("dk 96 MHA s=600", (1, 600, 600, 8, 8, 96), {}),
+             ("dk 32 s=333 unmerged", (2, 333, 333, 4, 1, 32), {})]
+    consmax_attention_op.launches = softmax_attention_op.launches = 0
+    errs = {"consmax": [], "softmax": []}
+    data = {}
+    for name, shape, kw in cases:
+        q, k, v, beta, gamma = data[name] = inputs(*shape)
+        for merged in (False, True):
+            outs = [consmax_attention_op(q, k, v, beta, gamma, merged=merged,
+                                         **kw) for _ in range(2)]
+            _same_bits(f"fp32 consmax_attention {name} merged={merged} "
+                       "second run", outs[1], outs[0], "the first run")
+            errs["consmax"].append(within(
+                f"consmax_attention fp32 {name} merged={merged}", outs[0],
+                T(consmax_attention_ref(T(q), T(k), T(v), beta, gamma,
+                                        merged=merged, **kw))))
+        errs["softmax"].append(within(
+            f"softmax_attention fp32 {name}",
+            softmax_attention_op(q, k, v, **kw),
+            T(softmax_attention_ref(T(q), T(k), T(v), **kw))))
+    torch.cuda.synchronize()
+    counts = {"consmax_attention[fp32]": consmax_attention_op.launches,
+              "softmax_attention[fp32]": softmax_attention_op.launches}
+    name, shape, _ = cases[0]
+    q, k, v, beta, gamma = data[name]
+    b, sq, skv, H, hkv, dk = shape
+    nbytes = 4 * (2 * b * sq * H * dk + 2 * b * skv * hkv * dk)
+    bound, by = _bound_ms(nbytes, 4 * dk * H * b * _visible_pairs(
+        sq, skv, causal=True), peak=PEAK_FP32_FLOPS)
+    rows = {
+        "consmax_attention[fp32]": dict(
+            max_abs_err=max(errs["consmax"]),
+            ms=_time_ms(lambda: consmax_attention_op(q, k, v, beta, gamma),
+                        flush, 3),
+            plain_ms=_time_ms(lambda: consmax_attention_ref(
+                T(q), T(k), T(v), beta, gamma), flush, 3),
+            bound_ms=bound, bound_by=by, library_ms=None),
+        "softmax_attention[fp32]": dict(
+            max_abs_err=max(errs["softmax"]),
+            ms=_time_ms(lambda: softmax_attention_op(q, k, v), flush, 3),
+            plain_ms=_time_ms(lambda: softmax_attention_ref(T(q), T(k), T(v)),
+                              flush, 3),
+            bound_ms=bound, bound_by=by,
+            library_ms=_time_ms(lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    T(q), T(k), T(v), is_causal=True,
+                                    enable_gqa=True), flush, 3))}
+    for name, row in rows.items():
+        _log(f"[fp32] {name} at {cases[0][0]}: {row['ms'] * 1e3:.1f} us "
+             f"(plain {row['plain_ms'] * 1e3:.1f} us"
+             + (f", scaled_dot_product_attention fp32 "
+                f"{row['library_ms'] * 1e3:.1f} us" if row["library_ms"]
+                else "") + f"), bound {row['bound_ms'] * 1e3:.1f} us by "
+             f"{row['bound_by']} at the fp32 peak (share "
+             f"{row['bound_ms'] / row['ms']:.3f}); launches {counts}")
+    return rows, counts
+
+
+class _SyncFreeSteps:
+    """Run an engine's ``_lm`` (one model step: the fused prefill chunk or
+    decode step) under ``torch.cuda.set_sync_debug_mode("error")``: a step
+    that syncs the host with the card raises. The token drain and the page
+    table's upload stay outside the step, as the op lint's step does."""
+
+    def __init__(self, eng):
+        self.eng, self.steps = eng, 0
+        real = eng._lm
+
+        def lm(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                self.steps += 1
+        eng._lm = lm
+
+
+def phi3v_engine_phase(smi, *, seed=13, new_tokens=16):
+    """phi-3-vision-4.2b at full width (32 layers, d 3072, 32 heads, dk 96,
+    its phi3 backbone on tokens, random weights from ``seed``) through the
+    continuous engine with both kernels, contiguous (8 slots x 4096 rows)
+    and paged (64 pages of 256), chunk 512; six requests, two sampled:
+    paged == contiguous tokens, a greedy and a sampled request served
+    alone == batched, one signature per step, every fused step under
+    ``set_sync_debug_mode("error")``. Returns the four kernels' launches
+    (contiguous for rows 1-2, paged for 3-4)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = get_config(PHI3V, **PHI3V_OVER)
+    assert cfg.head_dim_ == 96
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    r = np.random.default_rng(seed)
+    prompts = [r.integers(0, cfg.vocab_size, n).tolist() for n in PHI3V_LENS]
+    sampling = [SamplingParams(temperature=0.8, top_k=40, seed=300 + i)
+                if i in (1, 4) else None for i in range(len(prompts))]
+    base = dict(max_slots=8, max_seq=4096, prefill_chunk=512,
+                decode_kernel=True, prefill_kernel=True,
+                score_norm=cfg.score_norm)
+    ops = _kernel_ops()
+
+    def serve(scfg, batch, guard=False):
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
+        sync = _SyncFreeSteps(eng) if guard else None
+        uids = [eng.submit(prompts[i], new_tokens, sampling=sampling[i])
+                for i in batch]
+        for op in ops.values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(tokens=[res.get(u) for u in uids], wall=wall,
+                   launches={k: op.launches for k, op in ops.items()},
+                   sig=[eng.prefill_cache_size, eng.decode_cache_size],
+                   steps=sync.steps if sync else 0, iters=eng.model_steps)
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    everyone = range(len(prompts))
+    cont = serve(ServeConfig(**base), everyone, guard=True)
+    paged = serve(ServeConfig(**base, paged_kv=True, page_size=256,
+                              num_pages=64), everyone, guard=True)
+    solo = {i: serve(ServeConfig(**base), [i])["tokens"][0] for i in (4, 2)}
+    chunks = sum(-(-n // 512) for n in PHI3V_LENS)
+    ok = (all(t is not None and len(t) == new_tokens for t in cont["tokens"])
+          and paged["tokens"] == cont["tokens"]
+          and all(solo[i] == cont["tokens"][i] for i in solo)
+          and cont["sig"] == paged["sig"] == [1, 1]
+          and cont["launches"]["consmax_prefill"] == chunks * cfg.n_layers
+          and paged["launches"]["consmax_prefill_paged"]
+          == chunks * cfg.n_layers
+          and cont["launches"]["consmax_decode"] > 0
+          and paged["launches"]["consmax_decode_paged"] > 0
+          and cont["steps"] > 0 and paged["steps"] > 0)
+    gen = sum(len(t) for t in cont["tokens"])
+    _log(f"[phi-3-vision] full width ({cfg.n_layers} layers, d "
+         f"{cfg.d_model}, {cfg.n_heads} heads, dk {cfg.head_dim_}), "
+         f"{len(prompts)} requests ({sum(PHI3V_LENS)} prompt tokens, 2 "
+         f"sampled): paged == contiguous {paged['tokens'] == cont['tokens']};"
+         f" solo == batched {[solo[i] == cont['tokens'][i] for i in solo]};"
+         f" signatures {cont['sig']} / {paged['sig']}; launches contiguous "
+         f"{cont['launches']}, paged {paged['launches']}; "
+         f"{cont['steps'] + paged['steps']} fused steps under "
+         f"set_sync_debug_mode('error'), none synced; contiguous "
+         f"{gen / cont['wall']:.1f} generated tok/s, "
+         f"{1e3 * cont['wall'] / cont['iters']:.1f} ms per model step "
+         f"({smi}); {time.perf_counter() - t0:.1f} s "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phi-3-vision engine gates failed")
+    del model
+    torch.cuda.empty_cache()
+    return {f"{k}[phi-3-vision]": (cont if "paged" not in k else paged)
+            ["launches"][k] for k in ops}
+
+
+def analysis_phase():
+    """The port's analysis gate on the card: ``repro_torch.launch.analyze
+    --device cuda --kv-dtype bfloat16 int8 fp8_e4m3`` (the qwen2-1.5b smoke
+    matrix, trace guard on) must report 0 violations, and ``--self-test``
+    must exit 1 with every rule fired. Every launch plan the gate captured,
+    and every instantiation of the decode kernel and the mainloop, has the
+    shared memory the library itself computes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import launch_plan as LP
+    from repro_torch.kernels.consmax_decode import ops as decode_ops
+    from repro_torch.launch import analyze
+
+    t0 = time.perf_counter()
+    out = Path(__file__).resolve().parent / "build" / "analysis"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "ANALYSIS_torch.json"
+    rc = analyze.run(json_out=str(path), device="cuda",
+                     kv_dtypes=("bfloat16", "int8", "fp8_e4m3"))
+    gate_s = time.perf_counter() - t0
+    report = json.loads(path.read_text())
+    st = out / "ANALYSIS_torch_selftest.json"
+    st_rc = analyze.main(["--self-test", "--device", "cuda", "--json-out",
+                          str(st)])
+    seeded = json.loads(st.read_text())
+    all_fired = {f["rule"] for f in seeded["findings"]} == set(
+        seeded["rules"])
+    dec = decode_ops._lib()
+    walk = _build.load("consmax_prefill")
+    walk.attn_walk_smem_bytes.argtypes = [ctypes.c_int] * 3
+    mismatch, checked = [], 0
+    for label, entry in report["configs"].items():
+        for kname, plan in entry["kernels"].items():
+            lay = plan["layout"]
+            lib_b = (dec.consmax_decode_smem_bytes(lay["dk"], lay["kv_type"],
+                                                   lay["paged"], lay["bk"])
+                     if plan["kernel"] == "decode_partials" else
+                     walk.attn_walk_smem_bytes(lay["dk"], lay["kv_type"],
+                                               lay["consumers"]))
+            checked += 1
+            if lib_b != plan["smem_bytes"]:
+                mismatch.append((label, kname, plan["smem_bytes"], lib_b))
+    for dk in _build.HEAD_DIMS:
+        for kv in (0, 1, 2):
+            for paged in (0, 1):
+                for bk in (64, 128, 256, 512):
+                    checked += 1
+                    want = decode_ops.decode_smem_bytes(dk, kv != 0,
+                                                        bool(paged), bk)
+                    got = dec.consmax_decode_smem_bytes(dk, kv, paged, bk)
+                    if got != want:
+                        mismatch.append(("decode", dk, kv, paged, bk, want,
+                                         got))
+            for cons in ((1, 2) if dk <= 128 else (1,)):
+                checked += 1
+                want = LP.walk_smem_bytes(dk, kv != 0, cons)
+                got = walk.attn_walk_smem_bytes(dk, kv, cons)
+                if got != want:
+                    mismatch.append(("walk", dk, kv, cons, want, got))
+    ok = (rc == 0 and report["violations"] == 0 and report["device"] ==
+          "cuda" and st_rc == 1 and all_fired and not mismatch)
+    _log(f"[analysis] repro_torch.launch.analyze --device cuda --kv-dtype "
+         f"bfloat16 int8 fp8_e4m3: {len(report['configs'])} configs, "
+         f"{report['violations']} violations, exit {rc}, {gate_s:.1f} s; "
+         f"--self-test exit {st_rc}, all {len(seeded['rules'])} rules fired "
+         f"{all_fired}; shared memory of {checked} plans / instantiations "
+         f"== the library's: {not mismatch} {mismatch[:4]} "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 18: the analysis gate failed on the card")
+    return gate_s
 
 
 def main():
@@ -3803,6 +4347,38 @@ def main():
     torch.cuda.empty_cache()
     mesh_phase(smi)
 
+    torch.cuda.empty_cache()
+    t18 = t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    new_rows, dk96_counts = dk96_kernel_phase(flush)
+    _log(f"[dk96] 18a kernels at head_dim 96 {time.perf_counter() - t0:.1f} "
+         "s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32_rows, f32_counts = fp32_kernel_phase(flush)
+    new_rows.update(f32_rows)
+    _log(f"[fp32] 18b fp32 kernels {time.perf_counter() - t0:.1f} s")
+    del flush
+    torch.cuda.empty_cache()
+    rows.update(new_rows)
+    counts.update({**dk96_counts, **f32_counts})
+    for name, row in new_rows.items():
+        lib = row.get("library_ms")
+        _log(f"[kernels] {name}: {row['ms'] * 1e3:.1f} us (plain "
+             f"{row['plain_ms'] * 1e3:.1f} us), bound "
+             f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']} (share "
+             f"{row['bound_ms'] / row['ms']:.3f})"
+             + (f", scaled_dot_product_attention {lib * 1e3:.1f} us"
+                if lib else "") + f"; on {smi}")
+    t0 = time.perf_counter()
+    counts.update(phi3v_engine_phase(smi))
+    _log(f"[phi-3-vision] 18c {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    analysis_phase()
+    _log(f"[analysis] 18d {time.perf_counter() - t0:.1f} s")
+    _log(f"[done] phase 18 {time.perf_counter() - t18:.1f} s")
+
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
     ref_dec = "src/repro/kernels/consmax_decode/kernel.py"
@@ -3821,9 +4397,13 @@ def main():
                            ref.format("consmax_lut", 47))}
     for name in ("consmax_decode", "consmax_prefill", "consmax_decode_paged",
                  "consmax_prefill_paged"):
-        # the same kernels: on K/V codes, or at gemma2's / phi3.5-moe's
-        # shapes
-        for dt in (*QDTYPES, "gemma2-2b", "phi3.5-moe"):
+        # the same kernels: on K/V codes, or at gemma2's / phi3.5-moe's /
+        # phi-3-vision's (head_dim 96) shapes
+        for dt in (*QDTYPES, "gemma2-2b", "phi3.5-moe", "phi-3-vision"):
+            src[f"{name}[{dt}]"] = src[name]
+    for name in ("consmax_attention", "softmax_attention"):
+        # head_dim 96 on the mainloop; fp32 operands on the SIMT kernel
+        for dt in ("dk96", "fp32"):
             src[f"{name}[{dt}]"] = src[name]
     counts.update(paper_counts)
     kernels = [dict(name=name, route="cuda", source=src[name][0],

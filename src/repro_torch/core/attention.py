@@ -456,7 +456,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     cond: (b, n_cond, d) — cross-attention over this conditioning stream
     (``_cross_attention``); ``cache`` is then None or the block's dummy.
     attn_mesh: a serving mesh's ``distributed.comm.AttentionMesh`` — ``p``
-    holds this rank's head slice (its o-projection all heads), the cache
+    holds the whole q/k/v/o projections and this rank's per-head beta /
+    gamma; the rank keeps its heads of q/k/v (``local_heads``), the cache
     its heads and, sequence-sharded, its pages; the per-rank output goes
     through ``attn_mesh.combine`` (an fp32 all-reduce over ``seq``, an
     all-gather of the heads over ``model``) before the full o-projection,
@@ -481,6 +482,10 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     q = p.q(x, cdt) * torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
     k = p.k(x, cdt)
     v = p.v(x, cdt)
+    if attn_mesh is not None:
+        # the rank's heads of the whole projections (serve_mesh: the full
+        # GEMM's bits); elementwise work after this commutes with the slice
+        q, k, v = attn_mesh.local_heads(q, k, v)
 
     rope_on = cfg.rope_style != "none"
     interleaved = cfg.rope_style == "interleaved"

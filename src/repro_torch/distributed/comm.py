@@ -7,7 +7,11 @@ of their results on this rank (an all-gather's result is the gathered
 tensor, an all-reduce's and an all-to-all's are the size of their input),
 so a caller reads what a step exchanged: the engine per serving step,
 ``core/context_parallel`` per decode, the trainer per training step.
-``reset_counts`` zeroes them.
+``CALLS`` logs every call (kind, result shape, dtype, bytes), which
+``analysis/collective_contract`` holds to the sharded-serving contract; it
+keeps the last ``LOG_LIMIT`` calls, so a server that never resets cannot
+grow it without bound. ``reset_counts`` zeroes the totals and clears the
+log.
 
 The tensors stay on their device: on the card, NCCL takes them, and so
 does gloo (its ``all_reduce``, ``all_gather`` and ``all_to_all_single``
@@ -16,11 +20,13 @@ runs), so ranks that share one card need no host staging.
 
 ``AttentionMesh`` is the handle the model threads to every attention
 block under a serving mesh: the ``seq`` and ``model`` groups (None where
-the axis has one rank) and the combine that ends each attention block
+the axis has one rank), the rank's heads of the whole q/k/v projections
+(``local_heads``) and the combine that ends each attention block
 (``combine``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -28,12 +34,15 @@ import torch.distributed as dist
 
 KINDS = ("all_reduce", "all_gather", "all_to_all")
 COUNTS: dict = {kind: {"calls": 0, "bytes": 0} for kind in KINDS}
+LOG_LIMIT = 1 << 16
+CALLS: collections.deque = collections.deque(maxlen=LOG_LIMIT)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def reset_counts():
     for c in COUNTS.values():
         c["calls"] = c["bytes"] = 0
+    CALLS.clear()
 
 
 def counts() -> dict:
@@ -41,9 +50,20 @@ def counts() -> dict:
     return {kind: dict(c) for kind, c in COUNTS.items()}
 
 
+def calls() -> list:
+    """A copy of the per-call log since ``reset_counts`` (its last
+    ``LOG_LIMIT`` calls): [{"kind", "shape", "dtype", "bytes"}], in call
+    order."""
+    return [dict(c) for c in CALLS]
+
+
 def _count(kind: str, result: torch.Tensor):
+    nbytes = result.numel() * result.element_size()
     COUNTS[kind]["calls"] += 1
-    COUNTS[kind]["bytes"] += result.numel() * result.element_size()
+    COUNTS[kind]["bytes"] += nbytes
+    CALLS.append({"kind": kind, "shape": list(result.shape),
+                  "dtype": str(result.dtype).replace("torch.", ""),
+                  "bytes": nbytes})
 
 
 class Comm:
@@ -99,9 +119,22 @@ class _AllToAll(torch.autograd.Function):
 @dataclasses.dataclass(frozen=True)
 class AttentionMesh:
     """The serving mesh as attention sees it: ``seq`` shards the KV pages,
-    ``model`` the heads (None where the axis has one rank)."""
+    ``model`` the heads (None where the axis has one rank); ``heads`` is the
+    rank's (first q head, q heads, first KV head, KV heads)."""
     model: Comm | None
     seq: Comm | None
+    heads: tuple | None = None
+
+    def local_heads(self, q, k, v):
+        """The rank's heads of the whole projections' outputs (b, s, heads,
+        dk), contiguous: the columns the single-device GEMM computes, with
+        its bits (``distributed/serve_mesh``)."""
+        if self.heads is None:
+            return q, k, v
+        q0, nq, k0, nkv = self.heads
+        return (q.narrow(-2, q0, nq).contiguous(),
+                k.narrow(-2, k0, nkv).contiguous(),
+                v.narrow(-2, k0, nkv).contiguous())
 
     def combine(self, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """A rank's attention output (b, s, H_local, dk) -> the full-head

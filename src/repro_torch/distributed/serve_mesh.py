@@ -16,15 +16,24 @@ only the transport of the collectives goes through gloo).
 Weights. Every rank builds the full parameters (from one seed, or from
 ``weights.from_jax_params``) and keeps its head slice (``shard_params``):
 
-* ``"model"`` (tensor parallel) splits the attention heads: the q heads,
-  the k/v KV heads, the qkv biases and the per-head ConSmax beta/gamma, so
-  each rank runs the unchanged serving code, kernels included, on its head
-  slice. Ranks own disjoint heads, so the combine is an all-gather of the
-  per-head outputs (a concatenation, exact) followed by the FULL
-  o-projection on every rank: the o weight is replicated and sees
-  operands bit-identical to the single-device step. (Summing per-rank
-  o-projection partials, the megatron-style combine, reassociates the
-  contraction: the reference measured ~5e-2 logit drift from it.)
+* ``"model"`` (tensor parallel) splits the attention heads: each rank
+  attends with its q heads, its KV heads (its KV cache holds only those)
+  and its per-head ConSmax beta/gamma, so it runs the unchanged serving
+  code, kernels included, on its head slice. The q/k/v projections stay
+  WHOLE on every rank, and the rank takes its heads' columns of their
+  outputs (``AttentionMesh.local_heads``): a head-slice GEMM (N / tp
+  columns) is not bound to give the full GEMM's columns bit for bit —
+  cuBLAS picks its kernel and its reduction order by shape, and on an H100
+  a column slice differed from the full product at fp32 and for 3072 ->
+  4096 at M <= 8 — while the same full GEMM on the same operands gives
+  the single-device bits at every width and dtype. (The reference's XLA
+  partitioner slices the weights; its CPU GEMMs keep the bits.) Ranks own
+  disjoint heads, so the combine is an all-gather of the per-head outputs
+  (a concatenation, exact) followed by the FULL o-projection on every
+  rank: the o weight is replicated and sees operands bit-identical to the
+  single-device step. (Summing per-rank o-projection partials, the
+  megatron-style combine, reassociates the contraction: the reference
+  measured ~5e-2 logit drift from it.)
 * ``"seq"`` (sequence sharding) splits the paged pool's page axis into
   contiguous per-rank blocks (``pages_per_shard`` pages each, plus the
   port's spare page). The host allocator's block position map
@@ -79,42 +88,44 @@ class MeshPlan:
 
     def shard_params(self, params: LM) -> LM:
         """This rank's parameters: a new ``LM`` of ``cfg_local`` holding the
-        head slice of ``params`` (the full model) and copies of everything
-        else, each leaf contiguous (the kernels take contiguous operands;
-        a head slice of a parameter is a strided view). Its attention
-        blocks keep the FULL o-projection (all ``cfg.n_heads`` heads), the
-        reference's replicated ``o`` (``param_specs``)."""
+        head slice of ``params``' per-head ConSmax beta/gamma and copies of
+        everything else, each leaf contiguous. Its attention blocks keep
+        the FULL q/k/v projections (the rank takes its heads' columns of
+        their outputs, ``AttentionMesh.local_heads``) and the FULL
+        o-projection (all ``cfg.n_heads`` heads), the reference's
+        replicated ``o`` (``param_specs``)."""
         return shard_params(params, self.cfg, self.cfg_local, self.tp,
                             self.model_rank)
 
 
 def _head_slice(name: str, t, cfg: ModelConfig, tp: int, rank: int):
-    """The model-axis slice of parameter ``name`` (None: replicated)."""
+    """The model-axis slice of parameter ``name`` (None: replicated): the
+    per-head beta / gamma; q/k/v/o stay whole (see the module doc)."""
     parts = name.split(".")
     if len(parts) < 3 or parts[-3] != "attn":
         return None
-    mod, leaf = parts[-2], parts[-1]
-    if mod in ("q", "k", "v"):
-        n = cfg.n_heads if mod == "q" else cfg.n_kv_heads
-        per = n // tp
-        axis = 1 if leaf == "w" else 0          # w (d, n, dk); b (n, dk)
-        return t.narrow(axis, rank * per, per)
-    if mod == "score_norm" and t.shape[0] == cfg.n_heads:
+    if parts[-2] == "score_norm" and t.shape[0] == cfg.n_heads:
         per = cfg.n_heads // tp                  # per-head beta / gamma
         return t.narrow(0, rank * per, per)
-    return None                                  # o, shared beta / gamma
+    return None                                  # q/k/v/o, shared beta/gamma
 
 
 def shard_params(params: LM, cfg: ModelConfig, cfg_local: ModelConfig,
                  tp: int, rank: int) -> LM:
     """``MeshPlan.shard_params`` for an explicit model rank."""
     local = LM(cfg_local, device=params.device)
-    dk = cfg.head_dim_
+    d, dk, dev = cfg.d_model, cfg.head_dim_, params.device
     for sup in local.blocks:
         for blk in sup.values():
             if hasattr(blk, "attn"):
-                blk.attn.o = L.HeadsOut(cfg.n_heads, dk, cfg.d_model,
-                                        device=params.device)
+                a = blk.attn
+                a.q = L.HeadsProj(d, cfg.n_heads, dk, bias=cfg.qkv_bias,
+                                  device=dev)
+                a.k = L.HeadsProj(d, cfg.n_kv_heads, dk, bias=cfg.qkv_bias,
+                                  device=dev)
+                a.v = L.HeadsProj(d, cfg.n_kv_heads, dk, bias=cfg.qkv_bias,
+                                  device=dev)
+                a.o = L.HeadsOut(cfg.n_heads, dk, d, device=dev)
     state = {}
     for name, t in params.state_dict().items():
         part = _head_slice(name, t, cfg, tp, rank)
@@ -170,6 +181,9 @@ def plan_mesh(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
     def comm(axis, n):
         return Comm(mesh.get_group(axis)) if n > 1 else None
 
+    r = mesh.get_local_rank(MODEL_AXIS)
+    hq, hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+
     # the per-rank view the steps run under: head counts divided, head_dim
     # PINNED (head_dim_ falls back to d_model // n_heads, which would
     # silently grow when n_heads shrinks)
@@ -179,4 +193,5 @@ def plan_mesh(cfg: ModelConfig, scfg: ServeConfig, *, device=None):
     return MeshPlan(mesh=mesh, cfg=cfg, cfg_local=cfg_local, tp=tp,
                     seq_shards=ns, pages_per_shard=pages_per_shard,
                     attn=AttentionMesh(model=comm(MODEL_AXIS, tp),
-                                       seq=comm(SEQ_AXIS, ns)))
+                                       seq=comm(SEQ_AXIS, ns),
+                                       heads=(r * hq, hq, r * hkv, hkv)))

@@ -32,7 +32,7 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 COMMON_INCLUDE = _KERNELS_DIR / "csrc"
 KERNELS = ("consmax_decode", "consmax_prefill", "consmax_attn",
            "softmax_attn", "consmax_lut")
-HEAD_DIMS = (32, 64, 128, 256)          # the head_dims the kernels compile
+HEAD_DIMS = (32, 64, 96, 128, 256)      # the head_dims the kernels compile
 # K/V element types of the serving kernels -> their kv_type code (KVCode in
 # csrc/consmax_common.cuh); int8 / fp8_e4m3 caches come with fp32 scales
 KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
@@ -175,7 +175,6 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
     operand on ``q``'s device, contiguous and aligned for the kernel's
     vector loads (16 bytes for q/k/v, 4 for the rest). Returns the cache's
     kv_type code (``KV_TYPES``)."""
-    b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
     if q.dtype != torch.bfloat16:
         raise TypeError(f"{kernel}: q must be bfloat16 on CUDA, got "
                         f"{q.dtype}")
@@ -184,6 +183,16 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
                         f"{[str(t) for t in KV_TYPES]} on CUDA, got "
                         f"{k.dtype}")
     check_kv_scales(kernel, k, v, k_scale, v_scale)
+    _check_layout(kernel, q, k, v, slots=slots, heads=heads,
+                  page_table=page_table, k_scale=k_scale, v_scale=v_scale)
+    return KV_TYPES[k.dtype]
+
+
+def _check_layout(kernel: str, q, k, v, *, slots: dict, heads: dict,
+                  page_table=None, k_scale=None, v_scale=None):
+    """``check_operands`` past the dtypes: shapes, head_dim, heads, the
+    page table, and every operand's device, contiguity and alignment."""
+    b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
     if k.shape != v.shape or k.ndim != 4 or k.shape[3] != dk or (
             page_table is None and k.shape[0] != b):
         raise ValueError(f"{kernel}: q {tuple(q.shape)} does not match "
@@ -211,21 +220,23 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
     _check_placement(kernel, q.device, {"q": q, "k": k, "v": v, **slots,
                                         **heads, **extra},
                      align={"q": 16, "k": 16, "v": 16})
-    return KV_TYPES[k.dtype]
 
 
 def check_sequence_operands(kernel: str, q, k, v, *, heads: dict):
     """Full-sequence attention: ``q`` (b, sq, H, dk) against ``k``/``v``
     (b, skv, hkv, dk) in the model layout, checked as ``check_operands``
-    does, with ``heads`` tensors (H,); bf16 k/v only."""
-    for name, t in (("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{kernel}: {name} must be bfloat16 on CUDA, "
-                            f"got {t.dtype}")
+    does, with ``heads`` tensors (H,); q, k and v all bfloat16 (the wgmma
+    mainloop) or all float32 (the fp32 SIMT kernel, ``csrc/attn_f32.cuh``).
+    The serving kernels (``check_operands``) take bf16 queries only."""
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != q.dtype for t in (k, v)):
+        raise TypeError(f"{kernel}: q, k, v must be all bfloat16 or all "
+                        f"float32 on CUDA, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if q.ndim != 4:
         raise ValueError(f"{kernel}: q must be (b, sq, H, dk), got "
                          f"{tuple(q.shape)}")
-    check_operands(kernel, q, k, v, slots={}, heads=heads)
+    _check_layout(kernel, q, k, v, slots={}, heads=heads)
 
 
 def check_codes(kernel: str, codes, c=None):

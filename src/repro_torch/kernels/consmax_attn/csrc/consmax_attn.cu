@@ -42,6 +42,10 @@
 //   the most tiles, so they start while the card is still filling.
 // With index 0, lengths sq and the same rows it gives consmax_prefill's
 // bits: the tiles, their order and the arithmetic are the same code.
+//
+// fp32 q / k / v take consmax_attn_f32_launch instead: the plain SIMT kernel
+// of attn_f32.cuh (fp32 products and exp, the reference's fp32 tolerance).
+#include "attn_f32.cuh"
 #include "attn_mainloop.cuh"
 
 namespace {
@@ -67,7 +71,7 @@ int launch(const void* q, const void* k, const void* v, const void* beta,
 }  // namespace
 
 // q (b, sq, H, dk) bf16; k, v (b, skv, hkv, dk) bf16; beta, gamma (H,)
-// fp32; out (b, sq, H, dk) bf16. dk in {32, 64, 128, 256}; H % hkv == 0.
+// fp32; out (b, sq, H, dk) bf16. dk in {32, 64, 96, 128, 256}; H % hkv == 0.
 extern "C" int consmax_attn_launch(const void* q, const void* k,
                                    const void* v, const void* beta,
                                    const void* gamma, void* out, int b,
@@ -81,6 +85,9 @@ extern "C" int consmax_attn_launch(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
                         causal, window, softcap, scale, merged, stream);
+    case 96:
+      return launch<96>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
+                        causal, window, softcap, scale, merged, stream);
     case 128:
       return launch<128>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
                          causal, window, softcap, scale, merged, stream);
@@ -90,4 +97,22 @@ extern "C" int consmax_attn_launch(const void* q, const void* k,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same on fp32 operands (attn_f32.cuh): q (b, sq, H, dk), k, v
+// (b, skv, hkv, dk), out (b, sq, H, dk) fp32; beta, gamma (H,) fp32.
+extern "C" int consmax_attn_f32_launch(const void* q, const void* k,
+                                       const void* v, const void* beta,
+                                       const void* gamma, void* out, int b,
+                                       int sq, int skv, int H, int hkv,
+                                       int dk, int causal, int window,
+                                       float softcap, float scale,
+                                       int merged, void* stream) {
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v),
+                  static_cast<const float*>(beta),
+                  static_cast<const float*>(gamma), static_cast<float*>(out),
+                  sq, skv, H, hkv, causal, window, softcap, scale};
+  return merged ? launch_f32<kF32Eq3>(a, b, dk, stream)
+                : launch_f32<kF32Eq2>(a, b, dk, stream);
 }

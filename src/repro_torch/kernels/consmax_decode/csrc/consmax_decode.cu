@@ -129,10 +129,12 @@ struct DecodeLayout {
   static constexpr int kTileB = kRows * kRowB;     // one K or V operand tile
   static constexpr int kStageB =
       kScaled ? 2 * kRows * DK + 2 * kRows * 4 : 2 * kTileB;
-  // 3-8 stages: two CTAs per SM at dk <= 128, one at 256
+  // 3-8 stages: two CTAs per SM at dk <= 128 (each CTA <= 113 KB; at dk 96
+  // 4 bf16 stages of 26 KB or 6 of codes, 111 / 108 KB), one at 256
   static constexpr int stages() {
     if (DK == 256) return 3;
     if (DK == 128) return kScaled ? 4 : 3;
+    if (DK == 96) return kScaled ? 6 : 4;
     if (DK == 64) return kScaled ? 8 : 5;
     return 8;
   }
@@ -547,6 +549,8 @@ int launch_dk(int dk, int merged, const DecodeArgs<TKV, Rows>& a, int b,
     case 65: return launch<32, true>(a, b, st);
     case 128: return launch<64, false>(a, b, st);
     case 129: return launch<64, true>(a, b, st);
+    case 192: return launch<96, false>(a, b, st);
+    case 193: return launch<96, true>(a, b, st);
     case 256: return launch<128, false>(a, b, st);
     case 257: return launch<128, true>(a, b, st);
     case 512: return launch<256, false>(a, b, st);
@@ -606,6 +610,9 @@ int smem_bytes_dk(int dk, int paged, int bk) {
     case 64:
       return paged ? DecodeLayout<64, TKV, true>::bytes(bk)
                    : DecodeLayout<64, TKV, false>::bytes(bk);
+    case 96:
+      return paged ? DecodeLayout<96, TKV, true>::bytes(bk)
+                   : DecodeLayout<96, TKV, false>::bytes(bk);
     case 128:
       return paged ? DecodeLayout<128, TKV, true>::bytes(bk)
                    : DecodeLayout<128, TKV, false>::bytes(bk);
@@ -635,7 +642,7 @@ extern "C" int consmax_decode_smem_bytes(int dk, int kv_type, int paged,
 // partials (b, hkv, ceil(L/bk), g, dk) fp32 scratch; out (b, H, dk) bf16;
 // tickets (b * hkv,) int32 zeros, left zero (the last argument, after the
 // stream, so the arguments before it keep their places). dk in
-// {32, 64, 128, 256}; 0 < bk <= kMaxBlock.
+// {32, 64, 96, 128, 256}; 0 < bk <= kMaxBlock.
 extern "C" int consmax_decode_launch(const void* q, const void* k,
                                      const void* v, const void* k_scale,
                                      const void* v_scale, const void* lengths,

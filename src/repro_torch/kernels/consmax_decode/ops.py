@@ -15,6 +15,11 @@ without scales, or a bf16 cache with them, raises.
 ``consmax_decode_op.launches`` and ``consmax_decode_paged_op.launches``
 count kernel launches (CUDA only), each its own entry point.
 
+``decode_plan`` is the launch in plain Python (``kernels/launch_plan``):
+the checks, the grid, the shared memory (``decode_smem_bytes``, the twin of
+the library's ``consmax_decode_smem_bytes``), the tiles each block writes;
+the CUDA launch and ``launch_plan.capture`` both take it.
+
 The kernel sums its shards' partials itself: the last shard of each (slot,
 KV head) to finish, found by an integer ticket, adds them in shard order.
 The tickets live in one zeroed int32 buffer per (device, stream)
@@ -30,6 +35,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_plan as LP
 from repro_torch.kernels.consmax_decode.ref import (consmax_decode_paged_ref,
                                                    consmax_decode_ref)
 
@@ -37,6 +43,8 @@ from repro_torch.kernels.consmax_decode.ref import (consmax_decode_paged_ref,
 # shard's page-table entries, bk + 1 at most, in shared memory beside its
 # tiles (the tiles themselves do not grow with bk).
 MAX_BLOCK = 512
+THREADS = 256      # kThreads: 8 warps per block
+TILE_ROWS = 64     # kRows: KV rows per tile
 
 
 @functools.cache
@@ -79,12 +87,46 @@ def _check_smem(lib, kernel, dk, kv_type, paged, bk):
                          f"bk {bk}; a block may use {_build.SMEM_PER_BLOCK}")
 
 
-def _operands(kernel, q, k, v, lengths, beta, gamma, L, hkv, bk, scale,
-              page_table=None, k_scale=None, v_scale=None):
-    """Checked operands, the cache's kv_type code, the shard size, the
-    scale and the scratch and output tensors of one launch over ``L``
-    logical rows per slot."""
+def decode_stages(dk: int, quantized: bool) -> int:
+    """DecodeLayout<dk>::stages() (csrc/consmax_decode.cu)."""
+    if dk == 256:
+        return 3
+    if dk == 128:
+        return 4 if quantized else 3
+    if dk == 96:
+        return 6 if quantized else 4
+    if dk == 64:
+        return 8 if quantized else 5
+    return 8
+
+
+def decode_smem_bytes(dk: int, quantized: bool, paged: bool, bk: int) -> int:
+    """DecodeLayout<dk, TKV, paged>::bytes(bk) (csrc/consmax_decode.cu): the
+    mbarriers' 128 bytes, two P tiles of 16 heads, the ring of stages, for
+    codes one dequantized bf16 K/V tile pair, and a paged shard's bk + 1
+    page entries."""
+    row = 2 * dk + 16                      # a bf16 operand row, padded
+    tile = TILE_ROWS * row
+    stage = (2 * TILE_ROWS * dk + 2 * TILE_ROWS * 4 if quantized
+             else 2 * tile)
+    ring = 128 + 2 * 16 * (TILE_ROWS * 2 + 16)
+    pages = (ring + decode_stages(dk, quantized) * stage
+             + (2 * tile if quantized else 0))
+    return pages + ((bk + 1) * 4 if paged else 0)
+
+
+def decode_plan(kernel, q, k, v, lengths, beta, gamma, *, bk, L,
+                page_table=None, k_scale=None, v_scale=None):
+    """Check one launch's operands and plan it over ``L`` logical rows per
+    slot: grid (ceil(L / bk), hkv, b) of 256 threads, the layout's shared
+    memory. Block (shard, h, slot) writes its (g, dk) fp32 partial; the
+    slot's (g, dk) output rows of KV head h are written by ONE block per
+    (slot, KV head), elected at run time among the shards by the integer
+    ticket (the last live shard to finish; shard 0 for a slot with none).
+    Returns the plan and the checked operands (lengths, beta, gamma, the
+    shard size bk, the cache's kv_type code)."""
     b, H, dk = q.shape
+    hkv = k.shape[2]
     bk = min(bk, L)
     lengths = lengths.to(torch.int32).contiguous()
     beta = beta.float().contiguous()
@@ -95,13 +137,35 @@ def _operands(kernel, q, k, v, lengths, beta, gamma, L, hkv, bk, scale,
         k_scale=k_scale, v_scale=v_scale)
     if not 0 < bk <= MAX_BLOCK:
         raise ValueError(f"{kernel}: bk {bk} not in (0, {MAX_BLOCK}]")
-    if scale is None:
-        scale = 1.0 / math.sqrt(dk)
-    ns = -(-L // bk)
-    partials = torch.empty((b, hkv, ns, H // hkv, dk), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty((b, H, dk), dtype=q.dtype, device=q.device)
-    return kv_type, lengths, beta, gamma, bk, scale, partials, out
+    ns, g = -(-L // bk), H // hkv
+    paged = page_table is not None
+    index = [LP.index_operand("page_table", page_table)] if paged else []
+    index.append(LP.index_operand("lengths", lengths))
+    plan = LP.LaunchPlan(
+        name=kernel, kernel="decode_partials", grid=(ns, hkv, b),
+        block=THREADS, smem=decode_smem_bytes(dk, kv_type != 0, paged, bk),
+        outputs=[LP.OutputTile("partials", (b, hkv, ns, g, dk), "float32",
+                               lambda bx, by, bz: (bz, by, bx)),
+                 LP.OutputTile("out", (b, H, dk), LP.dtype_name(q.dtype),
+                               lambda bx, by, bz: (bz, by),
+                               elected_over=(0,))],
+        scratch_bytes=b * hkv * ns * g * dk * 4, index_operands=index,
+        n_index=2 if paged else 1, election="tickets",
+        layout=dict(dk=dk, kv_type=kv_type, paged=int(paged), bk=bk))
+    return plan, dict(lengths=lengths, beta=beta, gamma=gamma, bk=bk,
+                      kv_type=kv_type)
+
+
+def _outputs(plan, q):
+    """The plan's scratch partials and output, allocated on q's device."""
+    partials, out = plan.outputs
+    return (torch.empty(partials.shape, dtype=torch.float32,
+                        device=q.device),
+            torch.empty(out.shape, dtype=q.dtype, device=q.device))
+
+
+def _scale(scale, dk):
+    return 1.0 / math.sqrt(dk) if scale is None else scale
 
 
 def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
@@ -112,18 +176,19 @@ def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
     int32 valid rows; beta/gamma (H,) fp32. Returns (b, H, dk) bf16."""
     b, H, dk = q.shape
     L, hkv = k.shape[1], k.shape[2]
-    kv_type, lengths, beta, gamma, bk, scale, partials, out = _operands(
-        "consmax_decode", q, k, v, lengths, beta, gamma, L, hkv, bk, scale,
-        k_scale=k_scale, v_scale=v_scale)
+    plan, o = decode_plan("consmax_decode", q, k, v, lengths, beta, gamma,
+                          bk=bk, L=L, k_scale=k_scale, v_scale=v_scale)
+    partials, out = _outputs(plan, q)
     lib = _lib()
-    _check_smem(lib, "consmax_decode", dk, kv_type, False, bk)
+    _check_smem(lib, "consmax_decode", dk, o["kv_type"], False, o["bk"])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.consmax_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.data_ptr(k_scale),
-        _build.data_ptr(v_scale), lengths.data_ptr(), beta.data_ptr(),
-        gamma.data_ptr(), partials.data_ptr(), out.data_ptr(), b, H, hkv, L,
-        dk, bk, window, softcap, scale, int(merged), int(fill_bound),
-        kv_type, stream, _tickets(q.device, stream, b * hkv).data_ptr())
+        _build.data_ptr(v_scale), o["lengths"].data_ptr(),
+        o["beta"].data_ptr(), o["gamma"].data_ptr(), partials.data_ptr(),
+        out.data_ptr(), b, H, hkv, L, dk, o["bk"], window, softcap,
+        _scale(scale, dk), int(merged), int(fill_bound), o["kv_type"],
+        stream, _tickets(q.device, stream, b * hkv).data_ptr())
     _build.check(lib, err, "consmax_decode")
     consmax_decode_op.launches += 1
     return out
@@ -144,6 +209,13 @@ def consmax_decode_op(q, k, v, index, beta, gamma, *, window=0, softcap=0.0,
     shape the CUDA launch; the plain version computes the whole row)."""
     _build.check_kv_scales("consmax_decode", k, v, k_scale, v_scale)
     lengths = index + 1
+    if LP.capturing():
+        plan, o = decode_plan("consmax_decode", q[:, 0], k, v, lengths, beta,
+                              gamma, bk=bk, L=k.shape[1], k_scale=k_scale,
+                              v_scale=v_scale)
+        return LP.record(plan, dict(q=q, k=k, v=v, lengths=o["lengths"],
+                                    k_scale=k_scale, v_scale=v_scale),
+                         q.device)[:, None]
     if q.device.type == "cpu":
         return consmax_decode_ref(q[:, 0], k, v, lengths, beta, gamma,
                                   window=window, softcap=softcap,
@@ -174,20 +246,21 @@ def consmax_decode_paged_cuda(q, kp, vp, page_table, lengths, beta, gamma, *,
     b, H, dk = q.shape
     ps, hkv = kp.shape[1], kp.shape[2]
     npg = page_table.shape[1]
-    kv_type, lengths, beta, gamma, bk, scale, partials, out = _operands(
-        "consmax_decode_paged", q, kp, vp, lengths, beta, gamma, npg * ps,
-        hkv, bk, scale, page_table=page_table, k_scale=k_scale,
-        v_scale=v_scale)
+    plan, o = decode_plan("consmax_decode_paged", q, kp, vp, lengths, beta,
+                          gamma, bk=bk, L=npg * ps, page_table=page_table,
+                          k_scale=k_scale, v_scale=v_scale)
+    partials, out = _outputs(plan, q)
     lib = _lib()
-    _check_smem(lib, "consmax_decode_paged", dk, kv_type, True, bk)
+    _check_smem(lib, "consmax_decode_paged", dk, o["kv_type"], True,
+                o["bk"])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.consmax_decode_paged_launch(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _build.data_ptr(k_scale),
-        _build.data_ptr(v_scale), page_table.data_ptr(), lengths.data_ptr(),
-        beta.data_ptr(), gamma.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), b, H, hkv, npg, ps, dk, bk, window, softcap, scale,
-        int(merged), int(fill_bound), kv_type, stream,
-        _tickets(q.device, stream, b * hkv).data_ptr())
+        _build.data_ptr(v_scale), page_table.data_ptr(),
+        o["lengths"].data_ptr(), o["beta"].data_ptr(), o["gamma"].data_ptr(),
+        partials.data_ptr(), out.data_ptr(), b, H, hkv, npg, ps, dk, o["bk"],
+        window, softcap, _scale(scale, dk), int(merged), int(fill_bound),
+        o["kv_type"], stream, _tickets(q.device, stream, b * hkv).data_ptr())
     _build.check(lib, err, "consmax_decode_paged")
     consmax_decode_paged_op.launches += 1
     return out
@@ -208,6 +281,15 @@ def consmax_decode_paged_op(q, kp, vp, page_table, lengths, beta, gamma, *,
     logical rows and ``fill_bound`` skips shards past each slot's fill
     (both only shape the CUDA launch)."""
     _build.check_kv_scales("consmax_decode_paged", kp, vp, k_scale, v_scale)
+    if LP.capturing():
+        plan, o = decode_plan("consmax_decode_paged", q[:, 0], kp, vp,
+                              lengths, beta, gamma, bk=bk,
+                              L=page_table.shape[1] * kp.shape[1],
+                              page_table=page_table, k_scale=k_scale,
+                              v_scale=v_scale)
+        return LP.record(plan, dict(q=q, k=kp, v=vp, page_table=page_table,
+                                    lengths=o["lengths"], k_scale=k_scale,
+                                    v_scale=v_scale), q.device)[:, None]
     if q.device.type == "cpu":
         return consmax_decode_paged_ref(q[:, 0], kp, vp, page_table, lengths,
                                         beta, gamma, window=window,

@@ -78,6 +78,8 @@ int launch_dk(int dk, const WalkArgs<TKV, Rows>& a, int b, int merged,
       return launch<32>(a, b, merged, st);
     case 64:
       return launch<64>(a, b, merged, st);
+    case 96:
+      return launch<96>(a, b, merged, st);
     case 128:
       return launch<128>(a, b, merged, st);
     case 256:
@@ -140,7 +142,7 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
 // q (b, c, H, dk) bf16; k, v (b, L, hkv, dk) of kv_type (KVCode: bf16,
 // int8, fp8_e4m3); k_scale, v_scale (b, L, hkv) fp32 for int8 / fp8 (null
 // for bf16); index, lengths (b,) int32; beta, gamma (H,) fp32; out
-// (b, c, H, dk) bf16. dk in {32, 64, 128, 256}.
+// (b, c, H, dk) bf16. dk in {32, 64, 96, 128, 256}.
 extern "C" int consmax_prefill_launch(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* index,

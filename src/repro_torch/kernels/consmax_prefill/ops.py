@@ -14,6 +14,8 @@ without scales, or a bf16 cache with them, raises.
 
 ``consmax_prefill_op.launches`` and ``consmax_prefill_paged_op.launches``
 count kernel launches (CUDA only), each its own entry point.
+``prefill_plan`` is the launch in plain Python (``kernels/launch_plan``),
+which the CUDA launch and ``launch_plan.capture`` both take.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_plan as LP
 from repro_torch.kernels.consmax_prefill.ref import (
     consmax_prefill_paged_ref, consmax_prefill_ref)
 
@@ -41,10 +44,13 @@ def _lib():
     return lib
 
 
-def _operands(kernel, q, k, v, index, lengths, beta, gamma, scale,
-              page_table=None, k_scale=None, v_scale=None):
-    """Checked operands, the cache's kv_type code, the scale and the output
-    tensor of one launch."""
+def prefill_plan(kernel, q, k, v, index, lengths, beta, gamma, *,
+                 page_table=None, k_scale=None, v_scale=None):
+    """Check one launch's operands and plan it: the attention mainloop with
+    one consumer warpgroup (``launch_plan.walk_plan``), block (row tile,
+    KV head, slot) writing its 64 folded query rows. Returns the plan and
+    the checked operands (index, lengths, beta, gamma, kv_type)."""
+    b, c, H, dk = q.shape
     index = index.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     beta = beta.float().contiguous()
@@ -53,9 +59,30 @@ def _operands(kernel, q, k, v, index, lengths, beta, gamma, scale,
         kernel, q, k, v, slots={"index": index, "lengths": lengths},
         heads={"beta": beta, "gamma": gamma}, page_table=page_table,
         k_scale=k_scale, v_scale=v_scale)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    return kv_type, index, lengths, beta, gamma, scale, torch.empty_like(q)
+    ops = [LP.index_operand("page_table", page_table)] if (
+        page_table is not None) else []
+    ops += [LP.index_operand("index", index),
+            LP.index_operand("lengths", lengths)]
+    plan = LP.walk_plan(kernel, b=b, c=c, H=H, hkv=k.shape[2], dk=dk,
+                        kv_dtype=k.dtype, wide=False, index_operands=ops,
+                        n_index=len(ops), out_shape=q.shape,
+                        out_dtype=q.dtype)
+    return plan, dict(index=index, lengths=lengths, beta=beta, gamma=gamma,
+                      kv_type=kv_type)
+
+
+def _capture(kernel, q, k, v, index, lengths, beta, gamma, page_table,
+             k_scale, v_scale):
+    plan, o = prefill_plan(kernel, q, k, v, index, lengths, beta, gamma,
+                           page_table=page_table, k_scale=k_scale,
+                           v_scale=v_scale)
+    return LP.record(plan, dict(q=q, k=k, v=v, page_table=page_table,
+                                index=o["index"], lengths=o["lengths"],
+                                k_scale=k_scale, v_scale=v_scale), q.device)
+
+
+def _scale(scale, dk):
+    return 1.0 / math.sqrt(dk) if scale is None else scale
 
 
 def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
@@ -66,15 +93,16 @@ def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
     lengths (b,) int32; beta/gamma (H,) fp32. Returns (b, c, H, dk) bf16."""
     b, c, H, dk = q.shape
     L, hkv = k.shape[1], k.shape[2]
-    kv_type, index, lengths, beta, gamma, scale, out = _operands(
-        "consmax_prefill", q, k, v, index, lengths, beta, gamma, scale,
-        k_scale=k_scale, v_scale=v_scale)
+    _, o = prefill_plan("consmax_prefill", q, k, v, index, lengths, beta,
+                        gamma, k_scale=k_scale, v_scale=v_scale)
+    out = torch.empty_like(q)
     lib = _lib()
     err = lib.consmax_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.data_ptr(k_scale),
-        _build.data_ptr(v_scale), index.data_ptr(), lengths.data_ptr(), beta.data_ptr(),
-        gamma.data_ptr(), out.data_ptr(), b, c, H, hkv, L, dk, window,
-        softcap, scale, int(merged), int(fill_bound), kv_type,
+        _build.data_ptr(v_scale), o["index"].data_ptr(),
+        o["lengths"].data_ptr(), o["beta"].data_ptr(), o["gamma"].data_ptr(),
+        out.data_ptr(), b, c, H, hkv, L, dk, window, softcap,
+        _scale(scale, dk), int(merged), int(fill_bound), o["kv_type"],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "consmax_prefill")
     consmax_prefill_op.launches += 1
@@ -93,6 +121,9 @@ def consmax_prefill_op(q, k, v, index, lengths, beta, gamma, *, window=0,
     path). ``fill_bound`` skips KV tiles no row of a block can see (CUDA
     launch only; the plain version computes the whole matrix)."""
     _build.check_kv_scales("consmax_prefill", k, v, k_scale, v_scale)
+    if LP.capturing():
+        return _capture("consmax_prefill", q, k, v, index, lengths, beta,
+                        gamma, None, k_scale, v_scale)
     if q.device.type == "cpu":
         return consmax_prefill_ref(q, k, v, index, lengths, beta, gamma,
                                    window=window, softcap=softcap,
@@ -124,17 +155,18 @@ def consmax_prefill_paged_cuda(q, kp, vp, page_table, index, lengths, beta,
     b, c, H, dk = q.shape
     ps, hkv = kp.shape[1], kp.shape[2]
     npg = page_table.shape[1]
-    kv_type, index, lengths, beta, gamma, scale, out = _operands(
-        "consmax_prefill_paged", q, kp, vp, index, lengths, beta, gamma,
-        scale, page_table=page_table, k_scale=k_scale, v_scale=v_scale)
+    _, o = prefill_plan("consmax_prefill_paged", q, kp, vp, index, lengths,
+                        beta, gamma, page_table=page_table, k_scale=k_scale,
+                        v_scale=v_scale)
+    out = torch.empty_like(q)
     lib = _lib()
     err = lib.consmax_prefill_paged_launch(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _build.data_ptr(k_scale),
-        _build.data_ptr(v_scale), page_table.data_ptr(), index.data_ptr(),
-        lengths.data_ptr(), beta.data_ptr(), gamma.data_ptr(),
-        out.data_ptr(), b, c, H, hkv, npg, ps, dk, window, softcap, scale,
-        int(merged), int(fill_bound), kv_type,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.data_ptr(v_scale), page_table.data_ptr(),
+        o["index"].data_ptr(), o["lengths"].data_ptr(), o["beta"].data_ptr(),
+        o["gamma"].data_ptr(), out.data_ptr(), b, c, H, hkv, npg, ps, dk,
+        window, softcap, _scale(scale, dk), int(merged), int(fill_bound),
+        o["kv_type"], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "consmax_prefill_paged")
     consmax_prefill_paged_op.launches += 1
     return out
@@ -152,6 +184,9 @@ def consmax_prefill_paged_op(q, kp, vp, page_table, index, lengths, beta,
     discards. ``fill_bound`` only shapes the CUDA launch."""
     _build.check_kv_scales("consmax_prefill_paged", kp, vp, k_scale,
                            v_scale)
+    if LP.capturing():
+        return _capture("consmax_prefill_paged", q, kp, vp, index, lengths,
+                        beta, gamma, page_table, k_scale, v_scale)
     if q.device.type == "cpu":
         return consmax_prefill_paged_ref(
             q, kp, vp, page_table, index, lengths, beta, gamma,

@@ -128,7 +128,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 // (one per consumer warpgroup), the
 // ring of kStages bf16 K/V stages and, for a quantized cache, one staging
 // slot of codes and row scales per stage. At head_dim 256 with codes the
-// ring keeps two stages, so the CTA fits the 227 KB a block may use.
+// ring keeps two stages, so the CTA fits the 227 KB a block may use; every
+// other head_dim (32, 64, 96, 128) keeps three. Head_dim 96 is 12 core
+// matrices per row and O += P V runs wgmma.m64n96k16: no swizzle atom has
+// to divide it.
 template <int DK, class TKV, int kCons = 1>
 struct WalkLayout {
   static constexpr bool kScaled = KVType<TKV>::kScaled;
@@ -636,6 +639,9 @@ extern "C" int attn_walk_smem_bytes(int dk, int kv_type, int consumers) {
       case 64:
         return q ? WalkLayout<64, int8_t, 2>::kBytes
                  : WalkLayout<64, __nv_bfloat16, 2>::kBytes;
+      case 96:
+        return q ? WalkLayout<96, int8_t, 2>::kBytes
+                 : WalkLayout<96, __nv_bfloat16, 2>::kBytes;
       case 128:
         return q ? WalkLayout<128, int8_t, 2>::kBytes
                  : WalkLayout<128, __nv_bfloat16, 2>::kBytes;
@@ -651,6 +657,9 @@ extern "C" int attn_walk_smem_bytes(int dk, int kv_type, int consumers) {
     case 64:
       return q ? WalkLayout<64, int8_t>::kBytes
                : WalkLayout<64, __nv_bfloat16>::kBytes;
+    case 96:
+      return q ? WalkLayout<96, int8_t>::kBytes
+               : WalkLayout<96, __nv_bfloat16>::kBytes;
     case 128:
       return q ? WalkLayout<128, int8_t>::kBytes
                : WalkLayout<128, __nv_bfloat16>::kBytes;

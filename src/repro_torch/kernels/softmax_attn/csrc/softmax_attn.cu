@@ -29,6 +29,10 @@
 // pair, on the tensor cores through wgmma); the extra work per tile is one
 // row max (two shuffles), one exp per row, one rescale of the accumulator
 // and, once, the divide.
+//
+// fp32 q / k / v take softmax_attn_f32_launch instead: the plain SIMT kernel
+// of attn_f32.cuh (fp32 products and exp, the reference's fp32 tolerance).
+#include "attn_f32.cuh"
 #include "attn_mainloop.cuh"
 
 namespace {
@@ -51,7 +55,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // q (b, sq, H, dk) bf16; k, v (b, skv, hkv, dk) bf16; out (b, sq, H, dk)
-// bf16. dk in {32, 64, 128, 256}; H % hkv == 0.
+// bf16. dk in {32, 64, 96, 128, 256}; H % hkv == 0.
 extern "C" int softmax_attn_launch(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
                                    int skv, int H, int hkv, int dk,
@@ -64,6 +68,9 @@ extern "C" int softmax_attn_launch(const void* q, const void* k,
     case 64:
       return launch<64>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
                         softcap, scale, stream);
+    case 96:
+      return launch<96>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
+                        softcap, scale, stream);
     case 128:
       return launch<128>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
                          softcap, scale, stream);
@@ -73,4 +80,19 @@ extern "C" int softmax_attn_launch(const void* q, const void* k,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same on fp32 operands (attn_f32.cuh): q (b, sq, H, dk), k, v
+// (b, skv, hkv, dk), out (b, sq, H, dk) fp32.
+extern "C" int softmax_attn_f32_launch(const void* q, const void* k,
+                                       const void* v, void* out, int b,
+                                       int sq, int skv, int H, int hkv,
+                                       int dk, int causal, int window,
+                                       float softcap, float scale,
+                                       void* stream) {
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), nullptr, nullptr,
+                  static_cast<float*>(out), sq, skv, H, hkv, causal, window,
+                  softcap, scale};
+  return launch_f32<kF32Softmax>(a, b, dk, stream);
 }

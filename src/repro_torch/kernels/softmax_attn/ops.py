@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_plan as LP
 from repro_torch.kernels.softmax_attn.ref import softmax_attention_ref
 
 
@@ -26,25 +27,42 @@ from repro_torch.kernels.softmax_attn.ref import softmax_attention_ref
 def _lib():
     lib = _build.load("softmax_attn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.softmax_attn_launch.argtypes = [p] * 4 + [i] * 8 + [f, f, p]
-    lib.softmax_attn_launch.restype = i
+    for entry in (lib.softmax_attn_launch, lib.softmax_attn_f32_launch):
+        entry.argtypes = [p] * 4 + [i] * 8 + [f, f, p]
+        entry.restype = i
     return lib
+
+
+def attention_plan(q, k, v):
+    """Check the operands and plan the launch, as
+    ``consmax_attn.ops.attention_plan`` does."""
+    b, sq, H, dk = q.shape
+    _build.check_sequence_operands("softmax_attention", q, k, v, heads={})
+    if q.dtype == torch.float32:
+        return LP.f32_plan("softmax_attention", b=b, sq=sq, H=H, dk=dk,
+                           out_shape=q.shape)
+    return LP.walk_plan("softmax_attention", b=b, c=sq, H=H, hkv=k.shape[2],
+                        dk=dk, kv_dtype=k.dtype, wide=True,
+                        out_shape=q.shape, out_dtype=q.dtype)
 
 
 def softmax_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
                            scale=None):
-    """Launch the CUDA kernel. q (b, sq, H, dk) bf16; k, v (b, skv, hkv,
-    dk) bf16. Returns (b, sq, H, dk) bf16."""
+    """Launch the CUDA kernel. q (b, sq, H, dk), k, v (b, skv, hkv, dk),
+    all bf16 (the wgmma mainloop) or all fp32 (the fp32 SIMT kernel).
+    Returns (b, sq, H, dk) in q's dtype."""
     b, sq, H, dk = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _build.check_sequence_operands("softmax_attention", q, k, v, heads={})
+    attention_plan(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib = _lib()
-    err = lib.softmax_attn_launch(
+    entry = (lib.softmax_attn_f32_launch if q.dtype == torch.float32
+             else lib.softmax_attn_launch)
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
         H, hkv, dk, int(causal), window, softcap, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -59,6 +77,9 @@ def softmax_attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
     (b, sq, nh, d) in q.dtype. Masking and ``scale`` as
     ``consmax_attention_op``; the reference's ``bq``/``bk`` TPU tile sizes
     are not taken (the CUDA kernel picks its own tiles)."""
+    if LP.capturing():
+        return LP.record(attention_plan(q, k, v), dict(q=q, k=k, v=v),
+                         q.device)
     if q.device.type == "cpu":
         out = softmax_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),

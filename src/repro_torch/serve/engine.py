@@ -489,9 +489,16 @@ class ContinuousBatchingEngine:
         self.model_steps = 0
         self.collectives = {kind: {"calls": 0, "bytes": 0}
                             for kind in COMM.KINDS}
-        # (shape, dtype) signatures seen entering each step
+        # (shape, dtype) signatures seen entering each step, and the warm-
+        # admission index pin and copy-on-write page copy (paged engines)
         self._prefill_shapes: set = set()
         self._decode_shapes: set = set()
+        self._set_index_shapes: set = set()
+        self._copy_page_shapes: set = set()
+        # slots whose request samples (temperature > 0), kept on the host at
+        # admission and finish: the fused steps learn from it whether to
+        # draw, with no device read of the bank
+        self._sampled_slots: set = set()
 
     def _lm(self, tokens, caches, **kw):
         """One engine step through ``lm_apply``: (out, caches); the MoE aux
@@ -571,10 +578,14 @@ class ContinuousBatchingEngine:
                 break
             slot, req = admitted
             S.bank_put(self.bank, slot, req.sampling)
+            if req.sampling is not None and req.sampling.temperature > 0:
+                self._sampled_slots.add(slot)
             filled = self.scheduler.slots[slot].filled
             if self.paged and filled:
                 # warm admission: the slot's table row maps cached pages
                 # holding rows [0, filled); the first chunk appends past them
+                self._set_index_shapes.add(_signature((self.caches, slot,
+                                                       filled)))
                 T.set_slot_index(self.caches, slot, filled)
         plan = self.scheduler.prefill_plan(self._chunk, self._budget)
         for slot, start, n in plan:
@@ -595,6 +606,18 @@ class ContinuousBatchingEngine:
         the lifetime (the page table and the sampling bank are values,
         never shapes)."""
         return len(self._decode_shapes)
+
+    @property
+    def set_index_cache_size(self) -> int:
+        """Distinct signatures of the warm-admission index pin (paged
+        engines): 1 once a warm request was admitted, 0 before."""
+        return len(self._set_index_shapes)
+
+    @property
+    def copy_page_cache_size(self) -> int:
+        """Distinct signatures of the copy-on-write page copy (paged
+        engines): 1 once a page was copied, 0 before."""
+        return len(self._copy_page_shapes)
 
     @property
     def page_occupancy(self) -> float:
@@ -645,6 +668,8 @@ class ContinuousBatchingEngine:
             if self.pool.page_shard(src) == self.pool.page_shard(dst) == (
                     self.plan.seq_rank if self.scfg.seq_shards > 1 else 0):
                 off = self.pool.page_shard(src) * pps
+                self._copy_page_shapes.add(_signature((self.caches, src - off,
+                                                       dst - off)))
                 T.copy_kv_page(self.caches, src - off, dst - off)
 
     def _prefill_one(self, slot: int, start: int, n: int):
@@ -665,9 +690,12 @@ class ContinuousBatchingEngine:
                                              row, kw.get("page_table"))))
         epi = None
         if self.fused:
+            sampled = slot in self._sampled_slots
+
             def epi(logits, new_caches):
                 return S.sample_tokens(logits[:, -1], row,
-                                       T.cache_index(new_caches))
+                                       T.cache_index(new_caches),
+                                       any_sampled=sampled)
 
         out, slot_caches = self._lm(tokens, slot_caches,
                                     prefill_append=lengths,
@@ -721,10 +749,13 @@ class ContinuousBatchingEngine:
             # device-side feedback: last tokens in, next tokens out; only
             # the (max_slots,) token vector reaches the host
             tokens, bank = self._last[:, None], self.bank
+            sampled = any(slot in self._sampled_slots
+                          for slot, _ in decoding)
 
             def epi(logits, new_caches):
                 return S.sample_tokens(logits[:, -1], bank,
-                                       T.cache_index(new_caches))
+                                       T.cache_index(new_caches),
+                                       any_sampled=sampled)
         else:
             # the A/B baseline: (max_slots, vocab) logits out of the step,
             # the decoding rows sampled after it through the same schedule
@@ -755,6 +786,7 @@ class ContinuousBatchingEngine:
                 self._finish(slot)
 
     def _finish(self, slot: int):
+        self._sampled_slots.discard(slot)
         uid, generated = self.scheduler.finish(slot)
         self.results[uid] = generated
         (T.reset_slot_paged if self.paged else T.reset_slot)(self.caches,

@@ -248,7 +248,7 @@ def apply_logits_masks(scores, top_k, top_p, min_p):
     return torch.where(keep, scores, -torch.inf)
 
 
-def sample_tokens(logits, bank, positions):
+def sample_tokens(logits, bank, positions, *, any_sampled=None):
     """The logits -> token epilogue: (b, v) logits, the SoA ``bank`` and the
     (b,) cache positions -> (b,) int32 tokens. Rows with ``temperature <=
     0`` take the first argmax of the fp32 logits; the others draw
@@ -256,12 +256,18 @@ def sample_tokens(logits, bank, positions):
     scaled, top-k / top-p / min-p masked scores with the key
     ``fold_in(fold_in(key(0), seed), position)``. An all-greedy bank (the
     default) skips the sort and the draw, as the reference's ``lax.cond``
-    does; that test reads the bank's temperatures on the host."""
+    does. ``any_sampled`` is the caller's host-side answer to "does a row
+    whose token is used sample?" (the engine knows it from the requests it
+    admitted): False skips the draw, True draws, both with no device read.
+    Left None, the test reads the bank's temperatures on the host (a sync:
+    the ``ServeSession`` and the logits paths, outside a fused step)."""
     lf = logits.float()
     greedy = torch.argmax(lf, dim=-1).to(torch.int32)
     t = bank["temperature"]
     sampled = t > 0
-    if not bool(sampled.any()):
+    if any_sampled is None:
+        any_sampled = bool(sampled.any())
+    if not any_sampled:
         return greedy
     scaled = lf / torch.where(sampled, t, 1.0)[:, None]
     masked = apply_logits_masks(scaled, bank["top_k"], bank["top_p"],

@@ -118,6 +118,7 @@ DECODE = {  # b, L, H, hkv, dk, bk
     "mqa-ragged-L": (2, 200, 8, 1, 32, 64),
     "head-chunks": (2, 256, 20, 2, 256, 128),
     "gpt2-engine": (4, 1024, 6, 6, 64, 256),   # chip_smoke's gpt2 engine
+    "dk96": (4, 512, 16, 4, 96, 128),     # phi-3-vision's head_dim, GQA 4
 }
 
 
@@ -150,6 +151,7 @@ PREFILL = {  # b, c, L, H, hkv, dk
     "mqa-L200-c5": (2, 5, 200, 8, 1, 32),   # the reference's red Pallas case
     "dk256": (1, 24, 160, 4, 2, 256),
     "gpt2-engine": (2, 128, 1024, 6, 6, 64),   # chip_smoke's gpt2 engine
+    "dk96": (2, 48, 300, 8, 2, 96),
 }
 
 
@@ -242,7 +244,8 @@ def _paginate(k, v, fills, ps, seed=0, spare=3):
 
 
 @pytest.mark.parametrize("ps", [4, 16, 64, 256])
-@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "head-chunks"])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "head-chunks",
+                                   "dk96"])
 def test_decode_paged_matches_plain_and_contiguous_bits(cuda, shape, ps):
     b, L, H, hkv, dk, bk = DECODE[shape]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk)
@@ -266,7 +269,7 @@ def test_decode_paged_matches_plain_and_contiguous_bits(cuda, shape, ps):
 
 
 @pytest.mark.parametrize("ps", [4, 16, 64, 256])
-@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "dk256"])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "dk256", "dk96"])
 def test_prefill_paged_matches_plain_and_contiguous_bits(cuda, shape, ps):
     b, c, L, H, hkv, dk = PREFILL[shape]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c)
@@ -404,6 +407,7 @@ ATTN = {  # b, sq, skv, H, hkv, dk
     "gemma2-dk256": (1, 96, 96, 8, 4, 256),
     "kv-longer": (1, 64, 192, 4, 1, 64),
     "q-longer": (1, 150, 70, 4, 2, 64),
+    "dk96": (2, 130, 130, 8, 2, 96),
 }
 ATTN_VARIANTS = [dict(), dict(window=37), dict(softcap=5.0),
                  dict(causal=False), dict(window=50, softcap=30.0)]
@@ -461,7 +465,7 @@ def test_softmax_attention_matches_plain(cuda, shape, variant):
 
 
 @pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "mqa-dk32",
-                                   "gemma2-dk256"])
+                                   "gemma2-dk256", "dk96"])
 @pytest.mark.parametrize("variant", [dict(), dict(window=37),
                                      dict(softcap=5.0)])
 def test_consmax_attention_gives_prefill_kernel_bits(cuda, shape, variant):
@@ -567,7 +571,9 @@ def test_paper_ops_refuse_what_the_kernels_cannot_take(cuda):
     for op, extra in ((consmax_attention_op, (beta, gamma)),
                       (softmax_attention_op, ())):
         with pytest.raises(TypeError):                   # no silent upcast
-            op(q.float(), k.float(), v.float(), *extra)
+            op(q.half(), k.half(), v.half(), *extra)
+        with pytest.raises(TypeError):                   # mixed bf16 / fp32
+            op(q.float(), k, v, *extra)
         with pytest.raises(ValueError):                  # no hidden copy
             op(strided, k, v, *extra)
         with pytest.raises(ValueError):                  # 3 query heads
@@ -591,7 +597,7 @@ def _quantized(x, name):
 
 @pytest.mark.parametrize("name", QDTYPES)
 @pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "mqa-ragged-L",
-                                   "head-chunks"])
+                                   "head-chunks", "dk96"])
 def test_decode_quantized_bits(cuda, shape, name):
     b, L, H, hkv, dk, bk = DECODE[shape]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
@@ -622,7 +628,7 @@ def test_decode_quantized_bits(cuda, shape, name):
 
 @pytest.mark.parametrize("name", QDTYPES)
 @pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "mqa-L200-c5",
-                                   "dk256"])
+                                   "dk256", "dk96"])
 def test_prefill_quantized_bits(cuda, shape, name):
     b, c, L, H, hkv, dk = PREFILL[shape]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
@@ -709,7 +715,7 @@ WALK = {"one-tile": 64, "fewer-than-stages": 128, "three-tiles": 192,
         "ragged-last": 200}
 
 
-@pytest.mark.parametrize("dk", [32, 64, 128, 256])
+@pytest.mark.parametrize("dk", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("walk", WALK)
 def test_mainloop_walk_lengths_attention(cuda, walk, dk):
     """Non-causal, so every CTA walks all ceil(s / 64) tiles: both attention
@@ -746,7 +752,7 @@ def test_mainloop_walk_lengths_attention(cuda, walk, dk):
     assert torch.equal(full, pre)
 
 
-@pytest.mark.parametrize("dk", [32, 64, 128, 256])
+@pytest.mark.parametrize("dk", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("walk", WALK)
 def test_mainloop_walk_lengths_prefill(cuda, walk, dk):
     """A 16-row chunk ending at fill s (each CTA walks ceil(s / 64) tiles):
@@ -842,7 +848,7 @@ def test_prefill_engine_shape(cuda):
 
 @pytest.mark.parametrize("ps", [4, 16, 64, 256])
 @pytest.mark.parametrize("name", QDTYPES)
-@pytest.mark.parametrize("shape", ["qwen2-gqa", "dk256"])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "dk256", "dk96"])
 def test_prefill_paged_quantized_bits(cuda, shape, name, ps):
     """Quantized page pools (codes and scales under one table) give the
     contiguous quantized kernel's bits at every page size the tests use."""
@@ -885,6 +891,10 @@ DECODE_WALK = {
     "dk32-int8": (4, 200, 8, 1, 32, 64, 4, "int8", [32, 33, 96, 97], 0),
     "dk256-int8": (2, 256, 8, 2, 256, 128, 4, "int8", [64, 161], 0),
     "dk256-fp8": (2, 256, 8, 2, 256, 128, 12, "fp8_e4m3", [33, 160], 0),
+    "dk96-g4": (4, 320, 16, 4, 96, 128, 4, "bf16", [32, 33, 160, 161], 0),
+    "dk96-int8": (2, 256, 8, 2, 96, 128, 12, "int8", [64, 161], 0),
+    "dk96-fp8-window": (2, 320, 8, 8, 96, 128, 16, "fp8_e4m3", [161, 300],
+                        37),
 }
 
 
@@ -924,9 +934,10 @@ def test_decode_tile_walk_edges(cuda, case):
 
 
 def test_decode_ptxas_report(cuda):
-    """Every decode_partials instantiation (4 head dims x 2 forms x 3 K/V
+    """Every decode_partials instantiation (5 head dims x 2 forms x 3 K/V
     types x 2 row addresses) builds without spills, and its static plus
-    dynamic shared memory at the largest shard fits a block."""
+    dynamic shared memory at the largest shard fits a block and equals the
+    launch plan's (``decode_smem_bytes``)."""
     import re
 
     from repro_torch.kernels.consmax_decode import ops as decode_ops
@@ -945,14 +956,18 @@ def test_decode_ptxas_report(cuda):
                                             decode_ops.MAX_BLOCK)
         assert r["spill_stores"] == r["spill_loads"] == 0, r
         assert 0 < dyn and r["smem"] + dyn <= _build.SMEM_PER_BLOCK, (r, dyn)
-    assert seen == 48
+        assert dyn == decode_ops.decode_smem_bytes(
+            int(dk), kv != "13__nv_bfloat16", rows == "Paged",
+            decode_ops.MAX_BLOCK)
+    assert seen == 60
 
 
-def test_decode_launch_replays_in_a_cuda_graph(cuda):
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "dk96"])
+def test_decode_launch_replays_in_a_cuda_graph(cuda, shape):
     """The kernel reads the lengths on the device and leaves its tickets
     zero, so one captured launch replays with new lengths and gives an
     eager launch's bits each time."""
-    b, L, H, hkv, dk, bk = DECODE["qwen2-gqa"]
+    b, L, H, hkv, dk, bk = DECODE[shape]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
                                    seed=19)
     lengths = torch.tensor([1, bk, bk + 7, L], dtype=torch.int32,
@@ -970,3 +985,31 @@ def test_decode_launch_replays_in_a_cuda_graph(cuda):
                                     **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, eager), fills
+
+
+# ------------------------------------------- fp32 full-sequence kernels ----
+F32_TOL = 2e-5    # the reference's fp32 tolerance (tests/test_kernels.py)
+
+
+@pytest.mark.parametrize("shape", ATTN)
+@pytest.mark.parametrize("variant", ATTN_VARIANTS + [dict(merged=True)])
+def test_fp32_attention_kernels_match_plain(cuda, shape, variant):
+    """fp32 q / k / v take the SIMT kernel (fp32 products and exp): both
+    attention kernels within the reference's fp32 atol of their plain
+    versions, the same bits on a second run."""
+    b, sq, skv, H, hkv, dk = ATTN[shape]
+    q, k, v, beta, gamma = (t.float() for t in _seq_inputs(
+        cuda, b=b, sq=sq, skv=skv, H=H, hkv=hkv, dk=dk, seed=21))
+    outs = [consmax_attention_cuda(q, k, v, beta, gamma, **variant)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert outs[0].dtype == torch.float32 and torch.equal(outs[0], outs[1])
+    ref = _model_layout(consmax_attention_ref, q, k, v, beta, gamma,
+                        **variant)
+    assert float((outs[0] - ref).abs().max()) <= F32_TOL
+    if "merged" in variant:
+        return
+    got = softmax_attention_cuda(q, k, v, **variant)
+    torch.cuda.synchronize()
+    ref = _model_layout(softmax_attention_ref, q, k, v, **variant)
+    assert float((got - ref).abs().max()) <= F32_TOL
