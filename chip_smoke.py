@@ -132,6 +132,24 @@ Phases, in order; any failure exits non-zero before the result line:
    analysis gate ``repro_torch.launch.analyze --device cuda`` (0
    violations; ``--self-test`` exit 1, every rule fired) and every launch
    plan's shared memory == the library's.
+19. the dry run: 19a ``repro_torch.launch.dryrun --device cuda`` on the
+   (16, 16) mesh for qwen2-1.5b, gemma2-2b and phi3.5-moe x decode_32k
+   and jamba-1.5-large-398b x long_500k, one niced process per cell
+   (children ``--dryrun-host`` and ``--dryrun-meshfake`` trace 19b's and
+   19c's cells the same way), four at a time, started once the host-bound
+   decode cell of 19b has run beside the longest of them only; every cell
+   ``ok``; 19b three cells
+   on one card (1 x 1), only the batch cut, run for real
+   (``--dryrun-real``: device ms, median of 5 after 2 warm-ups, >= 0.95 x
+   the dry run's ``bound_sec``; peak memory within 10 % of its
+   ``peak_bytes_per_device``), the decode cell also through the decode
+   kernel at b 16 x 32,768 (each layer's call within the kernel bound on
+   its own inputs; the step's logits, and their distance from an fp32
+   step's, within phase 4's model bound); 19c the
+   collective records of 4 gloo ranks (``--dry-rank``) == the dry run's
+   for the same (2, 2) cell; 19d GPipe over qwen2-1.5b's 28 blocks on 4
+   ranks sharing the card, bit-equal to the sequential forward, 9 permutes
+   + 1 all-reduce each; 19e the three examples with ``--device cuda``.
 
 The trace phases print device busy ms per engine iteration and, within
 it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
@@ -156,11 +174,14 @@ and convolutions, so the plain versions run in full fp32.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -213,20 +234,25 @@ def _bound_ms(nbytes, flops, peak=PEAK_BF16_FLOPS):
                                        else "operations")
 
 
-def _check(name, got, ref, ref_absv):
-    """Elementwise bound against ``ref_absv`` = sum_j p_j |v_j|, and a
-    relative L2 bound per output row (the trailing (H, dk) of each slot or
-    query row) over the rows whose plain output is not all zero; the
-    all-zero rows (no visible key) are held by the elementwise bound."""
+def _kernel_err(got, ref, ref_absv):
+    """(within bound, max_abs_err, max row relative L2): the elementwise
+    bound against ``ref_absv`` = sum_j p_j |v_j|, and a relative L2 bound
+    per output row (the trailing (H, dk) of each slot or query row) over the
+    rows whose plain output is not all zero; the all-zero rows (no visible
+    key) are held by the elementwise bound."""
     err = (got.float() - ref.float()).abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool(
         (err <= 2.0 ** -7 * ref_absv.float() + 1e-6).all())
-    e = float(err.max())
     ref_n = ref.float().flatten(-2).norm(dim=-1)
     err_n = err.flatten(-2).norm(dim=-1)
     live = ref_n > 0
     rel = float((err_n[live] / ref_n[live]).max()) if live.any() else 0.0
-    ok = ok and rel <= REL_L2_BOUND
+    return ok and rel <= REL_L2_BOUND, float(err.max()), rel
+
+
+def _check(name, got, ref, ref_absv):
+    """``_kernel_err``'s bound, logged; raises if the kernel is outside it."""
+    ok, e, rel = _kernel_err(got, ref, ref_absv)
     _worst_rel[0] = max(_worst_rel[0], rel)
     _log(f"[kernels] {name}: max_abs_err {e:.3e} "
          f"(max |plain| {float(ref.float().abs().max()):.3e}), max row "
@@ -3704,7 +3730,7 @@ def _mesh_gates(label, ranks, single, kernels, tp, ns, cfg, n_chunks):
                 "all_reduce": (L * s["steps"] if ns > 1 else 0,
                                L * rows * (H // tp) * dk * 4 if ns > 1
                                else 0),
-                "all_to_all": (0, 0)}
+                "all_to_all": (0, 0), "collective_permute": (0, 0)}
         got = {k: (c["calls"], c["bytes"]) for k, c in
                s["collectives"].items()}
         ok = (s["tokens"] == single["tokens"] and s["signatures"] == [1, 1]
@@ -4181,6 +4207,656 @@ def analysis_phase():
     return gate_s
 
 
+# ------------------------------------------------------------ phase 19 ----
+# 19a: the dry run of the production (16, 16) mesh on the card's host, for
+# the cells whose traces are short: the decode cells and jamba's long_500k
+# (5-8 s of tracing each). The prefill and training cells of the same
+# archs trace for 95-260 s each on that host; the CPU's `--all` sweep
+# covers them (ROADMAP section 3)
+DRY_CELLS = [("phi3.5-moe-42b-a6.6b", "decode_32k"), ("gemma2-2b", "decode_32k"),
+             ("qwen2-1.5b", "decode_32k"), ("jamba-1.5-large-398b", "long_500k")]
+# 19b: cells on one H100 (a (1, 1) mesh), only the batch cut:
+# (arch, shape, batch, microbatch)
+DRY_HOST = [("qwen2-1.5b", "decode_32k", 16, 4),
+            ("qwen2-1.5b", "prefill_32k", 1, 4),
+            ("gpt2-consmax", "train_4k", 16, 4)]
+# 19c: fake against real collectives on a (2, 2) data x model mesh of four
+# gloo ranks. Their shards live on the host's CPU: DTensor issues
+# functional collectives, and the installed torch's gloo segfaults in
+# wait_tensor on a functional all_gather_into_tensor of CUDA tensors (a
+# probe on the card found it; its all_reduce works), so the fake trace
+# takes the same CPU mesh. At fp32: at bf16 the row-parallel products'
+# partial sums are rounded to bf16 before their all-reduce, and the 6-layer
+# logits then differ from one device's by ~1.3e-2 row relative L2 (on the
+# CPU), beyond any per-op bound; at fp32 the gate is 1e-5
+DRY_MESH_CELL = dict(arch="gpt2-consmax", shape="decode_32k", batch=8,
+                     mesh=[2, 2], device="cpu",
+                     overrides=dict(param_dtype="float32",
+                                    compute_dtype="float32"))
+DRY_MESH_REL = 1e-5
+# a whole model's logits, kernels against plain walks: phase 4's bound
+# (bf16 rounds at other places in the two paths, over 28 layers); 19b holds
+# each layer's decode kernel call to REL_L2_BOUND on the step's own inputs
+MODEL_REL_L2 = 2.0 ** -4
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+DRY_WORKERS = 4
+DRY_TIMEOUT = 400            # seconds for one phase-19 child process
+DRY_RANK_TIMEOUT = 240       # seconds for one world of phase-19 ranks
+PIPE_STAGES, PIPE_MICRO, PIPE_SHAPE = 4, 6, (2, 512, 1536)
+
+
+def _dryrun_jobs(tmp: Path) -> list:
+    """(key, argv): 19b / 19c's fake traces and 19a's cells through
+    ``repro_torch.launch.dryrun --device cuda``, niced, the longest first."""
+    root = Path(__file__).resolve().parent
+    nice = ["nice", "-n", "19", sys.executable]
+    jobs = [(f"host:{a}:{s}", nice + [str(root / "chip_smoke.py"),
+                                      "--dryrun-host", a, s, str(b), str(m),
+                                      str(tmp / f"host-{a}-{s}.json")])
+            for a, s, b, m in DRY_HOST[1:] + DRY_HOST[:1]]
+    jobs.append(("mesh-fake", nice + [str(root / "chip_smoke.py"),
+                                      "--dryrun-meshfake",
+                                      str(tmp / "mesh-fake.json")]))
+    jobs += [(f"{a}:{s}", nice + ["-m", "repro_torch.launch.dryrun",
+                                  "--device", "cuda", "--arch", a,
+                                  "--shape", s, "--out",
+                                  str(tmp / "dryrun_torch")])
+             for a, s in DRY_CELLS]
+    return jobs
+
+
+def _child(argv) -> tuple:
+    """(exit code, stdout, stderr's tail, seconds) of one phase-19 child
+    process, killed after DRY_TIMEOUT (exit code None)."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(root / "src"))
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                              cwd=root, timeout=DRY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        return None, "", f"killed after {DRY_TIMEOUT} s", time.monotonic() - t0
+    return (proc.returncode, proc.stdout, proc.stderr[-3000:],
+            time.monotonic() - t0)
+
+
+def dryrun_host_child(arch, shape, batch, micro, out):
+    """``chip_smoke.py --dryrun-host``: the fake trace of one 19b cell on
+    a (1, 1) mesh, its roofline record written to ``out``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_cell
+    mesh = make_host_mesh(device="cuda")
+    cell = make_cell(arch, shape, mesh, global_batch=int(batch),
+                     microbatch=int(micro), device="cuda")
+    traced = D.trace_cell(cell)
+    rec = dict(D.roofline(cell, traced, 1), meta=cell.meta,
+               trace_sec=traced["trace_sec"])
+    Path(out).write_text(json.dumps(rec))
+
+
+def dryrun_meshfake_child(out):
+    """``chip_smoke.py --dryrun-meshfake``: 19c's cell traced for one
+    device of a fake (2, 2) mesh; its collective records to ``out``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import _fake_mesh
+    from repro_torch.launch.specs import make_cell
+    c = DRY_MESH_CELL
+    mesh = _fake_mesh(tuple(c["mesh"]), ("data", "model"), c["device"])
+    cell = make_cell(c["arch"], c["shape"], mesh, global_batch=c["batch"],
+                     overrides=c["overrides"], device=c["device"])
+    traced = D.trace_cell(cell)
+    Path(out).write_text(json.dumps(dict(records=traced["records"],
+                                         trace_sec=traced["trace_sec"])))
+
+
+def _median_ms(fn, reps=5, warm=2):
+    """Median device time of ``fn`` over ``reps`` calls after ``warm``
+    (CUDA events around each call)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
+def _row_rel_l2(got, ref):
+    g, r = got.float(), ref.float()
+    return float(((g - r).norm(dim=-1) / r.norm(dim=-1).clamp(min=1e-30))
+                 .max())
+
+
+def dryrun_real_child(kinds):
+    """``chip_smoke.py --dryrun-real KINDS``: 19b's cells of the comma-
+    joined kinds (decode, prefill, train) run for real on the
+    card on the same arguments' shapes (a seeded ``materialize``): device
+    ms (median of 5 after 2 warm-ups) and the step's peak memory above its
+    arguments; the decode cell also through the decode kernel, on fresh
+    arguments of the same seed, its logits held to a fresh plain step's.
+    Prints one JSON line."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.distributed import op_analysis as OA
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_cell, materialize, run
+    from repro_torch.serve import engine as SE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(device="cuda")
+    out = {}
+    for arch, shape, batch, micro in DRY_HOST:
+        if shape.split("_")[0] not in kinds.split(","):
+            continue
+        cell = make_cell(arch, shape, mesh, global_batch=batch,
+                         microbatch=micro, device="cuda")
+        box = {"args": materialize(cell, seed=0, device="cuda")}
+        arg_bytes = sum(n for _, n in OA._storages(box["args"]).values())
+
+        def step():
+            box["out"] = run(cell, box["args"])
+
+        ms, times = _median_ms(step)
+        box.pop("out")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step()
+        torch.cuda.synchronize()
+        delta = torch.cuda.max_memory_allocated() - before
+        row = dict(ms=ms, times=times, arg_bytes=arg_bytes, delta=delta)
+        box.clear()
+        torch.cuda.empty_cache()
+        if cell.kind == "decode":
+            box["args"] = materialize(cell, seed=0, device="cuda")
+            plain = run(cell, box["args"])[0].float().clone()
+            scfg = ServeConfig(max_seq=cell.meta["seq_len"],
+                               fused_sampling=False, decode_kernel=True)
+            _, _, kstep, _ = SE.make_serve_fns(cell.cfg, scfg, device="cuda")
+
+            def kernel_step():
+                box["out"] = kstep(*box["args"])
+
+            box["args"] = materialize(cell, seed=0, device="cuda")
+            with _each_decode_call() as calls:
+                kernel_step()
+            kernel = box["out"][0].float().clone()
+            row["layers"], row["n_layers"] = calls, cell.cfg.n_layers
+            row["kernel_rel_l2"] = _row_rel_l2(kernel, plain)
+            row["kernel_ms"], row["kernel_times"] = _median_ms(kernel_step)
+            row["kernel_profile"] = _device_profile(kernel_step)
+            row.update(_decode_at_cell_shape(box["args"]))
+            box.clear()
+            torch.cuda.empty_cache()
+            exact = _exact_logits(cell, mesh, batch, micro)
+            row["plain_vs_f32"] = _row_rel_l2(plain, exact)
+            row["kernel_vs_f32"] = _row_rel_l2(kernel, exact)
+            del exact
+            torch.cuda.empty_cache()
+            box["args"] = materialize(cell, seed=0, device="cuda")
+            row["profile"] = _device_profile(step)
+            box.clear()
+            torch.cuda.empty_cache()
+        out[f"{arch}:{shape}"] = row
+    print(json.dumps(out), flush=True)
+
+
+@contextlib.contextmanager
+def _each_decode_call():
+    """Every ``consmax_decode_op`` call inside, its kernel's output held to
+    its plain version on the call's own inputs (q, the layer's cache after
+    this step's write, lengths, beta, gamma): a list of ``_kernel_err``'s
+    (ok, max_abs_err, max row relative L2), one per call."""
+    from repro_torch.kernels.consmax_decode import ops
+    from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
+    orig, seen = ops.consmax_decode_op, []
+
+    def checked(q, k, v, index, beta, gamma, **kw):
+        out = orig(q, k, v, index, beta, gamma, **kw)
+        plain_kw = {n: kw[n] for n in ("window", "softcap", "merged", "scale",
+                                       "k_scale", "v_scale") if n in kw}
+        ref, ref_absv = (consmax_decode_ref(q[:, 0], k, vv, index + 1, beta,
+                                            gamma, **plain_kw)
+                         for vv in (v, v.abs()))
+        seen.append(_kernel_err(out[:, 0], ref, ref_absv))
+        return out
+
+    checked.launches = orig.launches          # the wrapper counts launches
+    ops.consmax_decode_op = checked           # on the name it is bound to
+    try:
+        yield seen
+    finally:
+        ops.consmax_decode_op, orig.launches = orig, checked.launches
+
+
+def _f32(tree):
+    """``tree`` (a module, dicts, lists, tensors) with every floating tensor
+    cast up to fp32, in place where it can be: a bf16 value is exact in
+    fp32."""
+    if isinstance(tree, torch.nn.Module):
+        return tree.float()
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            tree[key] = _f32(val)
+        return tree
+    if isinstance(tree, list):
+        for i, val in enumerate(tree):
+            tree[i] = _f32(val)
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(_f32(val) for val in tree)
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _exact_logits(cell, mesh, batch, micro):
+    """The decode cell's plain step at fp32 (weights, cache and compute) on
+    the bf16 arguments' values: the model both bf16 steps approximate."""
+    from repro_torch.launch.specs import make_cell, materialize, run
+    c32 = make_cell(cell.arch_id, cell.shape_name, mesh, global_batch=batch,
+                    microbatch=micro, overrides=F32, device="cuda")
+    args = _f32(materialize(cell, seed=0, device="cuda"))
+    return run(c32, args)[0].float()
+
+
+def _device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device busy ms (the
+    union of the device events) and the four kernels taking most time."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end, by = 0.0, float("-inf"), defaultdict(float)
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+        by[e.name[:48]] += e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    return dict(busy_ms=busy / 1e3, ops=len(dev),
+                top=[[n, round(t, 3)] for n, t in top])
+
+
+def _decode_at_cell_shape(args) -> dict:
+    """Row 1 (``consmax_decode``) on layer 0's cache of the decode cell
+    (b 16 x L 32,768, 2 KV heads, every row live) against its plain
+    version, the repo's kernel bound (``_check``), and its time beside its
+    byte bound."""
+    from repro_torch.kernels.consmax_decode.ops import consmax_decode_cuda
+    from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
+    _, caches, _ = args
+    k, v = caches[0]["b0"]["attn"]["k"], caches[0]["b0"]["attn"]["v"]
+    b, L, hkv, dk = k.shape
+    H = 12
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    q = _rand(gen, (b, H, dk), dk ** -0.5)
+    beta, gamma = _head_params(gen, H)
+    lengths = torch.full((b,), L, dtype=torch.int32, device="cuda")
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    got = consmax_decode_cuda(q, k, v, lengths, beta, gamma, bk=256, **kw)
+    err = _check(f"decode b={b} L={L} every row live", got,
+                 consmax_decode_ref(q.float(), k, v, lengths, beta, gamma,
+                                    **kw),
+                 consmax_decode_ref(q.float(), k, v.abs(), lengths, beta,
+                                    gamma, **kw))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = _time_ms(lambda: consmax_decode_cuda(q, k, v, lengths, beta, gamma,
+                                              bk=256, **kw), flush, 20)
+    bound, _ = _bound_ms(b * L * hkv * dk * 2 * 2 + 2 * b * H * dk * 2,
+                         4 * b * L * H * dk)
+    return dict(layer_err=err, layer_ms=ms, layer_bound_ms=bound)
+
+
+def dry_rank_child(spec_path, rank):
+    """``chip_smoke.py --dry-rank``: one rank of 19c (the mesh cell on its
+    real shards, its collectives recorded, its logits beside one device's)
+    or 19d (GPipe over qwen2-1.5b's blocks, on the one card) over gloo."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import init_distributed
+    spec = json.loads(Path(spec_path).read_text())
+    on_card = spec["job"] == "pipe" or DRY_MESH_CELL["device"] == "cuda"
+    init_distributed("gloo", rank=rank, world_size=spec["world"],
+                     init_method=f"file://{spec['store']}",
+                     device=torch.device("cuda", 0) if on_card else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = (_dry_cell_rank(spec) if spec["job"] == "cell"
+           else _dry_pipe_rank(spec))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(dict(out, rank=rank)), flush=True)
+
+
+def _dry_cell_rank(spec):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.op_analysis import record_collectives
+    from repro_torch.launch.specs import make_cell, materialize, run
+    c = DRY_MESH_CELL
+    dev = c["device"]
+    if dev == "cpu":
+        torch.set_num_threads(1)          # four ranks share the host
+    mesh = init_device_mesh(dev, tuple(c["mesh"]),
+                            mesh_dim_names=("data", "model"))
+    cell = make_cell(c["arch"], c["shape"], mesh, global_batch=c["batch"],
+                     overrides=c["overrides"], device=dev)
+    args = materialize(cell, seed=0, device=dev)
+    with record_collectives() as rec:
+        logits, _ = run(cell, args)
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
+    logits = logits.float().cpu()
+    del args
+    out = dict(records=rec.records, finite=bool(torch.isfinite(logits).all()),
+               shape=list(logits.shape),
+               digest=hashlib.sha256(logits.numpy().tobytes()).hexdigest())
+    if torch.distributed.get_rank() == 0:
+        # every rank's gathered logits have rank 0's bits (the digests), so
+        # one whole-model run on one device serves all four
+        one, _ = run(cell, materialize(cell, seed=0, device=dev, whole=True))
+        out["rel_l2"] = _row_rel_l2(logits, one.cpu())
+    return out
+
+
+def _dry_pipe_rank(spec):
+    """GPipe: rank s runs blocks [7s, 7s + 7) of qwen2-1.5b (bf16 weights
+    from a seed, the same on every rank); 6 microbatches of (2, 512, 1536)
+    bf16 hidden states. Rank 0 also runs the 28 blocks in order, one
+    microbatch at a time, on one device."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import comm as COMM
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.models import transformer as T
+    from repro_torch.weights import init_params
+    cfg = get_config("qwen2-1.5b", param_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    model = T.cast_param_dtype(init_params(cfg, gen, device="cuda"), cfg)
+    blocks = [sup["b0"] for sup in model.blocks]
+    per = cfg.n_layers // PIPE_STAGES
+    xs = torch.randn((PIPE_MICRO,) + PIPE_SHAPE, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    pos = torch.arange(PIPE_SHAPE[1], device="cuda")[None, :]
+
+    @torch.no_grad()
+    def stage_fn(blks, x):
+        for blk in blks:
+            x, _, _ = blk(x, cfg, positions=pos)
+        return x
+
+    comm = COMM.Comm()
+    mine = blocks[comm.rank * per:(comm.rank + 1) * per]
+    COMM.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = gpipe(stage_fn, mine, xs, comm=comm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = COMM.calls()
+    res = dict(calls=[(c["kind"], c["bytes"]) for c in calls], wall_s=wall)
+    if comm.rank == 0:
+        seq = torch.stack([stage_fn(blocks, xs[m])
+                           for m in range(PIPE_MICRO)])
+        res.update(equal=bool(torch.equal(outs, seq)),
+                   max_abs=float((outs.float() - seq.float()).abs().max()),
+                   finite=bool(torch.isfinite(outs.float()).all()))
+    return res
+
+
+def _dry_world(tmp, job, world):
+    from repro_torch.launch.mesh import run_ranks
+    path = tmp / f"dry-{job}.json"
+    path.write_text(json.dumps(dict(job=job, world=world,
+                                    store=str(tmp / f"dry-{job}.store"))))
+    # 19c's ranks run on the CPU beside the card's steps: niced
+    nice = ["nice", "-n", "10"] if job == "cell" else []
+    outs = run_ranks([nice + [sys.executable, str(Path(__file__).resolve()),
+                              "--dry-rank", str(path), str(r)]
+                      for r in range(world)], timeout=DRY_RANK_TIMEOUT)
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def dryrun_phase(smi, tmp: Path):
+    """19: the dry run on the card's host (19a), against one H100 (19b),
+    its collectives against real ranks (19c), GPipe on the card (19d) and
+    the three examples (19e). 19b's decode steps run first, beside the
+    longest fake trace only; the other traces then run DRY_WORKERS at a
+    time beside the rest, and 19c's CPU ranks beside the card's steps."""
+    t19 = time.perf_counter()
+    failed = []
+
+    def attempt(label, fn):
+        """``fn()``, its seconds logged; a failure is recorded (the phase
+        raises at its end, after printing what did run)."""
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 — reported, then raised below
+            failed.append(f"{label}: {type(e).__name__}: {str(e)[-2000:]}")
+            _log(f"[dryrun] {label} FAIL: {type(e).__name__}: "
+                 f"{str(e)[-2000:]}")
+            return None
+        finally:
+            _log(f"[dryrun] {label} {time.perf_counter() - t0:.1f} s")
+
+    def real_steps(kinds):
+        rc, out, err, _ = _child([sys.executable,
+                                  str(Path(__file__).resolve()),
+                                  "--dryrun-real", kinds])
+        if rc != 0:
+            raise AssertionError(f"exit {rc}: {err}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    # the decode cell's kernel step is host-bound: it runs beside one niced
+    # process only, the longest trace (19b's prefill cell); the prefill and
+    # training steps are device-bound, and run beside the other traces and
+    # 19c's CPU ranks
+    jobs = _dryrun_jobs(tmp)
+    with ThreadPoolExecutor(DRY_WORKERS) as pool, \
+            ThreadPoolExecutor(1) as side:
+        traces = {jobs[0][0]: pool.submit(_child, jobs[0][1])}
+        real = attempt("19b real decode steps",
+                       lambda: real_steps("decode")) or {}
+        traces.update({key: pool.submit(_child, argv)
+                       for key, argv in jobs[1:]})
+        cell_world = side.submit(attempt, "19c mesh-cell world",
+                                 lambda: _dry_world(tmp, "cell", 4))
+        real.update(attempt("19b real prefill / train steps",
+                            lambda: real_steps("prefill,train")) or {})
+        pipe = attempt("19d GPipe world", lambda: _dry_world(
+            tmp, "pipe", PIPE_STAGES)) or []
+        examples = attempt("19e examples", _run_examples) or {}
+        ranks = cell_world.result() or []
+        results = attempt("waiting for the fake traces", lambda: {
+            key: f.result() for key, f in traces.items()}) or {}
+
+    # ---- 19a
+    for a, s in DRY_CELLS:
+        rc, _, err, secs = results.get(f"{a}:{s}", (None, "", "not run", 0))
+        path = tmp / "dryrun_torch" / f"{a}--{s}--single_pod.json"
+        rec = json.loads(path.read_text()) if path.exists() else {
+            "status": f"no record (exit {rc}): {err[-500:]}"}
+        if rec["status"] != "ok":
+            failed.append(f"19a {a} x {s}: {rec.get('error', rec['status'])}")
+            _log(f"[dryrun] 19a {a} x {s}: {rec['status']} "
+                 f"{rec.get('error', '')[:300]} FAIL")
+            continue
+        r, h, c = rec["roofline"], rec["hbm"], rec["collectives"]
+        _log(f"[dryrun] 19a {a} x {s} (16 x 16): ok, dominant "
+             f"{r['dominant']}, roofline_fraction "
+             f"{r['roofline_fraction']:.4f}, bound {r['bound_sec']:.4e} s, "
+             f"ideal {r['ideal_sec']:.4e} s, peak "
+             f"{h['peak_bytes_per_device'] / 2**30:.2f} GiB, fits_80GB "
+             f"{h['fits_80GB']}, collective bytes {c['bytes_by_kind']}, "
+             f"trace_sec {rec['trace_sec']:.1f} (process {secs:.1f} s), "
+             f"fallbacks {len(rec['fallbacks'])}")
+
+    # ---- 19b
+    for a, s, b, m in DRY_HOST:
+        rc, _, err, secs = results.get(f"host:{a}:{s}",
+                                       (None, "", "not run", 0))
+        path = tmp / f"host-{a}-{s}.json"
+        if rc != 0 or not path.exists() or f"{a}:{s}" not in real:
+            failed.append(f"19b {a} x {s}: trace exit {rc}: {err[-800:]}")
+            continue
+        rec = json.loads(path.read_text())
+        row = real[f"{a}:{s}"]
+        r = rec["roofline"]
+        bound_ms, ideal_ms = 1e3 * r["bound_sec"], 1e3 * r["ideal_sec"]
+        dry_peak = rec["hbm"]["peak_bytes_per_device"]
+        peak = rec["memory"]["argument_bytes"] + row["delta"]
+        ok_t = row["ms"] >= 0.95 * bound_ms
+        ok_m = abs(peak - dry_peak) <= 0.10 * dry_peak
+        ok_args = row["arg_bytes"] == rec["memory"]["argument_bytes"]
+        _log(f"[dryrun] 19b {a} x {s} (batch {b}, 1 x 1): measured "
+             f"{row['ms']:.3f} ms (median of {len(row['times'])}: "
+             f"{[round(t, 3) for t in row['times']]}), dry-run bound "
+             f"{bound_ms:.3f} ms ({r['dominant']}: compute "
+             f"{1e3 * r['compute_sec']:.3f}, memory "
+             f"{1e3 * r['memory_sec']:.3f} ms from "
+             f"{rec['cost']['bytes'] / 1e9:.2f} GB, "
+             f"{rec['cost']['flops'] / 1e12:.2f} TFLOP), measured / bound "
+             f"{row['ms'] / bound_ms:.3f} {'ok' if ok_t else 'FAIL'}; "
+             f"ideal {ideal_ms:.3f} ms, ideal / measured "
+             f"{ideal_ms / row['ms']:.4f}; peak {peak / 1e9:.3f} GB "
+             f"(arguments {rec['memory']['argument_bytes'] / 1e9:.3f} + "
+             f"step {row['delta'] / 1e9:.3f}) vs dry run "
+             f"{dry_peak / 1e9:.3f} GB ({peak / dry_peak:.3f}) "
+             f"{'ok' if ok_m else 'FAIL'}; arguments equal "
+             f"{ok_args}; trace {rec['trace_sec']:.1f} s; on {smi}")
+        if not (ok_t and ok_m and ok_args):
+            failed.append(f"19b {a} x {s}")
+        if "kernel_ms" in row:
+            layers = row["layers"]
+            ok_l = (len(layers) == row["n_layers"]
+                    and all(ok for ok, _, _ in layers))
+            ok_k = (row["kernel_rel_l2"] <= MODEL_REL_L2
+                    and row["kernel_vs_f32"] <= MODEL_REL_L2 and ok_l)
+            _log(f"[dryrun] 19b {a} x {s} through the decode kernel "
+                 f"(b {b} x L {rec['meta']['seq_len']}, every row live): "
+                 f"{row['kernel_ms']:.3f} ms (median of 5: "
+                 f"{[round(t, 3) for t in row['kernel_times']]}); row 1 "
+                 f"alone on layer 0's cache {row['layer_ms']:.4f} ms vs "
+                 f"its byte bound {row['layer_bound_ms']:.4f} ms; each of "
+                 f"the step's {len(layers)} decode kernel calls vs its plain "
+                 f"version on the same inputs: max row relative L2 per layer "
+                 f"{[float(f'{r:.3e}') for _, _, r in layers]}, largest "
+                 f"{max((r for _, _, r in layers), default=float('nan')):.3e}"
+                 f", max_abs_err {max((e for _, e, _ in layers), default=0):.3e}"
+                 f" (the kernel bound: relative L2 per row <= "
+                 f"{REL_L2_BOUND:.3e} and elementwise) "
+                 f"{'ok' if ok_l else 'FAIL'}; the step's logits, row "
+                 f"relative L2: kernel vs plain {row['kernel_rel_l2']:.3e}, "
+                 f"against the fp32 step on the same values: plain bf16 "
+                 f"{row['plain_vs_f32']:.3e}, kernel {row['kernel_vs_f32']:.3e}"
+                 f" (the model-level bound {MODEL_REL_L2:.3e} of phase 4) "
+                 f"{'ok' if ok_k else 'FAIL'}; ideal / measured: plain "
+                 f"{ideal_ms / row['ms']:.4f}, kernel "
+                 f"{ideal_ms / row['kernel_ms']:.4f}; one step under "
+                 f"torch.profiler: plain busy {row['profile']['busy_ms']:.2f} "
+                 f"ms over {row['profile']['ops']} device ops, top "
+                 f"{row['profile']['top']}; kernel busy "
+                 f"{row['kernel_profile']['busy_ms']:.2f} ms over "
+                 f"{row['kernel_profile']['ops']} ops, top "
+                 f"{row['kernel_profile']['top']}; on {smi}")
+            if not ok_k:
+                failed.append(f"19b {a} x {s} decode kernel")
+
+    # ---- 19c
+    rc, _, err, _ = results.get("mesh-fake", (None, "", "not run", 0))
+    if rc != 0 or not ranks:
+        failed.append(f"19c fake trace exit {rc}: {err[-800:]}")
+    else:
+        fake = json.loads((tmp / "mesh-fake.json").read_text())["records"]
+        same = [res["records"] == fake for res in ranks]
+        r0 = next(res for res in ranks if res["rank"] == 0)
+        rel, bits = r0["rel_l2"], [res["digest"] == r0["digest"]
+                                   for res in ranks]
+        ok = (all(same) and rel <= DRY_MESH_REL and all(bits)
+              and all(res["finite"] for res in ranks) and len(fake) > 0)
+        by = {}
+        for rr in fake:
+            by[rr["kind"]] = by.get(rr["kind"], 0) + rr["bytes"]
+        _log(f"[dryrun] 19c {DRY_MESH_CELL['arch']} x "
+             f"{DRY_MESH_CELL['shape']} batch {DRY_MESH_CELL['batch']} on "
+             f"(2, 2), 4 ranks over gloo, shards on "
+             f"{DRY_MESH_CELL['device']}: {len(fake)} "
+             f"collectives {by}; each rank's records == the dry run's "
+             f"{same}; every rank's gathered logits have rank 0's bits "
+             f"{bits}; fp32 logits row relative L2 vs one device {rel:.3e} "
+             f"(bound {DRY_MESH_REL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append("19c")
+
+    # ---- 19d
+    r0 = next((res for res in pipe if res["rank"] == 0),
+              dict(equal=False, finite=False, max_abs=float("nan")))
+    hop = np.prod(PIPE_SHAPE) * 2
+    want = ([["collective_permute", int(hop)]] * (PIPE_MICRO + PIPE_STAGES - 1)
+            + [["all_reduce", int(hop * PIPE_MICRO)]])
+    calls_ok = bool(pipe) and all(
+        [list(c) for c in res["calls"]] == want for res in pipe)
+    ok = r0["equal"] and r0["finite"] and calls_ok
+    _log(f"[dryrun] 19d GPipe: qwen2-1.5b's 28 blocks over {PIPE_STAGES} "
+         f"stages, {PIPE_MICRO} microbatches of {PIPE_SHAPE} bf16: outputs "
+         f"== the sequential forward bit for bit {r0['equal']} (max |diff| "
+         f"{r0['max_abs']:.3e}); every rank {PIPE_MICRO + PIPE_STAGES - 1} "
+         f"permutes of {int(hop)} B + 1 all-reduce of "
+         f"{int(hop * PIPE_MICRO)} B: {calls_ok}; wall "
+         f"{[round(res['wall_s'], 3) for res in pipe]} s "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("19d")
+
+    # ---- 19e
+    for name, (rc, tail) in examples.items():
+        _log(f"[dryrun] 19e examples/{name} --device cuda: exit {rc} "
+             f"{'ok' if rc == 0 else 'FAIL'}: {tail}")
+        if rc != 0:
+            failed.append(f"19e {name}")
+    _log(f"[dryrun] phase 19 {time.perf_counter() - t19:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 19 failed: {failed}")
+
+
+def _run_examples() -> dict:
+    """The three root examples of the port with ``--device cuda``, at once;
+    {name: (exit code, last line)}."""
+    import os
+    import tempfile
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    ckpt = tempfile.mkdtemp(dir=root / "build")
+    argv = {"quickstart": [], "serve_batched": [],
+            "elastic_restart": ["--ckpt", str(Path(ckpt) / "elastic")]}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--device",
+         "cuda", *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=root) for name, extra in argv.items()}
+    out = {}
+    for name, p in procs.items():
+        try:
+            text, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        lines = text.strip().splitlines()
+        out[name] = (p.returncode, " | ".join(lines[-3:])[-600:])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -4378,6 +5054,11 @@ def main():
     analysis_phase()
     _log(f"[analysis] 18d {time.perf_counter() - t0:.1f} s")
     _log(f"[done] phase 18 {time.perf_counter() - t18:.1f} s")
+    torch.cuda.empty_cache()
+    import tempfile
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    dryrun_phase(smi, Path(tempfile.mkdtemp(prefix="dryrun-", dir=build_dir)))
 
     dec = "src/repro_torch/kernels/consmax_decode/csrc/consmax_decode.cu"
     pre = "src/repro_torch/kernels/consmax_prefill/csrc/consmax_prefill.cu"
@@ -4423,5 +5104,13 @@ if __name__ == "__main__":
         moe_train_child()
     elif sys.argv[1:2] == ["--mesh-rank"]:
         mesh_child(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--dryrun-host"]:
+        dryrun_host_child(*sys.argv[2:7])
+    elif sys.argv[1:2] == ["--dryrun-meshfake"]:
+        dryrun_meshfake_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--dryrun-real"]:
+        dryrun_real_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--dry-rank"]:
+        dry_rank_child(sys.argv[2], int(sys.argv[3]))
     else:
         main()

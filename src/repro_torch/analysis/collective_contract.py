@@ -25,7 +25,7 @@ from __future__ import annotations
 from repro_torch.analysis.op_lint import Finding
 
 RULE = "sharded-collective-contract"
-KINDS = ("all_gather", "all_to_all", "all_reduce")
+KINDS = ("all_gather", "all_to_all", "all_reduce", "collective_permute")
 
 CONTRACT_CATALOG = {
     RULE: "sharded steps move only output-sized collectives (the ConSmax "

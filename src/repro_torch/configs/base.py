@@ -265,3 +265,13 @@ class ServeConfig:
     @property
     def max_pages_per_slot(self) -> int:
         return -(-self.max_seq // self.page_size)
+
+
+# the dry run's cells (``launch/specs.py``), the reference's four shapes
+SHAPES = {
+    # name: (seq_len, global_batch, kind)
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}

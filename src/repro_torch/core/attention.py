@@ -9,8 +9,9 @@
   reference does not route it through one (``kernels/consmax_attn`` and
   ``kernels/softmax_attn`` are the tiled kernels of this loop, forward
   only). Training differentiates it with autograd, as the reference
-  differentiates its jnp walk; the in-place ``acc +=`` is safe there, since
-  an add saves no tensor for backward.
+  differentiates its jnp walk. The accumulator is added out of place (the
+  same bits as ``acc +=``), so the walk also runs on DTensors, whose
+  in-place add would need the fresh accumulator's placements.
 * ``append_attention`` — chunked append-at-index prefill: a fixed-size
   chunk at per-slot cache position ``index`` attends ``cache[0:index]`` plus
   itself. For consmax each KV block's ``p @ v`` partial is final (no
@@ -51,10 +52,12 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import normalizers
 from repro_torch.core.consmax import ConSmaxParams
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.cache_layout import kv_mask
 from repro_torch.nn import layers as L
@@ -69,8 +72,10 @@ class Attention(nn.Module):
         super().__init__()
         d, H, hkv, dk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         self.q = L.HeadsProj(d, H, dk, bias=cfg.qkv_bias, device=device)
-        self.k = L.HeadsProj(d, hkv, dk, bias=cfg.qkv_bias, device=device)
-        self.v = L.HeadsProj(d, hkv, dk, bias=cfg.qkv_bias, device=device)
+        self.k = L.HeadsProj(d, hkv, dk, head_axis="kv_heads",
+                             bias=cfg.qkv_bias, device=device)
+        self.v = L.HeadsProj(d, hkv, dk, head_axis="kv_heads",
+                             bias=cfg.qkv_bias, device=device)
         self.o = L.HeadsOut(H, dk, d, device=device)
         self.score_norm = (ConSmaxParams(H, cfg.consmax, device=device)
                            if cfg.score_norm == "consmax" else nn.Module())
@@ -139,8 +144,8 @@ def blockwise_attention(q, k, v, *, norm_kind: str, norm_params,
                 p = normalizers.apply_norm(
                     "consmax", norm_params, s.reshape(b, H, n_q, n), msk,
                     head_axis=1, merged=merged).reshape(b, hkv, g, n_q, n)
-                acc += torch.einsum("bhgqc,bchd->bhgqd", p.to(cdt).float(),
-                                    v_blk)
+                acc = acc + torch.einsum("bhgqc,bchd->bhgqd",
+                                         p.to(cdt).float(), v_blk)
                 continue
             s = torch.where(msk, s, normalizers.NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -157,6 +162,58 @@ def blockwise_attention(q, k, v, *, norm_kind: str, norm_params,
 
 
 # ---------------------------------------------------- cache writes ----
+def _as_dtensor(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor is replicated."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _sharded_write(write, cache, new, index, *rest):
+    """A cache-write site ``write(cache, new, index, *rest)`` on a DTensor
+    cache (the dry run's, ``launch/specs.py``), shard by shard: the batch
+    axis shards the slots, so each device writes its own slots' rows in
+    its local cache, as the reference's partitioned update does. ``new``,
+    ``index`` and a mask in ``rest`` are first brought to the cache's
+    batch and head placements (a collective where they differ). A cache
+    sharded along its rows (sequence-sharded KV) takes the one-token
+    decode write only: the device that holds row ``index`` writes it, the
+    others keep theirs."""
+    mesh, pl = cache.device_mesh, cache.placements
+    rows_sharded = [i for i, q in enumerate(pl)
+                    if isinstance(q, Shard) and q.dim == 1]
+    new_pl = tuple(Replicate() if i in rows_sharded else q
+                   for i, q in enumerate(pl))
+    slot_pl = tuple(Shard(0) if isinstance(q, Shard) and q.dim == 0
+                    else Replicate() for q in pl)
+
+    def slots(t):
+        return (None if t is None else
+                _as_dtensor(t, mesh).redistribute(mesh, slot_pl).to_local())
+
+    local = cache.to_local()
+    new = _as_dtensor(new, mesh).redistribute(mesh, new_pl).to_local()
+    index = slots(index)
+    if not rows_sharded:
+        write(local, new, index, *[slots(t) for t in rest])
+        return
+    if write is not _decode_cache_write:
+        raise NotImplementedError(
+            "a sequence-sharded DTensor cache takes one-token decode "
+            "writes only")
+    n_rows = local.shape[1]
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in rows_sharded:                               # major to minor
+        shard = shard * mesh.size(i) + coord[i]
+    rows = index - shard * n_rows
+    own = (rows >= 0) & (rows < n_rows)
+    active = slots(rest[0]) if rest and rest[0] is not None else None
+    write(local, new, rows.clamp(0, n_rows - 1),
+          own if active is None else own & active)
+
+
 def _append_cache_write(cache, new, index):
     """Write ``new``: (b, c, ...) into ``cache``: (b, L, ...) at per-slot
     row ``index``: (b,), in place — K/V rows (..., hkv, dk) or their
@@ -168,6 +225,8 @@ def _append_cache_write(cache, new, index):
     chunk near the cache end) are dropped, and window rows below ``index``
     keep their content. Window rows are distinct, so the scatter is
     deterministic, and nothing is read back to the host."""
+    if isinstance(cache, DTensor):
+        return _sharded_write(_append_cache_write, cache, new, index)
     b, c = new.shape[:2]
     L_ = cache.shape[1]
     ar = torch.arange(c, device=cache.device)
@@ -217,6 +276,8 @@ def _decode_cache_write(cache, new, index, active):
     into the cache, as ``dynamic_update_slice`` does), in place — K/V rows
     (b, 1, hkv, dk) or their (b, 1, hkv) scales; slots where ``active`` is
     False keep their row."""
+    if isinstance(cache, DTensor):
+        return _sharded_write(_decode_cache_write, cache, new, index, active)
     b = new.shape[0]
     rows = index.clamp(0, cache.shape[1] - 1)
     bi = torch.arange(b, device=cache.device)
@@ -404,6 +465,9 @@ def _cross_attention(p: Attention, x, cond, cfg: ModelConfig, *, cache,
     q = p.q(x, cdt) * torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
     k = p.k(cond, cdt)
     v = p.v(cond, cdt)
+    q = shard(q, "act_batch,act_seq,act_heads,")
+    k = shard(k, "act_batch,act_seq,act_kv_heads,")
+    v = shard(v, "act_batch,act_seq,act_kv_heads,")
     if cache is None or s > 1:
         out = blockwise_attention(
             q, k, v, norm_kind=cfg.score_norm, norm_params=p.score_norm,
@@ -416,7 +480,7 @@ def _cross_attention(p: Attention, x, cond, cfg: ModelConfig, *, cache,
         out = decode_attention(q, k, v, kv_index, norm_kind=cfg.score_norm,
                                norm_params=p.score_norm,
                                softcap=cfg.attn_softcap, merged=merged)
-    return p.o(out, cdt), cache
+    return shard(p.o(out, cdt), "act_batch,act_seq,act_embed"), cache
 
 
 def attention_apply(p: Attention, x, cfg: ModelConfig, *,
@@ -482,6 +546,9 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     q = p.q(x, cdt) * torch.tensor(1.0 / math.sqrt(dk), dtype=cdt)
     k = p.k(x, cdt)
     v = p.v(x, cdt)
+    q = shard(q, "act_batch,act_seq,act_heads,")
+    k = shard(k, "act_batch,act_seq,act_kv_heads,")
+    v = shard(v, "act_batch,act_seq,act_kv_heads,")
     if attn_mesh is not None:
         # the rank's heads of the whole projections (serve_mesh: the full
         # GEMM's bits); elementwise work after this commutes with the slice
@@ -520,7 +587,7 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                 (b,), s, dtype=torch.int32, device=x.device))
         if attn_mesh is not None:
             out = attn_mesh.combine(out, cdt)
-        return p.o(out, cdt), new_cache
+        return shard(p.o(out, cdt), "act_batch,act_seq,act_embed"), new_cache
 
     k_cache, v_cache = cache["k"], cache["v"]
     scales = {}
@@ -567,6 +634,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                 < lengths[:, None])[..., None, None]
         _quantized_write(_append_cache_write, cache, torch.where(keep, k, 0),
                          torch.where(keep, v, 0), idx)
+        k_cache = shard(k_cache, "act_batch,act_kv_seq,act_kv_heads,")
+        v_cache = shard(v_cache, "act_batch,act_kv_seq,act_kv_heads,")
         if prefill_kernel and consmax_kernels:
             from repro_torch.kernels.consmax_prefill.ops import (
                 consmax_prefill_op)
@@ -584,6 +653,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     else:
         _quantized_write(_decode_cache_write, cache, k, v, idx,
                          decode_active)
+        k_cache = shard(k_cache, "act_batch,act_kv_seq,act_kv_heads,")
+        v_cache = shard(v_cache, "act_batch,act_kv_seq,act_kv_heads,")
         if decode_kernel and consmax_kernels:
             from repro_torch.kernels.consmax_decode.ops import (
                 consmax_decode_op)
@@ -601,5 +672,5 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
         new_index = idx + step
     if attn_mesh is not None:
         out = attn_mesh.combine(out, cdt)
-    out = p.o(out, cdt)
+    out = shard(p.o(out, cdt), "act_batch,act_seq,act_embed")
     return out, dict(cache, index=new_index)

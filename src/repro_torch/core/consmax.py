@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ConSmaxConfig
+from repro_torch.nn.layers import param
 
 
 class ConSmaxParams(nn.Module):
@@ -24,10 +25,9 @@ class ConSmaxParams(nn.Module):
         super().__init__()
         self.cfg = cfg
         shape = (n_heads,) if cfg.per_head else (1,)
-        self.beta = nn.Parameter(torch.zeros(shape, device=device),
-                                 requires_grad=False)
-        self.gamma = nn.Parameter(torch.zeros(shape, device=device),
-                                  requires_grad=False)
+        axes = "heads" if cfg.per_head else ""
+        self.beta = param(*shape, axes=axes, fp32=True, device=device)
+        self.gamma = param(*shape, axes=axes, fp32=True, device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         u = torch.rand(self.beta.shape, generator=generator,

@@ -2,9 +2,10 @@
 
 Every collective of the port goes through a ``Comm``: one process
 group, its size and this process's rank in it. ``COUNTS`` holds, per kind
-(``all_reduce``, ``all_gather``, ``all_to_all``), the calls and the bytes
-of their results on this rank (an all-gather's result is the gathered
-tensor, an all-reduce's and an all-to-all's are the size of their input),
+(``all_reduce``, ``all_gather``, ``all_to_all``, ``collective_permute``),
+the calls and the bytes of their results on this rank (an all-gather's
+result is the gathered tensor, an all-reduce's, an all-to-all's and a
+permute's are the size of their input),
 so a caller reads what a step exchanged: the engine per serving step,
 ``core/context_parallel`` per decode, the trainer per training step.
 ``CALLS`` logs every call (kind, result shape, dtype, bytes), which
@@ -32,7 +33,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_reduce", "all_gather", "all_to_all")
+KINDS = ("all_reduce", "all_gather", "all_to_all", "collective_permute")
 COUNTS: dict = {kind: {"calls": 0, "bytes": 0} for kind in KINDS}
 LOG_LIMIT = 1 << 16
 CALLS: collections.deque = collections.deque(maxlen=LOG_LIMIT)
@@ -103,6 +104,29 @@ class Comm:
         goes to rank j, as split r. Differentiable: the gradient takes the
         same exchange back."""
         return _AllToAll.apply(t, self)
+
+    def permute(self, t: torch.Tensor, perm) -> torch.Tensor:
+        """The reference's ``ppermute``: ``perm`` lists (source, target)
+        rank pairs; each rank sends its ``t`` to its target and returns what
+        its source sent (zeros where no rank sends to it). One
+        ``all_to_all_single`` whose only non-empty splits are the pair's
+        (gloo has no send / receive of CUDA tensors; its all-to-all takes
+        them)."""
+        dst = dict(perm).get(self.rank)
+        src = {b: a for a, b in perm}.get(self.rank)
+        flat = t.contiguous().reshape(-1)
+        n = flat.numel()
+        out = torch.zeros_like(flat)
+        dist.all_to_all_single(
+            out, flat,
+            output_split_sizes=[n if j == src else 0
+                                for j in range(self.size)],
+            input_split_sizes=[n if j == dst else 0
+                               for j in range(self.size)],
+            group=self.group)
+        out = out.reshape(t.shape)
+        _count("collective_permute", out)
+        return out
 
 
 class _AllToAll(torch.autograd.Function):

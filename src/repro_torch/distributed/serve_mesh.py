@@ -121,10 +121,10 @@ def shard_params(params: LM, cfg: ModelConfig, cfg_local: ModelConfig,
                 a = blk.attn
                 a.q = L.HeadsProj(d, cfg.n_heads, dk, bias=cfg.qkv_bias,
                                   device=dev)
-                a.k = L.HeadsProj(d, cfg.n_kv_heads, dk, bias=cfg.qkv_bias,
-                                  device=dev)
-                a.v = L.HeadsProj(d, cfg.n_kv_heads, dk, bias=cfg.qkv_bias,
-                                  device=dev)
+                a.k = L.HeadsProj(d, cfg.n_kv_heads, dk, head_axis="kv_heads",
+                                  bias=cfg.qkv_bias, device=dev)
+                a.v = L.HeadsProj(d, cfg.n_kv_heads, dk, head_axis="kv_heads",
+                                  bias=cfg.qkv_bias, device=dev)
                 a.o = L.HeadsOut(cfg.n_heads, dk, d, device=dev)
     state = {}
     for name, t in params.state_dict().items():

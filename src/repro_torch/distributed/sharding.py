@@ -17,16 +17,34 @@
   outside it, None. The reference reads the same from its rules'
   ``"experts"`` entry.
 
-The rule resolver of ``launch/dryrun.py`` / ``launch/specs.py`` (logical
-axes to ``PartitionSpec``s, activation constraints) waits for the slice
-that ports those.
+* the logical-axis rules of the reference, for the dry run
+  (``launch/specs.py``, ``launch/dryrun.py``): ``make_rules`` maps each
+  logical axis name (``embed``, ``heads``, ``act_batch``, ...; the
+  parameters declare theirs, ``models.transformer.lm_axes``) to an ordered
+  list of candidate mesh-axis tuples; ``resolve_spec`` picks, per
+  dimension, the first candidate that exists in the mesh, divides the
+  dimension and reuses no mesh axis of another dimension, and replicates
+  (recording a fallback) where none does; ``placements`` turns the spec
+  into DTensor placements; ``tree_shardings`` resolves a whole tree;
+  ``activation_sharding`` / ``shard`` redistribute a DTensor activation to
+  its resolved placements (the reference's ``with_sharding_constraint``).
+  Outside ``activation_sharding``, and for a plain tensor, ``shard``
+  returns its argument: the single-device paths do not change.
+
+A mesh here is anything with ``mesh_dim_names`` and ``shape`` (a
+``DeviceMesh``).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
+from typing import Callable, Optional, Sequence
 
+import torch
 from torch.distributed.fsdp import fully_shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.distributed.comm import Comm
 
@@ -79,3 +97,321 @@ def ep_info():
     """The expert-parallel group's ``Comm`` inside ``expert_parallel``,
     else None."""
     return _EP.get()
+
+
+# ------------------------------------------------------ logical-axis rules ----
+def mesh_sizes(mesh) -> dict:
+    """{axis name: size} of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def make_rules(mesh, *, fsdp=True, seq_shard_kv=False,
+               seq_shard_act: bool = False, serve_tp2d: bool = False,
+               expert_shard: bool = False) -> dict:
+    """logical name -> ordered candidate mesh-axis tuples (the reference's
+    table).
+
+    fsdp: True/"full" -> params+opt sharded over dp (ZeRO-3 style);
+          "zero1"/False -> params replicated (opt sharding decided by the
+          caller via a second rule set).
+    seq_shard_kv: False | True/"dp" | "model" | "2d" — KV-cache sequence axis.
+    serve_tp2d: decode-serving layout — batch replicated, weights 2D-sharded,
+          KV sequence over (data, model).
+    expert_shard: experts over the data axis.
+    """
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    tp = ("model",) if "model" in names else ()
+    param_shard = fsdp in (True, "full")
+    if serve_tp2d:
+        seq_shard_kv = "2d"
+    if seq_shard_kv in (True, "dp"):
+        kv_axes = [dp]
+    elif seq_shard_kv == "model":
+        kv_axes = [tp]
+    elif seq_shard_kv == "2d":
+        kv_axes = [dp + tp, dp, tp]
+    else:
+        kv_axes = []
+    rules: dict[str, list[tuple]] = {
+        # ---- parameters ----
+        "vocab": [tp],
+        "embed": [dp] if param_shard else [],
+        "heads": [tp],
+        "kv_heads": [tp],
+        "mlp": [tp],
+        "experts": ([("data",)] if "data" in names else [dp])
+        if expert_shard else [],
+        "layers": [],
+        "norm": [],
+        "conv": [],
+        "state": [],
+        # ---- activations ----
+        "act_batch": [] if serve_tp2d else [dp, dp[-1:] if dp else []],
+        "act_seq": [tp] if seq_shard_act else [],
+        "act_kv_seq": kv_axes,
+        "act_heads": [tp],
+        "act_kv_heads": [tp],
+        "act_embed": [],
+        "act_mlp": [tp],
+        "act_vocab": [tp],
+        "act_experts": [],
+    }
+    return {k: [c for c in v if c] for k, v in rules.items()}
+
+
+def resolve_spec(shape: Sequence[int], axes_str: str, mesh, rules: dict,
+                 fallbacks: Optional[list] = None) -> tuple:
+    """The spec of a ``shape`` tensor with logical axes ``axes_str``: per
+    dimension None (replicated), one mesh axis name, or a tuple of them;
+    trailing Nones trimmed. A named dimension that no candidate fits is
+    replicated and, with ``fallbacks`` given, recorded there as
+    ``(shape, logical, dim)``."""
+    names = axes_str.split(",") if axes_str else [""] * len(shape)
+    if len(names) != len(shape):
+        names = (names + [""] * len(shape))[: len(shape)]
+    used: set[str] = set()
+    out = []
+    sizes = mesh_sizes(mesh)
+    for dim, logical in zip(shape, names):
+        assigned = None
+        for cand in rules.get(logical, []):
+            if not all(a in sizes for a in cand):
+                continue
+            if any(a in used for a in cand):
+                continue
+            prod = math.prod(sizes[a] for a in cand)
+            if prod > 1 and dim % prod == 0:
+                assigned = cand
+                break
+        if (assigned is None and logical and rules.get(logical)
+                and fallbacks is not None):
+            fallbacks.append((tuple(shape), logical, dim))
+        used.update(assigned or ())
+        out.append(assigned if assigned is None or len(assigned) > 1
+                   else assigned[0])
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
+    mesh dimension that tensor dimension d is split over (a tuple of axes
+    splits major to minor in mesh order, as the reference's spec does),
+    ``Replicate()`` elsewhere."""
+    by_axis = {}
+    for d, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                by_axis[a] = d
+    return tuple(Shard(by_axis[a]) if a in by_axis else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def local_shape(shape: Sequence[int], spec: tuple, mesh) -> tuple:
+    """One device's shard shape of a ``shape`` tensor under ``spec``."""
+    sizes = mesh_sizes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                out[d] //= sizes[a]
+    return tuple(out)
+
+
+def _leaf_shape(leaf):
+    """A tensor's shape, or the shape of a ``(shape, dtype)`` spec."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[0])
+
+
+def _is_leaf(x) -> bool:
+    return hasattr(x, "shape") or (isinstance(x, tuple) and len(x) == 2
+                                   and isinstance(x[0], tuple))
+
+
+def tree_shardings(tree, axes_tree, mesh, rules: dict,
+                   fallbacks: Optional[list] = None,
+                   key: Optional[Callable] = None):
+    """Map a tree (nested dicts / lists of tensors or ``(shape, dtype)``
+    specs) and its axes-string tree of the same structure to the tree of
+    specs. ``key(path)`` names the reference leaf a leaf belongs to
+    (default: its path without list indices, i.e. without the super-layer
+    the reference stacks on its leading axis): leaves of one reference
+    leaf share its spec, and its fallbacks are recorded once, as the
+    reference records them for the stacked leaf."""
+    key = key or (lambda path: tuple(k for k in path
+                                     if not isinstance(k, int)))
+    memo: dict = {}
+
+    def one(x, ax, path):
+        if _is_leaf(x):
+            k = key(path)
+            if k not in memo:
+                memo[k] = resolve_spec(_leaf_shape(x), ax, mesh, rules,
+                                       fallbacks)
+            return memo[k]
+        if isinstance(x, dict):
+            return {n: one(x[n], ax[n], path + (n,)) for n in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(one(a, b, path + (i,))
+                           for i, (a, b) in enumerate(zip(x, ax)))
+        raise TypeError(f"unexpected leaf {type(x).__name__} at {path}")
+    return one(tree, axes_tree, ())
+
+
+class ShardingCtx:
+    def __init__(self, mesh, rules: dict):
+        self.mesh = mesh
+        self.rules = rules
+
+
+_CTX: contextvars.ContextVar = contextvars.ContextVar("sharding_ctx",
+                                                      default=None)
+
+
+class _ReplicateOnRefusal(TorchDispatchMode):
+    """XLA's partitioner replicates what it cannot shard; DTensor raises.
+    Where DTensor refuses an out-of-place op for its inputs' placements (an
+    op with no sharding rule, a view that would split a sharded dimension
+    unevenly), or where an op's result comes out strided-sharded
+    (``_settled``), this mode replicates the first input's sharded
+    dimensions, one mesh axis at a time, then (for a refusal) every DTensor
+    input whole, and runs the op again; an op with no rule at all then
+    runs on the replicated inputs' local tensors, its result replicated.
+    The op always runs, and the collectives that takes are the step's. Each replicated dimension is recorded in ``fallbacks`` as
+    ``(shape, "op:<name>", dim)``, once per distinct site."""
+
+    def __init__(self, fallbacks: list):
+        super().__init__()
+        self.fallbacks = fallbacks
+        self._seen: set = set()
+
+    def _record(self, t, dim, name):
+        key = (tuple(t.shape), f"op:{name}", dim)
+        if key not in self._seen:
+            self._seen.add(key)
+            self.fallbacks.append(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not any(issubclass(t, DTensor) for t in types):
+            return func(*args, **kwargs)
+        name = func._schema.name.split("::")[-1]
+        try:
+            out = func(*args, **kwargs)
+        except (RuntimeError, NotImplementedError) as err:
+            if name.endswith("_") or not isinstance(args[0], DTensor):
+                raise
+            first, out = err, None
+        else:
+            if _settled(out) or not isinstance(args[0], DTensor):
+                return out
+            first = None
+        x = args[0]
+        # one mesh axis at a time, trailing tensor dimensions first (a view
+        # splits or merges the trailing ones; the batch stays sharded)
+        sharded = sorted((i for i, q in enumerate(x.placements)
+                          if isinstance(q, Shard)),
+                         key=lambda i: -x.placements[i].dim)
+        for i in sharded:
+            pl = list(x.placements)
+            pl[i] = Replicate()
+            try:
+                retry = func(x.redistribute(x.device_mesh, tuple(pl)),
+                             *args[1:], **kwargs)
+            except (RuntimeError, NotImplementedError):
+                continue
+            if _settled(retry):
+                self._record(x, x.placements[i].dim, name)
+                return retry
+        if first is None:
+            return out
+        whole = []
+        for a in args:
+            if isinstance(a, DTensor) and any(
+                    not isinstance(q, Replicate) for q in a.placements):
+                for q in a.placements:
+                    if isinstance(q, Shard):
+                        self._record(a, q.dim, name)
+                a = a.redistribute(a.device_mesh,
+                                   [Replicate()] * a.device_mesh.ndim)
+            whole.append(a)
+        try:
+            return func(*whole, **kwargs)
+        except NotImplementedError:
+            # no sharding rule at all: every device runs the op on the
+            # replicated inputs, its own copy of the same result
+            mesh = next(a for a in whole if isinstance(a, DTensor)).device_mesh
+            out = func(*[a.to_local() if isinstance(a, DTensor) else a
+                         for a in whole], **kwargs)
+            rep = [Replicate()] * mesh.ndim
+            wrap = (lambda t: DTensor.from_local(t, mesh, rep,
+                                                 run_check=False)
+                    if isinstance(t, torch.Tensor) else t)
+            return (type(out)(wrap(t) for t in out)
+                    if isinstance(out, (tuple, list)) else wrap(out))
+        except RuntimeError:
+            raise first
+
+
+def _settled(out) -> bool:
+    """No strided shard in ``out``'s placements: a view that merged two
+    dimensions sharded over different mesh axes yields one, and DTensor
+    reshards it only by reading index values, which a fake tensor has
+    not."""
+    return not (isinstance(out, DTensor) and any(
+        type(q).__name__ == "_StridedShard" for q in out.placements))
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, rules: dict, fallbacks: list | None = None):
+    """Inside: ``shard`` redistributes DTensor activations by ``rules``;
+    on a mesh of more than one device, ops DTensor refuses run replicated
+    (``_ReplicateOnRefusal``), their sites recorded in ``fallbacks``."""
+    tok = _CTX.set(ShardingCtx(mesh, rules))
+    try:
+        if math.prod(tuple(mesh.shape)) > 1:
+            with _ReplicateOnRefusal([] if fallbacks is None else fallbacks):
+                yield
+        else:
+            yield
+    finally:
+        _CTX.reset(tok)
+
+
+def shard(x, axes_str: str):
+    """An activation with logical axes ``axes_str``: inside
+    ``activation_sharding``, a DTensor redistributed to its resolved
+    placements (the collective that takes is the step's); otherwise, or
+    for a plain tensor, ``x`` itself."""
+    ctx = _CTX.get()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    spec = resolve_spec(x.shape, axes_str, ctx.mesh, ctx.rules)
+    want = placements(spec, ctx.mesh)
+    if tuple(x.placements) == want:
+        return x
+    if any(q.is_partial() for q in x.placements):
+        return _Settle.apply(x, ctx.mesh, want)
+    return x.redistribute(ctx.mesh, want)
+
+
+class _Settle(torch.autograd.Function):
+    """A partial activation (a vocab-sharded embedding's masked sum, a
+    contraction over a sharded axis) redistributed to ``want``. Its
+    gradient goes back settled, with no partial placement: DTensor cannot
+    turn a partial gradient into the source's masked-partial one."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh = mesh
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        settled = tuple(Replicate() if q.is_partial() else q
+                        for q in g.placements)
+        if settled != tuple(g.placements):
+            g = g.redistribute(ctx.mesh, settled)
+        return g, None, None

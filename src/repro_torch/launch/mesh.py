@@ -11,10 +11,27 @@ module touches no device and no process group.
 * ``host_mesh``: a degenerate one-rank training mesh for smoke use;
 * ``run_ranks``: start one process per rank, wait for all of them within
   a time limit, kill the rest when one fails or the limit passes, and
-  raise unless every rank exited 0.
+  raise unless every rank exited 0;
+* ``make_production_mesh`` / ``make_host_mesh``: the dry run's meshes
+  (``launch/dryrun.py``): the reference's ``(16, 16)`` ("data", "model")
+  single pod or ``(2, 16, 16)`` ("pod", "data", "model") pair of pods, and
+  a ``(1, 1)`` host mesh, each over a fake process group of that many
+  ranks in this one process (this process is rank 0; its collectives
+  move nothing, and no device is touched). The fake group becomes the
+  process's default group, so a process that runs these runs no real
+  collectives;
+* the H100 constants of the dry run's roofline, in place of the
+  reference's TPU v5e ones: ``PEAK_FLOPS`` (bf16 dense, H100 SXM data
+  sheet, the figure ``chip_smoke.py``'s bounds use), ``HBM_BW`` (HBM3, the
+  same sheet), ``LINK_BW`` (NVLink 4: 18 links x 25 GB/s per direction)
+  and ``HBM_PER_CHIP``. As in the reference, one ring bandwidth costs
+  every collective; a group that crosses the 8-card NVLink domain (the
+  16-wide ``model`` axis) runs partly over the slower inter-node network,
+  which this single rate understates.
 """
 from __future__ import annotations
 
+import math
 import os
 import subprocess
 import tempfile
@@ -116,3 +133,45 @@ def run_ranks(argvs: list, *, timeout: float, env: dict | None = None,
                           for r, p in enumerate(procs))
         raise RuntimeError(f"{failed or f'rank {bad[0]} failed'}\n{tails}")
     return [t[0] for t in texts]
+
+
+PEAK_FLOPS = 989e12          # bf16 dense FLOP/s per card (H100 SXM)
+HBM_BW = 3.35e12             # bytes/s per card (HBM3)
+LINK_BW = 450e9              # bytes/s per card and direction (NVLink 4)
+HBM_PER_CHIP = 80e9          # bytes of device memory per card
+
+
+def _fake_world(n: int):
+    """Make a fake process group of ``n`` ranks (this process rank 0) the
+    default group, replacing an earlier fake group of another size; a real
+    default group is left alone and refused."""
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a dry-run mesh needs the process to itself: "
+                               "a real process group is initialized")
+        if dist.get_world_size() == n:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def _fake_mesh(shape: tuple, names: tuple, device):
+    _fake_world(math.prod(shape))
+    return init_device_mesh(_device_type(device), shape,
+                            mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """Single pod: 256 cards (16, 16) data x model. Multi-pod: 2 pods x
+    256 = 512 cards (2, 16, 16) pod x data x model. Over a fake process
+    group; ``device`` is the mesh's device type (its tensors are fake)."""
+    if multi_pod:
+        return _fake_mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return _fake_mesh((16, 16), ("data", "model"), device)
+
+
+def make_host_mesh(device="cuda"):
+    """The degenerate one-card (1, 1) data x model mesh."""
+    return _fake_mesh((1, 1), ("data", "model"), device)

@@ -54,9 +54,9 @@ class MLP(nn.Module):
         d, ff = cfg.d_model, d_ff or cfg.d_ff
         self.kind = cfg.mlp
         if cfg.mlp != "gelu":
-            self.gate = L.Linear(d, ff, device=device)
-        self.up = L.Linear(d, ff, device=device)
-        self.down = L.Linear(ff, d, device=device)
+            self.gate = L.Linear(d, ff, axes=("embed", "mlp"), device=device)
+        self.up = L.Linear(d, ff, axes=("embed", "mlp"), device=device)
+        self.down = L.Linear(ff, d, axes=("mlp", "embed"), device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         for m in self.children():
@@ -69,6 +69,7 @@ class MLP(nn.Module):
             act = (F.silu if self.kind == "silu_glu"
                    else lambda t: F.gelu(t, approximate="tanh"))
             h = act(self.gate(x, dtype)) * self.up(x, dtype)
+        h = SH.shard(h, "act_batch,act_seq,act_mlp")
         return self.down(h, dtype)
 
 
@@ -204,4 +205,5 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
         x = x + p.mlp(p.mlp_norm(x), cdt)
         if cache is not None:
             new_cache = dict(cache, slstm=sc)
+    x = SH.shard(x, "act_batch,act_seq,act_embed")
     return x, new_cache, aux

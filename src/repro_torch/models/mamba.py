@@ -37,15 +37,16 @@ class Mamba(nn.Module):
         mc = cfg.mamba
         d, di = cfg.d_model, mc.expand * cfg.d_model
         N, K, R = mc.d_state, mc.d_conv, dt_rank(cfg)
-        self.in_proj = L.param(d, 2 * di, device=device)
-        self.conv_w = L.param(K, di, device=device)
-        self.conv_b = L.param(di, device=device)
-        self.x_proj = L.param(di, R + 2 * N, device=device)
-        self.dt_proj = L.param(R, di, device=device)
-        self.dt_bias = L.param(di, device=device)
-        self.A_log = L.param(di, N, device=device)
-        self.D = L.param(di, device=device)
-        self.out_proj = L.param(di, d, device=device)
+        self.in_proj = L.param(d, 2 * di, axes="embed,mlp", device=device)
+        self.conv_w = L.param(K, di, axes="conv,mlp", device=device)
+        self.conv_b = L.param(di, axes="mlp", device=device)
+        self.x_proj = L.param(di, R + 2 * N, axes="mlp,", device=device)
+        self.dt_proj = L.param(R, di, axes=",mlp", device=device)
+        self.dt_bias = L.param(di, axes="mlp", fp32=True, device=device)
+        self.A_log = L.param(di, N, axes="mlp,state", fp32=True,
+                             device=device)
+        self.D = L.param(di, axes="mlp", fp32=True, device=device)
+        self.out_proj = L.param(di, d, axes="mlp,embed", device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         for w in (self.in_proj, self.x_proj, self.dt_proj, self.out_proj):

@@ -40,13 +40,14 @@ class MoE(nn.Module):
         super().__init__()
         m = cfg.moe
         d, ff, E = cfg.d_model, m.d_ff_expert or cfg.d_ff, m.n_experts
-        self.router = L.param(d, E, device=device)
-        self.gate = L.param(E, d, ff, device=device)
-        self.up = L.param(E, d, ff, device=device)
-        self.down = L.param(E, ff, d, device=device)
+        self.router = L.param(d, E, axes="embed,experts", fp32=True,
+                              device=device)
+        self.gate = L.param(E, d, ff, axes="experts,embed,mlp", device=device)
+        self.up = L.param(E, d, ff, axes="experts,embed,mlp", device=device)
+        self.down = L.param(E, ff, d, axes="experts,mlp,embed", device=device)
         if m.router_norm == "consmax":
-            self.beta = L.param(device=device)
-            self.gamma = L.param(device=device)
+            self.beta = L.param(axes="", fp32=True, device=device)
+            self.gamma = L.param(axes="", fp32=True, device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         L.fan_in_normal_(self.router, generator)

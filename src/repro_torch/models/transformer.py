@@ -30,6 +30,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.models import blocks as B
 from repro_torch.models import frontends as FE
@@ -150,6 +151,7 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
         positions = idx[:, None] + torch.arange(s, device=dev)
     x = FE.frontend_apply(p.embed, cfg, tokens=tokens, embeds=embeds,
                           positions=positions)
+    x = shard(x, "act_batch,act_seq,act_embed")
     auxes = []                  # per super-layer MoE aux (experts only)
 
     if caches is None:
@@ -201,6 +203,7 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits.float()
                                                 / cfg.final_softcap)
+    logits = shard(logits, "act_batch,act_seq,act_vocab")
     if logits_epilogue is not None:
         return logits_epilogue(logits, new_caches), new_caches, aux
     return logits, new_caches, aux
@@ -391,3 +394,67 @@ def copy_kv_page(caches, src: int, dst: int):
         for key, t in attn.items():
             if key != "index":
                 t[dst] = t[src]
+
+
+# ----------------------------------------------------------- logical axes ----
+def lm_axes(cfg: ModelConfig) -> dict:
+    """{parameter name: logical axes} of ``LM(cfg)``: the axes each
+    parameter declares where it is made (``nn.layers.param``), the
+    reference's ``lm_axes`` leaf strings without the leading ``layers`` of
+    its stacked blocks."""
+    return {name: t.logical_axes
+            for name, t in LM(cfg, device="meta").named_parameters()}
+
+
+def cast_param_dtype(model: LM, cfg: ModelConfig) -> LM:
+    """Store ``model``'s parameters in ``cfg.param_dtype``, in place, except
+    the leaves the reference keeps in fp32 (``keeps_fp32``: the ConSmax
+    beta / gamma, the MoE router, the recurrent gates). Returns ``model``."""
+    pdt = cfg.pdtype()
+    with torch.no_grad():
+        for t in model.parameters():
+            if not t.keeps_fp32 and t.dtype != pdt:
+                t.data = t.data.to(pdt)
+    return model
+
+
+def lm_abstract(cfg: ModelConfig, *, device="meta") -> LM:
+    """``LM(cfg)`` with no storage (the ``meta`` device), each parameter in
+    the reference's dtype for ``cfg``: the counterpart of its
+    ``lm_abstract``."""
+    return cast_param_dtype(LM(cfg, device=device), cfg)
+
+
+def cache_axes(cfg: ModelConfig, *, quantized: bool = False,
+               paged: bool = False) -> list:
+    """Logical axes of every leaf of ``init_caches`` (with ``paged``,
+    ``init_paged_caches``), in the same structure: the reference's
+    ``cache_axes`` without the leading ``layers``. ``quantized`` adds the
+    ``k_scale``/``v_scale`` leaves, named as their rows minus dk; paged
+    pools name their page axis ``act_kv_pages``."""
+    def one_super():
+        c = {}
+        for j, kind in enumerate(cfg.block_pattern):
+            if kind in B.ATTN_KINDS:
+                rows = ("act_kv_pages,," if paged
+                        else "act_batch,act_kv_seq,")
+                attn = {"k": rows + "act_kv_heads,",
+                        "v": rows + "act_kv_heads,",
+                        "index": "act_batch"}
+                if quantized:
+                    attn["k_scale"] = rows + "act_kv_heads"
+                    attn["v_scale"] = rows + "act_kv_heads"
+                c[f"b{j}"] = {"attn": attn}
+            elif kind in ("mamba", "mamba_moe"):
+                c[f"b{j}"] = {"mamba": {"conv": "act_batch,,act_mlp",
+                                        "h": "act_batch,act_mlp,"}}
+            elif kind == "mlstm":
+                c[f"b{j}"] = {"mlstm": {"conv": "act_batch,,act_mlp",
+                                        "C": "act_batch,act_heads,,",
+                                        "n": "act_batch,act_heads,",
+                                        "m": "act_batch,act_heads"}}
+            elif kind == "slstm":
+                c[f"b{j}"] = {"slstm": {k: "act_batch,act_mlp"
+                                        for k in ("h", "c", "n", "m")}}
+        return c
+    return [one_super() for _ in range(cfg.n_super_layers)]

@@ -56,21 +56,22 @@ class MLSTM(nn.Module):
         super().__init__()
         d, h, di = cfg.d_model, cfg.n_heads, inner_dim(cfg)
         dk, K = di // h, cfg.xlstm.d_conv
-        self.up = L.param(d, 2 * di, device=device)
-        self.conv_w = L.param(K, di, device=device)
-        self.conv_b = L.param(di, device=device)
-        self.wq = L.param(di, h, dk, device=device)
-        self.wk = L.param(di, h, dk, device=device)
-        self.wv = L.param(di, h, dk, device=device)
-        self.w_ig = L.param(di, h, device=device)
-        self.b_ig = L.param(h, device=device)
-        self.w_fg = L.param(di, h, device=device)
-        self.b_fg = L.param(h, device=device)
-        self.out_scale = L.param(h, dk, device=device)
-        self.down = L.param(di, d, device=device)
+        self.up = L.param(d, 2 * di, axes="embed,mlp", device=device)
+        self.conv_w = L.param(K, di, axes="conv,mlp", device=device)
+        self.conv_b = L.param(di, axes="mlp", device=device)
+        self.wq = L.param(di, h, dk, axes="mlp,heads,", device=device)
+        self.wk = L.param(di, h, dk, axes="mlp,heads,", device=device)
+        self.wv = L.param(di, h, dk, axes="mlp,heads,", device=device)
+        self.w_ig = L.param(di, h, axes="mlp,heads", fp32=True, device=device)
+        self.b_ig = L.param(h, axes="heads", fp32=True, device=device)
+        self.w_fg = L.param(di, h, axes="mlp,heads", fp32=True, device=device)
+        self.b_fg = L.param(h, axes="heads", fp32=True, device=device)
+        self.out_scale = L.param(h, dk, axes="heads,", fp32=True,
+                                 device=device)
+        self.down = L.param(di, d, axes="mlp,embed", device=device)
         if cfg.xlstm.stabilizer == "consmax":
-            self.mu = L.param(h, device=device)
-            self.gamma = L.param(h, device=device)
+            self.mu = L.param(h, axes="heads", fp32=True, device=device)
+            self.gamma = L.param(h, axes="heads", fp32=True, device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         for w in (self.up, self.wq, self.wk, self.wv, self.w_ig, self.w_fg,
@@ -238,12 +239,13 @@ class SLSTM(nn.Module):
         super().__init__()
         d, h = cfg.d_model, cfg.n_heads
         dh = d // h
-        self.w = L.param(d, 4, d, device=device)
-        self.r = L.param(4, h, dh, dh, device=device)
-        self.b = L.param(4, d, device=device)
-        self.out_scale = L.param(h, dh, device=device)
+        self.w = L.param(d, 4, d, axes="embed,,mlp", device=device)
+        self.r = L.param(4, h, dh, dh, axes=",heads,,", device=device)
+        self.b = L.param(4, d, axes=",mlp", fp32=True, device=device)
+        self.out_scale = L.param(h, dh, axes="heads,", fp32=True,
+                                 device=device)
         if cfg.xlstm.stabilizer == "consmax":
-            self.mu = L.param(h, device=device)
+            self.mu = L.param(h, axes="heads", fp32=True, device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         L.fan_in_normal_(self.w, generator)

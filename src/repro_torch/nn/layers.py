@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def cast(p: torch.Tensor | None, dtype: torch.dtype):
@@ -28,11 +30,13 @@ def cast(p: torch.Tensor | None, dtype: torch.dtype):
     tensor itself (``load_state_dict``, or ``p.copy_`` under ``no_grad``):
     a write through ``p.data`` bumps another version counter and is not
     seen. Under grad mode a parameter that requires grad gets the
-    differentiable ``p.to(dtype)`` instead, and nothing is kept."""
+    differentiable ``p.to(dtype)`` instead, and nothing is kept; so does a
+    DTensor or fake parameter (the dry run's, ``launch/specs.py``)."""
     if p is None or p.dtype == dtype:
         return p
-    if p.requires_grad and torch.is_grad_enabled():
-        return p.to(dtype)
+    if (p.requires_grad and torch.is_grad_enabled()
+            or isinstance(p, DTensor) or is_fake(p)):
+        return p.to(dtype)          # no storage of its own to key a copy on
     key = (dtype, p._version, p.data_ptr())
     cached = getattr(p, "_cast_copy", None)
     if cached is None or cached[0] != key:
@@ -41,11 +45,25 @@ def cast(p: torch.Tensor | None, dtype: torch.dtype):
     return cached[1]
 
 
-def param(*shape, device=None):
+def param(*shape, axes: str, fp32: bool = False, device=None):
     """A zero fp32 parameter of ``shape`` (``()`` for a scalar), made with
-    ``requires_grad=False`` (serving); the trainer turns grads on."""
-    return nn.Parameter(torch.zeros(shape, device=device),
-                        requires_grad=False)
+    ``requires_grad=False`` (serving); the trainer turns grads on.
+
+    ``axes``: its logical axes, one comma-joined name per dimension ("" for
+    an unnamed one; "" alone leaves every dimension unnamed), the
+    reference's ``ctx.param`` axes without the leading
+    ``layers`` of its stacked blocks; kept on the parameter as
+    ``logical_axes`` (``models.transformer.lm_axes`` reads them).
+    ``fp32``: the reference keeps this leaf in fp32 whatever
+    ``cfg.param_dtype`` is (``keeps_fp32``; ``transformer.
+    cast_param_dtype``)."""
+    if axes and len(axes.split(",")) != len(shape):
+        raise ValueError(f"axes {axes!r} do not name the {len(shape)} dims "
+                         f"of {shape}")
+    p = nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+    p.logical_axes = axes
+    p.keeps_fp32 = fp32
+    return p
 
 
 def normal_(p: torch.Tensor, std: float, generator: torch.Generator):
@@ -91,11 +109,12 @@ def heads_out(x, w, *, dtype=torch.bfloat16):
 
 
 class Linear(nn.Module):
-    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
-                 device=None):
+    def __init__(self, d_in: int, d_out: int, *, axes: tuple,
+                 bias: bool = False, device=None):
         super().__init__()
-        self.w = param(d_in, d_out, device=device)
-        self.b = param(d_out, device=device) if bias else None
+        self.w = param(d_in, d_out, axes=",".join(axes), device=device)
+        self.b = (param(d_out, axes=axes[1], device=device) if bias
+                  else None)
 
     def reset_parameters(self, generator: torch.Generator, scale=1.0):
         normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
@@ -109,10 +128,12 @@ class HeadsProj(nn.Module):
     """(d_model) -> (heads, head_dim) projection, weight (d, H, dk)."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *,
-                 bias: bool = False, device=None):
+                 head_axis: str = "heads", bias: bool = False, device=None):
         super().__init__()
-        self.w = param(d_model, n_heads, head_dim, device=device)
-        self.b = param(n_heads, head_dim, device=device) if bias else None
+        self.w = param(d_model, n_heads, head_dim,
+                       axes=f"embed,{head_axis},", device=device)
+        self.b = (param(n_heads, head_dim, axes=f"{head_axis},",
+                        device=device) if bias else None)
 
     def reset_parameters(self, generator: torch.Generator, scale=1.0):
         normal_(self.w, scale / math.sqrt(self.w.shape[0]), generator)
@@ -128,7 +149,8 @@ class HeadsOut(nn.Module):
     def __init__(self, n_heads: int, head_dim: int, d_model: int, *,
                  device=None):
         super().__init__()
-        self.w = param(n_heads, head_dim, d_model, device=device)
+        self.w = param(n_heads, head_dim, d_model, axes="heads,,embed",
+                       device=device)
 
     def reset_parameters(self, generator: torch.Generator, scale=1.0):
         # fan-in over (heads, head_dim), as the reference's fan_in_normal
@@ -171,8 +193,9 @@ class Norm(nn.Module):
         if kind not in ("rmsnorm", "layernorm"):
             raise ValueError(f"unknown norm {kind!r}")
         self.kind = kind
-        self.scale = param(d, device=device)
-        self.bias = param(d, device=device) if kind == "layernorm" else None
+        self.scale = param(d, axes="norm", device=device)
+        self.bias = (param(d, axes="norm", device=device)
+                     if kind == "layernorm" else None)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         with torch.no_grad():
@@ -187,7 +210,20 @@ class Norm(nn.Module):
 
 # ------------------------------------------------------------- embedding ----
 def embed(table, ids, *, dtype=torch.bfloat16):
-    return F.embedding(ids, cast(table, dtype))
+    return F.embedding(ids, cast(_whole_rows(table), dtype))
+
+
+def _whole_rows(table):
+    """A DTensor table (the dry run's) with its embedding dimension
+    gathered, as a sharded step all-gathers an FSDP weight before its use:
+    DTensor's vocab-parallel lookup then masks the rows of this device's
+    own ids. Anything else as it is."""
+    if not isinstance(table, DTensor) or not any(
+            isinstance(q, Shard) and q.dim == 1 for q in table.placements):
+        return table
+    return table.redistribute(table.device_mesh, [
+        Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+        for q in table.placements])
 
 
 def unembed(table, x, *, dtype=torch.bfloat16):
@@ -198,7 +234,7 @@ def unembed(table, x, *, dtype=torch.bfloat16):
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, *, device=None):
         super().__init__()
-        self.table = param(vocab, d, device=device)
+        self.table = param(vocab, d, axes="vocab,embed", device=device)
 
     def reset_parameters(self, generator: torch.Generator):
         # 1/sqrt(d) keeps tied-unembed logits O(1) at init

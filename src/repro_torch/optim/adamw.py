@@ -72,6 +72,11 @@ def adam_init(params: dict) -> dict:
 def global_norm(grads: dict, comm=None) -> torch.Tensor:
     """The L2 norm of all gradients; with ``comm``, of the shards every
     rank of its group holds."""
+    if comm is None and any(isinstance(g, DTensor) for g in grads.values()):
+        # DTensor gradients of no FSDP group (the dry run's): the global
+        # sum as DTensor reduces it, returned whole on every device
+        sq = sum(g.float().square().sum() for g in grads.values())
+        return torch.sqrt(sq.full_tensor())
     sq = sum(local(g).float().square().sum() for g in grads.values())
     if comm is not None:
         sq = comm.all_reduce(sq.reshape(1))[0]

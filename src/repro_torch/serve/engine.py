@@ -791,3 +791,16 @@ class ContinuousBatchingEngine:
         self.results[uid] = generated
         (T.reset_slot_paged if self.paged else T.reset_slot)(self.caches,
                                                               slot)
+
+
+# --------------------------------------------------- dry-run entry point ----
+def make_decode_for_dryrun(cfg: ModelConfig, seq_len: int, *, device=None):
+    """The decode step ``(params, caches, batch_inputs) -> (logits,
+    caches)`` over a ``seq_len`` cache, and its ServeConfig — the
+    decode_32k / long_500k cell semantics (the cache index is the caller's:
+    the dry run's cells pin it at ``seq_len - 1``). The dry-run cells keep
+    the logits-returning steps (``fused_sampling=False``): they measure and
+    shard the (batch, vocab) logits surface itself."""
+    scfg = ServeConfig(max_seq=seq_len, fused_sampling=False)
+    _, _, decode_step, _ = make_serve_fns(cfg, scfg, device=device)
+    return decode_step, scfg

@@ -32,9 +32,9 @@ global one, and the update equals single-device training on the global
 batch up to the regrouped sums of the gradient reduction.
 
 ``state_axes``, ``abstract_state`` and ``batch_specs`` are the
-reference's helpers for XLA's sharded ``jit`` (logical axes, abstract
-shapes, batch specs); the port keeps them for what they describe, and the
-trainer reads none of them.
+reference's helpers for its sharded ``jit`` (logical axes, abstract
+shapes, batch specs); the port's dry run reads them
+(``launch/specs.py``), the trainer none of them.
 """
 from __future__ import annotations
 
@@ -58,6 +58,9 @@ def cross_entropy(logits, labels, *, z_weight: float = 1e-4):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)
+    # a vocab-sharded gather (the dry run's DTensors) settles here, at its
+    # own shape: DTensor cannot reduce its pending mask through a view
+    ll = SH.shard(ll, "act_batch,act_seq,")
     loss = (logz - ll[..., 0]).mean()
     if z_weight:
         loss = loss + z_weight * logz.square().mean()
@@ -107,6 +110,30 @@ def _all_reduce_mean(comm: Comm, grads: dict) -> dict:
         out[k] = flat[i:i + g.numel()].reshape(g.shape).to(g.dtype)
         i += g.numel()
     return out
+
+
+def _micro(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of batch leaf ``v``: its i-th block of
+    rows. A DTensor batch (the dry run's, ``launch/specs.py``) splits each
+    device's own rows, as data-parallel ranks accumulate over their local
+    rows, so no microbatch crosses devices."""
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        m = loc.shape[0] // n
+        return DTensor.from_local(loc[i * m:(i + 1) * m], v.device_mesh,
+                                  v.placements, run_check=False)
+    m = v.shape[0] // n
+    return v[i * m:(i + 1) * m]
+
+
+def _placed(grads: dict, params: dict) -> dict:
+    """Each DTensor gradient in its parameter's placements: the
+    reduce-scatter or all-reduce of a sharded step (the dry run's DTensor
+    state); plain tensors as they are."""
+    return {k: g.redistribute(params[k].device_mesh, params[k].placements)
+            if isinstance(g, DTensor) and isinstance(params[k], DTensor)
+            and g.placements != params[k].placements else g
+            for k, g in grads.items()}
 
 
 def make_train_fns(cfg: ModelConfig, tcfg: TrainConfig, *, device=None,
@@ -169,8 +196,7 @@ def make_train_fns(cfg: ModelConfig, tcfg: TrainConfig, *, device=None,
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
         lsum, msum = zero, {"ce": zero, "aux": zero}
         for i in range(n):
-            mb = {k: v[i * (b // n):(i + 1) * (b // n)]
-                  for k, v in batch.items()}
+            mb = {k: _micro(v, i, n) for k, v in batch.items()}
             g, l, m = grads_of(model, params, mb)
             g32 = {k: g32[k] + g[k].float() for k in g32}
             lsum = lsum + l
@@ -185,7 +211,9 @@ def make_train_fns(cfg: ModelConfig, tcfg: TrainConfig, *, device=None,
         batch = {k: torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}
         grads, loss, metrics = compute_grads(model, params, batch)
-        if comm is not None:
+        if comm is None:
+            grads = _placed(grads, params)
+        else:
             if not sharded:
                 grads = _all_reduce_mean(comm, grads)
             both = _mean_over(comm, dict(metrics, loss=loss))
@@ -274,19 +302,17 @@ def load_state_tree(state: dict, tree: dict, cfg: ModelConfig):
 
 # ------------------------------------------- the reference's mesh helpers ----
 def state_axes(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
-    """The mesh axis each state leaf's first dimension is sharded over
-    under a data-parallel mesh: ``"data"`` for the parameters, moments and
-    residuals when ``tcfg.fsdp`` shards them (FSDP2 shards the first axis),
-    ``""`` when replicated; the counters are replicated. The reference
-    returns logical-axis strings for XLA's rule resolver; the port's
-    trainer reads none of this (FSDP2 places the shards itself)."""
-    ax = "data" if SH.shards_params(tcfg.fsdp) else ""
-    names = {k: ax for k, _ in T.LM(cfg, device="meta").named_parameters()}
-    out = {"params": names,
-           "opt": {"m": dict(names), "v": dict(names), "count": ""},
+    """The logical axes of every state leaf, the reference's tree keyed
+    by the port's parameter names: ``params`` and the moments (and ``ef``
+    under ``int8_ef``) take ``T.lm_axes``, the counters ``""``. The dry
+    run's rules resolve them (``launch/specs.py``); the trainer reads none
+    of this (FSDP2 places its shards itself)."""
+    pax = T.lm_axes(cfg)
+    out = {"params": pax,
+           "opt": {"m": dict(pax), "v": dict(pax), "count": ""},
            "step": ""}
     if tcfg.grad_compression == "int8_ef":
-        out["ef"] = dict(names)
+        out["ef"] = dict(pax)
     return out
 
 
@@ -295,7 +321,7 @@ def abstract_state(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
     and dtype, no storage (the reference's ``jax.eval_shape`` of its
     ``init_state``)."""
     init_state, _ = make_train_fns(cfg, tcfg, device="meta")
-    return init_state(T.LM(cfg, device="meta"))
+    return init_state(T.lm_abstract(cfg))
 
 
 def batch_specs(cfg: ModelConfig, seq_len: int, global_batch: int):
