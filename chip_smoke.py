@@ -191,6 +191,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12       # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # dense TF32 on the tensor cores
 TOL_NOTE = ("|kernel - plain| <= 2^-7 * sum_j p_j |v_j| elementwise: bf16 "
             "output rounding and (prefill) bf16 weights are each 2^-9 "
             "relative per term; and per output row (a decode slot, a "
@@ -2149,6 +2150,48 @@ def decode_report():
          f"({len(rows)}): " + "; ".join(rows))
 
 
+F32_FORM = {"0": "Eq. 2", "1": "Eq. 3", "2": "softmax"}
+
+
+def f32_report():
+    """Each instantiation of the fp32 full-sequence kernel
+    (``attn_f32_kernel``, csrc/attn_f32.cuh) in the two libraries that
+    build it: registers, dynamic shared memory (the library's
+    ``attn_f32_smem_bytes``, held equal to ``launch_plan.f32_layout``)
+    and spills, as ``ptxas -v`` reported them in this run's build.
+    Returns {(library, dk, form): report}."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import launch_plan as LP
+    out = {}
+    for lib_name in ("consmax_attn", "softmax_attn"):
+        lib = _build.load(lib_name)
+        lib.attn_f32_smem_bytes.argtypes = [ctypes.c_int]
+        rows = []
+        for k in _build.ptxas_report(lib_name):
+            m = re.search(r"attn_f32_kernelILi(\d+)ELi(\d)E", k["kernel"])
+            if not m:
+                continue
+            dk, form = int(m.group(1)), m.group(2)
+            smem = lib.attn_f32_smem_bytes(dk)
+            if smem != LP.f32_layout(dk)["smem"]:
+                raise AssertionError(
+                    f"{lib_name}: attn_f32 dk {dk}: the library's {smem} B "
+                    f"!= the launch plan's {LP.f32_layout(dk)['smem']} B")
+            out[(lib_name, dk, F32_FORM[form])] = dict(k, dyn_smem=smem)
+            rows.append(f"dk {dk} {F32_FORM[form]}: {k['registers']} "
+                        f"registers, {smem} B dynamic + {k['smem']} B static "
+                        f"shared memory, spill stores/loads "
+                        f"{k['spill_stores']}/{k['spill_loads']} B")
+        if len(rows) != (10 if lib_name == "consmax_attn" else 5):
+            raise AssertionError(f"{lib_name}: {len(rows)} attn_f32_kernel "
+                                 "instantiations in the ptxas report")
+        _log(f"[build] {lib_name} fp32 kernel instantiations ({len(rows)}): "
+             + "; ".join(rows))
+    return out
+
+
 # ------------------------------------------------------------- training ----
 # the paper's experiment (the port's examples/train_gpt2_consmax.py --paper)
 GPT2_TRAIN = dict(global_batch=8, seq_len=256, lr=1e-3, warmup_steps=20,
@@ -3930,15 +3973,18 @@ def dk96_kernel_phase(flush):
     return rows, counts
 
 
-def fp32_kernel_phase(flush):
-    """The full-sequence kernels on fp32 operands (the SIMT kernel of
-    csrc/attn_f32.cuh) at the paper's qwen2-1.5b shape (b 2 x s 4096, 12
-    heads, 2 KV heads, dk 128, causal), then windowed / softcapped,
-    non-causal cross-length, unmerged and dk 96 cases: each within the
-    reference's fp32 atol 2e-5 of its plain version (fp32, TF32 off), the
-    same bits on a second run. Times beside the plain versions and
-    scaled_dot_product_attention at fp32; bounds on the fp32 (non-tensor)
-    peak. Launches: the calls of the checks (the ``fp32`` path)."""
+def fp32_kernel_phase(flush, f32_ptxas, smi):
+    """The full-sequence kernels on fp32 operands (the 3xTF32 tensor-core
+    kernel of csrc/attn_f32.cuh) at the paper's qwen2-1.5b shape (b 2 x s
+    4096, 12 heads, 2 KV heads, dk 128, causal), then windowed /
+    softcapped, non-causal cross-length, unmerged and dk 96 cases: each
+    within the reference's fp32 atol 2e-5 of its plain version (fp32, TF32
+    off), the same bits on a second run. Times beside the plain versions
+    and scaled_dot_product_attention at fp32; bounds at the fp32
+    (non-tensor) peak, the row's ``bound_ms``, and at the three TF32
+    products of 3xTF32; the dk 128 instantiations' registers and spills
+    (``f32_ptxas``, from ``f32_report``). Launches: the calls of the
+    checks (the ``fp32`` path)."""
     from repro_torch.kernels.consmax_attn.ops import consmax_attention_op
     from repro_torch.kernels.consmax_attn.ref import consmax_attention_ref
     from repro_torch.kernels.softmax_attn.ops import softmax_attention_op
@@ -4018,14 +4064,27 @@ def fp32_kernel_phase(flush):
                                 scaled_dot_product_attention(
                                     T(q), T(k), T(v), is_causal=True,
                                     enable_gqa=True), flush, 3))}
+    tf32 = _bound_ms(nbytes, 3 * 4 * dk * H * b * _visible_pairs(
+        sq, skv, causal=True), peak=PEAK_TF32_FLOPS)[0]
+    ptx = {"consmax_attention[fp32]": [("consmax_attn", 128, "Eq. 2"),
+                                       ("consmax_attn", 128, "Eq. 3")],
+           "softmax_attention[fp32]": [("softmax_attn", 128, "softmax")]}
     for name, row in rows.items():
-        _log(f"[fp32] {name} at {cases[0][0]}: {row['ms'] * 1e3:.1f} us "
-             f"(plain {row['plain_ms'] * 1e3:.1f} us"
+        regs = "; ".join(
+            f"{form} {f32_ptxas[(lib, d, form)]['registers']} registers, "
+            f"spills {f32_ptxas[(lib, d, form)]['spill_stores']}/"
+            f"{f32_ptxas[(lib, d, form)]['spill_loads']} B"
+            for lib, d, form in ptx[name])
+        _log(f"[fp32] {name} at {cases[0][0]}: {row['ms']:.4f} ms "
+             f"(plain {row['plain_ms']:.4f} ms"
              + (f", scaled_dot_product_attention fp32 "
-                f"{row['library_ms'] * 1e3:.1f} us" if row["library_ms"]
-                else "") + f"), bound {row['bound_ms'] * 1e3:.1f} us by "
+                f"{row['library_ms']:.4f} ms" if row["library_ms"]
+                else "") + f"); bound {row['bound_ms']:.4f} ms by "
              f"{row['bound_by']} at the fp32 peak (share "
-             f"{row['bound_ms'] / row['ms']:.3f}); launches {counts}")
+             f"{row['bound_ms'] / row['ms']:.3f}), {tf32:.4f} ms for "
+             f"3xTF32's three products at the TF32 peak (share "
+             f"{tf32 / row['ms']:.3f}); dk 128 ptxas: {regs}; launches "
+             f"{counts}; on {smi}")
     return rows, counts
 
 
@@ -4135,13 +4194,20 @@ def phi3v_engine_phase(smi, *, seed=13, new_tokens=16):
             ["launches"][k] for k in ops}
 
 
+# (b, sq, skv, H, hkv, dk): the fp32 phase's cases and a dk 256 one
+F32_PLAN_SHAPES = [(2, 4096, 4096, 12, 2, 128), (1, 1024, 1024, 12, 2, 128),
+                   (1, 200, 700, 8, 2, 64), (1, 600, 600, 8, 8, 96),
+                   (2, 333, 333, 4, 1, 32), (1, 700, 700, 8, 2, 256)]
+
+
 def analysis_phase():
     """The port's analysis gate on the card: ``repro_torch.launch.analyze
     --device cuda --kv-dtype bfloat16 int8 fp8_e4m3`` (the qwen2-1.5b smoke
     matrix, trace guard on) must report 0 violations, and ``--self-test``
     must exit 1 with every rule fired. Every launch plan the gate captured,
     and every instantiation of the decode kernel and the mainloop, has the
-    shared memory the library itself computes."""
+    shared memory the library itself computes; so do the fp32 kernel's
+    plans at ``F32_PLAN_SHAPES``, which also pass every launch contract."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import launch_plan as LP
     from repro_torch.kernels.consmax_decode import ops as decode_ops
@@ -4193,8 +4259,36 @@ def analysis_phase():
                 got = walk.attn_walk_smem_bytes(dk, kv, cons)
                 if got != want:
                     mismatch.append(("walk", dk, kv, cons, want, got))
+    # the fp32 kernel's plans at the fp32 phase's shapes (and dk 256):
+    # every launch contract, and the library's shared memory
+    from repro_torch.analysis.kernel_contracts import check_launch
+    from repro_torch.kernels.consmax_attn.ops import (
+        attention_plan as consmax_plan)
+    from repro_torch.kernels.softmax_attn.ops import (
+        attention_plan as softmax_plan)
+    f32_libs = [_build.load(n) for n in ("consmax_attn", "softmax_attn")]
+    f32_findings, f32_plans = [], 0
+    for b, sq, skv, H, hkv, dk in F32_PLAN_SHAPES:
+        q = torch.zeros((b, sq, H, dk), device="cuda")
+        kv = torch.zeros((b, skv, hkv, dk), device="cuda")
+        ones = torch.ones(H, device="cuda")
+        for plan in (consmax_plan(q, kv, kv, ones, ones)[0],
+                     softmax_plan(q, kv, kv)):
+            f32_plans += 1
+            f32_findings += check_launch(plan)
+            for lib in f32_libs:
+                lib.attn_f32_smem_bytes.argtypes = [ctypes.c_int]
+                if lib.attn_f32_smem_bytes(dk) != plan.smem:
+                    mismatch.append(("f32", dk, plan.smem,
+                                     lib.attn_f32_smem_bytes(dk)))
+        del q, kv
+    checked += f32_plans
+    _log(f"[analysis] fp32 kernel plans at {len(F32_PLAN_SHAPES)} shapes x "
+         f"2 kernels: {len(f32_findings)} launch-contract violations "
+         f"{[f.rule for f in f32_findings][:4]}")
     ok = (rc == 0 and report["violations"] == 0 and report["device"] ==
-          "cuda" and st_rc == 1 and all_fired and not mismatch)
+          "cuda" and st_rc == 1 and all_fired and not mismatch
+          and not f32_findings)
     _log(f"[analysis] repro_torch.launch.analyze --device cuda --kv-dtype "
          f"bfloat16 int8 fp8_e4m3: {len(report['configs'])} configs, "
          f"{report['violations']} violations, exit {rc}, {gate_s:.1f} s; "
@@ -4882,6 +4976,7 @@ def main():
          f"(one nvcc per source, in parallel)")
     mainloop_report()
     decode_report()
+    f32_ptxas = f32_report()
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     t0 = time.perf_counter()
@@ -5031,7 +5126,7 @@ def main():
          "s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    f32_rows, f32_counts = fp32_kernel_phase(flush)
+    f32_rows, f32_counts = fp32_kernel_phase(flush, f32_ptxas, smi)
     new_rows.update(f32_rows)
     _log(f"[fp32] 18b fp32 kernels {time.perf_counter() - t0:.1f} s")
     del flush
@@ -5083,9 +5178,10 @@ def main():
         for dt in (*QDTYPES, "gemma2-2b", "phi3.5-moe", "phi-3-vision"):
             src[f"{name}[{dt}]"] = src[name]
     for name in ("consmax_attention", "softmax_attention"):
-        # head_dim 96 on the mainloop; fp32 operands on the SIMT kernel
-        for dt in ("dk96", "fp32"):
-            src[f"{name}[{dt}]"] = src[name]
+        # head_dim 96 on the mainloop; fp32 operands on the 3xTF32 kernel
+        src[f"{name}[dk96]"] = src[name]
+        src[f"{name}[fp32]"] = ("src/repro_torch/kernels/csrc/attn_f32.cuh",
+                                src[name][1])
     counts.update(paper_counts)
     kernels = [dict(name=name, route="cuda", source=src[name][0],
                     replaces=src[name][1], launches=counts[name],

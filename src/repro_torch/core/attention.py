@@ -57,7 +57,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import normalizers
 from repro_torch.core.consmax import ConSmaxParams
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import attention_on_shards, shard
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.cache_layout import kv_mask
 from repro_torch.nn import layers as L
@@ -469,17 +469,18 @@ def _cross_attention(p: Attention, x, cond, cfg: ModelConfig, *, cache,
     k = shard(k, "act_batch,act_seq,act_kv_heads,")
     v = shard(v, "act_batch,act_seq,act_kv_heads,")
     if cache is None or s > 1:
-        out = blockwise_attention(
-            q, k, v, norm_kind=cfg.score_norm, norm_params=p.score_norm,
-            causal=False, softcap=cfg.attn_softcap, merged=merged,
-            q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out = attention_on_shards(
+            blockwise_attention, q, k, v, norm_kind=cfg.score_norm,
+            norm_params=p.score_norm, causal=False, softcap=cfg.attn_softcap,
+            merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk)
         cache = None
     else:
         kv_index = torch.full((b,), k.shape[1] - 1, dtype=torch.int32,
                               device=x.device)
-        out = decode_attention(q, k, v, kv_index, norm_kind=cfg.score_norm,
-                               norm_params=p.score_norm,
-                               softcap=cfg.attn_softcap, merged=merged)
+        out = attention_on_shards(
+            decode_attention, q, k, v, kv_index, norm_kind=cfg.score_norm,
+            norm_params=p.score_norm, softcap=cfg.attn_softcap,
+            merged=merged)
     return shard(p.o(out, cdt), "act_batch,act_seq,act_embed"), cache
 
 
@@ -574,10 +575,11 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     if whole:
         # training, or whole-prompt prefill: attention on the full-precision
         # K/V; only the cache write pays the quantization round trip
-        out = blockwise_attention(
-            q, k, v, norm_kind=cfg.score_norm, norm_params=p.score_norm,
-            causal=True, window=window, softcap=cfg.attn_softcap,
-            merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out = attention_on_shards(
+            blockwise_attention, q, k, v, norm_kind=cfg.score_norm,
+            norm_params=p.score_norm, causal=True, window=window,
+            softcap=cfg.attn_softcap, merged=merged, q_chunk=q_chunk,
+            kv_chunk=kv_chunk)
         new_cache = None
         if cache is not None:
             def fill(leaf, new):
@@ -644,8 +646,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                 window=window, softcap=cfg.attn_softcap, merged=merged,
                 scale=1.0, fill_bound=fill_bound, **scales)
         else:
-            out = append_attention(
-                q, k_cache, v_cache, idx, lengths,
+            out = attention_on_shards(
+                append_attention, q, k_cache, v_cache, idx, lengths,
                 norm_kind=cfg.score_norm, norm_params=p.score_norm,
                 window=window, softcap=cfg.attn_softcap, merged=merged,
                 kv_chunk=kv_chunk, **scales)
@@ -663,11 +665,11 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                 softcap=cfg.attn_softcap, merged=merged, scale=1.0,
                 bk=decode_kv_block, fill_bound=fill_bound, **scales)
         else:
-            out = decode_attention(q, k_cache, v_cache, idx,
-                                   norm_kind=cfg.score_norm,
-                                   norm_params=p.score_norm, window=window,
-                                   softcap=cfg.attn_softcap, merged=merged,
-                                   **scales)
+            out = attention_on_shards(
+                decode_attention, q, k_cache, v_cache, idx,
+                norm_kind=cfg.score_norm, norm_params=p.score_norm,
+                window=window, softcap=cfg.attn_softcap, merged=merged,
+                **scales)
         step = 1 if decode_active is None else decode_active.to(idx.dtype)
         new_index = idx + step
     if attn_mesh is not None:

@@ -23,8 +23,11 @@ infer an output's metadata are not the device's work and are not counted.
     collective-permute  B / bw
 
   n = the group's size. Eager torch has no while loops (the layers are a
-  Python loop), so every record has multiplicity 1 unless it says
-  otherwise;
+  Python loop), so a record has multiplicity 1, except inside
+  ``repeated(n)``: a recurrence's step traced once (``nn/scan.py``) stands
+  for its ``n`` steps, and its records carry ``multiplicity`` n (its FLOPs
+  and bytes count n times, ``op_cost.OpCounter``), the reference's
+  while-loop trip count;
 * ``track_memory`` follows the bytes the step allocates (each new storage
   from its first op to its release) and ``memory_summary`` reports them as
   the reference reports XLA's buffer assignment: argument, output, temp and
@@ -213,6 +216,43 @@ class LocalOps(TorchDispatchMode):
             self._quiet.__exit__(*exc)
 
 
+_REPEAT = [1]
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Inside, every op the counting modes see stands for ``n`` of it (times
+    any enclosing repetition): one traced step of an ``n``-step loop.
+    Memory is not multiplied: one step's temporaries are live at a time."""
+    _REPEAT[0] *= n
+    try:
+        yield
+    finally:
+        _REPEAT[0] //= n
+
+
+def repetition() -> int:
+    """How many times each op seen now counts (``repeated``)."""
+    return _REPEAT[0]
+
+
+def _modes() -> list:
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return _get_current_dispatch_mode_stack()
+
+
+def counting() -> bool:
+    """True while a mode of this module (or ``op_cost.OpCounter``) is
+    watching the ops dispatched."""
+    return any(isinstance(m, LocalOps) for m in _modes())
+
+
+def memory_tracker():
+    """The innermost active ``MemoryTracker``, or None."""
+    return next((m for m in reversed(_modes())
+                 if isinstance(m, MemoryTracker)), None)
+
+
 # ------------------------------------------------------------ collectives ----
 # op name -> kind; the legacy c10d ops are what torch.distributed's
 # collectives dispatch, the functional ones what DTensor issues
@@ -279,9 +319,12 @@ class CollectiveRecorder(LocalOps):
         shape, dtype = _result(func, args, out)
         n = _group_size(args, kwargs)
         out_b = shape_bytes(shape, dtype)
-        self.records.append({"kind": kind, "shape": list(shape),
-                             "dtype": dtype_name(dtype), "group_size": n,
-                             "bytes": payload_bytes(kind, out_b, n)})
+        rec = {"kind": kind, "shape": list(shape),
+               "dtype": dtype_name(dtype), "group_size": n,
+               "bytes": payload_bytes(kind, out_b, n)}
+        if repetition() != 1:
+            rec["multiplicity"] = repetition()
+        self.records.append(rec)
 
 
 def record_collectives() -> CollectiveRecorder:

@@ -23,6 +23,9 @@ local aten ops one device dispatches while the step runs
   reference's dynamic-update-slice rule. An in-place op's output is its
   first input and is not counted twice.
 
+Inside ``op_analysis.repeated(n)`` (one traced step of an ``n``-step
+recurrence, ``nn/scan.py``) every count is multiplied by ``n``.
+
 Eager PyTorch fuses nothing: every op reads its inputs from and writes its
 outputs to device memory. So ``bytes`` is the traffic the port's eager
 step issues, op by op, not the fused traffic the reference's XLA program
@@ -36,7 +39,7 @@ import torch
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.distributed.op_analysis import LocalOps
+from repro_torch.distributed.op_analysis import LocalOps, repetition
 
 aten = torch.ops.aten
 
@@ -100,16 +103,17 @@ class OpCounter(LocalOps):
         if (func.namespace not in ("aten", "prims") or func.is_view
                 or name in NO_TRAFFIC):
             return
-        c = self.cost
+        c, k = self.cost, repetition()
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         packet = func._overloadpacket
         if packet in flop_registry:
-            f = float(flop_registry[packet](*args, **kwargs, out_val=out))
+            f = k * float(flop_registry[packet](*args, **kwargs,
+                                                out_val=out))
             c.flops += f
             c.matmul_flops += f
             self.matmul_by_op[name] = self.matmul_by_op.get(name, 0.0) + f
         else:
-            n_out = sum(t.numel() for t in outs)
+            n_out = k * sum(t.numel() for t in outs)
             if name in TRANSCENDENTAL:
                 c.transcendentals += n_out
                 c.flops += n_out
@@ -119,17 +123,18 @@ class OpCounter(LocalOps):
                 c.flops += n_out
         if name in GATHERS:
             idx = sum(_nbytes(t) for t in ins[1:] if not t.is_floating_point())
-            c.bytes += 2 * sum(_nbytes(t) for t in outs) + idx
+            nb = 2 * sum(_nbytes(t) for t in outs) + idx
         elif name in IN_PLACE_UPDATES:
-            c.bytes += 2 * sum(_nbytes(t) for t in ins[1:])
+            nb = 2 * sum(_nbytes(t) for t in ins[1:])
         elif name == "copy_":
-            c.bytes += _nbytes(ins[0]) + _nbytes(ins[1])
+            nb = _nbytes(ins[0]) + _nbytes(ins[1])
         elif name.endswith("_") and ins:
             # in place: the output is the first input, read and written
-            c.bytes += sum(_nbytes(t) for t in ins) + _nbytes(ins[0])
+            nb = sum(_nbytes(t) for t in ins) + _nbytes(ins[0])
         else:
-            c.bytes += (sum(_nbytes(t) for t in ins)
-                        + sum(_nbytes(t) for t in outs))
+            nb = (sum(_nbytes(t) for t in ins)
+                  + sum(_nbytes(t) for t in outs))
+        c.bytes += k * nb
 
 
 def op_cost(fn, *args, **kwargs) -> OpCost:

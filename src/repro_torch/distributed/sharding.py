@@ -38,12 +38,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
+from types import SimpleNamespace
 from typing import Callable, Optional, Sequence
 
 import torch
 from torch.distributed.fsdp import fully_shard
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.distributed.comm import Comm
@@ -260,6 +262,39 @@ def tree_shardings(tree, axes_tree, mesh, rules: dict,
     return one(tree, axes_tree, ())
 
 
+# F.logsigmoid (xLSTM's gates) dispatches log_sigmoid_forward, for which
+# DTensor has no rule: it is pointwise, so every placement of its input
+# carries to its output and to the buffer it saves for backward (the
+# input's shape on the CPU; an empty tensor on CUDA, kept replicated).
+def _log_sigmoid_strategies(x):
+    cuda = x.mesh.device_type == "cuda"
+    out = [([Replicate(), Replicate()], [Replicate()])]
+    for d in range(len(x.shape)):
+        out.append(([Shard(d), Replicate() if cuda else Shard(d)],
+                    [Shard(d)]))
+    return out
+
+
+def _log_sigmoid_backward_strategies(grad, x, buf):
+    cuda = x.mesh.device_type == "cuda"
+    out = [([Replicate()], [Replicate(), Replicate(), Replicate()])]
+    for d in range(len(x.shape)):
+        out.append(([Shard(d)], [Shard(d), Shard(d),
+                                 Replicate() if cuda else Shard(d)]))
+    return out
+
+
+@functools.cache
+def _register_rules():
+    """Add the rules above to DTensor's, once, on first use."""
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+    register_sharding(aten.log_sigmoid_forward.default)(
+        _log_sigmoid_strategies)
+    register_sharding(aten.log_sigmoid_backward.default)(
+        _log_sigmoid_backward_strategies)
+
+
 class ShardingCtx:
     def __init__(self, mesh, rules: dict):
         self.mesh = mesh
@@ -298,61 +333,71 @@ class _ReplicateOnRefusal(TorchDispatchMode):
         if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
         name = func._schema.name.split("::")[-1]
+        first = None
         try:
-            out = func(*args, **kwargs)
-        except (RuntimeError, NotImplementedError) as err:
-            if name.endswith("_") or not isinstance(args[0], DTensor):
-                raise
-            first, out = err, None
-        else:
-            if _settled(out) or not isinstance(args[0], DTensor):
-                return out
-            first = None
-        x = args[0]
-        # one mesh axis at a time, trailing tensor dimensions first (a view
-        # splits or merges the trailing ones; the batch stays sharded)
-        sharded = sorted((i for i, q in enumerate(x.placements)
-                          if isinstance(q, Shard)),
-                         key=lambda i: -x.placements[i].dim)
-        for i in sharded:
-            pl = list(x.placements)
-            pl[i] = Replicate()
             try:
-                retry = func(x.redistribute(x.device_mesh, tuple(pl)),
-                             *args[1:], **kwargs)
-            except (RuntimeError, NotImplementedError):
-                continue
-            if _settled(retry):
-                self._record(x, x.placements[i].dim, name)
-                return retry
-        if first is None:
-            return out
-        whole = []
-        for a in args:
-            if isinstance(a, DTensor) and any(
-                    not isinstance(q, Replicate) for q in a.placements):
-                for q in a.placements:
-                    if isinstance(q, Shard):
-                        self._record(a, q.dim, name)
-                a = a.redistribute(a.device_mesh,
-                                   [Replicate()] * a.device_mesh.ndim)
-            whole.append(a)
-        try:
-            return func(*whole, **kwargs)
-        except NotImplementedError:
-            # no sharding rule at all: every device runs the op on the
-            # replicated inputs, its own copy of the same result
-            mesh = next(a for a in whole if isinstance(a, DTensor)).device_mesh
-            out = func(*[a.to_local() if isinstance(a, DTensor) else a
-                         for a in whole], **kwargs)
-            rep = [Replicate()] * mesh.ndim
-            wrap = (lambda t: DTensor.from_local(t, mesh, rep,
-                                                 run_check=False)
-                    if isinstance(t, torch.Tensor) else t)
-            return (type(out)(wrap(t) for t in out)
-                    if isinstance(out, (tuple, list)) else wrap(out))
-        except RuntimeError:
-            raise first
+                out = func(*args, **kwargs)
+            except (RuntimeError, NotImplementedError) as err:
+                if name.endswith("_") or not isinstance(args[0], DTensor):
+                    raise
+                first, out = err, None
+            else:
+                if _settled(out) or not isinstance(args[0], DTensor):
+                    return out
+                first = None
+            x = args[0]
+            # one mesh axis at a time, trailing tensor dimensions first (a
+            # view splits or merges the trailing ones; the batch stays
+            # sharded)
+            sharded = sorted((i for i, q in enumerate(x.placements)
+                              if isinstance(q, Shard)),
+                             key=lambda i: -x.placements[i].dim)
+            for i in sharded:
+                pl = list(x.placements)
+                pl[i] = Replicate()
+                try:
+                    retry = func(x.redistribute(x.device_mesh, tuple(pl)),
+                                 *args[1:], **kwargs)
+                except (RuntimeError, NotImplementedError):
+                    continue
+                if _settled(retry):
+                    self._record(x, x.placements[i].dim, name)
+                    return retry
+            if first is None:
+                return out
+            whole = []
+            for a in args:
+                if isinstance(a, DTensor) and any(
+                        not isinstance(q, Replicate) for q in a.placements):
+                    for q in a.placements:
+                        if isinstance(q, Shard):
+                            self._record(a, q.dim, name)
+                    a = a.redistribute(a.device_mesh,
+                                       [Replicate()] * a.device_mesh.ndim)
+                whole.append(a)
+            try:
+                return func(*whole, **kwargs)
+            except NotImplementedError:
+                # no sharding rule at all: every device runs the op on the
+                # replicated inputs, its own copy of the same result
+                mesh = next(a for a in whole
+                            if isinstance(a, DTensor)).device_mesh
+                out = func(*[a.to_local() if isinstance(a, DTensor) else a
+                             for a in whole], **kwargs)
+                rep = [Replicate()] * mesh.ndim
+                wrap = (lambda t: DTensor.from_local(t, mesh, rep,
+                                                     run_check=False)
+                        if isinstance(t, torch.Tensor) else t)
+                return (type(out)(wrap(t) for t in out)
+                        if isinstance(out, (tuple, list)) else wrap(out))
+            except RuntimeError:
+                raise first
+        finally:
+            # a caught error's traceback holds this frame, whose locals
+            # hold the error: without this the frame, and the tensors it
+            # holds, would wait for the cyclic collector (the dry run's
+            # memory tracker would see them live)
+            first = None
 
 
 def _settled(out) -> bool:
@@ -369,6 +414,7 @@ def activation_sharding(mesh, rules: dict, fallbacks: list | None = None):
     """Inside: ``shard`` redistributes DTensor activations by ``rules``;
     on a mesh of more than one device, ops DTensor refuses run replicated
     (``_ReplicateOnRefusal``), their sites recorded in ``fallbacks``."""
+    _register_rules()
     tok = _CTX.set(ShardingCtx(mesh, rules))
     try:
         if math.prod(tuple(mesh.shape)) > 1:
@@ -395,6 +441,126 @@ def shard(x, axes_str: str):
     if any(q.is_partial() for q in x.placements):
         return _Settle.apply(x, ctx.mesh, want)
     return x.redistribute(ctx.mesh, want)
+
+
+# ------------------------------------------------ products and head views ----
+def rows_times(x, w2):
+    """``x @ w2`` for a DTensor ``x`` (..., d), its last dimension whole
+    on every device, and a weight ``w2`` (d, n) whose columns no mesh axis
+    splits: each device multiplies its own rows of ``x`` by the whole
+    ``w2``, and the product is placed as ``x`` is, its columns whole — how
+    XLA computes a product whose spec replicates its columns. DTensor's
+    rule may split the columns instead, which a head view of a head count
+    the axis does not divide cannot keep: it would gather them back. The
+    weight is gathered whole (the FSDP all-gather DTensor's rule takes
+    too); its gradient is partial over the axes that split ``x``'s rows
+    and returns to ``w2``'s placements."""
+    mesh = x.device_mesh
+    full = w2.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    grad = tuple(Partial() if isinstance(q, Shard) else Replicate()
+                 for q in x.placements)
+    y = x.to_local() @ full.to_local(grad_placements=grad)
+    return DTensor.from_local(y, mesh, x.placements, run_check=False)
+
+
+def takes_rows_times(x, w, dims) -> bool:
+    """Whether ``rows_times`` computes ``x @ w`` (``w``'s dimensions
+    ``dims`` the product's columns): both DTensors, ``x`` split over no
+    axis along its last dimension and partial over none, the columns
+    split over no axis."""
+    return (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and all(isinstance(q, Replicate) or (
+                isinstance(q, Shard) and q.dim != x.ndim - 1)
+                for q in x.placements)
+            and not any(isinstance(q, Shard) and q.dim in dims
+                        for q in w.placements))
+
+
+def attention_on_shards(fn, q, k, v, *slots, norm_params=None, **kw):
+    """``fn(q, k, v, *slots, norm_params=..., **kw)``, a plain attention
+    walk (q (b, s, H, dk); k, v and the ``k_scale`` / ``v_scale`` of
+    ``kw`` with their KV heads along dim 2; ``slots``, the index and
+    lengths, along batch), run on each device's own batch rows and query
+    heads. Attention is independent per (batch row, head): where every
+    DTensor operand is split along batch and heads only, each device runs
+    the single-device ops on its shards and no byte crosses devices; the
+    output is placed as ``q``. Where the rules replicate the KV heads
+    (fewer than the axis holds), a device takes the KV heads its query
+    heads read, and of replicated per-head ConSmax parameters its heads'
+    entries; their gradients are partial over the axes that split the
+    query. Under any other placement (a plain ``q``, a KV sequence split
+    over an axis) ``fn`` runs as called and DTensor's rules place each
+    op."""
+    scales = [kw[n] for n in ("k_scale", "v_scale") if kw.get(n) is not None]
+    params = ([norm_params.beta, norm_params.gamma]
+              if hasattr(norm_params, "beta") else [])
+    plan = _shard_plan(q, [k, v, *scales], slots, params)
+    if plan is None:
+        return fn(q, k, v, *slots, norm_params=norm_params, **kw)
+    h_axes, b_axes, kv_whole = plan
+    mesh = q.device_mesh
+    H, hkv = q.shape[2], k.shape[2]
+    g = H // hkv
+    coord, sizes = mesh.get_coordinate(), tuple(mesh.shape)
+    idx, n = 0, 1
+    for i in h_axes:                     # major to minor, in mesh order
+        idx, n = idx * sizes[i] + coord[i], n * sizes[i]
+    h_loc = H // n
+    h0 = idx * h_loc
+
+    def local(t, dim=None, start=0, length=0):
+        tl = t.to_local(grad_placements=tuple(
+            Partial() if isinstance(p, Replicate) and i in h_axes + b_axes
+            else p for i, p in enumerate(t.placements)))
+        return tl if dim is None else tl.narrow(dim, start, length)
+
+    kv_part = (2, h0 // g, max(1, h_loc // g)) if kv_whole else ()
+    for name in ("k_scale", "v_scale"):
+        if kw.get(name) is not None:
+            kw[name] = local(kw[name], *kv_part)
+    if params:
+        part = (0, h0, h_loc) if tuple(params[0].shape) == (H,) and any(
+            isinstance(params[0].placements[i], Replicate)
+            for i in h_axes) else ()
+        norm_params = SimpleNamespace(
+            beta=local(params[0], *part), gamma=local(params[1], *part))
+    out = fn(q.to_local(), local(k, *kv_part), local(v, *kv_part),
+             *(t.to_local() for t in slots), norm_params=norm_params, **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
+def _shard_plan(q, kvs, slots, params):
+    """(head axes, batch axes, KV heads whole on the head axes) where
+    ``attention_on_shards`` can run the walk per shard, else None."""
+    if not isinstance(q, DTensor) or not all(
+            isinstance(t, DTensor) for t in (*kvs, *slots, *params)):
+        return None
+    h_axes = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    b_axes = [i for i, p in enumerate(q.placements) if p == Shard(0)]
+    if len(h_axes) + len(b_axes) != sum(
+            not isinstance(p, Replicate) for p in q.placements):
+        return None
+    sizes = tuple(q.device_mesh.shape)
+    n = math.prod(sizes[i] for i in h_axes)
+    H, hkv = q.shape[2], kvs[0].shape[2]
+    g, h_loc = H // hkv, H // n
+    kv_whole = bool(h_axes) and all(
+        isinstance(kvs[0].placements[i], Replicate) for i in h_axes)
+    if H % n or (kv_whole and h_loc % g and g % h_loc) or (
+            not kv_whole and hkv % n):
+        return None                      # uneven, or a KV group split
+
+    def placed(t, on_batch, on_heads):
+        return all(p in (on_batch if i in b_axes else on_heads if i in h_axes
+                         else (Replicate(),))
+                   for i, p in enumerate(t.placements))
+
+    kv_heads = (Replicate(),) if kv_whole else (Shard(2),)
+    ok = (all(placed(t, (Shard(0),), kv_heads) for t in kvs)
+          and all(placed(t, (Shard(0),), (Replicate(),)) for t in slots)
+          and all(tuple(t.shape) in ((H,), (1,)) and placed(
+              t, (Replicate(),), (Replicate(), Shard(0))) for t in params))
+    return (h_axes, b_axes, kv_whole) if ok else None
 
 
 class _Settle(torch.autograd.Function):

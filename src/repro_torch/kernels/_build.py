@@ -226,7 +226,7 @@ def check_sequence_operands(kernel: str, q, k, v, *, heads: dict):
     """Full-sequence attention: ``q`` (b, sq, H, dk) against ``k``/``v``
     (b, skv, hkv, dk) in the model layout, checked as ``check_operands``
     does, with ``heads`` tensors (H,); q, k and v all bfloat16 (the wgmma
-    mainloop) or all float32 (the fp32 SIMT kernel, ``csrc/attn_f32.cuh``).
+    mainloop) or all float32 (the 3xTF32 kernel, ``csrc/attn_f32.cuh``).
     The serving kernels (``check_operands``) take bf16 queries only."""
     if q.dtype not in (torch.bfloat16, torch.float32) or any(
             t.dtype != q.dtype for t in (k, v)):

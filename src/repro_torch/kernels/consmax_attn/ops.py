@@ -7,7 +7,7 @@ transpose); on a CUDA device it launches the kernel in
 ``csrc/consmax_attn.cu`` (built at first use, see ``kernels/_build.py``),
 which reads the model layout as stored, or raises. There is no fallback
 from one to the other. bf16 operands run the wgmma mainloop; fp32 operands
-the plain SIMT kernel of ``csrc/attn_f32.cuh``.
+the 3xTF32 tensor-core kernel of ``csrc/attn_f32.cuh``.
 
 ``consmax_attention_op.launches`` counts kernel launches (CUDA only).
 """
@@ -36,15 +36,16 @@ def _lib():
 
 def attention_plan(q, k, v, beta, gamma):
     """Check the operands and plan the launch: bf16 q / k / v on the wgmma
-    mainloop, two consumer warpgroups at dk <= 128; fp32 on the SIMT kernel
-    of ``csrc/attn_f32.cuh``. Returns the plan and the fp32 beta, gamma."""
+    mainloop, two consumer warpgroups at dk <= 128; fp32 on the 3xTF32
+    kernel of ``csrc/attn_f32.cuh``. Returns the plan and the fp32 beta, gamma."""
     b, sq, H, dk = q.shape
     beta = beta.float().contiguous()
     gamma = gamma.float().contiguous()
     _build.check_sequence_operands("consmax_attention", q, k, v,
                                    heads={"beta": beta, "gamma": gamma})
     if q.dtype == torch.float32:
-        plan = LP.f32_plan("consmax_attention", b=b, sq=sq, H=H, dk=dk,
+        plan = LP.f32_plan("consmax_attention", b=b, sq=sq, H=H,
+                           hkv=k.shape[2], dk=dk,
                            out_shape=q.shape)
     else:
         plan = LP.walk_plan("consmax_attention", b=b, c=sq, H=H,
@@ -56,7 +57,7 @@ def attention_plan(q, k, v, beta, gamma):
 def consmax_attention_cuda(q, k, v, beta, gamma, *, causal=True, window=0,
                            softcap=0.0, merged=False, scale=None):
     """Launch the CUDA kernel. q (b, sq, H, dk), k, v (b, skv, hkv, dk),
-    all bf16 (the wgmma mainloop) or all fp32 (the fp32 SIMT kernel);
+    all bf16 (the wgmma mainloop) or all fp32 (the 3xTF32 kernel);
     beta/gamma (H,) fp32. Returns (b, sq, H, dk) in q's dtype."""
     b, sq, H, dk = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -89,8 +90,9 @@ def consmax_attention_op(q, k, v, beta, gamma, *, causal=True, window=0,
     applies 1/sqrt(d); ``merged`` picks Eq. 3 (C * exp(s)) over Eq. 2. The
     reference's ``bq``/``bk`` are TPU tile sizes and are not taken: the
     CUDA kernel picks its own tiles (64 folded query rows per block, 64 KV
-    rows per tile, 32 at d = 256); fp32 operands take a plain SIMT kernel
-    (fp32 products and exp, the reference's fp32 tolerance)."""
+    rows per tile, 32 at d = 256); fp32 operands take the 3xTF32
+    kernel (fp32-accurate products on the tensor cores, fp32 exp: the
+    reference's fp32 tolerance)."""
     if LP.capturing():
         plan, _, _ = attention_plan(q, k, v, beta, gamma)
         return LP.record(plan, dict(q=q, k=k, v=v), q.device)

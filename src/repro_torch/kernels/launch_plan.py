@@ -34,16 +34,12 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels._build import SMEM_PER_BLOCK
+
 # The consumer warpgroups' rows and the KV tile of the attention mainloop
 # (kWalkRows, kWalkBN in csrc/attn_mainloop.cuh)
 WALK_ROWS = 64
 WALK_BN = 64
-# The fp32 full-sequence kernel (csrc/attn_f32.cuh): positions per block,
-# threads, KV rows per shared-memory tile
-F32_ROWS = 32
-F32_THREADS = 256
-F32_KEYS = 16
-
 
 @dataclasses.dataclass
 class OutputTile:
@@ -201,15 +197,36 @@ def walk_plan(name: str, *, b: int, c: int, H: int, hkv: int, dk: int,
         layout=dict(dk=dk, kv_type=int(quantized), consumers=consumers))
 
 
-def f32_plan(name: str, *, b: int, sq: int, H: int, dk: int,
+def f32_layout(dk: int) -> dict:
+    """F32Layout<dk> (csrc/attn_f32.cuh): warps of 16 folded rows, keys per
+    K/V tile, ring stages (3 where they fit, else 2) and the dynamic shared
+    memory: 128 bytes of mbarriers, the Q rows at dk + 16 floats each, then
+    per stage the K rows (dk + 16 floats) and the V rows (dk + 4)."""
+    warps = 4 if dk == 256 else 8
+    keys = 32 if dk == 256 else 64
+    rows = 16 * warps
+    base = 128 + rows * (dk + 16) * 4
+    stage = keys * (2 * dk + 20) * 4
+    stages = 3 if base + 3 * stage <= SMEM_PER_BLOCK else 2
+    return dict(warps=warps, threads=32 * warps, rows=rows, keys=keys,
+                stages=stages, smem=base + stages * stage)
+
+
+def f32_plan(name: str, *, b: int, sq: int, H: int, hkv: int, dk: int,
              out_shape) -> LaunchPlan:
-    """The fp32 full-sequence kernel (csrc/attn_f32.cuh): grid (ceil(sq /
-    32), H, b), 256 threads, K/V tiles of 16 rows in static shared memory;
-    block (bx, by, bz) writes positions 32 bx .. 32 bx + 31 of head by in
-    batch row bz."""
+    """The fp32 full-sequence kernel (csrc/attn_f32.cuh): a 1-D grid of
+    ceil(sq g / rows) row tiles x b x hkv CTAs, the row tile slowest and
+    reversed (the last rows first). Block bx writes the folded rows of row
+    tile ``tiles - 1 - bx // (b hkv)`` of KV head ``bx % (b hkv) % hkv`` in
+    batch row ``bx % (b hkv) // hkv``."""
+    lay = f32_layout(dk)
+    tiles = -(-(sq * (H // hkv)) // lay["rows"])
+    groups = b * hkv
     return LaunchPlan(
-        name=name, kernel="attn_f32_kernel",
-        grid=(-(-sq // F32_ROWS), H, b), block=F32_THREADS, smem=0,
-        static_smem=2 * F32_KEYS * dk * 4,
+        name=name, kernel="attn_f32_kernel", grid=(tiles * groups, 1, 1),
+        block=lay["threads"], smem=lay["smem"],
         outputs=[OutputTile("out", tuple(out_shape), "float32",
-                            lambda bx, by, bz: (bz, bx, by))])
+                            lambda bx, by, bz: (
+                                bx % groups // hkv, bx % groups % hkv,
+                                tiles - 1 - bx // groups))],
+        layout=dict(dk=dk, stages=lay["stages"], keys=lay["keys"]))

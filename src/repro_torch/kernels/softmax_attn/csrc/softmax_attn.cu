@@ -30,8 +30,9 @@
 // row max (two shuffles), one exp per row, one rescale of the accumulator
 // and, once, the divide.
 //
-// fp32 q / k / v take softmax_attn_f32_launch instead: the plain SIMT kernel
-// of attn_f32.cuh (fp32 products and exp, the reference's fp32 tolerance).
+// fp32 q / k / v take softmax_attn_f32_launch instead: attn_f32.cuh's
+// kernel, both products in 3xTF32 on the tensor cores (mma.sync) and fp32
+// exp, within the reference's fp32 tolerance.
 #include "attn_f32.cuh"
 #include "attn_mainloop.cuh"
 

@@ -39,7 +39,8 @@ def attention_plan(q, k, v):
     b, sq, H, dk = q.shape
     _build.check_sequence_operands("softmax_attention", q, k, v, heads={})
     if q.dtype == torch.float32:
-        return LP.f32_plan("softmax_attention", b=b, sq=sq, H=H, dk=dk,
+        return LP.f32_plan("softmax_attention", b=b, sq=sq, H=H,
+                           hkv=k.shape[2], dk=dk,
                            out_shape=q.shape)
     return LP.walk_plan("softmax_attention", b=b, c=sq, H=H, hkv=k.shape[2],
                         dk=dk, kv_dtype=k.dtype, wide=True,
@@ -49,7 +50,7 @@ def attention_plan(q, k, v):
 def softmax_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
                            scale=None):
     """Launch the CUDA kernel. q (b, sq, H, dk), k, v (b, skv, hkv, dk),
-    all bf16 (the wgmma mainloop) or all fp32 (the fp32 SIMT kernel).
+    all bf16 (the wgmma mainloop) or all fp32 (the 3xTF32 kernel).
     Returns (b, sq, H, dk) in q's dtype."""
     b, sq, H, dk = q.shape
     skv, hkv = k.shape[1], k.shape[2]

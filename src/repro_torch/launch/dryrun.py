@@ -23,11 +23,12 @@ there is no ``--save-hlo`` (there is no HLO to save). Records go to
 ``artifacts/dryrun_torch/``.
 
 A failing cell is recorded with its error, and the sweep goes on; the
-exit code is 1 if any cell erred. A step loop over every token (the
-sLSTM's) makes some traces take hours: run such cells in a process of
-their own. ``--device`` names the fake tensors' device (default cuda;
-fake tensors need no card, but the port's entry points refuse cuda where
-none is present, so pass ``cpu`` there).
+exit code is 1 if any cell erred. Repeated work is traced until it
+repeats and counted with its trip count (the reference's while-loop
+multiplicity): the xLSTM recurrences' steps (``nn/scan``) and a train
+step's microbatches. ``--device`` names the fake tensors' device (default
+cuda; fake tensors need no card, but the port's entry points refuse cuda
+where none is present, so pass ``cpu`` there).
 """
 from __future__ import annotations
 

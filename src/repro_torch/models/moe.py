@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.nn import layers as L
 
 
@@ -118,11 +119,15 @@ def dispatch(p: MoE, x, idx, w, cfg: ModelConfig, C: int):
 
     buf = torch.zeros((b, E * C + 1, d), dtype=cdt, device=x.device)
     buf = buf.index_put((rows, bidx), x.to(cdt)[rows, tok])
+    # under a mesh the rows' slots stay split along batch only, so the
+    # (b, E, C, d) and (E, b*C, d) views split no other sharded dimension
+    buf = shard(buf, "act_batch,,act_embed")
     buf = buf[:, :E * C].reshape(b, E, C, d).transpose(0, 1)
     buf = buf.reshape(E, b * C, d)                           # every row's
     h = act(torch.bmm(buf, L.cast(p.gate, cdt))) * torch.bmm(
         buf, L.cast(p.up, cdt))
     out = torch.bmm(h, L.cast(p.down, cdt))                  # (E, b*C, d)
+    out = shard(out, "act_experts,act_batch,act_embed")
     out = out.reshape(E, b, C, d).transpose(0, 1).reshape(b, E * C, d)
 
     ys = out[rows, bidx.clamp(max=E * C - 1)] * keep[..., None].to(cdt)

@@ -8,25 +8,28 @@ cell). ``stabilizer="consmax"`` replaces ``m_t`` with a learned per-head
 constant ``mu`` and the ``max(|q·n|, exp(-m))`` denominator with a learned
 per-head ``gamma`` — ConSmax's idea applied to the recurrent family.
 
-Whole sequences run the mLSTM chunk by chunk (``cfg.xlstm.chunk`` steps,
-each chunk recomputed in backward as the reference checkpoints it) and the
-sLSTM one step at a time; a cache turns a multi-token call into a
+Whole sequences run through ``nn/scan.scan``, as the reference scans
+them: the mLSTM one chunk (``cfg.xlstm.chunk`` steps) per scan step, each
+recomputed in backward as the reference checkpoints it, and the sLSTM one
+step at a time, recomputed in backward ``cfg.xlstm.chunk`` steps at a
+time; a cache turns a multi-token call into a
 whole-prompt prefill (its length a chunk multiple or below one chunk) that
 returns the final state, and a one-token call into one decode step.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils import checkpoint as ckpt
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.mamba import causal_conv, conv_tail
 from repro_torch.nn import layers as L
+from repro_torch.nn.scan import scan
 
 NEG = -1e30
 
@@ -167,21 +170,25 @@ def mlstm_apply(p: MLSTM, x, cfg: ModelConfig, *, cache=None):
         Lc = min(xcfg.chunk, s)
         n_chunks = -(-s // Lc)
         pad = n_chunks * Lc - s
-        seqs = [F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
-                for t in (q, k, v, ig, logf)]
-        chunk = functools.partial(_mlstm_chunk, consmax=consmax)
-        if torch.is_grad_enabled():
-            chunk = functools.partial(ckpt.checkpoint, chunk,
-                                      use_reentrant=False)
+        # under a mesh the walk's chunks stay whole along time
+        seqs = [F.pad(shard(t.float(), axes), (0, 0) * (t.ndim - 2)
+                      + (0, pad)).unflatten(1, (n_chunks, Lc))
+                for t, axes in zip((q, k, v, ig, logf), 3 * (
+                    "act_batch,act_seq,act_heads,",) + 2 * (
+                    "act_batch,act_seq,act_heads",))]
+
+        def step(carry, xt, *mg):
+            *carry, o = _mlstm_chunk(*carry, *xt, *(mg or (mu, gamma)),
+                                     consmax=consmax)
+            return tuple(carry), o
+
         C = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
         n = torch.zeros((b, h, dk), dtype=torch.float32, device=x.device)
         m = torch.zeros((b, h), dtype=torch.float32, device=x.device)
-        outs = []
-        for i in range(n_chunks):
-            C, n, m, o = chunk(C, n, m, *(t[:, i * Lc:(i + 1) * Lc]
-                                          for t in seqs), mu, gamma)
-            outs.append(o)
-        hout = torch.cat(outs, dim=1)[:, :s]
+        # one scan step per chunk, each recomputed in backward
+        (C, n, m), hout = scan(step, (C, n, m), seqs, chunk=1,
+                               params=(mu, gamma) if consmax else ())
+        hout = hout.flatten(1, 2)[:, :s]
         new_cache = None
         if prefill:
             new_cache = {"conv": conv_tail(xm, xcfg.d_conv), "C": C,
@@ -281,14 +288,22 @@ def _slstm_step(carry, gx, r, mu):
 
 def slstm_apply(p: SLSTM, x, cfg: ModelConfig, *, cache=None):
     """x: (b, s, d) -> (y, new_cache). Runs the recurrence one step at a
-    time (the reference scans the same steps in checkpointed chunks)."""
+    time through ``nn/scan.scan``, recomputed in backward chunk by chunk
+    (``cfg.xlstm.chunk`` steps), as the reference scans it."""
     b, s, d = x.shape
     h = cfg.n_heads
     cdt = cfg.cdtype()
     r = p.r.float()
     mu = getattr(p, "mu", None) if cfg.xlstm.stabilizer == "consmax" else None
-    gx = (x.to(cdt) @ L.cast(p.w, cdt).reshape(d, 4 * d)).unflatten(
-        -1, (4, d)).float() + p.b                            # (b, s, 4, d)
+    w = L.cast(p.w, cdt)
+    if isinstance(w, DTensor):
+        # under a mesh, one product per gate: the (d, 4, d) weight's
+        # merged view would split its sharded last dim, and the product's
+        # gate dimension must stay whole for the step's unbind
+        gx = torch.stack([x.to(cdt) @ w[:, i] for i in range(4)], dim=2)
+    else:
+        gx = (x.to(cdt) @ w.reshape(d, 4 * d)).unflatten(-1, (4, d))
+    gx = gx.float() + p.b                                    # (b, s, 4, d)
 
     if cache is None or s > 1:
         if cache is not None:
@@ -297,11 +312,13 @@ def slstm_apply(p: SLSTM, x, cfg: ModelConfig, *, cache=None):
         carry = (zero, zero, zero, zero)
     else:
         carry = (cache["h"], cache["c"], cache["n"], cache["m"])
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(carry, gx[:, t], r, mu)
-        hs.append(carry[0])
-    hs = torch.stack(hs, dim=1)                              # (b, s, d)
+
+    def step(carry, xt, r, *mu):
+        carry = _slstm_step(carry, xt[0], r, mu[0] if mu else None)
+        return carry, carry[0]
+
+    carry, hs = scan(step, carry, (gx,), chunk=cfg.xlstm.chunk,
+                     params=(r,) if mu is None else (r, mu))  # (b, s, d)
     new_cache = None
     if cache is not None:
         new_cache = dict(zip(("h", "c", "n", "m"), carry))

@@ -22,6 +22,8 @@ from torch import nn
 from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed import sharding as SH
+
 
 def cast(p: torch.Tensor | None, dtype: torch.dtype):
     """``p`` in ``dtype``. The converted copy is kept on the parameter and
@@ -94,9 +96,15 @@ def linear(x, w, b=None, *, dtype=torch.bfloat16):
 
 
 def heads_proj(x, w, b=None, *, dtype=torch.bfloat16):
-    """(..., d) @ (d, heads, head_dim) -> (..., heads, head_dim)."""
+    """(..., d) @ (d, heads, head_dim) -> (..., heads, head_dim). Under a
+    mesh, where the rules split neither the heads nor the head_dim of
+    ``w`` (a head count the axis does not divide), each device multiplies
+    its rows by the whole weight (``sharding.rows_times``), so the head
+    view splits no sharded dimension."""
     d, h, k = w.shape
-    y = (x.to(dtype) @ cast(w, dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+    x, w2 = x.to(dtype), cast(w, dtype).reshape(d, h * k)
+    y = (SH.rows_times(x, w2) if SH.takes_rows_times(x, w, (1, 2))
+         else x @ w2).unflatten(-1, (h, k))
     if b is not None:
         y = y + cast(b, dtype)
     return y

@@ -39,12 +39,15 @@ dequantized cache within the bounds above. The decode kernel on int8 K
 codes (V the identity, q = e_0) gives ``consmax_lut``'s weights within one
 bf16 ulp: its output is bf16.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import cache_layout as CL
+from repro_torch.kernels import launch_plan as LP
 from repro_torch.kernels.consmax_decode.ops import (
     consmax_decode_cuda, consmax_decode_op, consmax_decode_paged_cuda,
     consmax_decode_paged_op)
@@ -994,7 +997,8 @@ F32_TOL = 2e-5    # the reference's fp32 tolerance (tests/test_kernels.py)
 @pytest.mark.parametrize("shape", ATTN)
 @pytest.mark.parametrize("variant", ATTN_VARIANTS + [dict(merged=True)])
 def test_fp32_attention_kernels_match_plain(cuda, shape, variant):
-    """fp32 q / k / v take the SIMT kernel (fp32 products and exp): both
+    """fp32 q / k / v take the 3xTF32 kernel (fp32-accurate tensor-core
+    products, fp32 exp): both
     attention kernels within the reference's fp32 atol of their plain
     versions, the same bits on a second run."""
     b, sq, skv, H, hkv, dk = ATTN[shape]
@@ -1013,3 +1017,35 @@ def test_fp32_attention_kernels_match_plain(cuda, shape, variant):
     torch.cuda.synchronize()
     ref = _model_layout(softmax_attention_ref, q, k, v, **variant)
     assert float((got - ref).abs().max()) <= F32_TOL
+
+
+@pytest.mark.parametrize("dk", [128, 256])
+def test_fp32_attention_kernels_long_sequence(cuda, dk):
+    """Many K/V tiles per block (the ring wraps), folded GQA rows across
+    block edges, the last rows' blocks first: both kernels within the fp32
+    atol of their plain versions, the same bits on a second run."""
+    b, s, H, hkv = 1, 1000, 12, 2
+    q, k, v, beta, gamma = (t.float() for t in _seq_inputs(
+        cuda, b=b, sq=s, skv=s, H=H, hkv=hkv, dk=dk, seed=23))
+    for merged in (False, True):
+        outs = [consmax_attention_cuda(q, k, v, beta, gamma, merged=merged)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        ref = _model_layout(consmax_attention_ref, q, k, v, beta, gamma,
+                            merged=merged)
+        assert float((outs[0] - ref).abs().max()) <= F32_TOL
+    got = softmax_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    ref = _model_layout(softmax_attention_ref, q, k, v)
+    assert float((got - ref).abs().max()) <= F32_TOL
+
+
+@pytest.mark.parametrize("name", ["consmax_attn", "softmax_attn"])
+def test_fp32_plan_smem_equals_the_library(cuda, name):
+    """The launch plan's shared memory (launch_plan.f32_layout) is the
+    library's own (attn_f32_smem_bytes), at every head_dim."""
+    lib = _build.load(name)
+    lib.attn_f32_smem_bytes.argtypes = [ctypes.c_int]
+    for dk in _build.HEAD_DIMS:
+        assert lib.attn_f32_smem_bytes(dk) == LP.f32_layout(dk)["smem"]

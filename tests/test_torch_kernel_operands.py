@@ -17,6 +17,11 @@ host-side sampling flag, against the JAX reference on the CPU.
 * ``sample_tokens`` with the engine's host flag gives the tokens it gives
   without, and its calls dispatch no ``_local_scalar_dense`` (the op
   lint's ``no-host-syncs``), where the flagless call dispatches one.
+* The fp32 kernel's launch plan (``launch_plan.f32_plan``, captured from
+  both wrappers) follows ``csrc/attn_f32.cuh``: a 1-D grid of row tiles x
+  batch rows x KV heads whose blocks write distinct tiles covering every
+  row, the layout's threads and dynamic shared memory, every launch
+  contract met.
 The card runs the CUDA kernels at dk 96 and on fp32 (``test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
@@ -36,10 +41,12 @@ from repro.kernels.softmax_attn.ref import softmax_attention_ref as jsoftmax
 from repro.models import transformer as JT
 from repro.nn.module import Ctx
 from repro.serve.engine import ContinuousBatchingEngine as JEngine
+from repro_torch.analysis.kernel_contracts import check_launch
 from repro_torch.analysis.op_lint import record_ops, run_rules, StepTarget
 from repro_torch.configs.base import ServeConfig
 from repro_torch.configs.registry import get_config as tget
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_plan as LP
 from repro_torch.kernels.consmax_attn.ops import consmax_attention_op
 from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
 from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
@@ -229,3 +236,32 @@ def test_engine_flags_only_its_sampled_slots():
     eng.run(max_steps=50)
     assert eng._sampled_slots == set() and len(eng.results[a]) == 3
     assert len(eng.results[g]) == 6
+
+
+# ------------------------------------------------ the fp32 kernel's plan ----
+@pytest.mark.parametrize("dk", [32, 64, 96, 128, 256])
+def test_fp32_plan_follows_the_kernel(dk):
+    b, sq, skv, H, hkv = 2, 333, 100, 12, 2
+    q = torch.zeros((b, sq, H, dk))
+    kv = torch.zeros((b, skv, hkv, dk))
+    with LP.capture() as plans:
+        consmax_attention_op(q, kv, kv, torch.zeros(H), torch.ones(H))
+        softmax_attention_op(q, kv, kv)
+    rows = 64 if dk == 256 else 128
+    keys = 32 if dk == 256 else 64
+    base = 128 + rows * (dk + 16) * 4
+    stage = keys * ((dk + 16) + (dk + 4)) * 4
+    stages = 3 if base + 3 * stage <= _build.SMEM_PER_BLOCK else 2
+    tiles = -(-sq * (H // hkv) // rows)
+    for plan in plans:
+        assert plan.kernel == "attn_f32_kernel"
+        assert plan.grid == (tiles * b * hkv, 1, 1)
+        assert plan.block == rows * 2 and plan.static_smem == 0
+        assert plan.smem == base + stages * stage <= _build.SMEM_PER_BLOCK
+        assert check_launch(plan) == []
+        out = plan.outputs[0]
+        written = {out.tile_of(bx, 0, 0) for bx in range(plan.grid[0])}
+        assert written == {(i, j, t) for i in range(b) for j in range(hkv)
+                           for t in range(tiles)}
+        # the last row tiles are issued first
+        assert out.tile_of(0, 0, 0)[2] == tiles - 1

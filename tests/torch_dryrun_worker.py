@@ -12,10 +12,13 @@ results. The worker imports the port only, never JAX.
 
 Jobs: ``pipe`` (``distributed/pipeline.gpipe``, tests/test_torch_pipeline
 .py), ``cell`` (one cell of ``launch/specs`` run on real shards, its
-collectives recorded, its logits beside one device's), ``fake`` (the same
-cell traced by the dry run over a fake group) and ``report`` (the cells'
-``meta``, FLOPs and a smoke record over fake groups;
-tests/test_torch_dryrun.py).
+collectives recorded, its logits beside one device's) and ``cells``
+(several, in one world), ``fake`` (the same cell traced by the dry run
+over a fake group) and ``report`` (the cells' ``meta``, FLOPs and a smoke
+record over fake groups; tests/test_torch_dryrun.py), ``sites`` (cells'
+``op:`` fallbacks over fake groups; tests/test_torch_sharding_rules.py)
+and ``count`` (cells traced walking every recurrence step and counting
+the repeated ones; tests/test_torch_scan.py).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ def spawn(job: str, world: int, args: dict, tmp_path) -> list:
                    [str(ROOT / "src")]
                    + [p for p in os.environ.get("PYTHONPATH", "").split(
                        os.pathsep) if p]))
-    n = 1 if job in ("fake", "report") else world
+    n = 1 if job in ALONE else world
     run_ranks([[sys.executable, __file__, str(spec), str(r)]
                for r in range(n)], timeout=TIMEOUT, env=env)
     return [json.loads(Path(f"{out}.{r}").read_text()) for r in range(n)]
@@ -70,7 +73,14 @@ def _cell(mesh, args: dict):
     from repro_torch.launch.specs import make_cell
     return make_cell(args["arch"], args["shape"], mesh, smoke=True,
                      global_batch=args["batch"], seq_len=args["seq"],
-                     overrides=args.get("overrides"), device="cpu")
+                     overrides=_overrides(args), device="cpu")
+
+
+def _overrides(args: dict):
+    """A cell's config overrides from JSON (lists back to tuples)."""
+    over = args.get("overrides")
+    return over and {k: tuple(v) if isinstance(v, list) else v
+                     for k, v in over.items()}
 
 
 def job_cell(rank: int, args: dict) -> dict:
@@ -93,6 +103,72 @@ def job_cell(rank: int, args: dict) -> dict:
     scale = one.float().abs().max().item()
     return dict(records=rec.records, err=err, scale=scale,
                 shape=list(logits.shape))
+
+
+def job_cells(rank: int, args: dict) -> dict:
+    """``job_cell`` for each cell of ``args["cells"]`` in one world."""
+    return {c["name"]: job_cell(rank, c) for c in args["cells"]}
+
+
+def job_sites(rank: int, args: dict) -> dict:
+    """Alone over fake groups: each listed cell's dry-run trace, its
+    ``op:`` fallbacks and collective bytes by kind."""
+    from repro_torch.distributed import op_analysis as OA
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.specs import make_cell
+    out = {}
+    for c in args["cells"]:
+        mesh = M._fake_mesh(tuple(c["mesh"]), _NAMES[len(c["mesh"])], "cpu")
+        cell = make_cell(c["arch"], c["shape"], mesh, smoke=True,
+                         global_batch=c["batch"], seq_len=c["seq"],
+                         microbatch=1, overrides=_overrides(c),
+                         device="cpu")
+        traced = trace_cell(cell)
+        st = OA.collective_stats(traced["records"], link_bw=1.0,
+                                 num_devices=mesh.size())
+        out[c["name"]] = dict(
+            op_fallbacks=[[list(s), lg, d] for s, lg, d in cell.op_fallbacks],
+            collectives=dict(st.bytes_by_kind))
+    return out
+
+
+def job_count(rank: int, args: dict) -> dict:
+    """Alone over fake groups: each listed cell traced twice, once walking
+    every step (``nn/scan.walked``) and once counting the repeated steps
+    and microbatches; their FLOPs, bytes, transcendentals, collective
+    bytes by kind and peaks. A first trace warms the process up: some
+    ops run only on the first trace of a process."""
+    from repro_torch.distributed import op_analysis as OA
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.specs import make_cell
+    from repro_torch.nn.scan import walked
+    out = {}
+    for c in [args["cells"][0]] + args["cells"]:
+        mesh = M._fake_mesh(tuple(c["mesh"]), _NAMES[len(c["mesh"])], "cpu")
+        res = {}
+        for mode in ("walk", "count"):
+            cell = make_cell(c["arch"], c["shape"], mesh, smoke=True,
+                             global_batch=c["batch"], seq_len=c["seq"],
+                             microbatch=c["microbatch"], remat="none",
+                             overrides=_overrides(c), device="cpu")
+            if mode == "walk":
+                with walked():
+                    traced = trace_cell(cell)
+            else:
+                traced = trace_cell(cell)
+            st = OA.collective_stats(traced["records"], link_bw=1.0,
+                                     num_devices=mesh.size())
+            res[mode] = dict(cost=traced["cost"].summary(),
+                             collectives=dict(st.bytes_by_kind),
+                             peak=OA.peak_bytes(traced["memory"]),
+                             sec=traced["trace_sec"])
+        out[c["name"]] = res
+    return out
+
+
+_NAMES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 
 
 def job_fake(rank: int, args: dict) -> dict:
@@ -150,7 +226,7 @@ def main(spec_path: str, rank: int):
     import torch
     torch.set_num_threads(1)
     spec = json.loads(Path(spec_path).read_text())
-    if spec["job"] in ("fake", "report"):
+    if spec["job"] in ALONE:
         result = JOBS[spec["job"]](rank, spec["args"])
     else:
         from repro_torch.launch.mesh import init_distributed
@@ -163,8 +239,10 @@ def main(spec_path: str, rank: int):
     Path(f"{spec['out']}.{rank}").write_text(json.dumps(result))
 
 
-JOBS = {"pipe": job_pipe, "cell": job_cell, "fake": job_fake,
-        "report": job_report}
+JOBS = {"pipe": job_pipe, "cell": job_cell, "cells": job_cells,
+        "fake": job_fake, "report": job_report, "sites": job_sites,
+        "count": job_count}
+ALONE = ("fake", "report", "sites", "count")   # one process, fake groups
 
 if __name__ == "__main__":
     main(sys.argv[1], int(sys.argv[2]))
