@@ -37,13 +37,22 @@ Phases, in order; any failure exits non-zero before the result line:
    (8 x 8192 rows, 4 KV heads, head_dim 256, window 4096, softcap 50;
    prefill chunk 512 at fills 0-8192; page size 256) against their plain
    versions, paged == contiguous bits; times and bounds;
+   in 3, 3c and 3d the prefill kernels run the KV-shard sweep
+   (``prefill_kv_block`` 512, the default, 256 and 64, and one shard,
+   bk = L): at every bk within the plain version's bounds, fill-bounded ==
+   capacity-swept bits, paged == contiguous bits at every page size the
+   phase uses, int8 / fp8 == the bf16 kernel on the dequantized cache, and
+   a split within the bf16 bounds of the one-shard launch; the timed
+   chunks' times at each bk beside the bound and the plain time (the
+   result line's ``ms`` is the default's);
 4. model: full-width qwen2-1.5b logits with both kernels vs the plain
    walks on a small input;
 5. engine: full-width qwen2-1.5b (28 layers, random weights from a seed)
    served by ``ContinuousBatchingEngine`` with both kernels, 12 greedy
    requests; every request finishes, both kernels ran, and one request
    served alone equals its tokens served among the others;
-6. engine: full-width gpt2-consmax (MHA, g = 1), the same checks;
+6. engine: full-width gpt2-consmax (MHA, g = 1), the same checks, then
+   the same requests at ``prefill_kv_block=64`` (solo == batched there);
 7. paged engine: full-width qwen2-1.5b on a 128-page pool (16 slots x 8192
    rows), prefix cache on, with shared-prefix traffic: the pool drains,
    the cache hits, a page is copied on write, the prefill and launch counts
@@ -263,6 +272,54 @@ def _check(name, got, ref, ref_absv):
     return e
 
 
+# the prefill kernels' KV-shard sweep: the default prefill_kv_block, two
+# finer splits, then one shard (bk = L: the unsplit walk)
+SWEEP_BK = (512, 256, 64)
+
+
+def _prefill_sweep(tag, flush, launch, ref, ref_absv, L, *, same=None,
+                   timed=True, bound=None, plain_ms=None):
+    """The prefill kernel at each shard size of the sweep, ``launch(bk,
+    fill_bound)`` -> out: at every bk within the bounds of the plain
+    ``ref``, fill-bounded == capacity-swept bits, ``same(bk, out)`` (the
+    phase's bit gates at that bk) and, for a split, within the bf16 bounds
+    of the one-shard launch (the sum's order differs across shards, so no
+    bits are asked there). ``timed``: each bk's device time over 50
+    launches, logged beside the others, the ``bound`` (ms, by) and the
+    plain version's ``plain_ms``. Returns ({bk: ms}, max_abs_err); the
+    one-shard time is under key "one"."""
+    from repro_torch.kernels import cache_layout as CL
+    outs, errs = {}, []
+    for bk in (*SWEEP_BK, L):
+        _, ns = CL.prefill_shards(L, bk)
+        name = f"{tag} bk={bk if bk < L else 'L'} (ns {ns})"
+        out = launch(bk, True)
+        errs.append(_check(name, out, ref, ref_absv))
+        _same_bits(name, out, launch(bk, False), "the capacity-swept launch")
+        if same is not None:
+            same(bk, out)
+        outs[bk] = out
+    for bk in SWEEP_BK:
+        ok, e, rel = _kernel_err(outs[bk], outs[L], ref_absv)
+        _log(f"[kernels] {tag} bk={bk} vs one shard: max_abs_err {e:.3e}, "
+             f"max row relative L2 {rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} bk={bk}: split launch outside the "
+                                 "bf16 bounds of the one-shard launch")
+    if not timed:
+        return {}, max(errs)
+    times = {bk: _time_ms(lambda bk=bk: launch(bk, True), flush, 50)
+             for bk in SWEEP_BK}
+    times["one"] = _time_ms(lambda: launch(L, True), flush, 50)
+    _log(f"[kernels] {tag} shard sweep: "
+         + ", ".join(f"bk {bk} {times[bk] * 1e3:.1f} us" for bk in SWEEP_BK)
+         + f", one shard {times['one'] * 1e3:.1f} us"
+         + (f"; bound {bound[0] * 1e3:.2f} us by {bound[1]}" if bound
+            else "")
+         + (f"; plain {plain_ms * 1e3:.1f} us" if plain_ms else ""))
+    return times, max(errs)
+
+
 def _rand(gen, shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale
             ).to(torch.bfloat16)
@@ -325,25 +382,31 @@ def kernel_phase(flush):
                       dtype=torch.int32, device="cuda")
     nb = torch.tensor([0, 512, 512, 77, 512, 300, 512, 512],
                       dtype=torch.int32, device="cuda")
-    errs.append(_check("prefill b=8 c=512 mixed fills",
-                       consmax_prefill_cuda(qb, k, v, ib, nb, beta, gamma,
-                                            **kw),
-                       consmax_prefill_ref(qb, k, v, ib, nb, beta, gamma,
-                                           **kw),
-                       consmax_prefill_ref(qb, k, v.abs(), ib, nb, beta,
-                                           gamma, **kw)))
+    errs.append(_prefill_sweep(
+        "prefill b=8 c=512 mixed fills", flush,
+        lambda bk, fb: consmax_prefill_cuda(qb, k, v, ib, nb, beta, gamma,
+                                            bk=bk, fill_bound=fb, **kw),
+        consmax_prefill_ref(qb, k, v, ib, nb, beta, gamma, **kw),
+        consmax_prefill_ref(qb, k, v.abs(), ib, nb, beta, gamma, **kw), L,
+        timed=False)[1])
     idx, n = 3584, 512
     ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
     tn = torch.tensor([n], dtype=torch.int32, device="cuda")
-    ms = _time_ms(lambda: consmax_prefill_cuda(q1, k1, v1, ti, tn, beta,
-                                               gamma, **kw), flush, 50)
     plain_ms = _time_ms(lambda: consmax_prefill_ref(q1, k1, v1, ti, tn, beta,
                                                     gamma, **kw), flush, 5)
     kvl = idx + n
     visible = sum(min(idx + i + 1, kvl) for i in range(c))   # causal keys
     bound, by = _bound_ms(kvl * hkv * dk * 2 * 2 + 2 * c * H * dk * 2,
                           4 * visible * H * dk)
-    rows["consmax_prefill"] = dict(max_abs_err=max(errs), ms=ms,
+    times, e = _prefill_sweep(
+        "prefill c=512 at fill 4096", flush,
+        lambda bk, fb: consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma,
+                                            bk=bk, fill_bound=fb, **kw),
+        consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
+        consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma, **kw), L,
+        bound=(bound, by), plain_ms=plain_ms)
+    errs.append(e)
+    rows["consmax_prefill"] = dict(max_abs_err=max(errs), ms=times[512],
                                    plain_ms=plain_ms, bound_ms=bound,
                                    bound_by=by)
 
@@ -491,24 +554,28 @@ def _paged_decode_case(name, q, k, v, lengths, beta, gamma, kw, *, bk,
 
 
 def _paged_prefill_case(name, q, k, v, index, lengths, beta, gamma, kw,
-                        *, ps, num_pages):
+                        *, ps, num_pages, bks=(SWEEP_BK[0],)):
     """The paged prefill kernel against its plain paged version and, bit
-    for bit, the contiguous kernel on the same rows."""
+    for bit, the contiguous kernel on the same rows, at each KV shard size
+    of ``bks`` (the default prefill_kv_block unless asked)."""
     from repro_torch.kernels.consmax_prefill.ops import (
         consmax_prefill_cuda, consmax_prefill_paged_cuda)
     from repro_torch.kernels.consmax_prefill.ref import (
         consmax_prefill_paged_ref)
     (kp, vp), table = _paginate_rows([k, v], (index + lengths).tolist(), ps,
                                      num_pages, seed=ps * 1000 + k.shape[0])
-    got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths, beta,
-                                     gamma, **kw)
-    err = _check(name, got, consmax_prefill_paged_ref(
-        q, kp, vp, table, index, lengths, beta, gamma, **kw),
-        consmax_prefill_paged_ref(q, kp, vp.abs(), table, index, lengths,
-                                  beta, gamma, **kw))
-    _same_bits(name, got, consmax_prefill_cuda(q, k, v, index, lengths, beta,
-                                               gamma, **kw))
-    return err, (kp, vp, table)
+    ref = consmax_prefill_paged_ref(q, kp, vp, table, index, lengths, beta,
+                                    gamma, **kw)
+    ref_absv = consmax_prefill_paged_ref(q, kp, vp.abs(), table, index,
+                                         lengths, beta, gamma, **kw)
+    errs = []
+    for bk in bks:
+        got = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                         beta, gamma, bk=bk, **kw)
+        errs.append(_check(f"{name} bk={bk}", got, ref, ref_absv))
+        _same_bits(f"{name} bk={bk}", got, consmax_prefill_cuda(
+            q, k, v, index, lengths, beta, gamma, bk=bk, **kw))
+    return max(errs), (kp, vp, table)
 
 
 def paged_kernel_phase(flush):
@@ -524,7 +591,7 @@ def paged_kernel_phase(flush):
     from repro_torch.kernels.consmax_decode.ref import (
         consmax_decode_paged_ref)
     from repro_torch.kernels.consmax_prefill.ops import (
-        consmax_prefill_paged_cuda)
+        consmax_prefill_cuda, consmax_prefill_paged_cuda)
     from repro_torch.kernels.consmax_prefill.ref import (
         consmax_prefill_paged_ref)
 
@@ -586,11 +653,10 @@ def paged_kernel_phase(flush):
         need = sum(-(-int(f) // pss) for f in (ib + nb).tolist())
         e, _ = _paged_prefill_case(
             f"paged prefill b=8 c=512 ps={pss} mixed fills", qb, kb, vb,
-            ib, nb, beta, gamma, kw, ps=pss, num_pages=max(npages, need + 64))
+            ib, nb, beta, gamma, kw, ps=pss, num_pages=max(npages, need + 64),
+            bks=(*SWEEP_BK, L))
         errs.append(e)
     ti, tn, kp1, vp1, t1 = timed
-    ms = _time_ms(lambda: consmax_prefill_paged_cuda(
-        q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw), flush, 50)
     plain_ms = _time_ms(lambda: consmax_prefill_paged_ref(
         q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw), flush, 5)
     idx, n = 3584, 512
@@ -598,9 +664,24 @@ def paged_kernel_phase(flush):
     visible = sum(min(idx + i + 1, kvl) for i in range(c))   # causal keys
     bound, by = _bound_ms(kvl * hkv * dk * 2 * 2 + 2 * c * H * dk * 2
                           + t1.numel() * 4, 4 * visible * H * dk)
-    rows["consmax_prefill_paged"] = dict(max_abs_err=max(errs), ms=ms,
-                                         plain_ms=plain_ms, bound_ms=bound,
-                                         bound_by=by)
+    times, e = _prefill_sweep(
+        "paged prefill c=512 ps=256 at fill 4096", flush,
+        lambda bk, fb: consmax_prefill_paged_cuda(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, bk=bk, fill_bound=fb,
+            **kw),
+        consmax_prefill_paged_ref(q1, kp1, vp1, t1, ti, tn, beta, gamma,
+                                  **kw),
+        consmax_prefill_paged_ref(q1, kp1, vp1.abs(), t1, ti, tn, beta,
+                                  gamma, **kw), L,
+        same=lambda bk, out: _same_bits(
+            f"paged prefill c=512 ps=256 at fill 4096 bk={bk}", out,
+            consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, bk=bk,
+                                 **kw)),
+        bound=(bound, by), plain_ms=plain_ms)
+    errs.append(e)
+    rows["consmax_prefill_paged"] = dict(max_abs_err=max(errs),
+                                         ms=times[512], plain_ms=plain_ms,
+                                         bound_ms=bound, bound_by=by)
 
     # ---- the options qwen2-1.5b does not use, at 1024 rows
     sl = slice(0, 1024)
@@ -712,24 +793,30 @@ def quantized_kernel_phase(flush):
             pdec = consmax_decode_paged_cuda(q, kp, vp, table, lengths, beta,
                                              gamma, bk=256, **psc, **kw)
             _same_bits(f"{tag} paged decode ps={ps}", pdec, dec)
-            # ---- prefill: 8 slots of mixed fills, contiguous and paged
-            pre = consmax_prefill_cuda(qb, kq, vq, ib, nb, beta, gamma, **sc,
-                                       **kw)
-            _same_bits(f"{tag} prefill b=8 c={c}", pre, consmax_prefill_cuda(
-                qb, kd, vd, ib, nb, beta, gamma, **kw),
-                "the bf16 kernel on the dequantized cache")
-            p_err = _check(f"{tag} prefill b=8 c={c}", pre,
-                           consmax_prefill_ref(qb, kd, vd, ib, nb, beta,
-                                               gamma, **kw),
-                           consmax_prefill_ref(qb, kd, vd.abs(), ib, nb,
-                                               beta, gamma, **kw))
+            # ---- prefill: 8 slots of mixed fills, contiguous and paged,
+            # at every shard size of the sweep
             (kpp, vpp, kspp, vspp), tpp = _paginate_rows(
                 [kq, vq, ks, vs], (ib + nb).tolist(), ps, npages,
                 seed=ps + 1)
-            ppre = consmax_prefill_paged_cuda(
-                qb, kpp, vpp, tpp, ib, nb, beta, gamma, k_scale=kspp,
-                v_scale=vspp, **kw)
-            _same_bits(f"{tag} paged prefill ps={ps}", ppre, pre)
+
+            def same(bk, pre):
+                _same_bits(f"{tag} prefill b=8 c={c} bk={bk}", pre,
+                           consmax_prefill_cuda(qb, kd, vd, ib, nb, beta,
+                                                gamma, bk=bk, **kw),
+                           "the bf16 kernel on the dequantized cache")
+                _same_bits(f"{tag} paged prefill ps={ps} bk={bk}",
+                           consmax_prefill_paged_cuda(
+                               qb, kpp, vpp, tpp, ib, nb, beta, gamma,
+                               k_scale=kspp, v_scale=vspp, bk=bk, **kw), pre)
+
+            p_err = _prefill_sweep(
+                f"{tag} prefill b=8 c={c}", flush,
+                lambda bk, fb: consmax_prefill_cuda(
+                    qb, kq, vq, ib, nb, beta, gamma, bk=bk, fill_bound=fb,
+                    **sc, **kw),
+                consmax_prefill_ref(qb, kd, vd, ib, nb, beta, gamma, **kw),
+                consmax_prefill_ref(qb, kd, vd.abs(), ib, nb, beta, gamma,
+                                    **kw), L, same=same, timed=False)[1]
             if not timed:
                 continue
             rows.update(_quantized_times(
@@ -799,14 +886,10 @@ def _quantized_times(flush, name, q, quant, deq, pools, table, lengths,
     sc1, psc1 = dict(k_scale=ks1, v_scale=vs1), dict(k_scale=ksp1,
                                                      v_scale=vsp1)
     t.update({
-        "prefill": _time_ms(lambda: consmax_prefill_cuda(
-            q1, k1, v1, ti, tn, beta, gamma, **sc1, **kw), flush, 50),
         "prefill bf16": _time_ms(lambda: consmax_prefill_cuda(
             q1, kd1, vd1, ti, tn, beta, gamma, **kw), flush, 50),
         "prefill plain": _time_ms(lambda: consmax_prefill_ref(
             q1, k1, v1, ti, tn, beta, gamma, **sc1, **kw), flush, 5),
-        "paged prefill": _time_ms(lambda: consmax_prefill_paged_cuda(
-            q1, kp1, vp1, t1, ti, tn, beta, gamma, **psc1, **kw), flush, 50),
         "paged prefill plain": _time_ms(lambda: consmax_prefill_paged_ref(
             q1, kp1, vp1, t1, ti, tn, beta, gamma, **psc1, **kw), flush, 5)})
     kvl = idx + c
@@ -815,6 +898,32 @@ def _quantized_times(flush, name, q, quant, deq, pools, table, lengths,
                           4 * visible * H * dk)
     ppre_bound = _bound_ms(kvl * row_bytes + 2 * c * H * dk * 2
                            + t1.numel() * 4, 4 * visible * H * dk)
+    # the shard sweep of both prefill kernels on the codes (== the bf16
+    # kernel on the dequantized rows, paged == contiguous, at every bk)
+    L = k1.shape[1]
+    ref = consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **sc1, **kw)
+    ref_absv = consmax_prefill_ref(q1, kd1, vd1.abs(), ti, tn, beta, gamma,
+                                   **kw)
+    tag = f"{name} qwen2-1.5b prefill c=512 at fill 4096"
+    sweep, _ = _prefill_sweep(
+        tag, flush, lambda bk, fb: consmax_prefill_cuda(
+            q1, k1, v1, ti, tn, beta, gamma, bk=bk, fill_bound=fb, **sc1,
+            **kw), ref, ref_absv, L,
+        same=lambda bk, out: _same_bits(
+            f"{tag} bk={bk}", out, consmax_prefill_cuda(
+                q1, kd1, vd1, ti, tn, beta, gamma, bk=bk, **kw),
+            "the bf16 kernel on the dequantized cache"),
+        bound=pre_bound, plain_ms=t["prefill plain"])
+    psweep, _ = _prefill_sweep(
+        f"{name} qwen2-1.5b paged prefill ps=256 at fill 4096", flush,
+        lambda bk, fb: consmax_prefill_paged_cuda(
+            q1, kp1, vp1, t1, ti, tn, beta, gamma, bk=bk, fill_bound=fb,
+            **psc1, **kw), ref, ref_absv, L,
+        same=lambda bk, out: _same_bits(
+            f"{name} paged prefill bk={bk}", out, consmax_prefill_cuda(
+                q1, k1, v1, ti, tn, beta, gamma, bk=bk, **sc1, **kw)),
+        bound=ppre_bound, plain_ms=t["paged prefill plain"])
+    t["prefill"], t["paged prefill"] = sweep[SWEEP_BK[0]], psweep[SWEEP_BK[0]]
     _log(f"[quantized] {name} qwen2-1.5b decode {name} / bf16 time ratio "
          f"{t['decode'] / t['decode bf16']:.4f} contiguous, "
          f"{t['paged decode'] / t['paged decode bf16']:.4f} paged (page "
@@ -1042,11 +1151,12 @@ def paper_kernel_phase(flush):
         b, sq = q.shape[:2]
         index = torch.zeros(b, dtype=torch.int32, device="cuda")
         lengths = torch.full((b,), sq, dtype=torch.int32, device="cuda")
+        # one KV shard (bk = sq): across shards the sum's order differs
         _same_bits(f"consmax_attention {name} causal merged scale=1",
                    consmax_attention_op(qs, k, v, beta, gamma, **kw),
                    consmax_prefill_cuda(qs, k, v, index, lengths, beta,
-                                        gamma, **kw),
-                   "consmax_prefill (index 0, lengths sq)")
+                                        gamma, bk=sq, **kw),
+                   "consmax_prefill (index 0, lengths sq, one shard)")
     q, k, v, beta, gamma = data["qwen2-1.5b b=2 s=4096"]
     b, sq = q.shape[:2]
     _check("consmax_decode last position vs consmax_attention last row",
@@ -1180,6 +1290,12 @@ def model_phase():
     del model
 
 
+# prefill_kernel ms per traced iteration recorded in PERF.md §5 when every
+# prefill launch walked its KV rows unsplit (NVIDIA H100 80GB HBM3, 700 W)
+UNSPLIT_PREFILL_MS = {"qwen2-1.5b": 3.29, "qwen2-1.5b paged bfloat16": 1.96,
+                      "qwen2-1.5b paged int8": 2.22}
+
+
 def trace_steps(eng, arch, *, skip, steps):
     """Where an engine iteration's time goes: ``steps`` iterations (after
     ``skip``) under ``torch.profiler``; device busy time is the union of
@@ -1217,7 +1333,9 @@ def trace_steps(eng, arch, *, skip, steps):
          f"{busy_ms / steps:.1f} ms/iteration (idle share "
          f"{1 - busy_ms / (wall * 1e3):.3f}), {len(dev) / steps:.0f} device "
          f"ops/iteration; prefill_kernel (the mainloop's "
-         f"attn_walk_kernel) {walk_ms / steps:.2f} ms/iteration; "
+         f"attn_walk_kernel) {walk_ms / steps:.2f} ms/iteration"
+         + (f" (unsplit, PERF.md §5: {UNSPLIT_PREFILL_MS[arch]:.2f})"
+            if arch in UNSPLIT_PREFILL_MS else "") + "; "
          f"decode_kernel (decode_partials) {dec_ms / steps:.2f} "
          f"ms/iteration; device "
          f"time by kernel: "
@@ -1225,11 +1343,13 @@ def trace_steps(eng, arch, *, skip, steps):
 
 
 def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
-                 trace=False):
+                 trace=False, kv_block=None):
     """Serve ``prompt_lens`` greedy requests on the full-width ``arch``
     with both kernels; returns the launch counts of that run. ``trace``:
     afterwards, trace a few iterations of a fresh run of the same
-    requests."""
+    requests. ``kv_block``: then serve them again at that
+    ``prefill_kv_block`` (solo == batched there too; the tokens that match
+    the default's are counted, not gated: the shards' sum order differs)."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.consmax_decode.ops import consmax_decode_op
@@ -1288,6 +1408,26 @@ def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
         for p in prompts:
             eng.submit(p, new_tokens)
         trace_steps(eng, arch, skip=8, steps=6)
+    if kv_block is not None:
+        import dataclasses
+        scfg = dataclasses.replace(scfg, prefill_kv_block=kv_block)
+        _, toks_b, wall, cb = serve(range(len(prompts)))
+        if any(t is None or len(t) != new_tokens for t in toks_b) or (
+                cb["consmax_prefill"] != chunks * cfg.n_layers):
+            raise AssertionError(f"{arch} prefill_kv_block={kv_block}: "
+                                 f"{cb}")
+        _, alone, _, _ = serve([solo])
+        same = alone[0] == toks_b[solo]
+        match = sum(a == b for x, y in zip(toks, toks_b)
+                    for a, b in zip(x, y))
+        _log(f"[engine] {arch} at prefill_kv_block={kv_block}: "
+             f"{len(prompts)} requests in {wall:.3f} s, kernel launches "
+             f"{cb}; request {solo} alone == among the others: {same}; "
+             f"{match} of {len(prompts) * new_tokens} tokens equal to the "
+             f"default prefill_kv_block's")
+        if not same:
+            raise AssertionError(f"{arch} prefill_kv_block={kv_block}: "
+                                 "solo and batched tokens differ")
     return counts
 
 
@@ -1688,7 +1828,7 @@ def gemma2_engine_phase(*, seed=6, new_tokens=16):
                                   "consmax_prefill_paged")}}
 
 
-def session_phase(*, seed=7, steps=32):
+def session_phase(*, seed=7, steps=16):
     """``ServeSession`` at full-width qwen2-1.5b (random weights from
     ``seed``), b 4 x 512-token prompts, ``steps`` tokens, compute in fp32
     (TF32 off; the plain walks, since the kernels take bf16): fused ==
@@ -2060,22 +2200,41 @@ def gemma2_kernel_phase(flush):
     pairs = _window_rows(idx, idx + n, idx + n, win)
     rows_read = idx + n - max(0, idx - win + 1)
     pbytes = rows_read * hkv * dk * 2 * 2 + 2 * c * H * dk * 2
-    times["consmax_prefill"] = (
-        max(errs), lambda: consmax_prefill_cuda(q1, k1, v1, ti, tn, beta,
-                                                gamma, **kw),
-        lambda: consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw),
-        pbytes, 4 * pairs * H * dk)
-    times["consmax_prefill_paged"] = (
-        max(perrs), lambda: consmax_prefill_paged_cuda(
-            q1, kp1, vp1, t1, ti, tn, beta, gamma, **kw),
-        lambda: consmax_prefill_paged_ref(q1, kp1, vp1, t1, ti, tn, beta,
-                                          gamma, **kw),
-        pbytes + t1.numel() * 4, 4 * pairs * H * dk)
     for name, (e, fn, plain, nbytes, flops) in times.items():
         bound, by = _bound_ms(nbytes, flops)
         rows[f"{name}[gemma2-2b]"] = dict(
             max_abs_err=e, ms=_time_ms(fn, flush, 50),
             plain_ms=_time_ms(plain, flush, 5), bound_ms=bound, bound_by=by)
+    # both prefill kernels over the shard sweep (paged == contiguous bits
+    # at every bk), timed at each
+    ref = consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma, **kw)
+    ref_absv = consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma,
+                                   **kw)
+    tag = f"gemma2 prefill dk=256 window=4096 c=512 index={idx}"
+    for name, launch, e, nbytes, plain, same in (
+            ("consmax_prefill",
+             lambda bk, fb: consmax_prefill_cuda(
+                 q1, k1, v1, ti, tn, beta, gamma, bk=bk, fill_bound=fb,
+                 **kw), max(errs), pbytes,
+             lambda: consmax_prefill_ref(q1, k1, v1, ti, tn, beta, gamma,
+                                         **kw), None),
+            ("consmax_prefill_paged",
+             lambda bk, fb: consmax_prefill_paged_cuda(
+                 q1, kp1, vp1, t1, ti, tn, beta, gamma, bk=bk,
+                 fill_bound=fb, **kw), max(perrs), pbytes + t1.numel() * 4,
+             lambda: consmax_prefill_paged_ref(q1, kp1, vp1, t1, ti, tn,
+                                               beta, gamma, **kw),
+             lambda bk, out: _same_bits(
+                 f"{tag} paged bk={bk}", out, consmax_prefill_cuda(
+                     q1, k1, v1, ti, tn, beta, gamma, bk=bk, **kw)))):
+        bound = _bound_ms(nbytes, 4 * pairs * H * dk)
+        plain_ms = _time_ms(plain, flush, 5)
+        sweep, e2 = _prefill_sweep(
+            f"{tag} {name}", flush, launch, ref, ref_absv, k1.shape[1],
+            same=same, bound=bound, plain_ms=plain_ms)
+        rows[f"{name}[gemma2-2b]"] = dict(
+            max_abs_err=max(e, e2), ms=sweep[SWEEP_BK[0]], plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1])
     return rows
 
 
@@ -2098,16 +2257,17 @@ def mainloop_report():
         rows = []
         for k in _build.ptxas_report(lib_name):
             m = re.search(r"attn_walk_kernelILi(\d+)ELi(\d)E(13__nv_bfloat16"
-                          r"|a|13__nv_fp8_e4m3)\d+(Contig|Paged)RowsLi([12])E",
-                          k["kernel"])
+                          r"|a|13__nv_fp8_e4m3)\d+(Contig|Paged)RowsLi([12])E"
+                          r"Lb([01])E", k["kernel"])
             if not m:
                 continue
-            dk, form, kv, rows_of, cons = m.groups()
+            dk, form, kv, rows_of, cons, paired = m.groups()
             kv_name, kv_code = WALK_KV[kv]
             smem = lib.attn_walk_smem_bytes(int(dk), kv_code, int(cons))
             rows.append(
                 f"dk {dk} {WALK_FORM[form]} {kv_name} {rows_of}, {cons} "
-                f"consumer warpgroup{'s' if cons == '2' else ''}: "
+                f"consumer warpgroup{'s' if cons == '2' else ''}"
+                f"{' (paired shards)' if paired == '1' else ''}: "
                 f"{k['registers']} registers, {smem} B dynamic + "
                 f"{k['smem']} B static shared memory, spill stores/loads "
                 f"{k['spill_stores']}/{k['spill_loads']} B")
@@ -3951,8 +4111,8 @@ def dk96_kernel_phase(flush):
                consmax_attention_op(qs, ks, vs, beta, gamma, merged=True,
                                     scale=1.0),
                consmax_prefill_cuda(qs, ks, vs, one, one + 1024, beta, gamma,
-                                    merged=True, scale=1.0),
-               "consmax_prefill (index 0, lengths s)")
+                                    merged=True, scale=1.0, bk=1024),
+               "consmax_prefill (index 0, lengths s, one shard)")
     bound, by = _attn_bound(*shape, causal=True)
     rows["consmax_attention[dk96]"] = dict(
         max_abs_err=ec, ms=_time_ms(lambda: consmax_attention_op(
@@ -5032,7 +5192,7 @@ def main():
     t0 = time.perf_counter()
     engine_phase("gpt2-consmax", max_seq=1024, chunk=128,
                  prompt_lens=[20, 700, 131, 256, 999, 64], new_tokens=16,
-                 seed=3)
+                 seed=3, kv_block=64)
     _log(f"[engine] gpt2-consmax phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts.update(paged_engine_phase()[0])

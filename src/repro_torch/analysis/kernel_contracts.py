@@ -173,8 +173,9 @@ def serving_launches(cfg, scfg, *, device="cpu") -> dict[str, KernelLaunch]:
     """Capture the decode + prefill kernel launches of one serve config at
     its real shapes (full fill: the capacity grid), without running them.
     Contiguous or paged follows ``scfg.paged_kv``, the KV dtype
-    ``scfg.kv_cache_dtype``, the decode shard ``scfg.decode_kv_block``:
-    what the engine's steps launch."""
+    ``scfg.kv_cache_dtype``, the decode and prefill shards
+    ``scfg.decode_kv_block`` / ``scfg.prefill_kv_block``: what the
+    engine's steps launch."""
     from repro_torch.kernels.consmax_decode.ops import (
         consmax_decode_op, consmax_decode_paged_op)
     from repro_torch.kernels.consmax_prefill.ops import (
@@ -216,7 +217,8 @@ def serving_launches(cfg, scfg, *, device="cpu") -> dict[str, KernelLaunch]:
             consmax_prefill_paged_op(
                 torch.zeros((1, c, H, d), dtype=bf16, device=dev), pool,
                 pool, table[:1].contiguous(), torch.full((1,), L - c, **i32),
-                torch.full((1,), c, **i32), beta, gamma, **kw, **spool)
+                torch.full((1,), c, **i32), beta, gamma,
+                bk=scfg.prefill_kv_block, **kw, **spool)
         grab("prefill_paged", caught)
     else:
         cache = torch.zeros((b, L, hkv, d), dtype=kv_dtype, device=dev)
@@ -235,6 +237,7 @@ def serving_launches(cfg, scfg, *, device="cpu") -> dict[str, KernelLaunch]:
             consmax_prefill_op(
                 torch.zeros((1, c, H, d), dtype=bf16, device=dev), slot,
                 slot, torch.full((1,), L - c, **i32),
-                torch.full((1,), c, **i32), beta, gamma, **kw, **sslot)
+                torch.full((1,), c, **i32), beta, gamma,
+                bk=scfg.prefill_kv_block, **kw, **sslot)
         grab("prefill_contiguous", caught)
     return out

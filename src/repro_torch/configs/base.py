@@ -162,10 +162,9 @@ class ServeConfig:
     decode_kernel: bool = False      # split-KV consmax_decode kernel
     decode_kv_block: int = 256       # KV shard size of the decode kernel
     prefill_kernel: bool = False     # consmax_prefill kernel for append chunks
-    prefill_kv_block: int = 512      # KV shard size of the reference's
-                                     # prefill grid (the CUDA kernel picks
-                                     # its own tiles; the port's engine
-                                     # refuses another value)
+    prefill_kv_block: int = 512      # KV shard size of the prefill
+                                     # kernel's grid (rounded up to whole
+                                     # 64-row tiles, at most 64 shards)
     fill_bound: bool = True          # skip KV blocks past each slot's fill
                                      # (False = capacity-swept baseline)
     score_norm: Optional[str] = None # the served model's score_norm, when

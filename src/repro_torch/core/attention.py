@@ -489,6 +489,7 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                     cond=None, merged=False, q_chunk: int = 2048,
                     kv_chunk: int = 1024, decode_kernel: bool = False,
                     decode_kv_block: int = 256, prefill_kernel: bool = False,
+                    prefill_kv_block: int = 512,
                     fill_bound: bool = True, prefill_append=None,
                     decode_active=None, page_table=None, attn_mesh=None):
     """Self-attention over x: (b, s, d), with or without a per-slot KV
@@ -510,8 +511,9 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     decode_active: (b,) bool — one-token decode: slots where False keep
     their cache row and index; their output is garbage to be discarded.
     decode_kernel / prefill_kernel: route consmax decode / append prefill
-    through the ConSmax kernels (``decode_kv_block`` sizes the decode
-    kernel's KV shards; ``fill_bound`` skips work past each slot's fill).
+    through the ConSmax kernels (``decode_kv_block`` / ``prefill_kv_block``
+    size the decode / prefill kernels' KV shards; ``fill_bound`` skips work
+    past each slot's fill).
     page_table: (b, npg) int32 — paged KV: the cache's k/v are shared
     (P + 1, ps, hkv, dk) pools and each slot's logical rows live on the
     pages its table row maps (-1 = unmapped). One branch covers chunked
@@ -616,7 +618,7 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                 consmax_prefill_paged_op)
             out = consmax_prefill_paged_op(
                 q, k_cache, v_cache, page_table, idx, lengths, beta, gamma,
-                scale=1.0, fill_bound=fill_bound, **kw)
+                scale=1.0, bk=prefill_kv_block, fill_bound=fill_bound, **kw)
         elif prefill_append is None and decode_kernel and consmax_kernels:
             from repro_torch.kernels.consmax_decode.ops import (
                 consmax_decode_paged_op)
@@ -644,7 +646,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
             out = consmax_prefill_op(
                 q, k_cache, v_cache, idx, lengths, beta, gamma,
                 window=window, softcap=cfg.attn_softcap, merged=merged,
-                scale=1.0, fill_bound=fill_bound, **scales)
+                scale=1.0, bk=prefill_kv_block, fill_bound=fill_bound,
+                **scales)
         else:
             out = attention_on_shards(
                 append_attention, q, k_cache, v_cache, idx, lengths,

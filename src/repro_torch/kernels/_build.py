@@ -269,6 +269,23 @@ def _check_placement(kernel: str, device, operands: dict, *, align: dict):
                 f" and {to}-byte aligned" if to > 1 else ""))
 
 
+_TICKETS = {}
+
+
+def tickets(device, stream, n: int) -> torch.Tensor:
+    """The zeroed int32 ticket buffer of ``stream`` on ``device``, with at
+    least ``n`` entries: the split kernels (decode, prefill) elect the last
+    shard of each output tile with it, and every launch leaves it zero, so
+    launches on one stream (and a CUDA graph captured on its own stream)
+    share it."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
 def data_ptr(t):
     """A tensor's address for a ``ctypes.c_void_p`` argument; None (a null
     pointer) for an absent optional operand."""

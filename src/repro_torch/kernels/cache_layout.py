@@ -6,7 +6,8 @@ attention kernels), their plain versions and the plain KV walks
 (``core.attention``) agree on lives here: the one mask formula
 (``kv_mask``, causal or not), the ConSmax weights (``consmax_weights``),
 the GQA folding (``fold_gqa`` / ``unfold_gqa`` / ``tile_head_params``),
-the fill bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``)
+the fill bounding (``live_blocks`` / ``shard_live`` / ``fill_bounded_sum``),
+the prefill kernels' KV-shard geometry (``prefill_shards``)
 and the page gather of the paged kernels' plain versions
 (``gather_pages``), and the quantized KV cache contract
 (``quantize_kv`` / ``dequantize_kv`` / ``dequant_block``), and the page
@@ -80,6 +81,34 @@ def kv_mask(qpos, kpos, kv_len, window: int, *, causal: bool = True):
     if window > 0:
         mask = mask & ((qpos - kpos) < window)
     return mask
+
+
+# The most KV shards of the prefill kernels' grid (the reference's
+# consmax_prefill MAX_KV_SHARDS): each live shard owns a chunk-output-sized
+# fp32 partial, so ns stays O(10), not O(L / bk).
+MAX_KV_SHARDS = 64
+
+
+def prefill_shards(L: int, bk: int, tile: int = 64) -> tuple[int, int]:
+    """``(shard_rows, ns)`` of the prefill kernels' KV-shard grid over a
+    cache of ``L`` logical rows at the requested shard size ``bk``
+    (``ServeConfig.prefill_kv_block``): ``shard_rows`` is
+    ``max(bk, ceil(L / MAX_KV_SHARDS))`` rounded up to a multiple of the
+    mainloop's ``tile``-row KV tile, and ``ns = ceil(L / shard_rows)``, so
+    ``ns <= MAX_KV_SHARDS`` and the shards cover L (the last may be short).
+
+    The reference snaps the shard to a divisor of L
+    (``block_cache_rows``), because a TPU block must tile the array; the
+    CUDA kernel needs only whole tiles, so it rounds to the tile instead.
+    For L a multiple of 64 and bk a power of two >= 64 the two agree; a bk
+    below the tile (the reference tests' 8 and 16) becomes one 64-row
+    shard. The plain versions compute the whole product and need no split.
+    """
+    if bk <= 0:
+        raise ValueError(f"prefill_kv_block must be positive, got {bk}")
+    rows = max(bk, -(-L // MAX_KV_SHARDS))
+    rows = -(-rows // tile) * tile
+    return rows, max(1, -(-L // rows))
 
 
 def live_blocks(max_kv_len, block: int, n_cap: int):

@@ -63,7 +63,7 @@ int launch(const void* q, const void* k, const void* v, const void* beta,
       ContigRows{skv}, nullptr, nullptr, static_cast<const float*>(beta),
       static_cast<const float*>(gamma), static_cast<__nv_bfloat16*>(out), sq,
       H, hkv, skv, causal, window, /*fill_bound=*/1, /*reverse=*/1, softcap,
-      scale};
+      scale, /*shard_rows=*/skv, /*ns=*/1, nullptr, nullptr};
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(merged ? launch_walk<DK, kFormEq3, true>(a, b, st)
                                  : launch_walk<DK, kFormEq2, true>(a, b, st));

@@ -23,7 +23,8 @@ the CUDA launch and ``launch_plan.capture`` both take it.
 The kernel sums its shards' partials itself: the last shard of each (slot,
 KV head) to finish, found by an integer ticket, adds them in shard order.
 The tickets live in one zeroed int32 buffer per (device, stream)
-(``_tickets``), which every launch leaves zero again, so launches on one
+(``_build.tickets``, shared with the prefill kernels), which every launch
+leaves zero again, so launches on one
 stream (and a CUDA graph captured on its own stream) may reuse it.
 """
 from __future__ import annotations
@@ -60,21 +61,6 @@ def _lib():
     lib.consmax_decode_smem_bytes.argtypes = [i] * 4
     lib.consmax_decode_smem_bytes.restype = i
     return lib
-
-
-_TICKETS = {}
-
-
-def _tickets(device, stream, n):
-    """The zeroed int32 ticket buffer of ``stream`` on ``device``, with at
-    least ``n`` entries (one per slot and KV head); kernels leave it
-    zero."""
-    key = (device, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
-                                        device=device)
-    return t
 
 
 def _check_smem(lib, kernel, dk, kv_type, paged, bk):
@@ -188,7 +174,7 @@ def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
         o["beta"].data_ptr(), o["gamma"].data_ptr(), partials.data_ptr(),
         out.data_ptr(), b, H, hkv, L, dk, o["bk"], window, softcap,
         _scale(scale, dk), int(merged), int(fill_bound), o["kv_type"],
-        stream, _tickets(q.device, stream, b * hkv).data_ptr())
+        stream, _build.tickets(q.device, stream, b * hkv).data_ptr())
     _build.check(lib, err, "consmax_decode")
     consmax_decode_op.launches += 1
     return out
@@ -260,7 +246,8 @@ def consmax_decode_paged_cuda(q, kp, vp, page_table, lengths, beta, gamma, *,
         o["lengths"].data_ptr(), o["beta"].data_ptr(), o["gamma"].data_ptr(),
         partials.data_ptr(), out.data_ptr(), b, H, hkv, npg, ps, dk, o["bk"],
         window, softcap, _scale(scale, dk), int(merged), int(fill_bound),
-        o["kv_type"], stream, _tickets(q.device, stream, b * hkv).data_ptr())
+        o["kv_type"], stream,
+        _build.tickets(q.device, stream, b * hkv).data_ptr())
     _build.check(lib, err, "consmax_decode_paged")
     consmax_decode_paged_op.launches += 1
     return out

@@ -35,29 +35,60 @@
 // (shared with consmax_attn.cu and softmax_attn.cu), with the ConSmax
 // epilogue. Per CTA: 64 folded query rows of one KV head (GQA folded
 // position-major, row r = pos * g + head-in-group, as the TPU kernel does,
-// so one K/V tile in shared memory serves g query heads); a producer
-// warpgroup keeps cp.async copies of the next KV tiles in flight into a ring
-// of 3 stages (2 at head_dim 256 with codes) of dynamic shared memory while
-// the consumer warpgroup runs S = Q K^T and O += P V through wgmma. ConSmax
-// needs no running max and no rescale, so the fp32 accumulator just adds
-// each tile's P V: a fixed combine order, no partials, no atomics. The form
-// (Eq. 2 or 3) is a template parameter and each row's merged constant C is
-// computed once before the walk, so merged ConSmax has one exp per score.
-// Fill bounding without a host sync: the CTA reads index/lengths on the
-// device and walks only the tiles its rows can see.
+// so one K/V tile in shared memory serves g query heads) and one KV shard
+// (two when paired, below); a producer warpgroup keeps cp.async copies of
+// the next KV tiles in flight into a ring of 3 stages (2 at head_dim 256
+// with codes) of dynamic shared memory while each consumer warpgroup runs
+// S = Q K^T and O += P V through wgmma. The form (Eq. 2 or 3) is a template parameter and each row's
+// merged constant C is computed once before the walk, so merged ConSmax has
+// one exp per score. Fill bounding without a host sync: the CTA reads
+// index/lengths on the device and walks only the tiles its rows can see.
+//
+// The KV-shard grid (ServeConfig.prefill_kv_block, the TPU kernel's
+// parallel KV axis): the grid is (row tiles x ceil(ns / 2), hkv, b) with
+// paired CTAs (head_dim <= 128), (row tiles x ns, hkv, b) at 256. The
+// cache's L
+// logical rows are cut into ns <= 64 shards of shard_rows rows,
+// shard_rows = max(bk, ceil(L / 64)) rounded up to the 64-row tile
+// (cache_layout.prefill_shards; the TPU kernel snaps bk to a divisor of L
+// instead, since its blocks must tile the array), and ns is sized for the
+// capacity, so one signature serves every fill. ConSmax needs no running
+// max and no rescale, so each shard's P V sum is an independent fp32
+// partial (b, hkv, ns, c g, dk); a shard past the fill, the causal reach or
+// the window returns at once. The last live shard of each (slot, KV head,
+// row tile) to finish, found by an int32 ticket, sums the partials in shard
+// order (the TPU kernel's cache_layout.fill_bounded_sum, in the same
+// launch) and writes the bf16 rows: one fixed order, whichever CTA is last,
+// no fp32 atomics; the tickets are the zeroed per-(device, stream) buffer
+// the decode kernel uses, left zero. The paged kernel walks the same
+// logical shards and tiles (not the TPU's page axis), so paged ==
+// contiguous bits at every page size and every bk. ns = 1 (bk >= L) is the
+// unsplit walk, bit for bit, with no partials and no ticket.
 //
 // Filling the card: at the engine's chunk (b 1, c 512, qwen2-1.5b: g 6, 2
-// KV heads) the grid is 512 * 6 / 64 = 48 row tiles x 2 KV heads = 96 CTAs
-// of 256 threads on 132 SMs, one wave; each walks up to 64 + 8 KV tiles at
-// fill 4096. The design keeps every CTA's walk whole (no KV split): a split
-// would add an fp32 partials buffer and a second pass per launch, and the
-// walk is short enough that 96 CTAs finish in one wave. It keeps one
-// consumer warpgroup per CTA: two (128 rows sharing each copied tile, as the
-// full-sequence kernels run) would halve the CTAs to 48, and measured
-// slower at this shape (PERF.md). Each tile then costs the consumer its two
-// products and the epilogue back to back; a KV split over fixed logical
-// shards, or overlapping one tile's epilogue with the next tile's S, is the
-// next step if the chunk kernel sets TTFT once the host bound is gone.
+// KV heads) an unsplit grid is 512 * 6 / 64 = 48 row tiles x 2 KV heads =
+// 96 CTAs on 132 SMs, each walking up to 64 + 8 tiles one after another at
+// fill 4096 (~2.3 us a tile: the consumer's two products and epilogue run
+// back to back, far from the tensor cores' rate); gemma2-2b (g 2, 4 KV
+// heads) gives 64. At the default bk 512 (L 8192: ns 16) the chunk at fill
+// 4096 has ~8 live shards a row tile, 768 shard walks of at most 8 tiles.
+// Every CTA also pays fixed costs (its Q tile, the ring's first tiles, its
+// partials, the ticket), and a shard past the fill still takes a launch
+// slot; at 168 registers a thread (dk 128) one CTA fills an SM. So at
+// head_dim <= 128 a CTA is paired: two consumer warpgroups on the same 64
+// rows, each walking its own shard of a pair through the one ring (their
+// tiles alternate), so two independent tile chains share each SM and the
+// fixed costs are paid once per pair; each consumer's partial is the one a
+// CTA walking its shard alone would write (at ns = 1 consumer 0 walks the
+// row tile alone). Head_dim 256 has no registers for a second consumer
+// and splits one shard per CTA. The price
+// of the split is the partials: 4 bytes per folded row and dk per live
+// shard, written once and read once by the combine (50.3 MB allocated at
+// qwen2-1.5b's L 8192 and ns 16, of which the chunk at fill 4096 writes
+// and reads at most half; 67.1 MB at gemma2-2b's dk 256, hkv 4, g 2),
+// transient and reused by the caching allocator. An unsplit chunk keeps
+// one consumer warpgroup per CTA: two on 128 rows (as the full-sequence
+// kernels run) would halve the CTAs, and measured slower at this shape.
 #include "attn_mainloop.cuh"
 
 namespace {
@@ -95,7 +126,8 @@ int launch_typed(int dk, const void* q, const void* k, const void* v,
                  const void* index, const void* lengths, const void* beta,
                  const void* gamma, void* out, int b, int c, int H, int hkv,
                  int L, int window, float softcap, float scale, int merged,
-                 int fill_bound, void* stream) {
+                 int fill_bound, int shard_rows, int ns, void* partials,
+                 void* tickets, void* stream) {
   const WalkArgs<TKV, Rows> a{
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const float*>(k_scale),
@@ -103,7 +135,8 @@ int launch_typed(int dk, const void* q, const void* k, const void* v,
       static_cast<const int*>(index), static_cast<const int*>(lengths),
       static_cast<const float*>(beta), static_cast<const float*>(gamma),
       static_cast<__nv_bfloat16*>(out), c, H, hkv, L, /*causal=*/1, window,
-      fill_bound, /*reverse=*/0, softcap, scale};
+      fill_bound, /*reverse=*/0, softcap, scale, shard_rows, ns,
+      static_cast<float*>(partials), static_cast<int*>(tickets)};
   return launch_dk(dk, a, b, merged, static_cast<cudaStream_t>(stream));
 }
 
@@ -113,7 +146,8 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
               Rows rows_of, const void* index, const void* lengths,
               const void* beta, const void* gamma, void* out, int b, int c,
               int H, int hkv, int L, int window, float softcap, float scale,
-              int merged, int fill_bound, void* stream) {
+              int merged, int fill_bound, int shard_rows, int ns,
+              void* partials, void* tickets, void* stream) {
   if (kv_type != kKVBF16 && (!k_scale || !v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (kv_type) {
@@ -121,17 +155,18 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
       return launch_typed<__nv_bfloat16>(
           dk, q, k, v, k_scale, v_scale, rows_of, index, lengths, beta,
           gamma, out, b, c, H, hkv, L, window, softcap, scale, merged,
-          fill_bound, stream);
+          fill_bound, shard_rows, ns, partials, tickets, stream);
     case kKVInt8:
       return launch_typed<int8_t>(dk, q, k, v, k_scale, v_scale, rows_of,
                                   index, lengths, beta, gamma, out, b, c, H,
                                   hkv, L, window, softcap, scale, merged,
-                                  fill_bound, stream);
+                                  fill_bound, shard_rows, ns, partials,
+                                  tickets, stream);
     case kKVFP8:
       return launch_typed<__nv_fp8_e4m3>(
           dk, q, k, v, k_scale, v_scale, rows_of, index, lengths, beta,
           gamma, out, b, c, H, hkv, L, window, softcap, scale, merged,
-          fill_bound, stream);
+          fill_bound, shard_rows, ns, partials, tickets, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -142,7 +177,10 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
 // q (b, c, H, dk) bf16; k, v (b, L, hkv, dk) of kv_type (KVCode: bf16,
 // int8, fp8_e4m3); k_scale, v_scale (b, L, hkv) fp32 for int8 / fp8 (null
 // for bf16); index, lengths (b,) int32; beta, gamma (H,) fp32; out
-// (b, c, H, dk) bf16. dk in {32, 64, 96, 128, 256}.
+// (b, c, H, dk) bf16. dk in {32, 64, 96, 128, 256}. After the stream (so a
+// caller of the unsplit entry point's signature still binds): shard_rows,
+// ns, the KV-shard axis (ns = 1: none); with ns > 1, partials (b, hkv, ns,
+// c g, dk) fp32 scratch and tickets (b, hkv, ceil(c g / 64)) int32, zero.
 extern "C" int consmax_prefill_launch(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* index,
@@ -151,26 +189,29 @@ extern "C" int consmax_prefill_launch(const void* q, const void* k,
                                       int c, int H, int hkv, int L, int dk,
                                       int window, float softcap, float scale,
                                       int merged, int fill_bound, int kv_type,
-                                      void* stream) {
+                                      void* stream, int shard_rows, int ns,
+                                      void* partials, void* tickets) {
   return launch_kv(kv_type, dk, q, k, v, k_scale, v_scale, ContigRows{L},
                    index, lengths, beta, gamma, out, b, c, H, hkv, L, window,
-                   softcap, scale, merged, fill_bound, stream);
+                   softcap, scale, merged, fill_bound, shard_rows, ns,
+                   partials, tickets, stream);
 }
 
 // The paged twin: kp, vp (P, ps, hkv, dk) pools of kv_type; k_scale,
 // v_scale (P, ps, hkv) fp32 scale pools (null for bf16), read at the same
 // row index as the data; table (b, npg) int32 (-1 = unmapped); the slot's
 // logical capacity is npg * ps rows, so a chunk running past it reads no
-// row there (its column is clamped as well).
+// row there (its column is clamped as well). Its shards are of logical rows.
 extern "C" int consmax_prefill_paged_launch(
     const void* q, const void* kp, const void* vp, const void* k_scale,
     const void* v_scale, const void* table, const void* index,
     const void* lengths, const void* beta, const void* gamma, void* out,
     int b, int c, int H, int hkv, int npg, int ps, int dk, int window,
     float softcap, float scale, int merged, int fill_bound, int kv_type,
-    void* stream) {
+    void* stream, int shard_rows, int ns, void* partials, void* tickets) {
   const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
   return launch_kv(kv_type, dk, q, kp, vp, k_scale, v_scale, rows_of, index,
                    lengths, beta, gamma, out, b, c, H, hkv, npg * ps, window,
-                   softcap, scale, merged, fill_bound, stream);
+                   softcap, scale, merged, fill_bound, shard_rows, ns,
+                   partials, tickets, stream);
 }

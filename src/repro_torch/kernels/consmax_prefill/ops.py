@@ -12,6 +12,14 @@ the other. A quantized (int8 / fp8_e4m3) cache comes with its fp32
 both paths dequantize it block by block as they read it; a quantized cache
 without scales, or a bf16 cache with them, raises.
 
+``bk`` (``ServeConfig.prefill_kv_block``, default 512 as in the reference)
+sizes the kernels' KV shards over the cache's logical rows
+(``cache_layout.prefill_shards``: rounded up to whole 64-row tiles, at most
+64 shards); the shards' fp32 partials are summed in shard order inside the
+launch, by the last live shard of each row tile, elected with the integer
+tickets of ``_build.tickets``. ``bk >= L`` is one shard: the unsplit walk.
+The plain versions compute the whole product and ignore ``bk``.
+
 ``consmax_prefill_op.launches`` and ``consmax_prefill_paged_op.launches``
 count kernel launches (CUDA only), each its own entry point.
 ``prefill_plan`` is the launch in plain Python (``kernels/launch_plan``),
@@ -36,21 +44,26 @@ def _lib():
     lib = _build.load("consmax_prefill")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.consmax_prefill_launch.argtypes = ([p] * 10 + [i] * 7
-                                           + [f, f, i, i, i, p])
+                                           + [f, f, i, i, i, p, i, i, p, p])
     lib.consmax_prefill_launch.restype = i
     lib.consmax_prefill_paged_launch.argtypes = ([p] * 11 + [i] * 8
-                                                 + [f, f, i, i, i, p])
+                                                 + [f, f, i, i, i, p, i, i,
+                                                    p, p])
     lib.consmax_prefill_paged_launch.restype = i
     return lib
 
 
-def prefill_plan(kernel, q, k, v, index, lengths, beta, gamma, *,
+def prefill_plan(kernel, q, k, v, index, lengths, beta, gamma, *, bk=512,
                  page_table=None, k_scale=None, v_scale=None):
-    """Check one launch's operands and plan it: the attention mainloop with
-    one consumer warpgroup (``launch_plan.walk_plan``), block (row tile,
-    KV head, slot) writing its 64 folded query rows. Returns the plan and
-    the checked operands (index, lengths, beta, gamma, kv_type)."""
+    """Check one launch's operands and plan it: the attention mainloop
+    (``launch_plan.walk_plan``) over the KV shards of ``bk`` rows of the
+    cache's L logical rows (``k.shape[1]``, or the table's ``npg * ps``),
+    64 folded query rows per block, each consumer warpgroup walking one
+    shard (two per block at head_dim <= 128 when split). Returns the plan
+    and the checked operands (index, lengths, beta, gamma, kv_type)."""
     b, c, H, dk = q.shape
+    L = (k.shape[1] if page_table is None
+         else page_table.shape[1] * k.shape[1])
     index = index.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     beta = beta.float().contiguous()
@@ -66,15 +79,15 @@ def prefill_plan(kernel, q, k, v, index, lengths, beta, gamma, *,
     plan = LP.walk_plan(kernel, b=b, c=c, H=H, hkv=k.shape[2], dk=dk,
                         kv_dtype=k.dtype, wide=False, index_operands=ops,
                         n_index=len(ops), out_shape=q.shape,
-                        out_dtype=q.dtype)
+                        out_dtype=q.dtype, L=L, bk=bk)
     return plan, dict(index=index, lengths=lengths, beta=beta, gamma=gamma,
                       kv_type=kv_type)
 
 
 def _capture(kernel, q, k, v, index, lengths, beta, gamma, page_table,
-             k_scale, v_scale):
+             k_scale, v_scale, bk):
     plan, o = prefill_plan(kernel, q, k, v, index, lengths, beta, gamma,
-                           page_table=page_table, k_scale=k_scale,
+                           bk=bk, page_table=page_table, k_scale=k_scale,
                            v_scale=v_scale)
     return LP.record(plan, dict(q=q, k=k, v=v, page_table=page_table,
                                 index=o["index"], lengths=o["lengths"],
@@ -85,16 +98,35 @@ def _scale(scale, dk):
     return 1.0 / math.sqrt(dk) if scale is None else scale
 
 
+def _split(plan, q):
+    """The launch's shard arguments: (shard_rows, ns, partials, tickets);
+    the scratch partials and the stream's tickets only for ns > 1."""
+    lay = plan.layout
+    if lay["ns"] == 1:
+        return lay["shard_rows"], 1, None, None
+    partials = plan.outputs[0]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    per = -(-lay["ns"] // 2) if lay["paired"] else lay["ns"]
+    n_tiles = plan.grid[0] // per * plan.grid[1] * plan.grid[2]
+    return (lay["shard_rows"], lay["ns"],
+            torch.empty(partials.shape, dtype=torch.float32,
+                        device=q.device),
+            _build.tickets(q.device, stream, n_tiles))
+
+
 def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
                          softcap=0.0, merged=True, scale=None,
-                         fill_bound=True, k_scale=None, v_scale=None):
+                         fill_bound=True, k_scale=None, v_scale=None,
+                         bk=512):
     """Launch the CUDA kernel. q (b, c, H, dk) bf16; k, v (b, L, hkv, dk)
     bf16, or int8 / fp8_e4m3 with k_scale, v_scale (b, L, hkv) fp32; index,
-    lengths (b,) int32; beta/gamma (H,) fp32. Returns (b, c, H, dk) bf16."""
+    lengths (b,) int32; beta/gamma (H,) fp32; bk the KV shard size.
+    Returns (b, c, H, dk) bf16."""
     b, c, H, dk = q.shape
     L, hkv = k.shape[1], k.shape[2]
-    _, o = prefill_plan("consmax_prefill", q, k, v, index, lengths, beta,
-                        gamma, k_scale=k_scale, v_scale=v_scale)
+    plan, o = prefill_plan("consmax_prefill", q, k, v, index, lengths, beta,
+                           gamma, bk=bk, k_scale=k_scale, v_scale=v_scale)
+    shard_rows, ns, partials, tickets = _split(plan, q)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.consmax_prefill_launch(
@@ -103,7 +135,8 @@ def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
         o["lengths"].data_ptr(), o["beta"].data_ptr(), o["gamma"].data_ptr(),
         out.data_ptr(), b, c, H, hkv, L, dk, window, softcap,
         _scale(scale, dk), int(merged), int(fill_bound), o["kv_type"],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, shard_rows, ns,
+        _build.data_ptr(partials), _build.data_ptr(tickets))
     _build.check(lib, err, "consmax_prefill")
     consmax_prefill_op.launches += 1
     return out
@@ -111,19 +144,20 @@ def consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, *, window=0,
 
 def consmax_prefill_op(q, k, v, index, lengths, beta, gamma, *, window=0,
                        softcap=0.0, merged=True, scale=None, fill_bound=True,
-                       k_scale=None, v_scale=None):
+                       k_scale=None, v_scale=None, bk=512):
     """q: (b, c, H, dk) chunk at per-slot cache positions index + [0, c);
     k, v: (b, L, hkv, dk) caches after the chunk's K/V were written;
     index, lengths: (b,) int32; beta/gamma: (H,) fp32; k_scale, v_scale:
     (b, L, hkv) fp32 row scales of an int8 / fp8_e4m3 cache (None for
     bf16). Returns (b, c, H, dk) in q.dtype; rows >= lengths are pad rows
     the caller discards. ``scale=1.0`` when q is pre-scaled (the model
-    path). ``fill_bound`` skips KV tiles no row of a block can see (CUDA
-    launch only; the plain version computes the whole matrix)."""
+    path). ``fill_bound`` skips KV tiles no row of a block can see and
+    ``bk`` sizes the KV shards (CUDA launch only; the plain version
+    computes the whole matrix)."""
     _build.check_kv_scales("consmax_prefill", k, v, k_scale, v_scale)
     if LP.capturing():
         return _capture("consmax_prefill", q, k, v, index, lengths, beta,
-                        gamma, None, k_scale, v_scale)
+                        gamma, None, k_scale, v_scale, bk)
     if q.device.type == "cpu":
         return consmax_prefill_ref(q, k, v, index, lengths, beta, gamma,
                                    window=window, softcap=softcap,
@@ -137,7 +171,7 @@ def consmax_prefill_op(q, k, v, index, lengths, beta, gamma, *, window=0,
                                 window=window, softcap=softcap,
                                 merged=merged, scale=scale,
                                 fill_bound=fill_bound, k_scale=k_scale,
-                                v_scale=v_scale)
+                                v_scale=v_scale, bk=bk)
 
 
 consmax_prefill_op.launches = 0
@@ -146,18 +180,21 @@ consmax_prefill_op.launches = 0
 def consmax_prefill_paged_cuda(q, kp, vp, page_table, index, lengths, beta,
                                gamma, *, window=0, softcap=0.0, merged=True,
                                scale=None, fill_bound=True, k_scale=None,
-                               v_scale=None):
+                               v_scale=None, bk=512):
     """Launch the paged CUDA kernel. q (b, c, H, dk) bf16; kp, vp (P, ps,
     hkv, dk) bf16 pools, or int8 / fp8_e4m3 with k_scale, v_scale
     (P, ps, hkv) fp32 scale pools; page_table (b, npg) int32 (-1 =
-    unmapped); index, lengths (b,) int32; beta/gamma (H,) fp32. Any page
-    size. Returns (b, c, H, dk) bf16."""
+    unmapped); index, lengths (b,) int32; beta/gamma (H,) fp32; bk the KV
+    shard size over the npg * ps logical rows. Any page size. Returns
+    (b, c, H, dk) bf16."""
     b, c, H, dk = q.shape
     ps, hkv = kp.shape[1], kp.shape[2]
     npg = page_table.shape[1]
-    _, o = prefill_plan("consmax_prefill_paged", q, kp, vp, index, lengths,
-                        beta, gamma, page_table=page_table, k_scale=k_scale,
-                        v_scale=v_scale)
+    plan, o = prefill_plan("consmax_prefill_paged", q, kp, vp, index,
+                           lengths, beta, gamma, bk=bk,
+                           page_table=page_table, k_scale=k_scale,
+                           v_scale=v_scale)
+    shard_rows, ns, partials, tickets = _split(plan, q)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.consmax_prefill_paged_launch(
@@ -166,7 +203,8 @@ def consmax_prefill_paged_cuda(q, kp, vp, page_table, index, lengths, beta,
         o["index"].data_ptr(), o["lengths"].data_ptr(), o["beta"].data_ptr(),
         o["gamma"].data_ptr(), out.data_ptr(), b, c, H, hkv, npg, ps, dk,
         window, softcap, _scale(scale, dk), int(merged), int(fill_bound),
-        o["kv_type"], torch.cuda.current_stream(q.device).cuda_stream)
+        o["kv_type"], torch.cuda.current_stream(q.device).cuda_stream,
+        shard_rows, ns, _build.data_ptr(partials), _build.data_ptr(tickets))
     _build.check(lib, err, "consmax_prefill_paged")
     consmax_prefill_paged_op.launches += 1
     return out
@@ -175,18 +213,21 @@ def consmax_prefill_paged_cuda(q, kp, vp, page_table, index, lengths, beta,
 def consmax_prefill_paged_op(q, kp, vp, page_table, index, lengths, beta,
                              gamma, *, window=0, softcap=0.0, merged=True,
                              scale=None, fill_bound=True, k_scale=None,
-                             v_scale=None):
-    """Paged-pool variant, with the reference's signature. kp, vp: shared
-    (P, ps, hkv, dk) pools after the chunk's K/V were written; page_table:
-    (b, npg) int32 (-1 = unmapped); k_scale, v_scale: (P, ps, hkv) fp32
-    scale pools of an int8 / fp8_e4m3 pool (None for bf16). Returns
-    (b, c, H, dk) in q.dtype; rows >= lengths are pad rows the caller
-    discards. ``fill_bound`` only shapes the CUDA launch."""
+                             v_scale=None, bk=512):
+    """Paged-pool variant, with the reference's signature and ``bk`` (the
+    reference's paged kernel walks pages and takes none; this one walks the
+    contiguous kernel's logical shards, so the two give the same bits).
+    kp, vp: shared (P, ps, hkv, dk) pools after the chunk's K/V were
+    written; page_table: (b, npg) int32 (-1 = unmapped); k_scale, v_scale:
+    (P, ps, hkv) fp32 scale pools of an int8 / fp8_e4m3 pool (None for
+    bf16). Returns (b, c, H, dk) in q.dtype; rows >= lengths are pad rows
+    the caller discards. ``fill_bound`` and ``bk`` only shape the CUDA
+    launch."""
     _build.check_kv_scales("consmax_prefill_paged", kp, vp, k_scale,
                            v_scale)
     if LP.capturing():
         return _capture("consmax_prefill_paged", q, kp, vp, index, lengths,
-                        beta, gamma, page_table, k_scale, v_scale)
+                        beta, gamma, page_table, k_scale, v_scale, bk)
     if q.device.type == "cpu":
         return consmax_prefill_paged_ref(
             q, kp, vp, page_table, index, lengths, beta, gamma,
@@ -199,7 +240,8 @@ def consmax_prefill_paged_op(q, kp, vp, page_table, index, lengths, beta,
                                       beta, gamma, window=window,
                                       softcap=softcap, merged=merged,
                                       scale=scale, fill_bound=fill_bound,
-                                      k_scale=k_scale, v_scale=v_scale)
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      bk=bk)
 
 
 consmax_prefill_paged_op.launches = 0

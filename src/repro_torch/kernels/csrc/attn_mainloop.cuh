@@ -29,12 +29,32 @@
 //     ring, whose producer publishes t + 1 only after it has refilled tile
 //     t's stage.
 //
-// Tiles are summed in order into one fp32 accumulator, with no partial
-// buffers and no atomics: every run gives the same bits, and any two
-// kernels that walk the same rows through this loop give the same bits
-// (paged == contiguous for every page size, since tiles are aligned to
-// logical rows; consmax_attn == consmax_prefill at index 0; a quantized
-// cache == the bf16 kernel on its dequantized values).
+// Tiles are summed in order into one fp32 accumulator: every run gives the
+// same bits, and any two kernels that walk the same rows through this loop
+// give the same bits (paged == contiguous for every page size, since tiles
+// are aligned to logical rows; consmax_attn == consmax_prefill at index 0
+// over one shard; a quantized cache == the bf16 kernel on its dequantized
+// values).
+//
+// The KV-shard axis (ConSmax forms only; consmax_prefill's grid): with
+// ns > 1 the rows 0 .. L are cut into ns shards of shard_rows logical rows
+// (a multiple of kWalkBN, so a shard is whole tiles), and each consumer
+// warpgroup walks one (row tile, shard) pair: one per CTA, or, paired
+// (kPair, consmax_prefill at head_dim <= 128), two shards of a row tile in
+// one CTA, their tiles alternating through the one ring (TileSeq), so two
+// independent tile chains share an SM and its fixed costs. A walk is
+// clamped to its shard after the fill / causal / window bounds and its
+// fp32 accumulator is the shard's partial; a CTA with no live shard
+// returns before the ring starts. Every CTA of a (slot, KV head, row tile)
+// derives the same live run [s0, s1) from index, lengths, causality and
+// the window, so the one holding the last live shards to finish, found by
+// an int32 ticket (atomicAdd; no fp32 atomics), sums the partials in shard
+// order, whichever CTA it is, writes the bf16 rows and resets the ticket.
+// A row tile with no live shard gets zeros from its first CTA. ns = 1 is
+// the unsplit walk: no partials, no ticket, the same bits as a launch
+// without the axis. ConSmax weights need no running max, so a shard's
+// partial is just its share of the sum; softmax's (m, l) would need a
+// rescale, so the softmax form keeps ns = 1.
 //
 // Shared-memory operand layout: every tile (Q, K, V) is stored as 8 x 16-
 // byte "core matrices" (8 rows x 8 bf16), each 128 contiguous bytes, the
@@ -87,11 +107,20 @@ constexpr int kFormEq3 = 1;        // ConSmax C * exp(s) (merged)
 constexpr int kFormSoftmax = 2;    // online softmax
 constexpr float kNegInf = -1e30f;  // softmax_attn/kernel.py NEG_INF
 constexpr int kProducerBar = 3;    // named barrier of the producer warpgroup
+constexpr int kConsumersBar = 4;   // named barrier of all consumer warpgroups
+constexpr int kLastSlot = 124;     // the combine's flag, after the mbarriers
 
 // ---------------------------------------------------------------- PTX ----
 // A barrier over one warpgroup (ids 1, 2: consumers, kProducerBar: producer).
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// A barrier over the kCons consumer warpgroups (the producer's may be gone).
+template <int kCons>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(kConsumersBar), "r"(128 * kCons)
+               : "memory");
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -145,7 +174,8 @@ struct WalkLayout {
   static constexpr int kKV = kQ + kCons * kWalkRows * DK * 2;
   static constexpr int kCodes = kKV + kStages * 2 * kTile;
   static constexpr int kBytes = kCodes + (kScaled ? kStages * kCodeSlot : 0);
-  static_assert(2 * kStages * 8 <= kQ, "mbarriers overflow their slot");
+  static_assert(2 * kStages * 8 <= kLastSlot && kLastSlot + 4 <= kQ,
+                "mbarriers and the combine's flag overflow their slot");
   static_assert(kBytes <= 232448, "more than a block's shared memory");
 };
 
@@ -159,7 +189,9 @@ struct WalkLayout {
 // (H,) fp32 (unused by softmax). fill_bound walks only the tiles the CTA's
 // rows can see (a skipped tile would add exact zeros); reverse issues the
 // CTAs of the last rows first (under causal masking they see the most
-// tiles).
+// tiles). shard_rows, ns: the KV-shard axis (ns = 1: none); with ns > 1,
+// partials (b, hkv, ns, c g, DK) fp32 scratch and tickets (b, hkv, row
+// tiles) int32, zero before the launch and left zero after it.
 template <class TKV, class Rows>
 struct WalkArgs {
   const __nv_bfloat16* q;
@@ -175,6 +207,9 @@ struct WalkArgs {
   __nv_bfloat16* out;
   int c, H, hkv, L, causal, window, fill_bound, reverse;
   float softcap, scale;
+  int shard_rows, ns;
+  float* partials;
+  int* tickets;
 };
 
 // ------------------------------------------------------------ producer ----
@@ -269,6 +304,32 @@ __device__ __forceinline__ void dequant_tile(uint8_t* smem, int pt, int t) {
   }
 }
 
+// The ring order of a CTA's tiles. One walk (n[1] = 0): its tile j at ring
+// position j. Two walks (a paired CTA: two consumer warpgroups on two KV
+// shards of the same rows): walk c's tile j; the two walks' tiles alternate
+// while both have tiles (walk 0 at even positions), then the longer walk's
+// rest follows in order.
+struct TileSeq {
+  int n[2];         // tiles of walk 0 and walk 1
+  int begin[2];     // each walk's first KV row (a multiple of kWalkBN)
+  int end[2];       // each walk's end: rows at or past it are zero-filled
+  __device__ __forceinline__ int total() const { return n[0] + n[1]; }
+  __device__ __forceinline__ int pos(int c, int j) const {
+    const int m = min(n[0], n[1]);
+    return j < m ? 2 * j + c : 2 * m + (j - m);
+  }
+  __device__ __forceinline__ void owner(int p, int* c, int* j) const {
+    const int m = min(n[0], n[1]);
+    if (p < 2 * m) {
+      *c = p & 1;
+      *j = p >> 1;
+    } else {
+      *c = n[0] > n[1] ? 0 : 1;
+      *j = m + (p - 2 * m);
+    }
+  }
+};
+
 // bf16: step t waits for tile t's stage to be free, issues its copies and
 // has the copy unit itself arrive on the stage's `full` barrier when they
 // land (cp.async.mbarrier.arrive.noinc), so every stage of the ring can be
@@ -277,29 +338,35 @@ __device__ __forceinline__ void dequant_tile(uint8_t* smem, int pt, int t) {
 // t - 1: waits for its own copies of it, dequantizes it into the stage's
 // bf16 tile, fences and arrives. The consumer waits only for the tile it
 // works on, so neither form waits on a stage the consumer still needs.
+// Tiles are issued in ring order (TileSeq); a paired CTA's two consumers
+// each wait only for their own walk's tiles, which they release in order.
 template <int DK, int kCons, class TKV, class Rows>
 __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
                                               uint8_t* smem, int b, int h,
-                                              int kv_begin, int kv_end,
-                                              int n_tiles) {
+                                              const TileSeq& seq) {
   using Lay = WalkLayout<DK, TKV, kCons>;
   const int pt = threadIdx.x - 128 * kCons;
   constexpr int S = Lay::kStages;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
+  const int n_tiles = seq.total();
+  auto issue = [&](int t) {
+    int c, j;
+    seq.owner(t, &c, &j);
+    issue_tile<DK, kCons>(a, smem, pt, b, h, t, seq.begin[c] + j * kWalkBN,
+                          seq.end[c]);
+  };
   if constexpr (!Lay::kScaled) {
     for (int t = 0; t < n_tiles; ++t) {
       mbar_wait(&empty[t % S], ((t / S) & 1) ^ 1);
-      issue_tile<DK, kCons>(a, smem, pt, b, h, t, kv_begin + t * kWalkBN,
-                             kv_end);
+      issue(t);
       cp_async_arrive(&full[t % S]);
     }
   } else {
     for (int t = 0; t <= n_tiles; ++t) {
       if (t < n_tiles) {
         mbar_wait(&empty[t % S], ((t / S) & 1) ^ 1);
-        issue_tile<DK, kCons>(a, smem, pt, b, h, t, kv_begin + t * kWalkBN,
-                             kv_end);
+        issue(t);
         cp_async_commit();
       }
       if (t == 0) continue;
@@ -319,14 +386,17 @@ __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
 
 // ------------------------------------------------------------ consumer ----
 // Consumer warpgroup cw of the CTA, rows r0 .. r0 + 63 (r0 = the CTA's
-// first row + 64 cw). It takes every tile of the CTA's walk in order, and
-// computes the ones its own rows can see: a tile no row of it can see would
-// add exact zeros (softmax: alpha 1 and e 0), so it only releases it.
-template <int DK, int kForm, int kCons, class TKV, class Rows>
+// first row + 64 cw, or the CTA's rows when paired). It takes every tile of
+// its walk (`walk` of seq: 0, or cw when paired) in order, and computes the
+// ones its own rows can see: a tile no row of it can see would add exact
+// zeros (softmax: alpha 1 and e 0), so it only releases it. With ns > 1 it
+// stores its rows as shard `shard`'s fp32 partial, else as the bf16 output.
+template <int DK, int kForm, int kCons, bool kPair, class TKV, class Rows>
 __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
                                               uint8_t* smem, int cw, int b,
                                               int h, int r0, int idx, int kvl,
-                                              int kv_begin, int n_tiles) {
+                                              const TileSeq& seq, int walk,
+                                              int shard) {
   using Lay = WalkLayout<DK, TKV, kCons>;
   constexpr int CH = Lay::kChunks;
   constexpr int S = Lay::kStages;
@@ -341,20 +411,22 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
   const int warp = lt / 32, lane = lt % 32;
   const int gid = lane >> 2, tig = lane & 3;
 
-  // the Q tile, once (rows past the folded chunk are zeros)
+  // the Q tile, once, every copy in flight at once (rows past the folded
+  // chunk are zero-filled): a KV shard's CTA walks few tiles, so this
+  // load's latency is paid by every shard
   for (int i = lt; i < kWalkRows * CH; i += 128) {
     const int rest = i >> 3, ch = rest % CH;
     const int r = (rest / CH) * 8 + (i & 7);
     const int row = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < rows_total) {
-      const int pos = row / g, head = h * g + row % g;
-      val = *reinterpret_cast<const uint4*>(
-          a.q + ((static_cast<size_t>(b) * a.c + pos) * a.H + head) * DK +
-          ch * 8);
-    }
-    *reinterpret_cast<uint4*>(q_s + tile_off(r, ch, CH)) = val;
+    const bool ok = row < rows_total;
+    const int pos = ok ? row / g : 0, head = h * g + (ok ? row % g : 0);
+    cp_async16(q_s + tile_off(r, ch, CH),
+               a.q + ((static_cast<size_t>(b) * a.c + pos) * a.H + head) *
+                         DK + ch * 8,
+               ok);
   }
+  cp_async_commit();
+  cp_async_wait<0>();
   fence_proxy_async();
   warpgroup_sync(1 + cw);
 
@@ -407,13 +479,16 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
 
   const uint32_t q_addr = smem_u32(q_s);
   const uint32_t kv_addr = smem_u32(smem + Lay::kKV);
-  for (int t = 0; t < n_tiles; ++t) {
+  const int n_tiles = seq.n[walk];
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int t = seq.pos(walk, jt);  // the tile's ring position
     const int s = t % S;
-    const int j0 = kv_begin + t * kWalkBN;
+    const int j0 = seq.begin[walk] + jt * kWalkBN;
     const uint32_t k_addr = kv_addr + s * 2 * Lay::kTile;
     const uint32_t v_addr = k_addr + Lay::kTile;
     mbar_wait(&full[s], (t / S) & 1);
-    if (kCons > 1 && (j0 >= live_end || j0 + kWalkBN <= live_begin)) {
+    if (kCons > 1 && !kPair &&
+        (j0 >= live_end || j0 + kWalkBN <= live_begin)) {
       mbar_arrive(&empty[s]);  // a dead tile for this warpgroup
       continue;
     }
@@ -542,6 +617,20 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
     }
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] /= l[(i >> 1) & 1];
+  } else {
+    if (a.ns > 1) {  // this shard's partial: rows (b, h, shard, r, :)
+      float* part = a.partials + ((static_cast<size_t>(b) * a.hkv + h) *
+                                      a.ns + shard) * rows_total * DK;
+#pragma unroll
+      for (int i = 0; i < NO; i += 2) {
+        const int r = r0 + warp * 16 + gid + 8 * ((i >> 1) & 1);
+        if (r < rows_total)
+          *reinterpret_cast<float2*>(part + static_cast<size_t>(r) * DK +
+                                     (i >> 2) * 8 + tig * 2) =
+              make_float2(o[i], o[i + 1]);
+      }
+      return;
+    }
   }
 #pragma unroll
   for (int i = 0; i < NO; i += 2) {
@@ -552,19 +641,107 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
   }
 }
 
+// ------------------------------------------------------------- combine ----
+// Output row r of (slot b, KV head h): folded row r is chunk position
+// r / g, query head h g + r % g.
+template <int DK, class TKV, class Rows>
+__device__ __forceinline__ __nv_bfloat16* out_row(const WalkArgs<TKV, Rows>& a,
+                                                  int b, int h, int r) {
+  const int g = a.H / a.hkv;
+  return a.out + ((static_cast<size_t>(b) * a.c + r / g) * a.H + h * g +
+                  r % g) * DK;
+}
+
+// A row tile with no live shard: its rows are exact zeros (as an unsplit
+// walk of no tile leaves them), written by all threads of its first CTA.
+template <int DK, int kCtaRows, class TKV, class Rows>
+__device__ __forceinline__ void zero_rows(const WalkArgs<TKV, Rows>& a,
+                                          int b, int h, int r0) {
+  const int rows_total = a.c * (a.H / a.hkv);
+  for (int i = threadIdx.x; i < kCtaRows * DK / 8; i += blockDim.x) {
+    const int r = r0 + i / (DK / 8);
+    if (r < rows_total)
+      *reinterpret_cast<uint4*>(out_row<DK>(a, b, h, r) + (i % (DK / 8)) * 8) =
+          make_uint4(0, 0, 0, 0);
+  }
+}
+
+// After the consumers stored their shards' partials (`mine` live shards of
+// this CTA: 1, or 2 when paired): the CTA that brings the int32 ticket of
+// (b, h, tile) to s1 - s0 (nr row tiles) holds the last live shards of the
+// row tile to finish; it sums the live partials in shard order, s0 first,
+// and writes the bf16 rows, and resets the ticket, so the buffer is zeros
+// for the next launch. Consumer threads only; the CTA's rows are r0 ..
+// r0 + kCtaRows - 1.
+template <int DK, int kCons, int kCtaRows, class TKV, class Rows>
+__device__ __forceinline__ void combine_shards(const WalkArgs<TKV, Rows>& a,
+                                               uint8_t* smem, int b, int h,
+                                               int tile, int nr, int r0,
+                                               int s0, int s1, int mine) {
+  constexpr int Q4 = DK / 4;  // float4 per row
+  const int rows_total = a.c * (a.H / a.hkv);
+  int* last = reinterpret_cast<int*>(smem + kLastSlot);
+  __threadfence();  // this CTA's partial, visible to the last CTA
+  consumers_sync<kCons>();
+  if (threadIdx.x == 0) {
+    int* ticket = a.tickets + (static_cast<size_t>(b) * a.hkv + h) * nr + tile;
+    const int done = atomicAdd(ticket, mine) + mine == s1 - s0;
+    if (done) *ticket = 0;
+    *last = done;
+  }
+  consumers_sync<kCons>();
+  if (!*last) return;
+  __threadfence();
+  const size_t shard_stride = static_cast<size_t>(rows_total) * Q4;
+  const float4* p = reinterpret_cast<const float4*>(
+      a.partials + (static_cast<size_t>(b) * a.hkv + h) * a.ns * rows_total *
+                       DK);
+#pragma unroll 2
+  for (int i = threadIdx.x; i < kCtaRows * Q4; i += 128 * kCons) {
+    const int r = r0 + i / Q4, d4 = i % Q4;
+    if (r >= rows_total) continue;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int sh = s0; sh < s1; ++sh) {  // loads in flight, adds in order
+      const float4 x = __ldcg(p + sh * shard_stride + static_cast<size_t>(r) *
+                                                          Q4 + d4);
+      t.x += x.x;
+      t.y += x.y;
+      t.z += x.z;
+      t.w += x.w;
+    }
+    __nv_bfloat162* o =
+        reinterpret_cast<__nv_bfloat162*>(out_row<DK>(a, b, h, r) + 4 * d4);
+    o[0] = __floats2bfloat162_rn(t.x, t.y);
+    o[1] = __floats2bfloat162_rn(t.z, t.w);
+  }
+}
+
 // --------------------------------------------------------------- kernel ----
-// kCons consumer warpgroups (64 rows each) share every K/V tile of the
-// CTA; warpgroup kCons is the producer.
-template <int DK, int kForm, class TKV, class Rows, int kCons>
+// kCons consumer warpgroups share every K/V tile of the CTA; warpgroup kCons
+// is the producer. Unpaired: 64 rows per consumer, one walk, blockIdx.x =
+// row tile * ns + shard (a row tile's shards issued together, so the shards
+// past a chunk's fill, which return at once, fall between live ones).
+// Paired (kPair, the serving chunk at head_dim <= 128): two consumers on
+// the same 64 rows, consumer c walking shard 2 p + c of the CTA's shard
+// pair p, blockIdx.x = row tile * ceil(ns / 2) + p: two independent tile
+// chains per SM, each giving the same partial as a CTA walking that shard
+// alone. At ns = 1 consumer 1 has no walk and consumer 0 walks the whole
+// row tile, as an unpaired CTA would, with the same bits.
+template <int DK, int kForm, class TKV, class Rows, int kCons, bool kPair>
 __global__ void __launch_bounds__(128 * (kCons + 1), 1)
     attn_walk_kernel(const __grid_constant__ WalkArgs<TKV, Rows> a) {
   using Lay = WalkLayout<DK, TKV, kCons>;
-  constexpr int kCtaRows = kCons * kWalkRows;
+  constexpr int kCtaRows = kPair ? kWalkRows : kCons * kWalkRows;
+  constexpr int kWalks = kPair ? 2 : 1;
   extern __shared__ __align__(128) uint8_t smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = a.H / a.hkv;
-  const int r0 =
-      (a.reverse ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kCtaRows;
+  const int per_tile = kPair ? (a.ns + 1) / 2 : a.ns;  // CTAs per row tile
+  const int nr = gridDim.x / per_tile;
+  const int tile = blockIdx.x / per_tile;
+  const int shard0 = (blockIdx.x % per_tile) * kWalks;
+  const int r0 = (a.reverse ? nr - 1 - tile : tile) * kCtaRows;
   const int idx = a.index ? a.index[b] : 0;
   const int kvl = a.index ? idx + a.lengths[b] : a.L;
 
@@ -579,49 +756,106 @@ __global__ void __launch_bounds__(128 * (kCons + 1), 1)
     if (a.window > 0) kv_begin = max(0, idx + pos_lo - a.window + 1);
   }
   kv_begin = (kv_begin / kWalkBN) * kWalkBN;
-  const int n_tiles =
-      kv_end > kv_begin ? (kv_end - kv_begin + kWalkBN - 1) / kWalkBN : 0;
+  auto tiles = [](int lo, int hi) {
+    return hi > lo ? (hi - lo + kWalkBN - 1) / kWalkBN : 0;
+  };
+  TileSeq seq{{tiles(kv_begin, kv_end), 0}, {kv_begin, 0}, {kv_end, 0}};
+  // the live shards [s0, s1): those holding a tile of the walk, the same
+  // run for every CTA of the row tile; each walk covers its shard's share
+  int s0 = 0, s1 = 1, mine = 0;
+  if constexpr (kForm != kFormSoftmax) {
+    if (a.ns > 1) {
+      s0 = kv_begin / a.shard_rows;
+      s1 = kv_end > kv_begin ? (kv_end - 1) / a.shard_rows + 1 : s0;
+      for (int c = 0; c < kWalks; ++c) {
+        const int sh = shard0 + c;
+        const bool live = sh >= s0 && sh < s1;
+        const int lo = max(kv_begin, sh * a.shard_rows);
+        const int hi = min(kv_end, (sh + 1) * a.shard_rows);
+        seq.n[c] = live ? tiles(lo, hi) : 0;
+        seq.begin[c] = lo;
+        seq.end[c] = hi;
+        mine += live;
+      }
+      if (!mine) {
+        if (s1 <= s0 && shard0 == 0) zero_rows<DK, kCtaRows>(a, b, h, r0);
+        return;
+      }
+    }
+  }
 
   if (threadIdx.x == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
     for (int s = 0; s < Lay::kStages; ++s) {
-      mbar_init(&bars[s], 128);                          // full: producer
-      mbar_init(&bars[Lay::kStages + s], 128 * kCons);   // empty: consumers
+      mbar_init(&bars[s], 128);  // full: producer
+      // empty: every consumer, or (paired) the one that owns the tile
+      mbar_init(&bars[Lay::kStages + s], kPair ? 128 : 128 * kCons);
     }
     mbar_init_fence();
   }
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == kCons) {
-    walk_producer<DK, kCons>(a, smem, b, h, kv_begin, kv_end, n_tiles);
-  } else {
-    walk_consumer<DK, kForm, kCons>(a, smem, wg, b, h, r0 + wg * kWalkRows,
-                                    idx, kvl, kv_begin, n_tiles);
+    walk_producer<DK, kCons>(a, smem, b, h, seq);
+    return;
+  }
+  const int walk = kPair ? wg : 0;
+  // a paired consumer without a shard of its own has no rows to write,
+  // except walk 0 unsplit, which writes its rows (zeros with no tile)
+  if (!kPair || seq.n[walk] > 0 || (a.ns == 1 && walk == 0))
+    walk_consumer<DK, kForm, kCons, kPair>(
+        a, smem, wg, b, h, r0 + (kPair ? 0 : wg * kWalkRows), idx, kvl, seq,
+        walk, shard0 + walk);
+  if constexpr (kForm != kFormSoftmax) {
+    if (a.ns > 1)
+      combine_shards<DK, kCons, kCtaRows>(a, smem, b, h, tile, nr, r0, s0,
+                                          s1, mine);
   }
 }
 
-// One launch: grid (ceil(c * g / (64 kCons)), hkv, b), 128 (kCons + 1)
-// threads, the layout's dynamic shared memory (the attribute is set once
-// per instantiation). kWide: two consumer warpgroups per CTA at head_dim
-// <= 128, so each K/V tile copied serves 128 rows: for the full-sequence
-// kernels, whose grids hold many waves of CTAs (the copies' traffic halves,
-// and one warpgroup's epilogue overlaps the other's products). A serving
-// chunk's grid is under one wave at the engine's shape, so it keeps one
-// consumer per CTA and twice the CTAs.
-template <int DK, int kForm, bool kWide = false, class TKV, class Rows>
-cudaError_t launch_walk(const WalkArgs<TKV, Rows>& a, int b,
+template <int DK, int kForm, class TKV, class Rows, int kCons, bool kPair>
+cudaError_t launch_grid(const WalkArgs<TKV, Rows>& a, int grid_x, int b,
                         cudaStream_t stream) {
-  constexpr int kCons = kWide && DK <= 128 ? 2 : 1;
   using Lay = WalkLayout<DK, TKV, kCons>;
-  auto kernel = attn_walk_kernel<DK, kForm, TKV, Rows, kCons>;
+  auto kernel = attn_walk_kernel<DK, kForm, TKV, Rows, kCons, kPair>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
   if (attr != cudaSuccess) return attr;
-  const int g = a.H / a.hkv;
-  dim3 grid((a.c * g + kCons * kWalkRows - 1) / (kCons * kWalkRows), a.hkv,
-            b);
-  kernel<<<grid, 128 * (kCons + 1), Lay::kBytes, stream>>>(a);
+  kernel<<<dim3(grid_x, a.hkv, b), 128 * (kCons + 1), Lay::kBytes, stream>>>(
+      a);
   return cudaGetLastError();
+}
+
+// One launch: 128 (kCons + 1) threads, the layout's dynamic shared memory
+// (the attribute is set once per instantiation). kWide: two consumer
+// warpgroups per CTA at head_dim <= 128, so each K/V tile copied serves 128
+// rows: for the full-sequence kernels, whose grids hold many waves of CTAs
+// (the copies' traffic halves, and one warpgroup's epilogue overlaps the
+// other's products); grid (ceil(c g / 128), hkv, b). A serving chunk keeps
+// 64 rows per CTA: at head_dim <= 128 paired, grid (ceil(c g / 64) x
+// ceil(ns / 2), hkv, b); at head_dim 256 (no registers for a second
+// consumer) one shard per CTA, grid (ceil(c g / 64) x ns, hkv, b). The
+// shard axis folds into grid.x (y and z stop at 65,535); a split needs a
+// ConSmax form, whole-tile shards covering L, and its partials and
+// tickets.
+template <int DK, int kForm, bool kWide = false, class TKV, class Rows>
+cudaError_t launch_walk(const WalkArgs<TKV, Rows>& a, int b,
+                        cudaStream_t stream) {
+  if (a.ns < 1 ||
+      (a.ns > 1 && (kForm == kFormSoftmax || a.shard_rows <= 0 ||
+                    a.shard_rows % kWalkBN || a.shard_rows * a.ns < a.L ||
+                    !a.partials || !a.tickets)))
+    return cudaErrorInvalidValue;
+  const int g = a.H / a.hkv;
+  constexpr int kCons = kWide && DK <= 128 ? 2 : 1;
+  const int nr = (a.c * g + kCons * kWalkRows - 1) / (kCons * kWalkRows);
+  if constexpr (!kWide && DK <= 128 && kForm != kFormSoftmax) {
+    return launch_grid<DK, kForm, TKV, Rows, 2, true>(
+        a, nr * ((a.ns + 1) / 2), b, stream);
+  } else {
+    return launch_grid<DK, kForm, TKV, Rows, kCons, false>(a, nr * a.ns, b,
+                                                           stream);
+  }
 }
 
 }  // namespace

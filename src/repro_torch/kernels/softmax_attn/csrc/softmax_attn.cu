@@ -48,7 +48,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       static_cast<const __nv_bfloat16*>(v), nullptr, nullptr,
       ContigRows{skv}, nullptr, nullptr, nullptr, nullptr,
       static_cast<__nv_bfloat16*>(out), sq, H, hkv, skv, causal, window,
-      /*fill_bound=*/1, /*reverse=*/1, softcap, scale};
+      /*fill_bound=*/1, /*reverse=*/1, softcap, scale, /*shard_rows=*/skv,
+      /*ns=*/1, nullptr, nullptr};
   return static_cast<int>(launch_walk<DK, kFormSoftmax, true>(
       a, b, static_cast<cudaStream_t>(stream)));
 }

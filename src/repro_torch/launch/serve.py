@@ -32,18 +32,20 @@ fused in the steps; ``--host-sampling`` takes the logits out of each step
 and samples after it, with the same streams.
 ``--decode-kernel`` / ``--prefill-kernel`` route attention through the
 ConSmax CUDA kernels (their plain versions on ``--device cpu``); they raise
-on a softmax / softermax config.
+on a softmax / softermax config. ``--prefill-kv-block`` (default 512) sizes
+the prefill kernel's KV shards, on both engines.
 ``--paged`` (continuous engine) serves from a shared page pool with the
 prefix cache on (a stats line reports its hits; the CLI's prompts are
 random, so they rarely share a prefix). ``--kv-dtype int8`` / ``fp8_e4m3``
 stores the KV cache as codes with one fp32 scale per row and KV head (a
 stats line reports the cache's bytes).
 
-``--tp`` / ``--seq-shards`` serve the continuous engine on a ``(tp,
-seq_shards)`` mesh (``distributed/serve_mesh``), one process per rank
-under ``torchrun --nproc-per-node tp*seq_shards``, over the process-group
-backend ``--dist-backend`` names (required: ``nccl`` for ranks with a card
-each, ``gloo`` on the CPU or for ranks that share one card). A rank on
+``--tp`` / ``--seq-shards`` (or ``--mesh TPxNS``) serve the continuous
+engine on a ``(tp, seq_shards)`` mesh (``distributed/serve_mesh``), one
+process per rank under ``torchrun --nproc-per-node tp*seq_shards``, over
+the process-group backend ``--dist-backend`` names (required: ``nccl`` for
+ranks with a card each, ``gloo`` on the CPU or for ranks that share one
+card). A rank on
 cuda takes card ``LOCAL_RANK`` modulo the cards there are. Every rank
 serves the same requests and samples the same tokens; rank 0 prints the
 report, and a line of the collectives per model step.
@@ -56,7 +58,9 @@ import time
 WEIGHT_SEED, PROMPT_SEED = 0, 1
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments; ``--mesh TPxNS`` sets ``--tp`` and
+    ``--seq-shards`` (the reference's shorthand)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--kv-heads", type=int, default=0,
@@ -98,6 +102,9 @@ def main(argv=None):
     ap.add_argument("--prefill-kernel", action="store_true",
                     help="consmax_prefill kernel for prompt chunks (consmax "
                          "archs only; errors otherwise)")
+    ap.add_argument("--prefill-kv-block", type=int, default=512,
+                    help="KV shard size of the prefill kernel's grid "
+                         "(rounded up to whole 64-row tiles)")
     ap.add_argument("--no-fill-bound", action="store_true",
                     help="disable fill-bounded kernel walks (capacity-swept "
                          "baseline)")
@@ -123,6 +130,9 @@ def main(argv=None):
                     help="reclaim order of refcount-0 cached pages when the "
                          "free list runs dry: lru = release order, fifo = "
                          "registration order")
+    ap.add_argument("--mesh", default="",
+                    help="mesh as TPxNS, e.g. 2x2 = --tp 2 --seq-shards 2 "
+                         "(shorthand for --tp / --seq-shards)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks: attention heads split "
                          "over the mesh's 'model' axis")
@@ -133,6 +143,16 @@ def main(argv=None):
                     help="process-group backend of a mesh run (required "
                          "when --tp * --seq-shards > 1)")
     args = ap.parse_args(argv)
+    if args.mesh:
+        try:
+            args.tp, args.seq_shards = map(int, args.mesh.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--mesh must be TPxNS, got {args.mesh!r}")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     mesh = args.tp * args.seq_shards > 1
     if mesh and (args.engine != "continuous" or not args.dist_backend):
         raise SystemExit("--tp / --seq-shards need --engine continuous and "
@@ -182,6 +202,7 @@ def main(argv=None):
              else "cpu")
     kernels = dict(decode_kernel=args.decode_kernel,
                    prefill_kernel=args.prefill_kernel,
+                   prefill_kv_block=args.prefill_kv_block,
                    fill_bound=not args.no_fill_bound,
                    kv_cache_dtype=args.kv_dtype, fused_sampling=fused,
                    score_norm=cfg.score_norm)

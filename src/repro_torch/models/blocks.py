@@ -132,8 +132,9 @@ class Block(nn.Module):
 def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
                 cache=None, cond=None, merged=False, q_chunk=2048,
                 kv_chunk=1024, decode_kernel=False, decode_kv_block=256,
-                prefill_kernel=False, fill_bound=True, prefill_append=None,
-                decode_active=None, page_table=None, attn_mesh=None):
+                prefill_kernel=False, prefill_kv_block=512, fill_bound=True,
+                prefill_append=None, decode_active=None, page_table=None,
+                attn_mesh=None):
     """Returns (x, new_cache, aux): new_cache is None without a cache (the
     whole-sequence forward); aux is the MoE load-balance loss (0-d fp32),
     None for a block without experts (no device op for a zero). ``cond``
@@ -156,8 +157,9 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
             cache=cache["attn"] if cache is not None else None,
             merged=merged, q_chunk=q_chunk, kv_chunk=kv_chunk,
             decode_kernel=decode_kernel, decode_kv_block=decode_kv_block,
-            prefill_kernel=prefill_kernel, fill_bound=fill_bound,
-            prefill_append=prefill_append, decode_active=decode_active,
+            prefill_kernel=prefill_kernel, prefill_kv_block=prefill_kv_block,
+            fill_bound=fill_bound, prefill_append=prefill_append,
+            decode_active=decode_active,
             page_table=page_table, attn_mesh=attn_mesh)
         if cfg.post_block_norm:
             h = p.attn_post_norm(h)

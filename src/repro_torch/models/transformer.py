@@ -106,8 +106,9 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
              cond=None, caches=None, positions=None, merged=False,
              remat="none", q_chunk=2048, kv_chunk=1024, logits_index=None,
              decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
-             fill_bound=True, prefill_append=None, decode_active=None,
-             page_table=None, logits_epilogue=None, attn_mesh=None):
+             prefill_kv_block=512, fill_bound=True, prefill_append=None,
+             decode_active=None, page_table=None, logits_epilogue=None,
+             attn_mesh=None):
     """Forward pass over a (b, s) token batch (``tokens``) or, for the stub
     vlm / audio frontends, (b, s, d) precomputed ``embeds``; ``cond`` (b,
     n_cond, d) is the conditioning stream of a cross-attention config.
@@ -181,7 +182,8 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
                     q_chunk=q_chunk, kv_chunk=kv_chunk,
                     decode_kernel=decode_kernel,
                     decode_kv_block=decode_kv_block,
-                    prefill_kernel=prefill_kernel, fill_bound=fill_bound,
+                    prefill_kernel=prefill_kernel,
+                    prefill_kv_block=prefill_kv_block, fill_bound=fill_bound,
                     prefill_append=prefill_append,
                     decode_active=decode_active, page_table=page_table,
                     attn_mesh=attn_mesh)

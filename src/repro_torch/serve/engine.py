@@ -40,7 +40,9 @@ one-compiled-shape rule.
 ConSmax serving uses the merged constant C = e^{-beta}/gamma (Eq. 3).
 ``ServeConfig.decode_kernel`` / ``prefill_kernel`` route attention through
 the ConSmax kernels (``kernels/consmax_decode``, ``kernels/consmax_prefill``)
-— CUDA kernels on the card, their plain versions on the CPU. Softmax and
+— CUDA kernels on the card, their plain versions on the CPU — with
+``decode_kv_block`` / ``prefill_kv_block`` as their KV shard sizes (every
+rank of a mesh launches on its head slice with the same sizes). Softmax and
 softermax configs serve through the plain online walks
 (``core/attention``); the kernel flags refuse them.
 
@@ -108,7 +110,7 @@ from repro_torch.serve.scheduler import PagePool, Scheduler
 # reads; the engines refuse a config that sets one away from its default
 # (q_chunk only in the continuous engine: the static one's whole-prompt
 # prefill reads it)
-_UNREAD = ("batch", "seq_shard_kv", "prefill_kv_block")
+_UNREAD = ("batch", "seq_shard_kv")
 # read only by a paged engine: refused away from their defaults otherwise
 _PAGED = ("page_size", "num_pages", "prefix_cache", "prefix_evict")
 
@@ -154,8 +156,8 @@ def _refuse_unread(scfg: ServeConfig, refused, what: str):
     if unread:
         raise NotImplementedError(
             f"ServeConfig {unread}: the port's {what} does not read these "
-            "(the Pallas prefill grid's KV block, the mesh's KV sharding, "
-            "the batch knob no engine reads; the paged fields only with "
+            "(the mesh's KV sharding, the batch knob no engine reads; "
+            "the paged fields only with "
             "paged_kv=True); leave them at their defaults")
 
 
@@ -248,6 +250,7 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
         out, caches, _ = T.lm_apply(
             params, cfg, caches=caches, merged=True, prefill_append=lengths,
             logits_index=lengths - 1, prefill_kernel=scfg.prefill_kernel,
+            prefill_kv_block=scfg.prefill_kv_block,
             fill_bound=scfg.fill_bound, logits_epilogue=_epilogue(sampling),
             q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk, attn_mesh=attn_mesh,
             **_model_inputs(cfg, batch_inputs))
@@ -510,7 +513,8 @@ class ContinuousBatchingEngine:
             self.params, self.mcfg, tokens=tokens, caches=caches,
             merged=True, kv_chunk=s.kv_chunk, decode_kernel=s.decode_kernel,
             decode_kv_block=s.decode_kv_block,
-            prefill_kernel=s.prefill_kernel, fill_bound=s.fill_bound,
+            prefill_kernel=s.prefill_kernel,
+            prefill_kv_block=s.prefill_kv_block, fill_bound=s.fill_bound,
             attn_mesh=self._attn_mesh, **kw)
         self.model_steps += 1
         for kind, c in COMM.counts().items():

@@ -12,6 +12,7 @@ names (three renamed for the card: host callbacks -> host syncs, VMEM ->
 shared memory, scalar prefetch -> index operands); the trace guards count
 the same on the same workload; the smoke matrix lints clean.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -276,19 +277,31 @@ def test_missing_or_ordered_dimension_semantics_is_flagged():
     assert _rules_fired(check_launch(ordered)) == {"grid-semantics-declared"}
 
 
-@pytest.mark.parametrize("paged", [False, True])
-def test_real_serving_kernel_launches_pass_all_contracts(paged):
-    """The four serving kernels' plans at the analyzer shapes: concrete
-    grids, int32 index operands of the reference's arity, no race (the
-    decode output elected over the shard dim by its tickets), shared
-    memory within a block."""
+def _serving_launches(paged, **scfg_kw):
     cfg = get_config("qwen2-1.5b", smoke=True)
     kw = dict(paged_kv=True, page_size=64) if paged else {}
     scfg = ServeConfig(max_seq=4096, prefill_chunk=64, max_slots=4,
                        decode_kernel=True, prefill_kernel=True,
-                       score_norm="consmax", **kw)
-    launches = serving_launches(cfg, scfg)
-    kind = "paged" if paged else "contiguous"
+                       score_norm="consmax", **kw, **scfg_kw)
+    return serving_launches(cfg, scfg), "paged" if paged else "contiguous"
+
+
+def _assert_prefill_sharded(pre, prefill_kv_block):
+    ns = 4096 // prefill_kv_block
+    per = -(-ns // 2) if pre.layout["paired"] else ns
+    assert pre.layout["ns"] == ns and pre.grid[0] % per == 0
+    assert pre.election == "tickets"
+    assert pre.outputs[-1].elected_over == (0,)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_real_serving_kernel_launches_pass_all_contracts(paged):
+    """The four serving kernels' plans at the analyzer shapes: concrete
+    grids, int32 index operands of the reference's arity, no race (the
+    decode output elected over the shard dim by its tickets, the prefill
+    output over its KV-shard dim at the default prefill_kv_block), shared
+    memory within a block."""
+    launches, kind = _serving_launches(paged)
     assert set(launches) == {f"decode_{kind}", f"prefill_{kind}"}
     for label, launch in launches.items():
         assert launch.grid and all(isinstance(g, int) for g in launch.grid)
@@ -299,6 +312,29 @@ def test_real_serving_kernel_launches_pass_all_contracts(paged):
     assert pre.n_index == (3 if paged else 2)
     assert dec.election == "tickets"
     assert dec.outputs[-1].elected_over == (0,) and dec.grid[0] == 16
+    _assert_prefill_sharded(pre, 512)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefill_launches_at_a_set_prefill_kv_block(paged):
+    """The prefill plan at ``scfg.prefill_kv_block=64`` (64 shards of 64
+    rows over 4096): every launch contract met, the output elected over
+    the shard dim by the tickets."""
+    launches, kind = _serving_launches(paged, prefill_kv_block=64)
+    for launch in launches.values():
+        assert not check_launch(launch)
+    _assert_prefill_sharded(launches[f"prefill_{kind}"], 64)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefill_launches_at_a_set_prefill_kv_block(paged):
+    """The prefill plan at ``scfg.prefill_kv_block=64`` (64 shards of 64
+    rows over 4096): every launch contract met, the output elected over
+    the shard dim by the tickets."""
+    launches, kind = _serving_launches(paged, prefill_kv_block=64)
+    for launch in launches.values():
+        assert not check_launch(launch)
+    _assert_prefill_sharded(launches[f"prefill_{kind}"], 64)
 
 
 def test_capture_launches_restores_dispatch():
@@ -428,8 +464,18 @@ def test_analyze_config_clean_and_schema(qwen2):
     """One real config through analyze_config with the trace guard: zero
     findings, and the entry carries the steps, kernels and counts the
     schema asserts."""
+    _analyze_clean(qwen2, analyze._matrix()["paged_fused_bounded"])
+
+
+def test_analyze_config_clean_at_a_set_prefill_kv_block(qwen2):
+    """The same with the prefill kernel's KV shards at 64 rows: the gate
+    plans the prefill launch at ``scfg.prefill_kv_block``, 0 findings."""
+    _analyze_clean(qwen2, dataclasses.replace(
+        analyze._matrix()["paged_fused_bounded"], prefill_kv_block=64))
+
+
+def _analyze_clean(qwen2, scfg):
     cfg, params = qwen2
-    scfg = analyze._matrix()["paged_fused_bounded"]
     entry, findings = analyze.analyze_config("paged_fused_bounded", cfg,
                                              params, scfg)
     assert findings == []

@@ -182,13 +182,16 @@ def test_prefill_kernel_matches_plain(cuda, shape, variant):
 
 
 def test_prefill_empty_slot_is_exact_zeros(cuda):
+    """Unsplit (bk 512 >= L) and split over two shards (bk 64): a 0-length
+    slot has no live shard and gets exact zeros."""
     q, k, v, beta, gamma = _inputs(cuda, b=2, L=128, H=4, hkv=2, dk=64, c=8)
     index = torch.tensor([0, 40], dtype=torch.int32, device=cuda)
     lengths = torch.tensor([0, 8], dtype=torch.int32, device=cuda)
-    out = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
-                               scale=1.0)
-    torch.cuda.synchronize()
-    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    for bk in (512, 64):
+        out = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                   scale=1.0, bk=bk)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], torch.zeros_like(out[0])), bk
 
 
 def test_prefill_chunk_running_past_the_cache_end(cuda):
@@ -473,8 +476,9 @@ def test_softmax_attention_matches_plain(cuda, shape, variant):
                                      dict(softcap=5.0)])
 def test_consmax_attention_gives_prefill_kernel_bits(cuda, shape, variant):
     """Causal, sq = skv, merged, pre-scaled q: the full-sequence kernel is
-    the prefill kernel at index 0, lengths sq, on the same rows, bit for
-    bit (the same tiles in the same order through the same tile steps)."""
+    the prefill kernel at index 0, lengths sq, over one KV shard (bk = sq),
+    on the same rows, bit for bit (the same tiles in the same order through
+    the same tile steps; across shards the sum's order differs)."""
     b, sq, _, H, hkv, dk = ATTN[shape]
     q, k, v, beta, gamma = _seq_inputs(cuda, b=b, sq=sq, skv=sq, H=H,
                                        hkv=hkv, dk=dk, seed=2)
@@ -483,7 +487,8 @@ def test_consmax_attention_gives_prefill_kernel_bits(cuda, shape, variant):
     got = consmax_attention_cuda(q, k, v, beta, gamma, causal=True, **kw)
     index = torch.zeros(b, dtype=torch.int32, device=cuda)
     lengths = torch.full((b,), sq, dtype=torch.int32, device=cuda)
-    pre = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    pre = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, bk=sq,
+                               **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, pre)
 
@@ -1049,3 +1054,119 @@ def test_fp32_plan_smem_equals_the_library(cuda, name):
     lib.attn_f32_smem_bytes.argtypes = [ctypes.c_int]
     for dk in _build.HEAD_DIMS:
         assert lib.attn_f32_smem_bytes(dk) == LP.f32_layout(dk)["smem"]
+
+
+# ---------------------------------------- the prefill KV-shard grid ----
+SPLIT = {  # b, c, L, H, hkv, dk: caches past one shard at every bk below
+    "qwen2-gqa": (2, 64, 1024, 12, 2, 128),
+    "gpt2-mha": (2, 16, 600, 6, 6, 64),
+    "dk96": (2, 48, 700, 8, 2, 96),
+    "dk256": (1, 24, 640, 4, 2, 256),
+}
+
+
+def _split_slots(dev, b, c, L):
+    """Slot 0: a ragged chunk starting mid-tile, mid-shard; slot 1: the
+    chunk that ends at the cache's last row."""
+    index = torch.tensor([200, L - c][:b], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([c - 3, c][:b], dtype=torch.int32, device=dev)
+    return index, lengths
+
+
+@pytest.mark.parametrize("bk", [64, 128, 320])
+@pytest.mark.parametrize("shape", SPLIT)
+@pytest.mark.parametrize("variant", [dict(), dict(window=100),
+                                     dict(softcap=5.0), dict(merged=False)])
+def test_prefill_split_matches_plain_and_one_shard(cuda, shape, bk,
+                                                   variant):
+    """The KV-shard grid at several bk (320: five tiles a shard): within
+    the bounds of the plain version and of the one-shard launch (bk = L),
+    fill-bounded == capacity-swept bits, and the same bits on a repeat (one
+    combine order whichever shard finishes last)."""
+    b, c, L, H, hkv, dk = SPLIT[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=21)
+    index, lengths = _split_slots(cuda, b, c, L)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0) | variant
+    outs = [consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                 bk=bk, fill_bound=fb, **kw)
+            for fb in (True, False, True)]
+    one = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, bk=L,
+                               **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    ref = consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, **kw)
+    ref_absv = consmax_prefill_ref(q, k, v.abs(), index, lengths, beta,
+                                   gamma, **kw)
+    _assert_within_bound(outs[0], ref, ref_absv)
+    _assert_within_bound(one, ref, ref_absv)
+    _assert_within_bound(outs[0], one.float(), ref_absv)
+
+
+@pytest.mark.parametrize("bk", [64, 192])
+@pytest.mark.parametrize("name", ["bfloat16", *QDTYPES])
+@pytest.mark.parametrize("shape", ["qwen2-gqa", "gpt2-mha", "dk96", "dk256"])
+def test_prefill_split_paged_and_quantized_bits(cuda, shape, name, bk):
+    """At a split bk: paged == contiguous bits for page sizes 4, 16 and 64
+    (the same logical shards and tiles), and an int8 / fp8 cache == the
+    bf16 kernel on its dequantized values, bit for bit, within the plain
+    version's bounds."""
+    b, c, L, H, hkv, dk = SPLIT[shape]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=22)
+    index, lengths = _split_slots(cuda, b, c, L)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0, bk=bk)
+    scales, kd, vd = {}, k, v
+    if name != "bfloat16":
+        k, ks, kd = _quantized(k, name)
+        v, vs, vd = _quantized(v, name)
+        scales = dict(k_scale=ks, v_scale=vs)
+    got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                               **scales, **kw)
+    yard = consmax_prefill_cuda(q, kd, vd, index, lengths, beta, gamma, **kw)
+    fills = (index + lengths).tolist()
+    for ps in (4, 16, 64):
+        kp, vp, table = _paginate(k, v, fills, ps)
+        pscales = {}
+        if scales:
+            ksp, vsp, _ = _paginate(scales["k_scale"], scales["v_scale"],
+                                    fills, ps)
+            pscales = dict(k_scale=ksp, v_scale=vsp)
+        paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                           beta, gamma, **pscales, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, got), ps
+    assert torch.equal(got, yard)
+    del kw["bk"]
+    ref = consmax_prefill_ref(q, kd, vd, index, lengths, beta, gamma, **kw)
+    ref_absv = consmax_prefill_ref(q, kd, vd.abs(), index, lengths, beta,
+                                   gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+
+
+def test_prefill_split_launch_replays_in_a_cuda_graph(cuda):
+    """The split launch reads index / lengths on the device and leaves its
+    tickets zero: one captured launch replays with new fills and gives an
+    eager launch's bits each time, and the eager stream's tickets are all
+    zero after."""
+    b, c, L, H, hkv, dk = SPLIT["qwen2-gqa"]
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=23)
+    index, lengths = _split_slots(cuda, b, c, L)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0, bk=128)
+    consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                   **kw)
+    for idx, n in (([0, 500], [64, 30]), ([130, L - c], [0, c]),
+                   ([200, L - c], [c - 3, c])):
+        index.copy_(torch.tensor(idx, dtype=torch.int32))
+        lengths.copy_(torch.tensor(n, dtype=torch.int32))
+        graph.replay()
+        eager = consmax_prefill_cuda(q, k, v, index.clone(), lengths.clone(),
+                                     beta, gamma, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (idx, n)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    assert not _build.tickets(q.device, stream, 1).any()

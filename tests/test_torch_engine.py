@@ -106,7 +106,7 @@ def test_unported_options_raise():
     # the paged fields are read only with paged_kv=True, q_chunk only by
     # the static session's whole-prompt prefill
     paged = dict(paged_kv=True, page_size=4)
-    for kw in (dict(paged, q_chunk=16), dict(prefill_kv_block=64),
+    for kw in (dict(paged, q_chunk=16),
                dict(q_chunk=16), dict(batch=4), dict(seq_shard_kv=True),
                dict(page_size=4), dict(prefix_cache=False)):
         with pytest.raises(NotImplementedError):
@@ -146,7 +146,7 @@ def test_serve_cli_on_cpu(capsys):
     main(["--device", "cpu", "--engine", "continuous", "--arch",
           "gpt2-consmax", "--requests", "3", "--max-slots", "2",
           "--prompt-len", "10", "--steps", "4", "--prefill-chunk", "4",
-          "--decode-kernel", "--prefill-kernel"])
+          "--decode-kernel", "--prefill-kernel", "--prefill-kv-block", "64"])
     assert "3 requests" in capsys.readouterr().out
     main(["--device", "cpu", "--engine", "continuous", "--requests", "3",
           "--max-slots", "2", "--prompt-len", "10", "--steps", "4",
@@ -159,6 +159,22 @@ def test_serve_cli_on_cpu(capsys):
           "--steps", "3"])
     assert "[serve] qwen2-1.5b (smoke) on cpu: 6 tokens" in \
         capsys.readouterr().out
+
+
+def test_serve_cli_parses_mesh_and_prefill_kv_block():
+    """``--mesh TPxNS`` sets ``--tp`` / ``--seq-shards`` (the reference's
+    shorthand), a malformed one exits; ``--prefill-kv-block`` defaults to
+    the reference's 512."""
+    from repro_torch.launch.serve import parse_args
+    args = parse_args([])
+    assert (args.tp, args.seq_shards, args.prefill_kv_block) == (1, 1, 512)
+    args = parse_args(["--mesh", "2x4", "--prefill-kv-block", "128"])
+    assert (args.tp, args.seq_shards, args.prefill_kv_block) == (2, 4, 128)
+    assert (parse_args(["--mesh", "1X2"]).tp, parse_args(
+        ["--mesh", "1X2"]).seq_shards) == (1, 2)
+    for bad in ("2", "2x", "twoxfour", "2x2x2"):
+        with pytest.raises(SystemExit, match="TPxNS"):
+            parse_args(["--mesh", bad])
 
 
 def _port_files():
@@ -220,3 +236,24 @@ def test_logits_masks_and_sampling_params_match_reference():
             JS.SamplingParams(**kw)
         with pytest.raises(ValueError):
             TS.SamplingParams(**kw)
+
+
+@pytest.mark.parametrize("fill_bound", [True, False])
+def test_prefill_kv_block_tokens_match_reference_engine(fill_bound):
+    """``prefill_kv_block=16`` with both kernels on, fill-bounded and
+    capacity-swept: the reference engine's tokens at the same config (its
+    Pallas kernels in interpret mode; the reference's
+    tests/test_fill_bounded.py:224 and tests/test_prefill_kernel.py:179)."""
+    jc = jget("qwen2-1.5b", smoke=True, compute_dtype="float32")
+    tc = tget("qwen2-1.5b", smoke=True, compute_dtype="float32")
+    p = JT.lm_init(Ctx(random.key(0)), jc)
+    model = from_jax_params(jax.tree.map(np.asarray, p), tc, device="cpu")
+    kw = dict(SERVE, prefill_chunk=4, decode_kernel=True,
+              prefill_kernel=True, decode_kv_block=16, prefill_kv_block=16,
+              fill_bound=fill_bound)
+    prompts = _prompts(jc.vocab_size, seed=2)[:3]
+    ref = _serve(JEngine(jc, JServeConfig(**kw), p), prompts, BUDGETS[:3])
+    eng = ContinuousBatchingEngine(tc, ServeConfig(**kw), model,
+                                   device="cpu")
+    assert _serve(eng, prompts, BUDGETS[:3]) == ref
+    assert eng.prefill_cache_size == eng.decode_cache_size == 1

@@ -22,6 +22,12 @@ host-side sampling flag, against the JAX reference on the CPU.
   batch rows x KV heads whose blocks write distinct tiles covering every
   row, the layout's threads and dynamic shared memory, every launch
   contract met.
+* The prefill kernels' launch plans over the KV-shard grid: grid (row tiles
+  x ns, hkv, b) with ``cache_layout.prefill_shards``' ns, the fp32
+  partials one tile per block, the output elected by the tickets over the
+  shard dim when ns > 1 (one writer per row tile), the split grid's
+  paired blocks (two consumer warpgroups, two shards each) at dk <= 128,
+  ns = 1 with no partials and no election, contiguous and paged alike.
 The card runs the CUDA kernels at dk 96 and on fp32 (``test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
@@ -48,7 +54,10 @@ from repro_torch.configs.registry import get_config as tget
 from repro_torch.kernels import _build
 from repro_torch.kernels import launch_plan as LP
 from repro_torch.kernels.consmax_attn.ops import consmax_attention_op
+from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.consmax_decode.ref import consmax_decode_ref
+from repro_torch.kernels.consmax_prefill.ops import (
+    consmax_prefill_op, consmax_prefill_paged_op)
 from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
 from repro_torch.kernels.softmax_attn.ops import softmax_attention_op
 from repro_torch.serve import sampling as TS
@@ -265,3 +274,57 @@ def test_fp32_plan_follows_the_kernel(dk):
                            for t in range(tiles)}
         # the last row tiles are issued first
         assert out.tile_of(0, 0, 0)[2] == tiles - 1
+
+
+# --------------------------------------------- the prefill kernels' plans ----
+@pytest.mark.parametrize("dk", [64, 256])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("L, bk, ns", [(8192, 512, 16), (8192, 256, 32),
+                                       (8192, 64, 64), (8192, 8192, 1),
+                                       (200, 16, 4), (40, 512, 1),
+                                       (65536, 512, 64)])
+def test_prefill_plan_carries_the_shard_grid(L, bk, ns, paged, dk):
+    b, c, H, hkv = 2, 40, 12, 2
+    g, ps = H // hkv, 8
+    q = torch.zeros((b, c, H, dk), dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32)
+    index, lengths = torch.zeros(b, **i32), torch.full((b,), c, **i32)
+    beta, gamma = torch.zeros(H), torch.ones(H)
+    with LP.capture() as plans:
+        if paged:
+            pool = torch.zeros((b * L // ps + 1, ps, hkv, dk),
+                               dtype=torch.bfloat16)
+            table = torch.arange(b * L // ps, **i32).reshape(b, L // ps)
+            consmax_prefill_paged_op(q, pool, pool, table, index, lengths,
+                                     beta, gamma, bk=bk)
+        else:
+            kv = torch.zeros((b, L, hkv, dk), dtype=torch.bfloat16)
+            consmax_prefill_op(q, kv, kv, index, lengths, beta, gamma, bk=bk)
+    (plan,) = plans
+    rows, want_ns = CL.prefill_shards(L, bk)
+    assert want_ns == ns and plan.layout["ns"] == ns
+    assert plan.layout["shard_rows"] == rows
+    nr = -(-(c * g) // 64)
+    paired = dk <= 128                     # shard pairs up to dk 128
+    per = -(-ns // 2) if paired else ns
+    assert plan.grid == (nr * per, hkv, b)
+    assert plan.block == (384 if paired else 256)
+    assert plan.layout["paired"] == int(paired)
+    assert check_launch(plan) == []
+    out = plan.outputs[-1]
+    tiles = {out.tile_of(bx, by, bz) for bx in range(plan.grid[0])
+             for by in range(hkv) for bz in range(b)}
+    assert tiles == {(i, j, t) for i in range(b) for j in range(hkv)
+                     for t in range(nr)}
+    if ns == 1:
+        assert len(plan.outputs) == 1 and plan.election is None
+        assert out.elected_over == () and plan.scratch_bytes == 0
+        return
+    partials, out = plan.outputs
+    assert partials.shape == (b, hkv, ns, c * g, dk)
+    assert partials.dtype == "float32"
+    assert plan.scratch_bytes == b * hkv * ns * c * g * dk * 4
+    assert plan.election == "tickets" and out.elected_over == (0,)
+    parts = [partials.tile_of(bx, by, bz) for bx in range(plan.grid[0])
+             for by in range(hkv) for bz in range(b)]
+    assert len(set(parts)) == len(parts)       # one writer per partial

@@ -47,13 +47,12 @@ from torch_mesh_worker import spawn
 
 ARCHS = ("qwen2-1.5b", "gemma2-2b", "grok-1-314b")
 OVER = dict(n_kv_heads=4, compute_dtype="float32")
-# the reference's geometry (tests/test_sharded_serving.py:48); the port's
-# engine reads no prefill_kv_block (its kernel picks its own tiles)
+# the reference's geometry (tests/test_sharded_serving.py:48)
 CONTIG = dict(max_seq=64, prefill_chunk=8, max_slots=3, decode_kernel=True,
               decode_kv_block=16)
 PAGED = dict(max_seq=128, prefill_chunk=8, max_slots=3, paged_kv=True,
              page_size=8, num_pages=64, decode_kernel=True,
-             decode_kv_block=16, prefill_kernel=True)
+             decode_kv_block=16, prefill_kernel=True, prefill_kv_block=16)
 CACHES = {"contig-bf16": CONTIG, "paged-bf16": PAGED,
           "paged-int8": dict(PAGED, kv_cache_dtype="int8")}
 # world size -> (arch, cache, tp, seq_shards) cases of that spawn

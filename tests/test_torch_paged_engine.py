@@ -184,3 +184,25 @@ def test_pool_pressure_serializes_admissions_but_serves_all():
     assert all(len(results[u]) == 3 for u in uids)
     assert eng.pool.free_pages == 4 and eng.pool.peak_in_use <= 4
     assert eng.page_occupancy == 0.0 and eng.page_reserved == 0.0
+
+
+@pytest.mark.parametrize("fill_bound", [True, False])
+def test_paged_prefill_kv_block_tokens_match_reference_paged_engine(
+        fill_bound):
+    """The paged engine at ``prefill_kv_block=16`` with both kernels on,
+    fill-bounded and capacity-swept: the reference paged engine's tokens at
+    the same config (its Pallas kernels in interpret mode; its paged
+    prefill kernel walks pages and reads no shard size, the port's walks
+    the contiguous kernel's shards)."""
+    jc = jget("qwen2-1.5b", smoke=True, compute_dtype="float32")
+    tc = tget("qwen2-1.5b", smoke=True, compute_dtype="float32")
+    p = JT.lm_init(Ctx(random.key(0)), jc)
+    model = from_jax_params(jax.tree.map(np.asarray, p), tc, device="cpu")
+    kw = dict(PAGED, decode_kernel=True, prefill_kernel=True,
+              decode_kv_block=16, prefill_kv_block=16, fill_bound=fill_bound)
+    prompts = _prompts(jc.vocab_size, PROMPT_LENS[:3], seed=2)
+    ref = _serve(JEngine(jc, JServeConfig(**kw), p), prompts, BUDGETS[:3])
+    eng = ContinuousBatchingEngine(tc, ServeConfig(**kw), model,
+                                   device="cpu")
+    assert _serve(eng, prompts, BUDGETS[:3]) == ref
+    assert eng.prefill_cache_size == eng.decode_cache_size == 1

@@ -10,11 +10,17 @@
   output.
 * ``core.attention.append_attention`` (the plain walk) vs the reference's.
 * ``_append_cache_write``'s clamped read-modify-write window, and
-  ``attention_apply``'s chunk branch (pad rows never enter the cache).
+  ``attention_apply``'s chunk branch (pad rows never enter the cache), and
+  ``lm_apply`` over a ragged chunk, at ``prefill_kv_block=8`` on both
+  sides (the reference's Pallas kernel in interpret mode).
+* ``cache_layout.prefill_shards``, the CUDA kernels' KV-shard geometry:
+  whole 64-row tiles, at most 64 shards covering L, the reference's shard
+  count where its divisor rule and the tile rounding agree.
 
 Inputs come from ``np.random.default_rng``. Tolerance at fp32: rtol 1e-5,
 atol 1e-5 — the same fp32 products, summed in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,14 +29,20 @@ from jax import random
 
 from repro.configs.registry import get_config as jget
 from repro.core import attention as JA
+from repro.kernels import cache_layout as JCL
+from repro.kernels.consmax_prefill.kernel import MAX_KV_SHARDS
 from repro.kernels.consmax_prefill.ref import consmax_prefill_ref as jref
+from repro.models import transformer as JT
 from repro.nn.module import Ctx
 from repro_torch.configs.base import ConSmaxConfig
 from repro_torch.configs.registry import get_config as tget
 from repro_torch.core import attention as TA
 from repro_torch.core.consmax import ConSmaxParams
+from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.consmax_prefill.ops import consmax_prefill_op
 from repro_torch.kernels.consmax_prefill.ref import consmax_prefill_ref
+from repro_torch.models import transformer as TT
+from repro_torch.weights import from_jax_params
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D, BK = 32, 16
@@ -162,10 +174,11 @@ def test_attention_apply_chunk_branch(prefill_kernel):
     tcache = {key: torch.tensor(np.asarray(val, np.float32)).bfloat16()
               if key != "index" else torch.tensor(index)
               for key, val in jcache.items()}
-    kw = dict(merged=True, prefill_kernel=prefill_kernel, kv_chunk=8)
+    kw = dict(merged=True, prefill_kernel=prefill_kernel, kv_chunk=8,
+              prefill_kv_block=8)
     jout, jnew = JA.attention_apply(p, jnp.asarray(x), jcfg, cache=jcache,
                                     prefill_append=jnp.asarray(lengths),
-                                    prefill_kv_block=8, **kw)
+                                    **kw)
     tout, tnew = TA.attention_apply(tp, torch.tensor(x), tcfg, cache=tcache,
                                     prefill_append=torch.tensor(lengths),
                                     **kw)
@@ -179,3 +192,61 @@ def test_attention_apply_chunk_branch(prefill_kernel):
     np.testing.assert_allclose(_real_rows(jout, lengths),
                                _real_rows(tout, lengths), rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("prefill_kernel", [False, True])
+def test_lm_apply_chunk_at_prefill_kv_block(prefill_kernel):
+    """A ragged chunk through ``lm_apply`` with ``prefill_kv_block=8`` on
+    both sides (the reference's Pallas kernel in interpret mode, the port's
+    plain version on the CPU): the logits at each slot's last real row
+    (fp32, rtol / atol 1e-4: two layers of the same products, summed in
+    another order) and the advanced index."""
+    jc = jget("qwen2-1.5b", smoke=True, compute_dtype="float32")
+    tc = tget("qwen2-1.5b", smoke=True, compute_dtype="float32")
+    p = JT.lm_init(Ctx(random.key(0)), jc)
+    model = from_jax_params(jax.tree.map(np.asarray, p), tc, device="cpu")
+    r = np.random.default_rng(5)
+    b, c, L = 3, 8, 40
+    toks = r.integers(0, jc.vocab_size, (b, c)).astype(np.int32)
+    lens = np.array([8, 3, 6], np.int32)
+    kw = dict(merged=True, prefill_kernel=prefill_kernel,
+              prefill_kv_block=8)
+    jlg, jcache, _ = JT.lm_apply(
+        p, jc, tokens=jnp.asarray(toks), caches=JT.init_caches(jc, b, L),
+        prefill_append=jnp.asarray(lens),
+        logits_index=jnp.asarray(lens - 1), **kw)
+    with torch.no_grad():
+        tlg, tcache, _ = TT.lm_apply(
+            model, tc, tokens=torch.tensor(toks),
+            caches=TT.init_caches(tc, b, L, device="cpu"),
+            prefill_append=torch.tensor(lens),
+            logits_index=torch.tensor(lens - 1), **kw)
+    np.testing.assert_array_equal(np.asarray(JT.cache_index(jcache)),
+                                  TT.cache_index(tcache).numpy())
+    np.testing.assert_allclose(np.asarray(jlg, np.float32),
+                               tlg.float().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("L", [40, 64, 200, 512, 4096, 8192, 65536, 262144])
+@pytest.mark.parametrize("bk", [1, 8, 16, 64, 100, 256, 512, 1024, 1 << 20])
+def test_prefill_shards_geometry(L, bk):
+    """Whole 64-row tiles, at most 64 shards, the shards cover L and the
+    last one holds a row; exact integer arithmetic, no tolerance. For L a
+    multiple of 64 and bk a power of two >= 64 (the engine's shapes) the
+    shard count is the reference's (``block_cache_rows`` on
+    ``max(bk, ceil(L / MAX_KV_SHARDS))``); a bk below the tile is one
+    64-row shard per tile of ``ceil(L / 64)``, capped the same way."""
+    rows, ns = CL.prefill_shards(L, bk)
+    assert rows % 64 == 0 and rows >= min(bk, 64)
+    assert 1 <= ns <= CL.MAX_KV_SHARDS == MAX_KV_SHARDS
+    assert (ns - 1) * rows < L <= ns * rows
+    if L % 64 == 0 and bk >= 64 and bk & (bk - 1) == 0:
+        jk = jnp.zeros((1, L, 1, 1), jnp.bfloat16)
+        _, _, jbk, jns = JCL.block_cache_rows(
+            jk, jk, max(bk, -(-L // MAX_KV_SHARDS)))
+        assert ns == jns and (rows == jbk or bk >= L)
+
+
+def test_prefill_shards_refuses_a_nonpositive_block():
+    with pytest.raises(ValueError, match="prefill_kv_block"):
+        CL.prefill_shards(64, 0)

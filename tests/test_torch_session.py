@@ -129,6 +129,23 @@ def test_broadcast_rows_draw_independent_streams():
     assert pinned[0].tolist() == pinned[1].tolist()
 
 
+@pytest.mark.parametrize("prefill_kernel", [False, True])
+def test_session_prefill_kv_block_matches_reference(prefill_kernel):
+    """``ServeSession`` at ``prefill_kv_block=64``: the ragged prefill goes
+    through the append path (with the prefill kernel, whose shard size it
+    passes on) and gives the reference session's tokens at the same
+    config."""
+    jc, tc, p, model = _pair("qwen2-1.5b")
+    kw = dict(max_seq=24, prefill_kernel=prefill_kernel,
+              prefill_kv_block=64)
+    toks, lens = _batch(jc.vocab_size, [9, 4, 6], 9, seed=3)
+    ref = np.asarray(JSession(jc, JServeConfig(**kw), p).generate(
+        jnp.asarray(toks), steps=5, lengths=jnp.asarray(lens)))
+    got = ServeSession(tc, ServeConfig(**kw), model, device="cpu").generate(
+        toks, steps=5, lengths=lens)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
 @pytest.mark.parametrize("fused", [True, False])
 def test_recurrent_session_tokens_match_reference(arch, fused):
@@ -193,8 +210,7 @@ def test_session_refusals():
                        "static contiguous baseline"):
         ServeSession(cfg, ServeConfig(max_seq=32, paged_kv=True,
                                       page_size=4), model, device="cpu")
-    for kw in (dict(batch=4), dict(prefill_kv_block=64), dict(tp=2),
-               dict(page_size=4)):
+    for kw in (dict(batch=4), dict(tp=2), dict(page_size=4)):
         with pytest.raises(NotImplementedError):
             ServeSession(cfg, ServeConfig(max_seq=32, **kw), model,
                          device="cpu")

@@ -11,10 +11,13 @@ script compiles ``consmax_prefill``, ``consmax_attn``, ``softmax_attn`` and
 ``consmax_decode`` from that tree's ``src/repro_torch/kernels`` with this
 tree's nvcc flags, all in parallel, into ``build/ab/<n>/``, and binds them
 through this tree's ops (the kernels' C entry points have kept their
-signatures; a library from before an entry point this tree's ops bind gets
-a stub of it, see ``OPTIONAL``). Then, per case (the shapes of
-``chip_smoke.py``'s timed rows: the qwen2-1.5b prefill chunk c 512 at fill
-4096, bf16, int8 and paged at page size 256; causal whole-prompt attention
+signatures, and the prefill entry points' KV-shard arguments come after
+the stream, so an older prefill library ignores them and walks unsplit; a
+library from before an entry point this tree's ops bind gets a stub of it,
+see ``OPTIONAL``). Then, per case (the shapes of ``chip_smoke.py``'s timed
+rows: the qwen2-1.5b prefill chunk c 512 at fill 4096, bf16 at the default
+prefill_kv_block and at one shard, int8 and paged at page size 256 at one
+shard, the unsplit walk every tree runs; causal whole-prompt attention
 at qwen2-1.5b b 2 x s 4096, Eq. 2, Eq. 3 and softmax; the gemma2-2b local
 layer; qwen2-1.5b decode, b 8 x L 8192 at fills 1 .. 8192, bf16 and int8,
 contiguous and paged at page sizes 256 and 16), it times the trees in the
@@ -142,14 +145,18 @@ def cases():
         return lambda: DO.consmax_decode_paged_cuda(qd, kp, vp, table, lens,
                                                     beta, gamma, **dkw)
 
+    one = dict(kw, bk=L)
     return {
-        "consmax_prefill bf16, c 512 at fill 4096": lambda: (
+        "consmax_prefill bf16, c 512 at fill 4096, default bk": lambda: (
             PO.consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw)),
-        "consmax_prefill int8, same chunk": lambda: PO.consmax_prefill_cuda(
-            q1, kq, vq, ti, tn, beta, gamma, k_scale=ks, v_scale=vs, **kw),
-        "consmax_prefill_paged bf16, page size 256": lambda: (
+        "consmax_prefill bf16, same chunk, one shard": lambda: (
+            PO.consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **one)),
+        "consmax_prefill int8, same chunk, one shard": lambda: (
+            PO.consmax_prefill_cuda(q1, kq, vq, ti, tn, beta, gamma,
+                                    k_scale=ks, v_scale=vs, **one)),
+        "consmax_prefill_paged bf16, page size 256, one shard": lambda: (
             PO.consmax_prefill_paged_cuda(q1, kp, vp, table, ti, tn, beta,
-                                          gamma, **kw)),
+                                          gamma, **one)),
         "consmax_attention Eq. 2, qwen2-1.5b b 2 x s 4096": lambda: (
             AO.consmax_attention_cuda(qa, ka, va, beta, gamma)),
         "consmax_attention Eq. 3, same": lambda: AO.consmax_attention_cuda(
