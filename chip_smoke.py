@@ -2246,36 +2246,57 @@ WALK_FORM = {"0": "Eq. 2", "1": "Eq. 3", "2": "softmax"}
 def mainloop_report():
     """Each instantiation of the shared attention mainloop
     (``attn_walk_kernel``, csrc/attn_mainloop.cuh) in the three libraries
-    that build it: registers, static and dynamic shared memory and spills,
-    as ``ptxas -v`` reported them in this run's build."""
+    that build it: registers (at launch, as ``ptxas -v`` reported them, and
+    each role's after its setmaxnreg: the library's
+    ``attn_walk_role_regs``), static and dynamic shared memory and spills.
+    Fails on any spill, and on a two-consumer walk that does not start at
+    the 168 registers its roles' setmaxnreg counts share."""
     import re
 
     from repro_torch.kernels import _build
+    spills = []
     for lib_name in ("consmax_prefill", "consmax_attn", "softmax_attn"):
         lib = _build.load(lib_name)
         lib.attn_walk_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.attn_walk_role_regs.argtypes = [ctypes.c_int] * 2
         rows = []
         for k in _build.ptxas_report(lib_name):
             m = re.search(r"attn_walk_kernelILi(\d+)ELi(\d)E(13__nv_bfloat16"
-                          r"|a|13__nv_fp8_e4m3)\d+(Contig|Paged)RowsLi([12])E"
-                          r"Lb([01])E", k["kernel"])
+                          r"|a|13__nv_fp8_e4m3)\d+(Contig|Paged)RowsLi([12])E",
+                          k["kernel"])
             if not m:
                 continue
-            dk, form, kv, rows_of, cons, paired = m.groups()
+            dk, form, kv, rows_of, cons = m.groups()
             kv_name, kv_code = WALK_KV[kv]
             smem = lib.attn_walk_smem_bytes(int(dk), kv_code, int(cons))
+            producer = lib.attn_walk_role_regs(int(cons), 1)
+            consumer = lib.attn_walk_role_regs(int(cons), 0)
+            name = (f"{lib_name} dk {dk} {WALK_FORM[form]} {kv_name} "
+                    f"{rows_of}, {cons} consumer warpgroup"
+                    f"{'s' if cons == '2' else ''}")
+            roles = (f"producer {producer}, consumers {consumer}" if producer
+                     else f"every role {k['registers']}")
             rows.append(
-                f"dk {dk} {WALK_FORM[form]} {kv_name} {rows_of}, {cons} "
-                f"consumer warpgroup{'s' if cons == '2' else ''}"
-                f"{' (paired shards)' if paired == '1' else ''}: "
-                f"{k['registers']} registers, {smem} B dynamic + "
-                f"{k['smem']} B static shared memory, spill stores/loads "
-                f"{k['spill_stores']}/{k['spill_loads']} B")
+                f"{name}: {k['registers']} registers at launch ({roles}), "
+                f"{smem} B dynamic + {k['smem']} B static shared memory, "
+                f"spill stores/loads {k['spill_stores']}/"
+                f"{k['spill_loads']} B")
+            if k["spill_stores"] or k["spill_loads"]:
+                spills.append(name)
+            if producer and k["registers"] != 168:
+                raise AssertionError(
+                    f"{name}: {k['registers']} registers at launch, not the "
+                    "168 that its roles' setmaxnreg counts share")
         if not rows:
             raise AssertionError(f"{lib_name}: no attn_walk_kernel in the "
                                  "ptxas report")
-        _log(f"[build] {lib_name} mainloop instantiations ({len(rows)}): "
-             + "; ".join(rows))
+        log = _build.library_path(lib_name).with_suffix(".log").read_text()
+        serial = log.count("wgmma.mma_async instructions are serialized")
+        _log(f"[build] {lib_name} mainloop instantiations ({len(rows)}; "
+             f"ptxas serialized the wgmmas of {serial}): " + "; ".join(rows))
+    if spills:
+        raise AssertionError("attention mainloop spills registers: "
+                             + "; ".join(spills))
 
 
 def decode_report():

@@ -65,8 +65,8 @@ int launch(const void* q, const void* k, const void* v, const void* beta,
       H, hkv, skv, causal, window, /*fill_bound=*/1, /*reverse=*/1, softcap,
       scale, /*shard_rows=*/skv, /*ns=*/1, nullptr, nullptr};
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(merged ? launch_walk<DK, kFormEq3, true>(a, b, st)
-                                 : launch_walk<DK, kFormEq2, true>(a, b, st));
+  return static_cast<int>(merged ? launch_walk<DK, kFormEq3>(a, b, st)
+                                 : launch_walk<DK, kFormEq2>(a, b, st));
 }
 
 }  // namespace

@@ -50,7 +50,7 @@ def attention_plan(q, k, v, beta, gamma):
     else:
         plan = LP.walk_plan("consmax_attention", b=b, c=sq, H=H,
                             hkv=k.shape[2], dk=dk, kv_dtype=k.dtype,
-                            wide=True, out_shape=q.shape, out_dtype=q.dtype)
+                            out_shape=q.shape, out_dtype=q.dtype)
     return plan, beta, gamma
 
 

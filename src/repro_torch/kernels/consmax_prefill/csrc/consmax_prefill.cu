@@ -33,62 +33,49 @@
 //
 // Design against that bound: the Hopper mainloop of attn_mainloop.cuh
 // (shared with consmax_attn.cu and softmax_attn.cu), with the ConSmax
-// epilogue. Per CTA: 64 folded query rows of one KV head (GQA folded
-// position-major, row r = pos * g + head-in-group, as the TPU kernel does,
-// so one K/V tile in shared memory serves g query heads) and one KV shard
-// (two when paired, below); a producer warpgroup keeps cp.async copies of
-// the next KV tiles in flight into a ring of 3 stages (2 at head_dim 256
-// with codes) of dynamic shared memory while each consumer warpgroup runs
-// S = Q K^T and O += P V through wgmma. The form (Eq. 2 or 3) is a template parameter and each row's
-// merged constant C is computed once before the walk, so merged ConSmax has
-// one exp per score. Fill bounding without a host sync: the CTA reads
+// epilogue. Per CTA: 128 folded query rows of one KV head (two consumer
+// warpgroups of 64 on each K/V tile; 64 rows, one consumer, at head_dim
+// 256), GQA folded position-major (row r = pos * g + head-in-group, as the
+// TPU kernel does, so one K/V tile in shared memory serves g query heads),
+// and one KV shard; a producer warpgroup keeps cp.async copies of the next
+// KV tiles in flight into a ring of 3 stages (2 at head_dim 256 with codes)
+// of dynamic shared memory while the consumers run S = Q K^T and O += P V
+// through wgmma, each tile's epilogue overlapped with the previous tile's
+// P V. The form (Eq. 2 or 3) is a template parameter and each row's merged
+// constant C is computed once before the walk, so merged ConSmax has one
+// exp per score. Fill bounding without a host sync: the CTA reads
 // index/lengths on the device and walks only the tiles its rows can see.
 //
 // The KV-shard grid (ServeConfig.prefill_kv_block, the TPU kernel's
-// parallel KV axis): the grid is (row tiles x ceil(ns / 2), hkv, b) with
-// paired CTAs (head_dim <= 128), (row tiles x ns, hkv, b) at 256. The
-// cache's L
-// logical rows are cut into ns <= 64 shards of shard_rows rows,
-// shard_rows = max(bk, ceil(L / 64)) rounded up to the 64-row tile
-// (cache_layout.prefill_shards; the TPU kernel snaps bk to a divisor of L
-// instead, since its blocks must tile the array), and ns is sized for the
-// capacity, so one signature serves every fill. ConSmax needs no running
-// max and no rescale, so each shard's P V sum is an independent fp32
-// partial (b, hkv, ns, c g, dk); a shard past the fill, the causal reach or
-// the window returns at once. The last live shard of each (slot, KV head,
-// row tile) to finish, found by an int32 ticket, sums the partials in shard
-// order (the TPU kernel's cache_layout.fill_bounded_sum, in the same
-// launch) and writes the bf16 rows: one fixed order, whichever CTA is last,
-// no fp32 atomics; the tickets are the zeroed per-(device, stream) buffer
-// the decode kernel uses, left zero. The paged kernel walks the same
-// logical shards and tiles (not the TPU's page axis), so paged ==
-// contiguous bits at every page size and every bk. ns = 1 (bk >= L) is the
-// unsplit walk, bit for bit, with no partials and no ticket.
+// parallel KV axis): the cache's L logical rows are cut into ns <= 64
+// shards of shard_rows rows, shard_rows = max(bk, ceil(L / 64)) rounded up
+// to the 64-row tile (cache_layout.prefill_shards; the TPU kernel snaps bk
+// to a divisor of L instead, since its blocks must tile the array), and ns
+// is sized for the capacity, so one signature serves every fill. ConSmax
+// needs no running max and no rescale, so each shard's P V sum is an
+// independent fp32 partial (b, hkv, ns, c g, dk). The last live shard of
+// each (slot, KV head, row tile) to finish, found by an int32 ticket, sums
+// the partials in shard order (the TPU kernel's
+// cache_layout.fill_bounded_sum, in the same launch) and writes the bf16
+// rows: one fixed order, whichever CTA is last, no fp32 atomics; the
+// tickets are the zeroed per-(device, stream) buffer the decode kernel
+// uses, left zero. The paged kernel walks the same logical shards and tiles
+// (not the TPU's page axis), so paged == contiguous bits at every page size
+// and every bk. ns = 1 (bk >= L) is the unsplit walk, bit for bit, with no
+// partials and no ticket.
 //
-// Filling the card: at the engine's chunk (b 1, c 512, qwen2-1.5b: g 6, 2
-// KV heads) an unsplit grid is 512 * 6 / 64 = 48 row tiles x 2 KV heads =
-// 96 CTAs on 132 SMs, each walking up to 64 + 8 tiles one after another at
-// fill 4096 (~2.3 us a tile: the consumer's two products and epilogue run
-// back to back, far from the tensor cores' rate); gemma2-2b (g 2, 4 KV
-// heads) gives 64. At the default bk 512 (L 8192: ns 16) the chunk at fill
-// 4096 has ~8 live shards a row tile, 768 shard walks of at most 8 tiles.
-// Every CTA also pays fixed costs (its Q tile, the ring's first tiles, its
-// partials, the ticket), and a shard past the fill still takes a launch
-// slot; at 168 registers a thread (dk 128) one CTA fills an SM. So at
-// head_dim <= 128 a CTA is paired: two consumer warpgroups on the same 64
-// rows, each walking its own shard of a pair through the one ring (their
-// tiles alternate), so two independent tile chains share each SM and the
-// fixed costs are paid once per pair; each consumer's partial is the one a
-// CTA walking its shard alone would write (at ns = 1 consumer 0 walks the
-// row tile alone). Head_dim 256 has no registers for a second consumer
-// and splits one shard per CTA. The price
-// of the split is the partials: 4 bytes per folded row and dk per live
-// shard, written once and read once by the combine (50.3 MB allocated at
-// qwen2-1.5b's L 8192 and ns 16, of which the chunk at fill 4096 writes
+// Filling the card: grid (row tiles x ns, hkv, b); a CTA whose shard is
+// past the chunk's fill, causal reach or window returns at once. At the
+// engine's chunk (b 1, c 512, qwen2-1.5b: g 6, 2 KV heads) and the default
+// bk 512 (L 8192: ns 16) the chunk at fill 4096 has 24 row tiles of 128
+// rows x 2 KV heads x ~8 live shards, ~380 live CTAs of at most 8 tiles;
+// two consumers on one K/V tile halve the copies and the ring waits per
+// row, and each tile's epilogue overlaps the previous tile's P V. The
+// price of the split is the partials: 4 bytes per folded row and dk per
+// live shard, written once and read once by the combine (50.3 MB allocated
+// at qwen2-1.5b's L 8192 and ns 16, of which the chunk at fill 4096 writes
 // and reads at most half; 67.1 MB at gemma2-2b's dk 256, hkv 4, g 2),
-// transient and reused by the caching allocator. An unsplit chunk keeps
-// one consumer warpgroup per CTA: two on 128 rows (as the full-sequence
-// kernels run) would halve the CTAs, and measured slower at this shape.
+// transient and reused by the caching allocator.
 #include "attn_mainloop.cuh"
 
 namespace {

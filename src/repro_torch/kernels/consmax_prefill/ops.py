@@ -58,9 +58,10 @@ def prefill_plan(kernel, q, k, v, index, lengths, beta, gamma, *, bk=512,
     """Check one launch's operands and plan it: the attention mainloop
     (``launch_plan.walk_plan``) over the KV shards of ``bk`` rows of the
     cache's L logical rows (``k.shape[1]``, or the table's ``npg * ps``),
-    64 folded query rows per block, each consumer warpgroup walking one
-    shard (two per block at head_dim <= 128 when split). Returns the plan
-    and the checked operands (index, lengths, beta, gamma, kv_type)."""
+    one (row tile, shard) per block, two consumer warpgroups on its 128
+    folded query rows at head_dim <= 128 (one on 64 at 256). Returns the
+    plan and the checked operands (index, lengths, beta, gamma,
+    kv_type)."""
     b, c, H, dk = q.shape
     L = (k.shape[1] if page_table is None
          else page_table.shape[1] * k.shape[1])
@@ -77,7 +78,7 @@ def prefill_plan(kernel, q, k, v, index, lengths, beta, gamma, *, bk=512,
     ops += [LP.index_operand("index", index),
             LP.index_operand("lengths", lengths)]
     plan = LP.walk_plan(kernel, b=b, c=c, H=H, hkv=k.shape[2], dk=dk,
-                        kv_dtype=k.dtype, wide=False, index_operands=ops,
+                        kv_dtype=k.dtype, index_operands=ops,
                         n_index=len(ops), out_shape=q.shape,
                         out_dtype=q.dtype, L=L, bk=bk)
     return plan, dict(index=index, lengths=lengths, beta=beta, gamma=gamma,
@@ -106,8 +107,7 @@ def _split(plan, q):
         return lay["shard_rows"], 1, None, None
     partials = plan.outputs[0]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    per = -(-lay["ns"] // 2) if lay["paired"] else lay["ns"]
-    n_tiles = plan.grid[0] // per * plan.grid[1] * plan.grid[2]
+    n_tiles = plan.grid[0] // lay["ns"] * plan.grid[1] * plan.grid[2]
     return (lay["shard_rows"], lay["ns"],
             torch.empty(partials.shape, dtype=torch.float32,
                         device=q.device),

@@ -1,33 +1,39 @@
 // The Hopper attention mainloop shared by the query-tiled attention kernels:
 // consmax_prefill (contiguous cache and page pool; bf16, int8 or fp8_e4m3
-// K/V), consmax_attn and softmax_attn. One CTA owns 64 folded query rows
-// (wgmma's M) of one KV head and walks the KV tiles those rows can see, in
-// order, through a ring of kStages shared-memory stages; the full-sequence
-// kernels put two such consumers (128 rows) on one ring:
+// K/V), consmax_attn and softmax_attn. A consumer warpgroup owns 64 folded
+// query rows (wgmma's M) of one KV head and walks the KV tiles those rows
+// can see, in order, through a ring of kStages shared-memory stages; at
+// head_dim <= 128 a CTA puts two consumers (128 rows) on each tile it
+// copies, at 256 one:
 //
-//   the last warpgroup (producer, 128 threads): step t waits for stage t's `empty`
-//     mbarrier and issues cp.async 16-byte copies of tile t's K and V rows
-//     (one row address per row: contiguous, or through the page table; rows
-//     past the walk's end or on an unmapped page are zero-filled by the copy
-//     itself and never read); the copy unit arrives on the stage's `full`
-//     mbarrier when they land, so every stage can be in flight. An int8 /
-//     fp8 cache is copied the same way into a staging slot of codes and fp32
-//     row scales, and one step later the producer waits for them and
-//     dequantizes them into the stage's bf16 operand tile through
-//     consmax_common.cuh `dequant`, unchanged: a quantized tile holds
-//     exactly the bf16 values of the dequantized cache, so everything
-//     downstream gives the same bits.
-//   each other warpgroup (consumer, 128 threads): loads its Q tile into shared memory
-//     once, then per tile waits for `full`, computes S = Q K^T with
-//     wgmma.m64n64k16 (A and B from shared memory, both K-major, k-steps in
-//     order), applies the mask and the per-score epilogue on the
-//     accumulator in registers, rounds P to bf16 in registers (the TPU
-//     kernels' p.astype(v.dtype)), adds O += P V with wgmma.m64nDKk16 (A = P
-//     from registers, B = the V tile, MN-major), and arrives on `empty`. It
-//     waits only for the tile it works on: a consumer that waited for tile
-//     t + 1 before releasing tile t would deadlock the two-stage quantized
-//     ring, whose producer publishes t + 1 only after it has refilled tile
-//     t's stage.
+//   the last warpgroup (producer, 128 threads): step t waits for stage t's
+//     `empty` mbarrier and issues cp.async 16-byte copies of tile t's K and
+//     V rows (one row address per row: contiguous, or through the page
+//     table; rows past the walk's end or on an unmapped page are
+//     zero-filled by the copy itself and never read); the copy unit arrives
+//     on the stage's `full` mbarrier when they land, so every stage can be
+//     in flight. An int8 / fp8 cache is copied the same way into a staging
+//     slot of codes and fp32 row scales, and one step later the producer
+//     waits for them and dequantizes them into the stage's bf16 operand
+//     tile through consmax_common.cuh `dequant`, unchanged: a quantized
+//     tile holds exactly the bf16 values of the dequantized cache, so
+//     everything downstream gives the same bits.
+//   each other warpgroup (consumer, 128 threads): loads its Q tile into
+//     shared memory once, then per tile waits for `full`, computes
+//     S = Q K^T with wgmma.m64n64k16 (A and B from shared memory, both
+//     K-major, k-steps in order), applies the mask and the per-score
+//     epilogue on the accumulator in registers, rounds P to bf16 in
+//     registers (the TPU kernels' p.astype(v.dtype)), adds O += P V with
+//     wgmma.m64nDKk16 (A = P from registers, B = the V tile, MN-major), and
+//     arrives on `empty`. At head_dim <= 128 the step is overlapped
+//     (FlashAttention-3's order): tile j's S is issued before tile j - 1's
+//     P V, and tile j's epilogue runs while that P V does. So a consumer
+//     holds tile j - 1 while it waits for tile j, and the producer
+//     publishes tile j without waiting for tile j - 1's stage. At 256 the
+//     step stays serial: O's 128 registers leave no room for a score tile
+//     beside an O in flight (255 registers, slower).
+//   registers: with two consumers, setmaxnreg moves them from the producer
+//     (kProducerRegs) to the consumers (kConsumerRegs).
 //
 // Tiles are summed in order into one fp32 accumulator: every run gives the
 // same bits, and any two kernels that walk the same rows through this loop
@@ -38,23 +44,19 @@
 //
 // The KV-shard axis (ConSmax forms only; consmax_prefill's grid): with
 // ns > 1 the rows 0 .. L are cut into ns shards of shard_rows logical rows
-// (a multiple of kWalkBN, so a shard is whole tiles), and each consumer
-// warpgroup walks one (row tile, shard) pair: one per CTA, or, paired
-// (kPair, consmax_prefill at head_dim <= 128), two shards of a row tile in
-// one CTA, their tiles alternating through the one ring (TileSeq), so two
-// independent tile chains share an SM and its fixed costs. A walk is
-// clamped to its shard after the fill / causal / window bounds and its
-// fp32 accumulator is the shard's partial; a CTA with no live shard
-// returns before the ring starts. Every CTA of a (slot, KV head, row tile)
-// derives the same live run [s0, s1) from index, lengths, causality and
-// the window, so the one holding the last live shards to finish, found by
-// an int32 ticket (atomicAdd; no fp32 atomics), sums the partials in shard
-// order, whichever CTA it is, writes the bf16 rows and resets the ticket.
-// A row tile with no live shard gets zeros from its first CTA. ns = 1 is
-// the unsplit walk: no partials, no ticket, the same bits as a launch
-// without the axis. ConSmax weights need no running max, so a shard's
-// partial is just its share of the sum; softmax's (m, l) would need a
-// rescale, so the softmax form keeps ns = 1.
+// (a multiple of kWalkBN, so a shard is whole tiles), and each CTA walks
+// one (row tile, shard) pair, clamped to its shard after the fill / causal
+// / window bounds; its fp32 accumulator is the shard's partial. Every CTA
+// of a (slot, KV head, row tile) derives the same live run [s0, s1) from
+// index, lengths, causality and the window; a CTA whose shard is not in it
+// returns before the ring starts, and the one holding the last live shard
+// to finish, found by an int32 ticket (atomicAdd; no fp32 atomics), sums
+// the partials in shard order, whichever CTA it is, writes the bf16 rows
+// and resets the ticket. A row tile with no live shard gets zeros from its
+// shard-0 CTA. ns = 1 is the unsplit walk: no partials, no ticket, the same
+// bits as a launch without the axis. ConSmax weights need no running max,
+// so a shard's partial is just its share of the sum; softmax's (m, l) would
+// need a rescale, so the softmax form keeps ns = 1.
 //
 // Shared-memory operand layout: every tile (Q, K, V) is stored as 8 x 16-
 // byte "core matrices" (8 rows x 8 bf16), each 128 contiguous bytes, the
@@ -75,10 +77,7 @@
 // rescale of O, l summed over the quad once at the end, the final divide),
 // with the -1e30 mask value of softmax_attn/kernel.py. A tile that every
 // (row, key) pair of the CTA can see skips the mask; the two branches
-// compute the same values. The full-sequence kernels run two consumer
-// warpgroups per CTA at head_dim <= 128 (128 rows share each copied K/V
-// tile, and one warpgroup's epilogue overlaps the other's products); a
-// serving chunk keeps one, so the engine's chunk fills more SMs.
+// compute the same values.
 //
 // Why cp.async and not TMA: a TMA box reads whole rows up to the tensor's
 // bounds, so rows past the fill (stale cache rows) and rows of unmapped
@@ -109,6 +108,52 @@ constexpr float kNegInf = -1e30f;  // softmax_attn/kernel.py NEG_INF
 constexpr int kProducerBar = 3;    // named barrier of the producer warpgroup
 constexpr int kConsumersBar = 4;   // named barrier of all consumer warpgroups
 constexpr int kLastSlot = 124;     // the combine's flag, after the mbarriers
+// Registers per thread of each role with two consumer warpgroups (setmaxnreg;
+// 384 threads start at 168, 64,512 in all): the producer only issues
+// copies and dequantizes, the consumers hold O, S and P
+constexpr int kProducerRegs = 64;
+constexpr int kConsumerRegs = 216;
+static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 168 * 384,
+              "the roles' registers exceed the CTA's");
+
+// --------------------------------------------------------- tile clock ----
+// Built only by tools/tile_clock.py (nvcc -DATTN_TILE_CLOCK), never by the
+// kernels' own build: thread 0 of each consumer warpgroup stamps clock64()
+// at the points of every tile step (kClock*) and of its walk (kWalk*, in
+// the slot after the last tile) into g_tile_clock, laid out [CTA][consumer
+// warpgroup][tile 0 .. cap, walk][point]. Tiles past cap are not stamped.
+#ifdef ATTN_TILE_CLOCK
+__device__ long long* g_tile_clock;
+__device__ int g_tile_clock_cap;
+enum {
+  kClockFullWait, kClockFullDone, kClockSIssued, kClockSDone, kClockEpiDone,
+  kClockPVIssued, kClockPVDone, kClockReleased, kClockPoints
+};
+enum { kWalkEntry, kWalkLoopStart, kWalkLoopEnd, kWalkStored, kWalkEnd };
+// One consumer warpgroup's stamps, the globals read once: p is null on
+// every other thread and when the stamps are off.
+struct TileClock {
+  long long* p = nullptr;
+  int cap = 0;
+  __device__ __forceinline__ TileClock(int cw, bool consumer) {
+    if (!consumer || threadIdx.x % 128 || !g_tile_clock) return;
+    cap = g_tile_clock_cap;
+    const size_t cta =
+        blockIdx.x + gridDim.x * (blockIdx.y + size_t{gridDim.y} * blockIdx.z);
+    p = g_tile_clock + (cta * 2 + cw) * (cap + 1) * kClockPoints;
+  }
+  __device__ __forceinline__ void stamp(int jt, int point) const {
+    if (p && jt <= cap) p[jt * kClockPoints + point] = clock64();
+  }
+};
+#define CLOCK_INIT(cw, consumer) const TileClock tile_clock_(cw, consumer)
+#define TILE_CLOCK(jt, point) tile_clock_.stamp(jt, point)
+#define WALK_CLOCK(point) tile_clock_.stamp(tile_clock_.cap, point)
+#else
+#define CLOCK_INIT(cw, consumer) ((void)0)
+#define TILE_CLOCK(jt, point) ((void)0)
+#define WALK_CLOCK(point) ((void)0)
+#endif
 
 // ---------------------------------------------------------------- PTX ----
 // A barrier over one warpgroup (ids 1, 2: consumers, kProducerBar: producer).
@@ -121,6 +166,17 @@ template <int kCons>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"r"(kConsumersBar), "r"(128 * kCons)
                : "memory");
+}
+
+// Move this warpgroup's registers per thread down (the producer) or up
+// (the consumers) to n; the CTA's total stays what the launch gave it.
+template <int n>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(n));
+}
+template <int n>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(n));
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -304,30 +360,15 @@ __device__ __forceinline__ void dequant_tile(uint8_t* smem, int pt, int t) {
   }
 }
 
-// The ring order of a CTA's tiles. One walk (n[1] = 0): its tile j at ring
-// position j. Two walks (a paired CTA: two consumer warpgroups on two KV
-// shards of the same rows): walk c's tile j; the two walks' tiles alternate
-// while both have tiles (walk 0 at even positions), then the longer walk's
-// rest follows in order.
-struct TileSeq {
-  int n[2];         // tiles of walk 0 and walk 1
-  int begin[2];     // each walk's first KV row (a multiple of kWalkBN)
-  int end[2];       // each walk's end: rows at or past it are zero-filled
-  __device__ __forceinline__ int total() const { return n[0] + n[1]; }
-  __device__ __forceinline__ int pos(int c, int j) const {
-    const int m = min(n[0], n[1]);
-    return j < m ? 2 * j + c : 2 * m + (j - m);
-  }
-  __device__ __forceinline__ void owner(int p, int* c, int* j) const {
-    const int m = min(n[0], n[1]);
-    if (p < 2 * m) {
-      *c = p & 1;
-      *j = p >> 1;
-    } else {
-      *c = n[0] > n[1] ? 0 : 1;
-      *j = m + (p - 2 * m);
-    }
-  }
+// A CTA's walk: KV head h of slot b over one row tile (rows r0 ..), its
+// tiles n from KV row begin (a multiple of kWalkBN), rows at or past end
+// zero-filled. With ns > 1: the row tile's live shards [s0, s1) and the
+// CTA's shard, or, for a row tile with no live shard, zero.
+struct CtaWalk {
+  int b, h, tile, r0, idx, kvl;
+  int s0, s1, shard;
+  bool zero;
+  int n, begin, end;
 };
 
 // bf16: step t waits for tile t's stage to be free, issues its copies and
@@ -335,26 +376,25 @@ struct TileSeq {
 // land (cp.async.mbarrier.arrive.noinc), so every stage of the ring can be
 // in flight and the producer never waits for its own copies.
 // int8 / fp8: step t issues tile t into its staging slot and publishes tile
-// t - 1: waits for its own copies of it, dequantizes it into the stage's
-// bf16 tile, fences and arrives. The consumer waits only for the tile it
-// works on, so neither form waits on a stage the consumer still needs.
-// Tiles are issued in ring order (TileSeq); a paired CTA's two consumers
-// each wait only for their own walk's tiles, which they release in order.
+// t - 1: waits for its own copies of it, then for its operand stage to be
+// free, dequantizes it into the stage's bf16 tile, fences and arrives.
+// Publishing tile t - 1 waits only for tile t - 1 - S's release, never for
+// a later tile's stage, so the codes run a tile further ahead, and a
+// consumer that holds tile j - 1 while it waits for tile j (the overlapped
+// step) is never waited for.
 template <int DK, int kCons, class TKV, class Rows>
 __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
-                                              uint8_t* smem, int b, int h,
-                                              const TileSeq& seq) {
+                                              uint8_t* smem,
+                                              const CtaWalk& it) {
   using Lay = WalkLayout<DK, TKV, kCons>;
   const int pt = threadIdx.x - 128 * kCons;
   constexpr int S = Lay::kStages;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
-  const int n_tiles = seq.total();
+  const int n_tiles = it.n;
   auto issue = [&](int t) {
-    int c, j;
-    seq.owner(t, &c, &j);
-    issue_tile<DK, kCons>(a, smem, pt, b, h, t, seq.begin[c] + j * kWalkBN,
-                          seq.end[c]);
+    issue_tile<DK, kCons>(a, smem, pt, it.b, it.h, t,
+                          it.begin + t * kWalkBN, it.end);
   };
   if constexpr (!Lay::kScaled) {
     for (int t = 0; t < n_tiles; ++t) {
@@ -364,8 +404,9 @@ __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
     }
   } else {
     for (int t = 0; t <= n_tiles; ++t) {
+      // tile t's codes into staging slot t % S, which held tile t - S,
+      // dequantized by step t - S + 1 <= t - 1 (S >= 2): no wait
       if (t < n_tiles) {
-        mbar_wait(&empty[t % S], ((t / S) & 1) ^ 1);
         issue(t);
         cp_async_commit();
       }
@@ -376,6 +417,8 @@ __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
         cp_async_wait<0>();
       }
       warpgroup_sync(kProducerBar);  // every producer thread's copies landed
+      // tile t - 1's operand stage: free once tile t - 1 - S is released
+      mbar_wait(&empty[(t - 1) % S], (((t - 1) / S) & 1) ^ 1);
       dequant_tile<DK, kCons, TKV>(smem, pt, t - 1);
       warpgroup_sync(kProducerBar);  // its staging slot may be refilled
       fence_proxy_async();
@@ -386,17 +429,17 @@ __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
 
 // ------------------------------------------------------------ consumer ----
 // Consumer warpgroup cw of the CTA, rows r0 .. r0 + 63 (r0 = the CTA's
-// first row + 64 cw, or the CTA's rows when paired). It takes every tile of
-// its walk (`walk` of seq: 0, or cw when paired) in order, and computes the
-// ones its own rows can see: a tile no row of it can see would add exact
-// zeros (softmax: alpha 1 and e 0), so it only releases it. With ns > 1 it
-// stores its rows as shard `shard`'s fp32 partial, else as the bf16 output.
-template <int DK, int kForm, int kCons, bool kPair, class TKV, class Rows>
+// first row + 64 cw). It takes every tile of the CTA's walk in order, and
+// computes the ones its own rows can see: a tile no row of it can see would
+// add exact zeros (softmax: alpha 1 and e 0), so it only releases it. With
+// ns > 1 it stores its rows as the CTA's shard's fp32 partial, else as the
+// bf16 output.
+template <int DK, int kForm, int kCons, class TKV, class Rows>
 __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
-                                              uint8_t* smem, int cw, int b,
-                                              int h, int r0, int idx, int kvl,
-                                              const TileSeq& seq, int walk,
-                                              int shard) {
+                                              uint8_t* smem, int cw,
+                                              const CtaWalk& it) {
+  const int b = it.b, h = it.h, idx = it.idx, kvl = it.kvl;
+  const int r0 = it.r0 + cw * kWalkRows;
   using Lay = WalkLayout<DK, TKV, kCons>;
   constexpr int CH = Lay::kChunks;
   constexpr int S = Lay::kStages;
@@ -410,10 +453,12 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
   const int lt = kCons > 1 ? threadIdx.x % 128 : threadIdx.x;  // in the WG
   const int warp = lt / 32, lane = lt % 32;
   const int gid = lane >> 2, tig = lane & 3;
+  CLOCK_INIT(cw, true);
 
   // the Q tile, once, every copy in flight at once (rows past the folded
   // chunk are zero-filled): a KV shard's CTA walks few tiles, so this
-  // load's latency is paid by every shard
+  // load's latency is paid by every shard; the rows' weights are read
+  // while it lands
   for (int i = lt; i < kWalkRows * CH; i += 128) {
     const int rest = i >> 3, ch = rest % CH;
     const int r = (rest / CH) * 8 + (i & 7);
@@ -426,9 +471,6 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
                ok);
   }
   cp_async_commit();
-  cp_async_wait<0>();
-  fence_proxy_async();
-  warpgroup_sync(1 + cw);
 
   // this thread's two accumulator rows: 16 warp + gid (+ 8)
   bool rvalid[2];
@@ -477,25 +519,41 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
   }
   if (r0 >= rows_total) live_end = 0;
 
+  cp_async_wait<0>();  // the Q tile landed, visible to the tensor cores
+  fence_proxy_async();
+  warpgroup_sync(1 + cw);
   const uint32_t q_addr = smem_u32(q_s);
   const uint32_t kv_addr = smem_u32(smem + Lay::kKV);
-  const int n_tiles = seq.n[walk];
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int t = seq.pos(walk, jt);  // the tile's ring position
-    const int s = t % S;
-    const int j0 = seq.begin[walk] + jt * kWalkBN;
-    const uint32_t k_addr = kv_addr + s * 2 * Lay::kTile;
-    const uint32_t v_addr = k_addr + Lay::kTile;
-    mbar_wait(&full[s], (t / S) & 1);
-    if (kCons > 1 && !kPair &&
-        (j0 >= live_end || j0 + kWalkBN <= live_begin)) {
-      mbar_arrive(&empty[s]);  // a dead tile for this warpgroup
-      continue;
-    }
-    fence_proxy_async();  // the landed copies, visible to the tensor cores
+  const int n_tiles = it.n;
+  // the tiles this warpgroup computes, [lo, hi): with two consumers on one
+  // tile the tiles before its rows' window and past their reach are dead
+  // for it, a prefix and a suffix of the walk
+  int lo = 0, hi = n_tiles;
+  if constexpr (kCons > 1) {
+    while (lo < hi && it.begin + (lo + 1) * kWalkBN <= live_begin) ++lo;
+    while (hi > lo && it.begin + (hi - 1) * kWalkBN >= live_end) --hi;
+  }
+  auto stage = [&](int jt) { return jt % S; };
+  auto wait_full = [&](int jt) {
+    TILE_CLOCK(jt, kClockFullWait);
+    mbar_wait(&full[jt % S], (jt / S) & 1);
+    TILE_CLOCK(jt, kClockFullDone);
+  };
+  WALK_CLOCK(kWalkLoopStart);
+  for (int jt = 0; jt < lo; ++jt) {  // dead tiles: released as they land
+    wait_full(jt);
+    mbar_arrive(&empty[stage(jt)]);
+  }
 
-    // S = Q K^T, k-steps of 16 columns in order
-    float sc[NS];
+  float sc[NS];                    // S of one tile, then its weights
+  uint32_t pa[kWalkBN / 16][4];    // P as bf16 A fragments
+  float alpha[2] = {1.f, 1.f};     // softmax: the rescale of O
+  // S = Q K^T of tile jt into sc once its stage has landed, k-steps of 16
+  // columns in order; committed as one group, not waited for
+  auto issue_s = [&](int jt) {
+    wait_full(jt);
+    fence_proxy_async();  // the landed copies, visible to the tensor cores
+    const uint32_t k_addr = kv_addr + stage(jt) * 2 * Lay::kTile;
 #pragma unroll
     for (int i = 0; i < NS; ++i) sc[i] = 0.f;
     fence_regs<NS>(sc);
@@ -506,12 +564,36 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
                          smem_desc(k_addr + ks * 256, 128, DK * 16), ks > 0);
     }
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<NS>(sc);
-
-    // the per-score epilogue on the accumulator: register i is row
-    // (i >> 1) & 1 of this thread's two, key j0 + 8 (i >> 2) + 2 tig + (i & 1);
-    // x = the score times log2 e (softcapped first where asked)
+    TILE_CLOCK(jt, kClockSIssued);
+  };
+  // O += P V of tile jt (P in pa), k-steps of 16 KV rows in order; one group
+  auto issue_pv = [&](int jt) {
+    const uint32_t v_addr =
+        kv_addr + stage(jt) * 2 * Lay::kTile + Lay::kTile;
+    fence_regs<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWalkBN / 16; ++kk) {
+      Wgmma<DK>::rs(o, pa[kk],
+                    smem_desc(v_addr + kk * 2 * DK * 16, DK * 16, 128), 1);
+    }
+    wgmma_commit();
+    TILE_CLOCK(jt, kClockPVIssued);
+  };
+  // after P V of tile jt has landed: its stage goes back to the producer
+  auto release = [&](int jt) {
+    fence_regs<NO>(o);
+    TILE_CLOCK(jt, kClockPVDone);
+    mbar_arrive(&empty[stage(jt)]);
+    TILE_CLOCK(jt, kClockReleased);
+  };
+  // the per-score epilogue of tile jt on sc, in place (O untouched: it may
+  // be in flight): register i is row (i >> 1) & 1 of this thread's two,
+  // key j0 + 8 (i >> 2) + 2 tig + (i & 1); x = the score times log2 e
+  // (softcapped first where asked). Softmax also moves m and l on and
+  // leaves O's rescale in alpha.
+  auto epilogue = [&](int jt) {
+    const int j0 = it.begin + jt * kWalkBN;
     const bool interior =
         rows_full && j0 + kWalkBN <= kvl &&
         (!a.causal || j0 + kWalkBN - 1 <= idx + pos_lo) &&
@@ -548,7 +630,6 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
           m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sc[i]);
         }
       }
-      float alpha[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {  // the row's max over its quad
         m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
@@ -566,8 +647,6 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + lt[i];
-#pragma unroll
-      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
     } else {
       // Eq. 3: C ex2(x); Eq. 2: ex2(x - beta log2 e) / gamma
       auto weight = [&](int i) {
@@ -584,29 +663,71 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
         for (int i = 0; i < NS; ++i) sc[i] = visible(i) ? weight(i) : 0.f;
       }
     }
-
-    // P as bf16 A fragments: k-step kk holds score columns 16 kk .. 16 kk + 15
-    uint32_t pa[kWalkBN / 16][4];
+#ifdef ATTN_TILE_CLOCK
+    fence_regs<NS>(sc);
+#endif
+    TILE_CLOCK(jt, kClockEpiDone);
+  };
+  // once O is not in flight: softmax's rescale, then P as bf16 A fragments
+  // (k-step kk holds score columns 16 kk .. 16 kk + 15)
+  auto rescale_pack = [&]() {
+    if constexpr (kForm == kFormSoftmax) {
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+    }
 #pragma unroll
     for (int kk = 0; kk < kWalkBN / 16; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
     }
+  };
 
-    // O += P V, k-steps of 16 KV rows in order
-    fence_regs<NO>(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kWalkBN / 16; ++kk) {
-      Wgmma<DK>::rs(o, pa[kk],
-                    smem_desc(v_addr + kk * 2 * DK * 16, DK * 16, 128), 1);
+  // The tile step. Overlapped (head_dim <= 128): tile jt's S is issued
+  // before tile jt - 1's P V, so the tensor cores run S_jt then P_{jt-1}
+  // V_{jt-1} back to back, and the epilogue of tile jt runs while P_{jt-1}
+  // V_{jt-1} does. One score tile and one P in registers (P of jt - 1 is
+  // packed before S_jt is issued into sc). The sums keep their order: O =
+  // alpha_jt (O + P_{jt-1} V_{jt-1}) + P_jt V_jt, as the serial step adds
+  // them. While it waits for tile jt's stage the warpgroup holds tile jt -
+  // 1's, which the producer never waits for before publishing tile jt.
+  // Serial (head_dim 256, where O takes 128 registers): P V of tile jt - 1
+  // lands and its stage is released before tile jt's S is issued.
+  constexpr bool kOverlap = DK <= 128;
+  for (int jt = lo; jt < hi; ++jt) {
+    if (!kOverlap && jt > lo) {
+      issue_pv(jt - 1);
+      wgmma_wait<0>();
+      release(jt - 1);
     }
-    wgmma_commit();
+    issue_s(jt);
+    if (kOverlap && jt > lo) {
+      issue_pv(jt - 1);
+      wgmma_wait<1>();  // S of tile jt landed; P V of jt - 1 runs on
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs<NS>(sc);
+    TILE_CLOCK(jt, kClockSDone);
+    epilogue(jt);
+    // O not in flight past here on any path (softmax rescales it next; a
+    // wait under the release's condition would leave ptxas a path that
+    // writes O while its product runs, and it would serialize the wgmmas)
     wgmma_wait<0>();
     fence_regs<NO>(o);
-    mbar_arrive(&empty[s]);
+    if (kOverlap && jt > lo) release(jt - 1);
+    rescale_pack();
   }
+  if (lo < hi) {
+    issue_pv(hi - 1);
+    wgmma_wait<0>();
+    release(hi - 1);
+  }
+  for (int jt = hi; jt < n_tiles; ++jt) {  // dead tiles past the reach
+    wait_full(jt);
+    mbar_arrive(&empty[stage(jt)]);
+  }
+  WALK_CLOCK(kWalkLoopEnd);
 
   if constexpr (kForm == kFormSoftmax) {
 #pragma unroll
@@ -620,7 +741,7 @@ __device__ __forceinline__ void walk_consumer(const WalkArgs<TKV, Rows>& a,
   } else {
     if (a.ns > 1) {  // this shard's partial: rows (b, h, shard, r, :)
       float* part = a.partials + ((static_cast<size_t>(b) * a.hkv + h) *
-                                      a.ns + shard) * rows_total * DK;
+                                      a.ns + it.shard) * rows_total * DK;
 #pragma unroll
       for (int i = 0; i < NO; i += 2) {
         const int r = r0 + warp * 16 + gid + 8 * ((i >> 1) & 1);
@@ -653,7 +774,7 @@ __device__ __forceinline__ __nv_bfloat16* out_row(const WalkArgs<TKV, Rows>& a,
 }
 
 // A row tile with no live shard: its rows are exact zeros (as an unsplit
-// walk of no tile leaves them), written by all threads of its first CTA.
+// walk of no tile leaves them), written by all threads of its shard-0 CTA.
 template <int DK, int kCtaRows, class TKV, class Rows>
 __device__ __forceinline__ void zero_rows(const WalkArgs<TKV, Rows>& a,
                                           int b, int h, int r0) {
@@ -666,18 +787,17 @@ __device__ __forceinline__ void zero_rows(const WalkArgs<TKV, Rows>& a,
   }
 }
 
-// After the consumers stored their shards' partials (`mine` live shards of
-// this CTA: 1, or 2 when paired): the CTA that brings the int32 ticket of
-// (b, h, tile) to s1 - s0 (nr row tiles) holds the last live shards of the
-// row tile to finish; it sums the live partials in shard order, s0 first,
-// and writes the bf16 rows, and resets the ticket, so the buffer is zeros
-// for the next launch. Consumer threads only; the CTA's rows are r0 ..
-// r0 + kCtaRows - 1.
+// After the consumers stored their shard's partial: the CTA that brings
+// the int32 ticket of (b, h, tile) to s1 - s0 (nr row tiles) holds the last
+// live shard of the row tile to finish; it sums the live partials in shard
+// order, s0 first, and writes the bf16 rows, and resets the ticket, so the
+// buffer is zeros for the next launch. Consumer threads only; the CTA's
+// rows are r0 .. r0 + kCtaRows - 1.
 template <int DK, int kCons, int kCtaRows, class TKV, class Rows>
 __device__ __forceinline__ void combine_shards(const WalkArgs<TKV, Rows>& a,
                                                uint8_t* smem, int b, int h,
                                                int tile, int nr, int r0,
-                                               int s0, int s1, int mine) {
+                                               int s0, int s1) {
   constexpr int Q4 = DK / 4;  // float4 per row
   const int rows_total = a.c * (a.H / a.hkv);
   int* last = reinterpret_cast<int*>(smem + kLastSlot);
@@ -685,7 +805,7 @@ __device__ __forceinline__ void combine_shards(const WalkArgs<TKV, Rows>& a,
   consumers_sync<kCons>();
   if (threadIdx.x == 0) {
     int* ticket = a.tickets + (static_cast<size_t>(b) * a.hkv + h) * nr + tile;
-    const int done = atomicAdd(ticket, mine) + mine == s1 - s0;
+    const int done = atomicAdd(ticket, 1) + 1 == s1 - s0;
     if (done) *ticket = 0;
     *last = done;
   }
@@ -717,128 +837,132 @@ __device__ __forceinline__ void combine_shards(const WalkArgs<TKV, Rows>& a,
   }
 }
 
-// --------------------------------------------------------------- kernel ----
-// kCons consumer warpgroups share every K/V tile of the CTA; warpgroup kCons
-// is the producer. Unpaired: 64 rows per consumer, one walk, blockIdx.x =
-// row tile * ns + shard (a row tile's shards issued together, so the shards
-// past a chunk's fill, which return at once, fall between live ones).
-// Paired (kPair, the serving chunk at head_dim <= 128): two consumers on
-// the same 64 rows, consumer c walking shard 2 p + c of the CTA's shard
-// pair p, blockIdx.x = row tile * ceil(ns / 2) + p: two independent tile
-// chains per SM, each giving the same partial as a CTA walking that shard
-// alone. At ns = 1 consumer 1 has no walk and consumer 0 walks the whole
-// row tile, as an unpaired CTA would, with the same bits.
-template <int DK, int kForm, class TKV, class Rows, int kCons, bool kPair>
-__global__ void __launch_bounds__(128 * (kCons + 1), 1)
-    attn_walk_kernel(const __grid_constant__ WalkArgs<TKV, Rows> a) {
-  using Lay = WalkLayout<DK, TKV, kCons>;
-  constexpr int kCtaRows = kPair ? kWalkRows : kCons * kWalkRows;
-  constexpr int kWalks = kPair ? 2 : 1;
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = a.H / a.hkv;
-  const int per_tile = kPair ? (a.ns + 1) / 2 : a.ns;  // CTAs per row tile
-  const int nr = gridDim.x / per_tile;
-  const int tile = blockIdx.x / per_tile;
-  const int shard0 = (blockIdx.x % per_tile) * kWalks;
-  const int r0 = (a.reverse ? nr - 1 - tile : tile) * kCtaRows;
-  const int idx = a.index ? a.index[b] : 0;
-  const int kvl = a.index ? idx + a.lengths[b] : a.L;
+// --------------------------------------------------------------- walks ----
+__device__ __forceinline__ int tiles_of(int lo, int hi) {
+  return hi > lo ? (hi - lo + kWalkBN - 1) / kWalkBN : 0;
+}
 
-  // the KV tiles this CTA's rows can see (never past the cache's last row,
-  // even if index + lengths runs over it)
+// The KV rows [lo, hi) that the `rows` rows from r0 of a chunk at index idx
+// (keys end at kvl) can see, lo on a tile boundary (empty when they see
+// none: a window past the fill); never past the cache's last row, even if
+// index + lengths runs over it.
+template <class TKV, class Rows>
+__device__ __forceinline__ void walk_span(const WalkArgs<TKV, Rows>& a,
+                                          int rows, int r0, int idx, int kvl,
+                                          int* lo, int* hi) {
+  const int g = a.H / a.hkv;
   int kv_begin = 0, kv_end = a.L;
   if (a.fill_bound) {
     const int pos_lo = r0 / g;
-    const int pos_hi = min(a.c - 1, (r0 + kCtaRows - 1) / g);
+    const int pos_hi = min(a.c - 1, (r0 + rows - 1) / g);
     kv_end = min(a.L, kvl);
     if (a.causal) kv_end = min(kv_end, idx + pos_hi + 1);
     if (a.window > 0) kv_begin = max(0, idx + pos_lo - a.window + 1);
   }
-  kv_begin = (kv_begin / kWalkBN) * kWalkBN;
-  auto tiles = [](int lo, int hi) {
-    return hi > lo ? (hi - lo + kWalkBN - 1) / kWalkBN : 0;
-  };
-  TileSeq seq{{tiles(kv_begin, kv_end), 0}, {kv_begin, 0}, {kv_end, 0}};
-  // the live shards [s0, s1): those holding a tile of the walk, the same
-  // run for every CTA of the row tile; each walk covers its shard's share
-  int s0 = 0, s1 = 1, mine = 0;
-  if constexpr (kForm != kFormSoftmax) {
-    if (a.ns > 1) {
-      s0 = kv_begin / a.shard_rows;
-      s1 = kv_end > kv_begin ? (kv_end - 1) / a.shard_rows + 1 : s0;
-      for (int c = 0; c < kWalks; ++c) {
-        const int sh = shard0 + c;
-        const bool live = sh >= s0 && sh < s1;
-        const int lo = max(kv_begin, sh * a.shard_rows);
-        const int hi = min(kv_end, (sh + 1) * a.shard_rows);
-        seq.n[c] = live ? tiles(lo, hi) : 0;
-        seq.begin[c] = lo;
-        seq.end[c] = hi;
-        mine += live;
-      }
-      if (!mine) {
-        if (s1 <= s0 && shard0 == 0) zero_rows<DK, kCtaRows>(a, b, h, r0);
-        return;
-      }
-    }
-  }
+  *lo = (kv_begin / kWalkBN) * kWalkBN;
+  *hi = kv_end > kv_begin ? kv_end : *lo;
+}
 
+// The live shards [s0, s1) of a row tile's span: those holding a tile of
+// it, the same run for every CTA of the row tile.
+__device__ __forceinline__ void live_run(int lo, int hi, int shard_rows,
+                                         int* s0, int* s1) {
+  *s0 = lo / shard_rows;
+  *s1 = hi > lo ? (hi - 1) / shard_rows + 1 : *s0;
+}
+
+// The walk of CTA (x, y, z): row tile x / ns, its shard x mod ns (the
+// whole span unsplit), KV head y, slot z; live: the shard holds a tile of
+// the row tile's span, or it is shard 0 of a row tile with no live shard
+// (whose rows it zeroes).
+template <int kCtaRows, class TKV, class Rows>
+__device__ __forceinline__ bool cta_walk(const WalkArgs<TKV, Rows>& a,
+                                         CtaWalk* it) {
+  it->b = blockIdx.z;
+  it->h = blockIdx.y;
+  it->tile = blockIdx.x / a.ns;
+  it->shard = blockIdx.x % a.ns;
+  it->idx = a.index ? a.index[it->b] : 0;
+  it->kvl = a.index ? it->idx + a.lengths[it->b] : a.L;
+  const int nr = gridDim.x / a.ns;
+  it->r0 = (a.reverse ? nr - 1 - it->tile : it->tile) * kCtaRows;
+  int lo, hi;
+  walk_span(a, kCtaRows, it->r0, it->idx, it->kvl, &lo, &hi);
+  it->s0 = 0;
+  it->s1 = 1;
+  it->zero = false;
+  if (a.ns > 1) {
+    live_run(lo, hi, a.shard_rows, &it->s0, &it->s1);
+    it->zero = it->s1 <= it->s0;
+    lo = max(lo, it->shard * a.shard_rows);
+    hi = it->zero ? lo : min(hi, (it->shard + 1) * a.shard_rows);
+  }
+  it->n = tiles_of(lo, hi);
+  it->begin = lo;
+  it->end = hi;
+  return a.ns == 1 ||
+         (it->zero ? it->shard == 0
+                   : it->shard >= it->s0 && it->shard < it->s1);
+}
+
+// --------------------------------------------------------------- kernel ----
+// kCons consumer warpgroups (two at head_dim <= 128) share every K/V tile
+// of the CTA, 64 rows each; warpgroup kCons is the producer. Grid (row
+// tiles x ns, hkv, b): a row tile's shards launch together, so the CTAs of
+// shards past a chunk's fill, which return at once, fall between live
+// ones.
+template <int DK, int kForm, class TKV, class Rows, int kCons>
+__global__ void __launch_bounds__(128 * (kCons + 1), 1)
+    attn_walk_kernel(const __grid_constant__ WalkArgs<TKV, Rows> a) {
+  using Lay = WalkLayout<DK, TKV, kCons>;
+  constexpr int kCtaRows = kCons * kWalkRows;
+  extern __shared__ __align__(128) uint8_t smem[];
+  CLOCK_INIT(threadIdx.x / 128, threadIdx.x < 128 * kCons);
+  WALK_CLOCK(kWalkEntry);
+  CtaWalk it;
+  if (!cta_walk<kCtaRows>(a, &it)) return;
+  if (it.zero) {
+    zero_rows<DK, kCtaRows>(a, it.b, it.h, it.r0);
+    return;
+  }
   if (threadIdx.x == 0) {
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
     for (int s = 0; s < Lay::kStages; ++s) {
-      mbar_init(&bars[s], 128);  // full: producer
-      // empty: every consumer, or (paired) the one that owns the tile
-      mbar_init(&bars[Lay::kStages + s], kPair ? 128 : 128 * kCons);
+      mbar_init(&bars[s], 128);                         // full: producer
+      mbar_init(&bars[Lay::kStages + s], 128 * kCons);  // empty: consumers
     }
     mbar_init_fence();
   }
   __syncthreads();
-  const int wg = threadIdx.x / 128;
+  // the warpgroup, uniform per warp, so each role's setmaxnreg is one branch
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == kCons) {
-    walk_producer<DK, kCons>(a, smem, b, h, seq);
+    if constexpr (kCons > 1) regs_dec<kProducerRegs>();
+    walk_producer<DK, kCons>(a, smem, it);
     return;
   }
-  const int walk = kPair ? wg : 0;
-  // a paired consumer without a shard of its own has no rows to write,
-  // except walk 0 unsplit, which writes its rows (zeros with no tile)
-  if (!kPair || seq.n[walk] > 0 || (a.ns == 1 && walk == 0))
-    walk_consumer<DK, kForm, kCons, kPair>(
-        a, smem, wg, b, h, r0 + (kPair ? 0 : wg * kWalkRows), idx, kvl, seq,
-        walk, shard0 + walk);
+  if constexpr (kCons > 1) regs_inc<kConsumerRegs>();
+  walk_consumer<DK, kForm, kCons>(a, smem, wg, it);
+  WALK_CLOCK(kWalkStored);
   if constexpr (kForm != kFormSoftmax) {
     if (a.ns > 1)
-      combine_shards<DK, kCons, kCtaRows>(a, smem, b, h, tile, nr, r0, s0,
-                                          s1, mine);
+      combine_shards<DK, kCons, kCtaRows>(a, smem, it.b, it.h, it.tile,
+                                          gridDim.x / a.ns, it.r0, it.s0,
+                                          it.s1);
   }
-}
-
-template <int DK, int kForm, class TKV, class Rows, int kCons, bool kPair>
-cudaError_t launch_grid(const WalkArgs<TKV, Rows>& a, int grid_x, int b,
-                        cudaStream_t stream) {
-  using Lay = WalkLayout<DK, TKV, kCons>;
-  auto kernel = attn_walk_kernel<DK, kForm, TKV, Rows, kCons, kPair>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<dim3(grid_x, a.hkv, b), 128 * (kCons + 1), Lay::kBytes, stream>>>(
-      a);
-  return cudaGetLastError();
+  WALK_CLOCK(kWalkEnd);
 }
 
 // One launch: 128 (kCons + 1) threads, the layout's dynamic shared memory
-// (the attribute is set once per instantiation). kWide: two consumer
-// warpgroups per CTA at head_dim <= 128, so each K/V tile copied serves 128
-// rows: for the full-sequence kernels, whose grids hold many waves of CTAs
-// (the copies' traffic halves, and one warpgroup's epilogue overlaps the
-// other's products); grid (ceil(c g / 128), hkv, b). A serving chunk keeps
-// 64 rows per CTA: at head_dim <= 128 paired, grid (ceil(c g / 64) x
-// ceil(ns / 2), hkv, b); at head_dim 256 (no registers for a second
-// consumer) one shard per CTA, grid (ceil(c g / 64) x ns, hkv, b). The
-// shard axis folds into grid.x (y and z stop at 65,535); a split needs a
-// ConSmax form, whole-tile shards covering L, and its partials and
-// tickets.
-template <int DK, int kForm, bool kWide = false, class TKV, class Rows>
+// (the attribute is set once per instantiation). Two consumer warpgroups
+// per CTA at head_dim <= 128, so each K/V tile copied serves 128 rows (the
+// copies' traffic halves, and one warpgroup's epilogue overlaps the
+// other's products); one at head_dim 256 (the registers of two O tiles and
+// the shared memory of two Q tiles are not there). Grid (ceil(c g / 64
+// kCons) x ns, hkv, b); the shard axis folds into grid.x (y and z stop at
+// 65,535). A split needs a ConSmax form, whole-tile shards covering L, and
+// its partials and tickets.
+template <int DK, int kForm, class TKV, class Rows>
 cudaError_t launch_walk(const WalkArgs<TKV, Rows>& a, int b,
                         cudaStream_t stream) {
   if (a.ns < 1 ||
@@ -846,19 +970,39 @@ cudaError_t launch_walk(const WalkArgs<TKV, Rows>& a, int b,
                     a.shard_rows % kWalkBN || a.shard_rows * a.ns < a.L ||
                     !a.partials || !a.tickets)))
     return cudaErrorInvalidValue;
-  const int g = a.H / a.hkv;
-  constexpr int kCons = kWide && DK <= 128 ? 2 : 1;
-  const int nr = (a.c * g + kCons * kWalkRows - 1) / (kCons * kWalkRows);
-  if constexpr (!kWide && DK <= 128 && kForm != kFormSoftmax) {
-    return launch_grid<DK, kForm, TKV, Rows, 2, true>(
-        a, nr * ((a.ns + 1) / 2), b, stream);
-  } else {
-    return launch_grid<DK, kForm, TKV, Rows, kCons, false>(a, nr * a.ns, b,
-                                                           stream);
-  }
+  constexpr int kCons = DK <= 128 ? 2 : 1;
+  using Lay = WalkLayout<DK, TKV, kCons>;
+  auto kernel = attn_walk_kernel<DK, kForm, TKV, Rows, kCons>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const int nr =
+      (a.c * (a.H / a.hkv) + kCons * kWalkRows - 1) / (kCons * kWalkRows);
+  kernel<<<dim3(nr * a.ns, a.hkv, b), 128 * (kCons + 1), Lay::kBytes,
+           stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+#ifdef ATTN_TILE_CLOCK
+// Where the stamps go (int64 device buffer, zeroed by the caller) and how
+// many tiles of a walk are stamped; null turns the stamps off.
+extern "C" int attn_tile_clock(void* buf, int cap) {
+  cudaError_t e = cudaMemcpyToSymbol(g_tile_clock, &buf, sizeof(buf));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(g_tile_clock_cap, &cap, sizeof(cap));
+  return static_cast<int>(e);
+}
+#endif
+
+// Registers per thread that a walk with `consumers` consumer warpgroups
+// gives its producer (producer = 1) or each consumer through setmaxnreg; 0:
+// none is set (one consumer: every thread keeps what ptxas gave it).
+extern "C" int attn_walk_role_regs(int consumers, int producer) {
+  if (consumers != 2) return 0;
+  return producer ? kProducerRegs : kConsumerRegs;
+}
 
 // The dynamic shared memory of one CTA at head_dim dk for a cache of
 // kv_type (KVCode) with `consumers` consumer warpgroups, in bytes; 0 for an

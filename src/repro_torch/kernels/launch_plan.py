@@ -42,7 +42,6 @@ from repro_torch.kernels._build import SMEM_PER_BLOCK
 # (kWalkRows, kWalkBN in csrc/attn_mainloop.cuh)
 WALK_ROWS = 64
 WALK_BN = 64
-
 @dataclasses.dataclass
 class OutputTile:
     """One output of a launch: its shape and dtype, the tile index a block
@@ -178,50 +177,43 @@ def walk_smem_bytes(dk: int, quantized: bool, consumers: int) -> int:
 
 
 def walk_plan(name: str, *, b: int, c: int, H: int, hkv: int, dk: int,
-              kv_dtype, wide: bool, index_operands=(), n_index=0,
-              out_shape, out_dtype, L: int | None = None,
-              bk: int | None = None) -> LaunchPlan:
-    """The mainloop's launch (``launch_walk``), 128 (consumers + 1)
-    threads. Without ``bk`` (the full-sequence kernels) ns is 1: grid
-    (ceil(c g / (64 consumers)), hkv, b), two consumer warpgroups on 128
-    rows when ``wide`` and dk <= 128, and block (bx, by, bz) writes the
-    output rows of its folded row tile bx of KV head by in batch row bz.
-    With ``bk`` (the prefill kernels, over ``L`` logical cache rows) the
-    rows are cut into ``cache_layout.prefill_shards(L, bk)`` and each of
-    the nr row tiles of 64 rows has ``per`` blocks: at dk <= 128 ceil(ns /
-    2) paired blocks whose two consumer warpgroups walk shards 2 p and
-    2 p + 1 (at ns = 1 one block, its first consumer walking the row
-    tile), at dk 256 ns blocks of one shard. Block bx (row tile bx // per,
-    block bx % per) writes its shards' fp32 partials (one writer each);
-    at ns > 1 the output rows of a row tile are written by ONE of its
-    blocks, elected at run time by the integer ticket (the one holding the
-    last live shards to finish; block 0 for a row tile with none)."""
+              kv_dtype, index_operands=(), n_index=0, out_shape, out_dtype,
+              L: int | None = None, bk: int | None = None) -> LaunchPlan:
+    """The mainloop's launch (``launch_walk``): two consumer warpgroups of
+    64 rows on each K/V tile at dk <= 128 (row tiles of 128 folded rows),
+    one at dk 256 (64), and a producer warpgroup, 128 threads each. Without
+    ``bk`` (the full-sequence kernels) ns is 1; with ``bk`` (the prefill
+    kernels, over ``L`` logical cache rows) the rows are cut into
+    ``cache_layout.prefill_shards(L, bk)``. Grid (nr row tiles x ns, hkv,
+    b): block (bx, by, bz) walks shard bx % ns of row tile bx // ns of KV
+    head by in batch row bz and writes that shard's fp32 partial (one
+    writer each); at ns > 1 the output rows of a row tile are written by
+    ONE of its blocks, elected at run time by the integer ticket (the one
+    holding the last live shard to finish; block 0 for a row tile with
+    none)."""
     g = H // hkv
     quantized = kv_dtype in (torch.int8, torch.float8_e4m3fn)
+    consumers = 2 if dk <= 128 else 1
+    nr = -(-(c * g) // (consumers * WALK_ROWS))
     shard_rows, ns = (L, 1) if bk is None else CL.prefill_shards(L, bk,
                                                                  WALK_BN)
-    paired = bk is not None and dk <= 128
-    consumers = 2 if (wide and dk <= 128) or paired else 1
-    rows = WALK_ROWS if paired else consumers * WALK_ROWS
-    per = -(-ns // 2) if paired else ns
-    nr = -(-(c * g) // rows)
     out = OutputTile("out", tuple(out_shape), dtype_name(out_dtype),
-                     lambda bx, by, bz: (bz, by, bx // per),
+                     lambda bx, by, bz: (bz, by, bx // ns),
                      elected_over=(0,) if ns > 1 else ())
     outputs = [out]
     if ns > 1:
         outputs.insert(0, OutputTile(
             "partials", (b, hkv, ns, c * g, dk), "float32",
-            lambda bx, by, bz: (bz, by, bx % per, bx // per)))
+            lambda bx, by, bz: (bz, by, bx % ns, bx // ns)))
     return LaunchPlan(
-        name=name, kernel="attn_walk_kernel", grid=(nr * per, hkv, b),
+        name=name, kernel="attn_walk_kernel", grid=(nr * ns, hkv, b),
         block=128 * (consumers + 1),
         smem=walk_smem_bytes(dk, quantized, consumers), outputs=outputs,
         scratch_bytes=b * hkv * ns * c * g * dk * 4 if ns > 1 else 0,
         index_operands=list(index_operands), n_index=n_index,
         election="tickets" if ns > 1 else None,
         layout=dict(dk=dk, kv_type=int(quantized), consumers=consumers,
-                    shard_rows=shard_rows, ns=ns, paired=int(paired)))
+                    shard_rows=shard_rows, ns=ns))
 
 
 def f32_layout(dk: int) -> dict:

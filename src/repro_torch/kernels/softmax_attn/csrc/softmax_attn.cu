@@ -50,7 +50,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       static_cast<__nv_bfloat16*>(out), sq, H, hkv, skv, causal, window,
       /*fill_bound=*/1, /*reverse=*/1, softcap, scale, /*shard_rows=*/skv,
       /*ns=*/1, nullptr, nullptr};
-  return static_cast<int>(launch_walk<DK, kFormSoftmax, true>(
+  return static_cast<int>(launch_walk<DK, kFormSoftmax>(
       a, b, static_cast<cudaStream_t>(stream)));
 }
 

@@ -43,7 +43,7 @@ def attention_plan(q, k, v):
                            hkv=k.shape[2], dk=dk,
                            out_shape=q.shape)
     return LP.walk_plan("softmax_attention", b=b, c=sq, H=H, hkv=k.shape[2],
-                        dk=dk, kv_dtype=k.dtype, wide=True,
+                        dk=dk, kv_dtype=k.dtype,
                         out_shape=q.shape, out_dtype=q.dtype)
 
 

@@ -288,8 +288,10 @@ def _serving_launches(paged, **scfg_kw):
 
 def _assert_prefill_sharded(pre, prefill_kv_block):
     ns = 4096 // prefill_kv_block
-    per = -(-ns // 2) if pre.layout["paired"] else ns
-    assert pre.layout["ns"] == ns and pre.grid[0] % per == 0
+    assert pre.layout["ns"] == ns and pre.grid[0] % ns == 0
+    consumers = 2 if pre.layout["dk"] <= 128 else 1
+    assert pre.layout["consumers"] == consumers
+    assert pre.block == 128 * (consumers + 1)
     assert pre.election == "tickets"
     assert pre.outputs[-1].elected_over == (0,)
 
@@ -313,17 +315,6 @@ def test_real_serving_kernel_launches_pass_all_contracts(paged):
     assert dec.election == "tickets"
     assert dec.outputs[-1].elected_over == (0,) and dec.grid[0] == 16
     _assert_prefill_sharded(pre, 512)
-
-
-@pytest.mark.parametrize("paged", [False, True])
-def test_prefill_launches_at_a_set_prefill_kv_block(paged):
-    """The prefill plan at ``scfg.prefill_kv_block=64`` (64 shards of 64
-    rows over 4096): every launch contract met, the output elected over
-    the shard dim by the tickets."""
-    launches, kind = _serving_launches(paged, prefill_kv_block=64)
-    for launch in launches.values():
-        assert not check_launch(launch)
-    _assert_prefill_sharded(launches[f"prefill_{kind}"], 64)
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -1170,3 +1170,189 @@ def test_prefill_split_launch_replays_in_a_cuda_graph(cuda):
         assert torch.equal(out, eager), (idx, n)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     assert not _build.tickets(q.device, stream, 1).any()
+
+
+# ------------------------------------------- the overlapped tile step ----
+# A consumer issues tile j's S before tile j - 1's P V and runs tile j's
+# epilogue while P V runs: walks of 0, 1, 2 and an odd number of tiles,
+# one shard and split, against the plain version and the kernels' bit
+# gates (the overlap changes no sum's order).
+@pytest.mark.parametrize("dk", [64, 128, 256])
+@pytest.mark.parametrize("tiles", [0, 1, 2, 5])
+def test_mainloop_overlapped_walks(cuda, tiles, dk):
+    c, L = 16, 512
+    q, k, v, beta, gamma = _inputs(cuda, b=2, L=L, H=4, hkv=2, dk=dk, c=c,
+                                   seed=31)
+    fill = 64 * tiles
+    # slot 0 walks `tiles` tiles (none: an empty chunk); slot 1 the same
+    # fill less a ragged edge
+    index = torch.tensor([max(fill - c, 0), max(fill - c - 5, 0)],
+                         dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([c if tiles else 0, c if tiles else 3],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    ref = consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, **kw)
+    ref_absv = consmax_prefill_ref(q, k, v.abs(), index, lengths, beta,
+                                   gamma, **kw)
+    fills = (index + lengths).tolist()
+    kp, vp, table = _paginate(k, v, fills, 16)
+    for bk in (L, 64, 128):
+        got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                   bk=bk, **kw)
+        paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                           beta, gamma, bk=bk, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, got), bk
+        _assert_within_bound(got, ref, ref_absv)
+        if not tiles:
+            assert not got[0].any()
+        for name in QDTYPES:
+            kq, ks, kd = _quantized(k, name)
+            vq, vs, vd = _quantized(v, name)
+            quant = consmax_prefill_cuda(q, kq, vq, index, lengths, beta,
+                                         gamma, k_scale=ks, v_scale=vs,
+                                         bk=bk, **kw)
+            yard = consmax_prefill_cuda(q, kd, vd, index, lengths, beta,
+                                        gamma, bk=bk, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(quant, yard), (bk, name)
+    if tiles:
+        s = fill
+        qa, ka, va, ba, ga = _seq_inputs(cuda, b=1, sq=s, skv=s, H=4, hkv=2,
+                                         dk=dk, seed=32)
+        for fn, ref_fn, extra in (
+                (consmax_attention_cuda, consmax_attention_ref, (ba, ga)),
+                (softmax_attention_cuda, softmax_attention_ref, ())):
+            got = fn(qa, ka, va, *extra, causal=False)
+            torch.cuda.synchronize()
+            _assert_within_bound(
+                got, _model_layout(ref_fn, qa.float(), ka, va, *extra,
+                                   causal=False),
+                _model_layout(ref_fn, qa.float(), ka, va.abs(), *extra,
+                              causal=False))
+
+
+_RING_CHILD = r"""
+import sys, torch
+from repro_torch.kernels import cache_layout as CL
+from repro_torch.kernels.consmax_prefill.ops import consmax_prefill_cuda
+g = torch.Generator(device="cuda").manual_seed(5)
+c, L, H, hkv, dk = 64, 4096, 4, 2, 256
+r = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+q, k, v = r(1, c, H, dk) * dk ** -0.5, r(1, L, hkv, dk), r(1, L, hkv, dk)
+beta, gamma = torch.ones(H, device="cuda"), torch.full((H,), 100.0,
+                                                       device="cuda")
+index = torch.tensor([L - c], dtype=torch.int32, device="cuda")
+lengths = torch.tensor([c], dtype=torch.int32, device="cuda")
+for dt in (torch.int8, torch.float8_e4m3fn):
+    kq, ks = CL.quantize_kv(k, dt)
+    vq, vs = CL.quantize_kv(v, dt)
+    kd = CL.dequant_block(kq, ks, torch.bfloat16)
+    vd = CL.dequant_block(vq, vs, torch.bfloat16)
+    for bk in (L, 512, 64):
+        kw = dict(window=0, softcap=0.0, merged=True, scale=1.0, bk=bk)
+        got = consmax_prefill_cuda(q, kq, vq, index, lengths, beta, gamma,
+                                   k_scale=ks, v_scale=vs, **kw)
+        yard = consmax_prefill_cuda(q, kd, vd, index, lengths, beta, gamma,
+                                    **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, yard), (dt, bk)
+print("ring ok")
+"""
+
+
+def test_mainloop_two_stage_quantized_ring_finishes(cuda):
+    """head_dim 256 with int8 / fp8 codes keeps two ring stages: while a
+    consumer waits for tile j it holds tile j - 1, so the producer must
+    publish tile j without waiting for that stage. A 64-tile walk (one
+    shard) and split walks, in a child process with a time limit, so a
+    deadlock fails the test instead of hanging it; bits == the bf16 kernel
+    on the dequantized cache."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    _build.build(("consmax_prefill",))        # built here, not in the child
+    src = str(Path(_build.REPO_ROOT) / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _RING_CHILD], env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0 and "ring ok" in proc.stdout, (
+        proc.stdout + proc.stderr)
+
+
+def test_mainloop_consumer_without_a_tile(cuda):
+    """Two consumer warpgroups on one K/V tile where the second has no row
+    (140 folded rows: the second 128-row tile's upper 64 rows are past the
+    end): the prefill kernel at one shard and split (bk 64, an odd number
+    of live shards), and both attention kernels, causal or not, within
+    the plain version's bounds, the split within those of one shard."""
+    c, L = 70, 1024
+    q, k, v, beta, gamma = _inputs(cuda, b=1, L=L, H=4, hkv=2, dk=64, c=c,
+                                   seed=33)
+    index = torch.tensor([300 - c], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([c], dtype=torch.int32, device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
+    assert CL.prefill_shards(L, 64) == (64, 16)
+    got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, bk=64,
+                               **kw)
+    one = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, bk=L,
+                               **kw)
+    torch.cuda.synchronize()
+    ref = consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, **kw)
+    ref_absv = consmax_prefill_ref(q, k, v.abs(), index, lengths, beta,
+                                   gamma, **kw)
+    _assert_within_bound(got, ref, ref_absv)
+    _assert_within_bound(one, ref, ref_absv)
+    _assert_within_bound(got, one.float(), ref_absv)
+    qa, ka, va, ba, ga = _seq_inputs(cuda, b=1, sq=70, skv=70, H=4, hkv=2,
+                                     dk=64, seed=34)
+    for causal in (True, False):
+        for fn, ref_fn, extra in (
+                (consmax_attention_cuda, consmax_attention_ref, (ba, ga)),
+                (softmax_attention_cuda, softmax_attention_ref, ())):
+            got = fn(qa, ka, va, *extra, causal=causal)
+            torch.cuda.synchronize()
+            _assert_within_bound(
+                got, _model_layout(ref_fn, qa.float(), ka, va, *extra,
+                                   causal=causal),
+                _model_layout(ref_fn, qa.float(), ka, va.abs(), *extra,
+                              causal=causal))
+
+
+@pytest.mark.parametrize("variant", [dict(), dict(window=100)])
+@pytest.mark.parametrize("dk", [128, 256])
+def test_shard_grid_at_mostly_dead_fills(cuda, dk, variant):
+    """The prefill kernels' KV-shard grid where most of an 8192-row cache's
+    64 shards are dead: slots with an empty chunk, a chunk at fill 300 and
+    one near the end, so most CTAs return at once and a row tile with no
+    live shard gets zeros. Within the plain version's bounds and of one
+    shard's, fill-bounded == capacity-swept bits, the same bits on a
+    repeat, paged (page size 64) == contiguous bits, and the empty slot's
+    rows exact zeros."""
+    b, c, L, H, hkv = 3, 48, 8192, 8, 2
+    q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
+                                   seed=35)
+    index = torch.tensor([0, 300 - c, L - c - 7], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([0, c, c], dtype=torch.int32, device=cuda)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0) | variant
+    outs = [consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, bk=64,
+                                 fill_bound=fb, **kw)
+            for fb in (True, False, True)]
+    one = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma, bk=L,
+                               **kw)
+    fills = (index + lengths).tolist()
+    kp, vp, table = _paginate(k, v, fills, 64)
+    paged = consmax_prefill_paged_cuda(q, kp, vp, table, index, lengths,
+                                       beta, gamma, bk=64, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    assert torch.equal(paged, outs[0]) and not outs[0][0].any()
+    ref_absv = consmax_prefill_ref(q, k, v.abs(), index, lengths, beta,
+                                   gamma, **kw)
+    _assert_within_bound(
+        outs[0], consmax_prefill_ref(q, k, v, index, lengths, beta, gamma,
+                                     **kw), ref_absv)
+    _assert_within_bound(outs[0], one.float(), ref_absv)

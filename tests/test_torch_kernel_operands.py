@@ -304,12 +304,11 @@ def test_prefill_plan_carries_the_shard_grid(L, bk, ns, paged, dk):
     rows, want_ns = CL.prefill_shards(L, bk)
     assert want_ns == ns and plan.layout["ns"] == ns
     assert plan.layout["shard_rows"] == rows
-    nr = -(-(c * g) // 64)
-    paired = dk <= 128                     # shard pairs up to dk 128
-    per = -(-ns // 2) if paired else ns
-    assert plan.grid == (nr * per, hkv, b)
-    assert plan.block == (384 if paired else 256)
-    assert plan.layout["paired"] == int(paired)
+    consumers = 2 if dk <= 128 else 1      # on one K/V tile up to dk 128
+    nr = -(-(c * g) // (64 * consumers))
+    assert plan.grid == (nr * ns, hkv, b)
+    assert plan.block == 128 * (consumers + 1)
+    assert plan.layout["consumers"] == consumers
     assert check_launch(plan) == []
     out = plan.outputs[-1]
     tiles = {out.tile_of(bx, by, bz) for bx in range(plan.grid[0])
@@ -328,3 +327,44 @@ def test_prefill_plan_carries_the_shard_grid(L, bk, ns, paged, dk):
     parts = [partials.tile_of(bx, by, bz) for bx in range(plan.grid[0])
              for by in range(hkv) for bz in range(b)]
     assert len(set(parts)) == len(parts)       # one writer per partial
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8,
+                                      torch.float8_e4m3fn])
+@pytest.mark.parametrize("dk", list(_build.HEAD_DIMS))
+def test_walk_plan_reckons_every_instantiation(dk, kv_dtype):
+    """Every mainloop instantiation's block and shared memory, reckoned
+    here from the layout (attn_mainloop.cuh WalkLayout): two consumer
+    warpgroups on each K/V tile up to dk 128, one at 256, plus the
+    producer; 128 bytes of mbarriers, a 64-row bf16 Q tile per consumer,
+    three stages of bf16 K and V tiles (two at dk 256 with codes) and, for
+    codes, a staging slot per stage (rows padded by 16 below dk 256, two
+    fp32 row scales); within a block's 232,448 bytes. The prefill plan
+    and, at bf16, both full-sequence plans carry it."""
+    b, c, H, hkv, L = 1, 100, 8, 2, 512
+    consumers = 2 if dk <= 128 else 1
+    quant = kv_dtype != torch.bfloat16
+    stages = 2 if dk == 256 and quant else 3
+    code_slot = 2 * 64 * (dk + (16 if dk < 256 else 0)) + 2 * 64 * 4
+    smem = (128 + consumers * 64 * dk * 2 + stages * 2 * 64 * dk * 2
+            + (stages * code_slot if quant else 0))
+    assert smem <= _build.SMEM_PER_BLOCK
+    q = torch.zeros((b, c, H, dk), dtype=torch.bfloat16)
+    kv = torch.zeros((b, L, hkv, dk), dtype=kv_dtype)
+    scales = (dict(k_scale=torch.ones((b, L, hkv)),
+                   v_scale=torch.ones((b, L, hkv))) if quant else {})
+    i32 = dict(dtype=torch.int32)
+    with LP.capture() as plans:
+        consmax_prefill_op(q, kv, kv, torch.zeros(b, **i32),
+                           torch.full((b,), c, **i32), torch.zeros(H),
+                           torch.ones(H), bk=128, **scales)
+        if not quant:
+            consmax_attention_op(q, kv, kv, torch.zeros(H), torch.ones(H))
+            softmax_attention_op(q, kv, kv)
+    rows = 64 * consumers
+    for plan in plans:
+        assert plan.block == 128 * (consumers + 1)
+        assert plan.smem == smem == LP.walk_smem_bytes(dk, quant, consumers)
+        assert plan.layout["consumers"] == consumers
+        assert plan.grid[0] == -(-(c * H // hkv) // rows) * plan.layout["ns"]
+        assert check_launch(plan) == []

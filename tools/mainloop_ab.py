@@ -14,10 +14,11 @@ through this tree's ops (the kernels' C entry points have kept their
 signatures, and the prefill entry points' KV-shard arguments come after
 the stream, so an older prefill library ignores them and walks unsplit; a
 library from before an entry point this tree's ops bind gets a stub of it,
-see ``OPTIONAL``). Then, per case (the shapes of ``chip_smoke.py``'s timed
-rows: the qwen2-1.5b prefill chunk c 512 at fill 4096, bf16 at the default
-prefill_kv_block and at one shard, int8 and paged at page size 256 at one
-shard, the unsplit walk every tree runs; causal whole-prompt attention
+see ``OPTIONAL``). Then, per case (the prefill kernels at the timed
+chunk of ``chip_smoke.py`` for qwen2-1.5b, gemma2-2b's local layer,
+phi3.5-moe and phi-3-vision-4.2b: c 512 at fill 4096, 6656, 4096 and 2048,
+bf16, int8 and fp8_e4m3, contiguous and paged at page size 256, at
+prefill_kv_block 512, 256, 64 and one shard; causal whole-prompt attention
 at qwen2-1.5b b 2 x s 4096, Eq. 2, Eq. 3 and softmax; the gemma2-2b local
 layer; qwen2-1.5b decode, b 8 x L 8192 at fills 1 .. 8192, bf16 and int8,
 contiguous and paged at page sizes 256 and 16), it times the trees in the
@@ -29,6 +30,7 @@ card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 import subprocess
 import sys
@@ -103,18 +105,56 @@ def bind(path, module):
         _build.load = load
 
 
+# the prefill kernels' timed chunks (c 512): arch -> H, hkv, dk, L, index,
+# mask and weight keywords
+PREFILL = {
+    "qwen2-1.5b": (12, 2, 128, 8192, 3584, dict(window=0, softcap=0.0)),
+    "gemma2-2b": (8, 4, 256, 8192, 6144, dict(window=4096, softcap=50.0)),
+    "phi3.5-moe": (32, 8, 128, 8192, 3584, dict(window=0, softcap=0.0)),
+    "phi-3-vision": (32, 32, 96, 4096, 1536, dict(window=0, softcap=0.0)),
+}
+SWEEP_BK = (512, 256, 64)
+
+
+def prefill_cases(gen):
+    """Both prefill kernels at each arch's chunk, per K/V dtype, at each bk
+    of the sweep and at one shard."""
+    out, c = {}, 512
+    for arch, (H, hkv, dk, L, idx, mask) in PREFILL.items():
+        kw = dict(mask, merged=True, scale=1.0)
+        q = CS._rand(gen, (1, c, H, dk), dk ** -0.5)
+        k, v = CS._rand(gen, (1, L, hkv, dk)), CS._rand(gen, (1, L, hkv, dk))
+        beta, gamma = CS._head_params(gen, H)
+        ti = torch.tensor([idx], dtype=torch.int32, device="cuda")
+        tn = torch.tensor([c], dtype=torch.int32, device="cuda")
+        for dt in ("bf16", "int8", "fp8_e4m3"):
+            kk, vv, sc = k, v, {}
+            if dt != "bf16":
+                kk, ks, _ = CS._quantize(k, dt)
+                vv, vs, _ = CS._quantize(v, dt)
+                sc = dict(k_scale=ks, v_scale=vs)
+            pools, table = CS._paginate_rows(
+                [kk, vv, *sc.values()], [idx + c], 256, L // 256, seed=7)
+            psc = dict(zip(sc, pools[2:]))
+            for bk in (*SWEEP_BK, L):
+                at = f"bk {bk}" if bk < L else "one shard"
+                out[f"consmax_prefill {arch} {dt}, c 512 at fill "
+                    f"{idx + c}, {at}"] = functools.partial(
+                        PO.consmax_prefill_cuda, q, kk, vv, ti, tn, beta,
+                        gamma, bk=bk, **sc, **kw)
+                out[f"consmax_prefill_paged {arch} {dt}, page size 256, "
+                    f"{at}"] = functools.partial(
+                        PO.consmax_prefill_paged_cuda, q, *pools[:2], table,
+                        ti, tn, beta, gamma, bk=bk, **psc, **kw)
+    return out
+
+
 def cases():
     gen = torch.Generator(device="cuda").manual_seed(0)
-    H, hkv, dk, c, L = 12, 2, 128, 512, 8192
-    q1 = CS._rand(gen, (1, c, H, dk), dk ** -0.5)
-    k1, v1 = CS._rand(gen, (1, L, hkv, dk)), CS._rand(gen, (1, L, hkv, dk))
+    out = prefill_cases(gen)
+    H, hkv, dk, L = 12, 2, 128, 8192
     beta, gamma = CS._head_params(gen, H)
-    ti = torch.tensor([3584], dtype=torch.int32, device="cuda")
-    tn = torch.tensor([512], dtype=torch.int32, device="cuda")
     kw = dict(window=0, softcap=0.0, merged=True, scale=1.0)
-    kq, ks, _ = CS._quantize(k1, "int8")
-    vq, vs, _ = CS._quantize(v1, "int8")
-    (kp, vp), table = CS._paginate_rows([k1, v1], [8192], 256, 64, seed=7)
     qa = CS._rand(gen, (2, 4096, H, dk))
     ka, va = CS._rand(gen, (2, 4096, hkv, dk)), CS._rand(gen, (2, 4096, hkv,
                                                                  dk))
@@ -145,18 +185,8 @@ def cases():
         return lambda: DO.consmax_decode_paged_cuda(qd, kp, vp, table, lens,
                                                     beta, gamma, **dkw)
 
-    one = dict(kw, bk=L)
     return {
-        "consmax_prefill bf16, c 512 at fill 4096, default bk": lambda: (
-            PO.consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **kw)),
-        "consmax_prefill bf16, same chunk, one shard": lambda: (
-            PO.consmax_prefill_cuda(q1, k1, v1, ti, tn, beta, gamma, **one)),
-        "consmax_prefill int8, same chunk, one shard": lambda: (
-            PO.consmax_prefill_cuda(q1, kq, vq, ti, tn, beta, gamma,
-                                    k_scale=ks, v_scale=vs, **one)),
-        "consmax_prefill_paged bf16, page size 256, one shard": lambda: (
-            PO.consmax_prefill_paged_cuda(q1, kp, vp, table, ti, tn, beta,
-                                          gamma, **one)),
+        **out,
         "consmax_attention Eq. 2, qwen2-1.5b b 2 x s 4096": lambda: (
             AO.consmax_attention_cuda(qa, ka, va, beta, gamma)),
         "consmax_attention Eq. 3, same": lambda: AO.consmax_attention_cuda(
