@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero before the result line:
    the serving path's shapes (qwen2-1.5b: 8 slots x 8192 rows, 2 KV heads,
    GQA group 6, head_dim 128, bf16; prefill chunk 512) and the
    gpt2-consmax engine's (8 x 1024 rows, MHA, head_dim 64; chunk 128),
-   plus small window / softcap / unmerged cases; error, kernel and plain
+   plus small window / softcap / unmerged cases; the prefill kernel's
+   ``slot`` operand (the engine's static step: the chunk against the
+   whole 8-slot pool) at each slot, bit-equal to the slot-view launch and
+   within the plain version's bounds, both timed; error, kernel and plain
    times, bound; then the paged kernels (below);
 3b. paper kernels: ``consmax_attention``, ``softmax_attention`` and the
    bitwidth-split ``consmax_lut`` through their ops at full widths
@@ -51,6 +54,15 @@ Phases, in order; any failure exits non-zero before the result line:
    served by ``ContinuousBatchingEngine`` with both kernels, 12 greedy
    requests; every request finishes, both kernels ran, and one request
    served alone equals its tokens served among the others;
+   Every single-device engine with both kernels replays its prefill and
+   decode steps as CUDA graphs; each engine's ``[graphs]`` line gives
+   ``graphed``, its captures (seconds each), replays per iteration and
+   graph pool, and the run fails unless it was graphed with at most 2
+   graphs and one signature per step (the plain-walk engines of 14, the
+   mesh and the MoE trace run eagerly and say so);
+5b. graphs: qwen2-1.5b contiguous, paged bf16 and paged int8 and
+   gemma2-2b contiguous, each graphed and with ``cuda_graphs=False`` on
+   the same greedy and sampled requests: the same tokens;
 6. engine: full-width gpt2-consmax (MHA, g = 1), the same checks, then
    the same requests at ``prefill_kv_block=64`` (solo == batched there);
 7. paged engine: full-width qwen2-1.5b on a 128-page pool (16 slots x 8192
@@ -164,8 +176,12 @@ The trace phases print device busy ms per engine iteration and, within
 it, ``prefill_kernel``: the mainloop kernel's (``attn_walk_kernel``) ms, and
 ``decode_kernel``: the decode kernel's (``decode_partials``) ms.
 
-Launch counts: each serving path is run with the kernels' counts set to 0
-just before it and read just after (the bf16 contiguous kernels from phase
+Launch counts: each kernel counts its own launches on the card (block
+(0, 0, 0) adds one to its wrapper's device counter, ``_build.counted``), so
+a launch a CUDA graph replays counts as one made eagerly, and a capture,
+which launches nothing, counts nothing. Each serving path
+is run with the kernels' counts set to 0 just before it and read just
+after (the bf16 contiguous kernels from phase
 5, the bf16 paged ones from 7, the int8 rows from 8, the fp8 rows from 9,
 the ``[gemma2-2b]`` rows from 12, the ``[phi3.5-moe]`` rows from 16a, the
 ``[phi-3-vision]`` rows from 18c; the ``[dk96]`` / ``[fp32]`` rows of the
@@ -406,9 +422,35 @@ def kernel_phase(flush):
         consmax_prefill_ref(q1, k1, v1.abs(), ti, tn, beta, gamma, **kw), L,
         bound=(bound, by), plain_ms=plain_ms)
     errs.append(e)
+    # the engine's static step: the chunk against the whole 8-slot pool,
+    # its slot a device operand; == the slot-view launch bit for bit
+    for s in range(b):
+        ts = torch.tensor([s], dtype=torch.int32, device="cuda")
+        got = consmax_prefill_cuda(q1, k, v, ib[s:s + 1], nb[s:s + 1], beta,
+                                   gamma, slot=ts, **kw)
+        one = consmax_prefill_cuda(q1, k[s:s + 1], v[s:s + 1], ib[s:s + 1],
+                                   nb[s:s + 1], beta, gamma, **kw)
+        errs.append(_check(
+            f"prefill slot operand, slot {s} of 8 (index {int(ib[s])}, "
+            f"len {int(nb[s])})", got,
+            consmax_prefill_ref(q1, k, v, ib[s:s + 1], nb[s:s + 1], beta,
+                                gamma, slot=ts, **kw),
+            consmax_prefill_ref(q1, k, v.abs(), ib[s:s + 1], nb[s:s + 1],
+                                beta, gamma, slot=ts, **kw)))
+        _same_bits(f"prefill slot operand, slot {s}", got, one,
+                   "the slot-view launch")
+    ts = torch.tensor([4], dtype=torch.int32, device="cuda")
+    k4, v4 = k[4:5].contiguous(), v[4:5].contiguous()
+    slot_ms = _time_ms(lambda: consmax_prefill_cuda(
+        q1, k, v, ti, tn, beta, gamma, slot=ts, **kw), flush, 50)
+    view_ms = _time_ms(lambda: consmax_prefill_cuda(
+        q1, k4, v4, ti, tn, beta, gamma, **kw), flush, 50)
+    _log(f"[kernels] prefill c=512 at fill 4096, bk 512: slot operand "
+         f"(slot 4 of the 8 x 8192 pool) {slot_ms:.4f} ms, slot view "
+         f"{view_ms:.4f} ms")
     rows["consmax_prefill"] = dict(max_abs_err=max(errs), ms=times[512],
                                    plain_ms=plain_ms, bound_ms=bound,
-                                   bound_by=by)
+                                   bound_by=by, slot_ms=slot_ms)
 
     # ---- the options qwen2-1.5b does not use, and the MHA (g = 1) edge
     for name, kwx in [("window", dict(window=300)),
@@ -1296,6 +1338,32 @@ UNSPLIT_PREFILL_MS = {"qwen2-1.5b": 3.29, "qwen2-1.5b paged bfloat16": 1.96,
                       "qwen2-1.5b paged int8": 2.22}
 
 
+def _graph_log(tag, eng, *, graphed=True):
+    """Log whether ``eng`` replayed its steps as CUDA graphs: its captures
+    (seconds each), replays per iteration and graph pool; raise unless it
+    ran as ``graphed`` says (every single-device engine with both kernels
+    is graphed), with at most 2 graphs and one signature per step, and one
+    replay for every model step but each graph's first (eager) run."""
+    caps = ", ".join(f"{step}{' draw' if draw else ''} {sec:.3f} s"
+                     for (step, draw), sec in eng.capture_seconds.items())
+    it = max(eng.iterations, 1)
+    _log(f"[graphs] {tag}: graphed {eng.graphed}; captures prefill "
+         f"{eng.prefill_graphs}, decode {eng.decode_graphs}"
+         + (f" ({caps})" if caps else "")
+         + f"; {eng.graph_replays} replays over {eng.iterations} iterations "
+         f"({eng.graph_replays / it:.2f} per iteration, {eng.model_steps} "
+         f"model steps); graph pool "
+         f"{eng.graph_pool_bytes / 2**20:.1f} MiB; signatures "
+         f"{eng.prefill_cache_size} / {eng.decode_cache_size}")
+    ok = (eng.graphed == graphed and eng.prefill_graphs <= 2
+          and eng.decode_graphs <= 2
+          and eng.prefill_cache_size <= 1 and eng.decode_cache_size <= 1
+          and eng.graph_replays + eng.prefill_graphs + eng.decode_graphs
+          == (eng.model_steps if graphed else 0))
+    if not ok:
+        raise AssertionError(f"{tag}: the engine's graph contract failed")
+
+
 def trace_steps(eng, arch, *, skip, steps):
     """Where an engine iteration's time goes: ``steps`` iterations (after
     ``skip``) under ``torch.profiler``; device busy time is the union of
@@ -1309,6 +1377,7 @@ def trace_steps(eng, arch, *, skip, steps):
     for _ in range(skip):
         eng.step()
     torch.cuda.synchronize()
+    replays = eng.graph_replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1316,6 +1385,7 @@ def trace_steps(eng, arch, *, skip, steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    replays = eng.graph_replays - replays
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy, end, by_name = 0.0, float("-inf"), defaultdict(float)
     for e in sorted(dev, key=lambda e: e.time_range.start):
@@ -1337,7 +1407,9 @@ def trace_steps(eng, arch, *, skip, steps):
          + (f" (unsplit, PERF.md §5: {UNSPLIT_PREFILL_MS[arch]:.2f})"
             if arch in UNSPLIT_PREFILL_MS else "") + "; "
          f"decode_kernel (decode_partials) {dec_ms / steps:.2f} "
-         f"ms/iteration; device "
+         f"ms/iteration; graphed {eng.graphed}, {replays / steps:.2f} "
+         f"graph replays/iteration, graph pool "
+         f"{eng.graph_pool_bytes / 2**20:.1f} MiB; device "
          f"time by kernel: "
          + ", ".join(f"{n} {t / 1e3 / steps:.2f} ms" for n, t in top))
 
@@ -1376,6 +1448,8 @@ def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
         wall = time.perf_counter() - t0
         counts = {"consmax_decode": consmax_decode_op.launches,
                   "consmax_prefill": consmax_prefill_op.launches}
+        _graph_log(f"{arch} engine, {len(uids)} requests, prefill_kv_block "
+                   f"{scfg.prefill_kv_block}", eng)
         return eng, [results.get(u) for u in uids], wall, counts
 
     eng, toks, wall, counts = serve(range(len(prompts)))
@@ -1429,6 +1503,79 @@ def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
             raise AssertionError(f"{arch} prefill_kv_block={kv_block}: "
                                  "solo and batched tokens differ")
     return counts
+
+
+GRAPH_CELLS = (("qwen2-1.5b", False, "bfloat16"), ("qwen2-1.5b", True,
+                                                    "bfloat16"),
+               ("qwen2-1.5b", True, "int8"), ("gemma2-2b", False, "bfloat16"))
+
+
+def graph_phase(smi, *, seed=14, new_tokens=16):
+    """5b: each graphed engine against the same engine run eagerly
+    (``cuda_graphs=False``) on the same six requests of 300-3000 prompt
+    tokens, every other one sampled: qwen2-1.5b contiguous, paged bf16 and
+    paged int8 (pages of 256), and gemma2-2b contiguous (dk 256, windows,
+    softcaps); 8 slots x 8192 rows, chunk 512, random weights from
+    ``seed``. Checked: graphed tokens == eager tokens, the graph contract
+    (``_graph_log``). Printed: capture seconds per graph, the graph pool's
+    MiB, and both runs' wall time."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    checks, models = {}, {}
+    for arch, paged, kv in GRAPH_CELLS:
+        if arch not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            cfg = get_config(arch)
+            models[arch] = (cfg, init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(seed),
+                device="cuda"))
+        cfg, model = models[arch]
+        extra = dict(paged_kv=True, page_size=256, num_pages=128) if (
+            paged) else {}
+        scfg = ServeConfig(max_slots=8, max_seq=8192, prefill_chunk=512,
+                           decode_kernel=True, prefill_kernel=True,
+                           score_norm=cfg.score_norm, kv_cache_dtype=kv,
+                           **extra)
+        r = np.random.default_rng(seed)
+        reqs = [(r.integers(0, cfg.vocab_size, int(n)).tolist(),
+                 SamplingParams(**HOT, seed=400 + i) if i % 2 else None)
+                for i, n in enumerate(r.integers(300, 3001, 6))]
+        tag = f"{arch} {'paged' if paged else 'contiguous'} {kv}"
+        toks, walls = {}, {}
+        for graphs in (True, False):
+            eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda",
+                                           cuda_graphs=graphs)
+            uids = [eng.submit(p, new_tokens, sampling=sp) for p, sp in reqs]
+            t0 = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            walls[graphs] = time.perf_counter() - t0
+            toks[graphs] = [res.get(u) for u in uids]
+            _graph_log(f"[graph] {tag} "
+                       f"({'graphed' if graphs else 'cuda_graphs=False'})",
+                       eng, graphed=graphs)
+            del eng
+            torch.cuda.empty_cache()
+        checks[f"{tag}: graphed tokens == eager tokens"] = (
+            toks[True] == toks[False]
+            and all(t is not None and len(t) == new_tokens
+                    for t in toks[True]))
+        _log(f"[graph] {tag}: {len(reqs)} requests (3 sampled), graphed "
+             f"{walls[True]:.3f} s, eager {walls[False]:.3f} s (each "
+             f"graphed run includes its captures); tokens equal "
+             f"{toks[True] == toks[False]}; on {smi}")
+    del models
+    torch.cuda.empty_cache()
+    for name, ok in checks.items():
+        _log(f"[graph] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("graph phase checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
 
 
 def _cache_bytes(caches):
@@ -1506,6 +1653,8 @@ def paged_engine_phase(*, seed=4, new_tokens=32, kv_dtype="bfloat16"):
         wall = time.perf_counter() - t0
         flat = [u for x in uids for u in (x if isinstance(x, list) else [x])]
         counts = {name: op.launches for name, op in ops.items()}
+        _graph_log(f"{tag} {'paged' if scfg.paged_kv else 'contiguous'} "
+                   f"engine, {len(flat)} requests", eng)
         return eng, [results.get(u) for u in flat], wall, counts
 
     eng, paged_toks, wall, all_counts = serve(paged_cfg, reqs)
@@ -1624,6 +1773,9 @@ def gpt2_fp8_engine_phase(*, seed=3, new_tokens=16):
         uids = [eng.submit(prompts[i], new_tokens) for i in batch]
         results = eng.run()
         torch.cuda.synchronize()
+        _graph_log(f"[fp8] gpt2-consmax fp8_e4m3 "
+                   f"{'paged' if scfg.paged_kv else 'contiguous'} engine, "
+                   f"{len(uids)} requests", eng)
         return ([results.get(u) for u in uids],
                 {n: op.launches for n, op in ops.items()})
 
@@ -1776,6 +1928,10 @@ def gemma2_engine_phase(*, seed=6, new_tokens=16):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: op.launches for name, op in ops.items()}
+        _graph_log(f"[gemma2] gemma2-2b "
+                   f"{'paged' if scfg.paged_kv else 'contiguous'} engine "
+                   f"(fused sampling {scfg.fused_sampling}), {len(uids)} "
+                   "requests", eng)
         return eng, [results.get(u) for u in uids], wall, counts
 
     out, counts, checks = {}, {}, {}
@@ -1949,6 +2105,8 @@ def softmax_engine_phase(*, seed=8, new_tokens=16):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             toks[kind] = [results.get(u) for u in uids]
+            _graph_log(f"[softmax] {norm} {kind} engine (plain walks)", eng,
+                       graphed=False)
             _log(f"[softmax] gpt2-consmax score_norm={norm} {kind}: "
                  f"{len(prompts)} requests in {wall:.3f} s, signatures "
                  f"{eng.prefill_cache_size} / {eng.decode_cache_size}")
@@ -2740,6 +2898,8 @@ def trained_serving_phase(model, cfg, corpus, *, new_tokens=16):
             op.launches = 0
         results = eng.run()
         torch.cuda.synchronize()
+        _graph_log(f"[train] 15d {'paged' if scfg.paged_kv else 'contiguous'}"
+                   f" engine, {len(uids)} requests", eng)
         return ([results.get(u) for u in uids],
                 {name: op.launches for name, op in ops.items()})
 
@@ -3068,6 +3228,9 @@ def moe_engine_phase(smi, *, seed=9, new_tokens=24):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: op.launches for name, op in ops.items()}
+        _graph_log(f"[moe] {'paged' if scfg.paged_kv else 'contiguous'} "
+                   f"{scfg.kv_cache_dtype} engine, {len(uids)} requests",
+                   eng)
         return eng, [eng.results.get(u) for u in uids], wall, iters, counts
 
     out, counts, checks = {}, {}, {}
@@ -3111,8 +3274,10 @@ def moe_engine_phase(smi, *, seed=9, new_tokens=24):
         checks[f"{kind} request {i} alone == served among the others"] = (
             alone[0] == out["contiguous"][i])
 
+    # eager (cuda_graphs=False): the split reads each MoE op under its
+    # range, which a graph replay does not dispatch
     eng = ContinuousBatchingEngine(cfg, cfgs["contiguous"], model,
-                                   device="cuda")
+                                   device="cuda", cuda_graphs=False)
     for p, sp in reqs:
         eng.submit(p, new_tokens, sampling=sp)
     _moe_trace(eng, smi, skip=6)
@@ -4270,23 +4435,26 @@ def fp32_kernel_phase(flush, f32_ptxas, smi):
 
 
 class _SyncFreeSteps:
-    """Run an engine's ``_lm`` (one model step: the fused prefill chunk or
-    decode step) under ``torch.cuda.set_sync_debug_mode("error")``: a step
-    that syncs the host with the card raises. The token drain and the page
-    table's upload stay outside the step, as the op lint's step does."""
+    """Run an engine's static steps (``_prefill_step``, ``_decode_step``:
+    the fused prefill chunk and decode step, each graph's eager run and its
+    capture) under ``torch.cuda.set_sync_debug_mode("error")``: a step that
+    syncs the host with the card raises. The staging copies, the token
+    drain and the page table's upload stay outside the step, as the op
+    lint's step does."""
 
     def __init__(self, eng):
         self.eng, self.steps = eng, 0
-        real = eng._lm
+        for step in ("prefill", "decode"):
+            real = getattr(eng, f"_{step}_step")
 
-        def lm(*args, **kw):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return real(*args, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                self.steps += 1
-        eng._lm = lm
+            def run(draw, real=real):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return real(draw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    self.steps += 1
+            setattr(eng, f"_{step}_step", run)
 
 
 def phi3v_engine_phase(smi, *, seed=13, new_tokens=16):
@@ -4328,6 +4496,9 @@ def phi3v_engine_phase(smi, *, seed=13, new_tokens=16):
         res = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        kind = "paged" if scfg.paged_kv else "contiguous"
+        _graph_log(f"[phi-3-vision] {kind} engine, {len(uids)} requests",
+                   eng)
         out = dict(tokens=[res.get(u) for u in uids], wall=wall,
                    launches={k: op.launches for k, op in ops.items()},
                    sig=[eng.prefill_cache_size, eng.decode_cache_size],
@@ -5215,6 +5386,10 @@ def main():
                  prompt_lens=[20, 700, 131, 256, 999, 64], new_tokens=16,
                  seed=3, kv_block=64)
     _log(f"[engine] gpt2-consmax phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graph_phase(smi)
+    _log(f"[graph] phase 5b {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     counts.update(paged_engine_phase()[0])
     _log(f"[paged] qwen2-1.5b paged phase {time.perf_counter() - t0:.1f} s")

@@ -33,8 +33,8 @@ reference where the meaning carries over):
   semantics, and each is ``"independent"`` (a CUDA grid has no ordered
   dimension: a plan that relies on block order is wrong).
 * ``index-operands`` (the reference's ``scalar-prefetch``) — the page
-  table, ``index`` and ``lengths`` a launch reads are int32 and as many as
-  the plan declares.
+  table, ``index`` and ``lengths`` a launch reads, and the contiguous
+  prefill's ``slot``, are int32 and as many as the plan declares.
 """
 from __future__ import annotations
 
@@ -60,8 +60,8 @@ CHECK_CATALOG = {
                            "election operand",
     "smem-budget": "dynamic + static shared memory per block within the "
                    f"{SMEM_BUDGET_BYTES}-byte Hopper limit",
-    "index-operands": "the page table / index / lengths operands are int32 "
-                      "and match the declared arity",
+    "index-operands": "the page table / index / lengths / slot operands "
+                      "are int32 and match the declared arity",
 }
 
 __all__ = ["KernelLaunch", "OutputTile", "capture_launches", "check_launch",
@@ -231,13 +231,14 @@ def serving_launches(cfg, scfg, *, device="cpu") -> dict[str, KernelLaunch]:
                 cache, torch.full((b,), L - 1, **i32), beta, gamma,
                 bk=scfg.decode_kv_block, **kw, **scale)
         grab("decode_contiguous", caught)
-        slot = cache[:1]
-        sslot = {k: t[:1] for k, t in scale.items()}
+        # the engine's static step: one chunk against the whole slot pool,
+        # its slot a device operand
         with capture_launches() as caught:
             consmax_prefill_op(
-                torch.zeros((1, c, H, d), dtype=bf16, device=dev), slot,
-                slot, torch.full((1,), L - c, **i32),
+                torch.zeros((1, c, H, d), dtype=bf16, device=dev), cache,
+                cache, torch.full((1,), L - c, **i32),
                 torch.full((1,), c, **i32), beta, gamma,
-                bk=scfg.prefill_kv_block, **kw, **sslot)
+                bk=scfg.prefill_kv_block, slot=torch.full((1,), b - 1, **i32),
+                **kw, **scale)
         grab("prefill_contiguous", caught)
     return out

@@ -214,10 +214,12 @@ def _sharded_write(write, cache, new, index, *rest):
           own if active is None else own & active)
 
 
-def _append_cache_write(cache, new, index):
+def _append_cache_write(cache, new, index, slot=None):
     """Write ``new``: (b, c, ...) into ``cache``: (b, L, ...) at per-slot
     row ``index``: (b,), in place — K/V rows (..., hkv, dk) or their
-    (..., hkv) scales.
+    (..., hkv) scales. ``slot`` (b,) int: ``cache`` is a (B, L, ...) slot
+    pool and row i of ``new`` lands in slot ``slot[i]`` (the reference's
+    ``dynamic_update_slice`` at the slot).
 
     As the reference's read-modify-write: the c-row window starts at
     ``clamp(index, 0, L - c)`` and the chunk's rows land at their true
@@ -236,8 +238,9 @@ def _append_cache_write(cache, new, index):
     keep = (ar >= off[:, None]).reshape((b, c) + (1,) * (new.ndim - 2))
     src = (ar - off[:, None]).clamp(min=0)
     bi = torch.arange(b, device=cache.device)[:, None]
-    win = cache[bi, rows]
-    cache[bi, rows] = torch.where(keep, new.to(cache.dtype)[bi, src], win)
+    ci = bi if slot is None else slot.long()[:, None]        # cache rows
+    win = cache[ci, rows]
+    cache[ci, rows] = torch.where(keep, new.to(cache.dtype)[bi, src], win)
 
 
 def _paged_cache_write(pool, new, index, lengths, page_table):
@@ -370,22 +373,25 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
 
 def append_attention(q, k, v, index, lengths, *, norm_kind, norm_params,
                      window=0, softcap=0.0, merged=True, kv_chunk=1024,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, slot=None):
     """q: (b, c, H, dk) chunk queries at per-slot positions index + [0, c);
     k, v: (b, L, hkv, dk) caches *after* the chunk's K/V were written at
     ``index``; lengths: (b,) real (non-pad) tokens in the chunk. Each query
     row attends causally to cache rows < index + lengths; rows >= lengths
     are pad queries whose output the caller ignores. ``k_scale``/``v_scale``
     (b, L, hkv): the row scales of a quantized cache, applied to each
-    gathered block (``dequant_block``)."""
+    gathered block (``dequant_block``). ``slot`` (b,) int: the caches are a
+    (B, L, ...) slot pool and row i reads slot ``slot[i]``, block by
+    block."""
     kc = min(kv_chunk, k.shape[1])
+    rows = slice(None) if slot is None else slot.long()
 
     def gather(j):
         sl = slice(j * kc, (j + 1) * kc)
         if k_scale is None:
-            return k[:, sl], v[:, sl]
-        return (CL.dequant_block(k[:, sl], k_scale[:, sl], q.dtype),
-                CL.dequant_block(v[:, sl], v_scale[:, sl], q.dtype))
+            return k[rows, sl], v[rows, sl]
+        return (CL.dequant_block(k[rows, sl], k_scale[rows, sl], q.dtype),
+                CL.dequant_block(v[rows, sl], v_scale[rows, sl], q.dtype))
 
     return _kv_walk(q, index, lengths, gather, kc, -(-k.shape[1] // kc),
                     k.shape[2], norm_kind=norm_kind, norm_params=norm_params,
@@ -491,7 +497,8 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                     decode_kv_block: int = 256, prefill_kernel: bool = False,
                     prefill_kv_block: int = 512,
                     fill_bound: bool = True, prefill_append=None,
-                    decode_active=None, page_table=None, attn_mesh=None):
+                    decode_active=None, page_table=None, attn_mesh=None,
+                    slot=None):
     """Self-attention over x: (b, s, d), with or without a per-slot KV
     cache.
 
@@ -508,6 +515,13 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
     prefill_append: (b,) int32 real chunk lengths — x is a fixed-size chunk
     appended at the cache's per-slot ``index``. Pad rows' K/V are zeroed
     before the write and ``index`` advances by the real count.
+    slot: (b,) int32 on the device, with ``prefill_append`` — the engine's
+    static prefill step: ``cache`` is the whole slot pool and row i of x
+    appends to slot ``slot[i]`` (RoPE positions from ``index[slot]``, the
+    K/V written at ``(slot, rows)``, the prefill kernel and the plain walk
+    reading that slot); a paged cache slot-addresses its ``index`` only
+    (``page_table`` is then the slot's row). The returned ``index`` is the
+    (b,) advanced index of those slots.
     decode_active: (b,) bool — one-token decode: slots where False keep
     their cache row and index; their output is garbage to be discarded.
     decode_kernel / prefill_kernel: route consmax decode / append prefill
@@ -567,6 +581,10 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                else positions)
     else:
         idx = cache["index"]                                 # (b,) int32
+        if slot is not None:
+            if prefill_append is None:
+                raise ValueError("slot addresses append-prefill chunks")
+            idx = idx.index_select(0, slot)
         pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]
     if rope_on:
         q = R.apply_rope(q, pos, rotary_dim=rot, theta=cfg.rope_theta,
@@ -637,7 +655,7 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
         keep = (torch.arange(s, device=x.device)[None, :]
                 < lengths[:, None])[..., None, None]
         _quantized_write(_append_cache_write, cache, torch.where(keep, k, 0),
-                         torch.where(keep, v, 0), idx)
+                         torch.where(keep, v, 0), idx, slot)
         k_cache = shard(k_cache, "act_batch,act_kv_seq,act_kv_heads,")
         v_cache = shard(v_cache, "act_batch,act_kv_seq,act_kv_heads,")
         if prefill_kernel and consmax_kernels:
@@ -647,8 +665,10 @@ def attention_apply(p: Attention, x, cfg: ModelConfig, *,
                 q, k_cache, v_cache, idx, lengths, beta, gamma,
                 window=window, softcap=cfg.attn_softcap, merged=merged,
                 scale=1.0, bk=prefill_kv_block, fill_bound=fill_bound,
-                **scales)
+                slot=slot, **scales)
         else:
+            if slot is not None:
+                scales["slot"] = slot
             out = attention_on_shards(
                 append_attention, q, k_cache, v_cache, idx, lengths,
                 norm_kind=cfg.score_norm, norm_params=p.score_norm,

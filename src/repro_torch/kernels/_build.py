@@ -170,7 +170,9 @@ def check_operands(kernel: str, q, k, v, *, slots: dict, heads: dict,
     (decode q (b, H, dk), prefill chunk (b, c, H, dk)) or a full sequence's
     keys and values (b, skv, hkv, dk) — or, with ``page_table`` (b, npg)
     int32, page pools (P, ps, hkv, dk); k/v bf16, or int8 / fp8_e4m3 with
-    their scales (``check_kv_scales``); dk in ``HEAD_DIMS``, H a multiple
+    their scales (``check_kv_scales``) — with a ``slot`` among ``slots``,
+    a slot pool (B, L, hkv, dk) of any B, each row reading its slot; dk
+    in ``HEAD_DIMS``, H a multiple
     of hkv, ``slots`` tensors (b,) and ``heads`` tensors (H,); and every
     operand on ``q``'s device, contiguous and aligned for the kernel's
     vector loads (16 bytes for q/k/v, 4 for the rest). Returns the cache's
@@ -194,7 +196,7 @@ def _check_layout(kernel: str, q, k, v, *, slots: dict, heads: dict,
     page table, and every operand's device, contiguity and alignment."""
     b, H, dk = q.shape[0], q.shape[-2], q.shape[-1]
     if k.shape != v.shape or k.ndim != 4 or k.shape[3] != dk or (
-            page_table is None and k.shape[0] != b):
+            page_table is None and "slot" not in slots and k.shape[0] != b):
         raise ValueError(f"{kernel}: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     if dk not in HEAD_DIMS:
@@ -272,18 +274,98 @@ def _check_placement(kernel: str, device, operands: dict, *, align: dict):
 _TICKETS = {}
 
 
+def _not_capturing(what: str, device):
+    """Raise if ``device``'s current stream is capturing a CUDA graph:
+    ``what`` must happen in an eager run (the engine's warm-up), before the
+    capture, since a graph would keep launching on the old buffer or replay
+    the new one's zeroing."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} on {device} inside a CUDA graph capture; "
+                           "run the step eagerly first")
+
+
 def tickets(device, stream, n: int) -> torch.Tensor:
     """The zeroed int32 ticket buffer of ``stream`` on ``device``, with at
     least ``n`` entries: the split kernels (decode, prefill) elect the last
     shard of each output tile with it, and every launch leaves it zero, so
     launches on one stream (and a CUDA graph captured on its own stream)
-    share it."""
+    share it. A buffer first made inside a capture is zeroed by the graph's
+    replays as well; one that must grow is replaced only outside a capture,
+    and a graph captured on the old one keeps it (``stream_tickets``)."""
     key = (device, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _not_capturing("growing a ticket buffer", device)
         t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
                                         device=device)
     return t
+
+
+def stream_tickets(device, stream):
+    """The ticket buffer launches on ``stream`` use now (None before the
+    first split launch there): a CUDA graph captured on ``stream`` holds it
+    for as long as it may replay."""
+    return _TICKETS.get((device, stream))
+
+
+_COUNTERS = {}
+
+
+def launch_counter(kernel: str, device) -> int:
+    """The address of ``kernel``'s launch counter on ``device``, a uint64
+    the kernel's block (0, 0, 0) adds one to at each launch (``count_launch``
+    in ``csrc/consmax_common.cuh``); made at the kernel's first launch there
+    (an eager one: a capture would replay the counter's zeroing)."""
+    c = _COUNTERS.get((kernel, device))
+    if c is None:
+        _not_capturing(f"making {kernel}'s launch counter", device)
+        c = _COUNTERS[(kernel, device)] = torch.zeros(1, dtype=torch.int64,
+                                                      device=device)
+    return c.data_ptr()
+
+
+class CountedOp:
+    """A kernel's public wrapper, called as the function it wraps, whose
+    ``launches`` are the kernel's own count (``launch_counter``): a launch a
+    CUDA graph replays counts as one made eagerly, and nothing but a launch
+    counts. Reading ``launches`` waits for the card and sums the kernel's
+    counters on every device (0 on the CPU, where the wrappers run the
+    plain versions); setting it to 0 zeroes them."""
+
+    def __init__(self, fn, kernel: str):
+        functools.update_wrapper(self, fn)
+        self.kernel = kernel
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    def _counters(self):
+        return [(d, c) for (k, d), c in _COUNTERS.items() if k == self.kernel]
+
+    @property
+    def launches(self) -> int:
+        n = 0
+        for device, c in self._counters():
+            torch.cuda.synchronize(device)
+            n += int(c.item())
+        return n
+
+    @launches.setter
+    def launches(self, n: int):
+        if n != 0:
+            raise ValueError(f"{self.__name__}.launches can only be reset "
+                             f"to 0, not {n}")
+        for device, c in self._counters():
+            torch.cuda.synchronize(device)
+            c.zero_()
+            torch.cuda.synchronize(device)
+
+
+def counted(kernel: str):
+    """Make the decorated wrapper a ``CountedOp`` of ``kernel``, whose
+    launches pass ``launch_counter(kernel, device)``."""
+    return lambda fn: CountedOp(fn, kernel)
 
 
 def data_ptr(t):

@@ -55,7 +55,7 @@ template <int DK>
 int launch(const void* q, const void* k, const void* v, const void* beta,
            const void* gamma, void* out, int b, int sq, int skv, int H,
            int hkv, int causal, int window, float softcap, float scale,
-           int merged, void* stream) {
+           int merged, void* stream, void* launches) {
   const WalkArgs<__nv_bfloat16, ContigRows> a{
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -63,7 +63,8 @@ int launch(const void* q, const void* k, const void* v, const void* beta,
       ContigRows{skv}, nullptr, nullptr, static_cast<const float*>(beta),
       static_cast<const float*>(gamma), static_cast<__nv_bfloat16*>(out), sq,
       H, hkv, skv, causal, window, /*fill_bound=*/1, /*reverse=*/1, softcap,
-      scale, /*shard_rows=*/skv, /*ns=*/1, nullptr, nullptr};
+      scale, /*shard_rows=*/skv, /*ns=*/1, nullptr, nullptr,
+      static_cast<unsigned long long*>(launches)};
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(merged ? launch_walk<DK, kFormEq3>(a, b, st)
                                  : launch_walk<DK, kFormEq2>(a, b, st));
@@ -72,48 +73,59 @@ int launch(const void* q, const void* k, const void* v, const void* beta,
 }  // namespace
 
 // q (b, sq, H, dk) bf16; k, v (b, skv, hkv, dk) bf16; beta, gamma (H,)
-// fp32; out (b, sq, H, dk) bf16. dk in {32, 64, 96, 128, 256}; H % hkv == 0.
+// fp32; out (b, sq, H, dk) bf16; launches a uint64 device counter the
+// kernel adds one to (null: not counted). dk in {32, 64, 96, 128, 256};
+// H % hkv == 0.
 extern "C" int consmax_attn_launch(const void* q, const void* k,
                                    const void* v, const void* beta,
                                    const void* gamma, void* out, int b,
                                    int sq, int skv, int H, int hkv, int dk,
                                    int causal, int window, float softcap,
-                                   float scale, int merged, void* stream) {
+                                   float scale, int merged, void* stream,
+                                   void* launches) {
   switch (dk) {
     case 32:
       return launch<32>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
-                        causal, window, softcap, scale, merged, stream);
+                        causal, window, softcap, scale, merged, stream,
+                        launches);
     case 64:
       return launch<64>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
-                        causal, window, softcap, scale, merged, stream);
+                        causal, window, softcap, scale, merged, stream,
+                        launches);
     case 96:
       return launch<96>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
-                        causal, window, softcap, scale, merged, stream);
+                        causal, window, softcap, scale, merged, stream,
+                        launches);
     case 128:
       return launch<128>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
-                         causal, window, softcap, scale, merged, stream);
+                         causal, window, softcap, scale, merged, stream,
+                         launches);
     case 256:
       return launch<256>(q, k, v, beta, gamma, out, b, sq, skv, H, hkv,
-                         causal, window, softcap, scale, merged, stream);
+                         causal, window, softcap, scale, merged, stream,
+                         launches);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The same on fp32 operands (attn_f32.cuh): q (b, sq, H, dk), k, v
-// (b, skv, hkv, dk), out (b, sq, H, dk) fp32; beta, gamma (H,) fp32.
+// (b, skv, hkv, dk), out (b, sq, H, dk) fp32; beta, gamma (H,) fp32;
+// launches as above.
 extern "C" int consmax_attn_f32_launch(const void* q, const void* k,
                                        const void* v, const void* beta,
                                        const void* gamma, void* out, int b,
                                        int sq, int skv, int H, int hkv,
                                        int dk, int causal, int window,
                                        float softcap, float scale,
-                                       int merged, void* stream) {
+                                       int merged, void* stream,
+                                       void* launches) {
   const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v),
                   static_cast<const float*>(beta),
                   static_cast<const float*>(gamma), static_cast<float*>(out),
-                  sq, skv, H, hkv, causal, window, softcap, scale};
+                  sq, skv, H, hkv, causal, window, softcap, scale,
+                  static_cast<unsigned long long*>(launches)};
   return merged ? launch_f32<kF32Eq3>(a, b, dk, stream)
                 : launch_f32<kF32Eq2>(a, b, dk, stream);
 }

@@ -9,7 +9,8 @@ which reads the model layout as stored, or raises. There is no fallback
 from one to the other. bf16 operands run the wgmma mainloop; fp32 operands
 the 3xTF32 tensor-core kernel of ``csrc/attn_f32.cuh``.
 
-``consmax_attention_op.launches`` counts kernel launches (CUDA only).
+``consmax_attention_op.launches`` counts kernel launches (CUDA only): the
+kernel adds one to the wrapper's device counter (``_build.counted``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ def _lib():
     lib = _build.load("consmax_attn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for entry in (lib.consmax_attn_launch, lib.consmax_attn_f32_launch):
-        entry.argtypes = [p] * 6 + [i] * 8 + [f, f, i, p]
+        entry.argtypes = [p] * 6 + [i] * 8 + [f, f, i, p, p]
         entry.restype = i
     return lib
 
@@ -74,12 +75,13 @@ def consmax_attention_cuda(q, k, v, beta, gamma, *, causal=True, window=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), beta.data_ptr(),
         gamma.data_ptr(), out.data_ptr(), b, sq, skv, H, hkv, dk,
         int(causal), window, softcap, scale, int(merged),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.launch_counter("consmax_attention", q.device))
     _build.check(lib, err, "consmax_attention")
-    consmax_attention_op.launches += 1
     return out
 
 
+@_build.counted("consmax_attention")
 def consmax_attention_op(q, k, v, beta, gamma, *, causal=True, window=0,
                          softcap=0.0, merged=False, scale=None):
     """q: (b, sq, nh, d); k, v: (b, skv, nkv, d) — model layout; beta/gamma:
@@ -108,6 +110,3 @@ def consmax_attention_op(q, k, v, beta, gamma, *, causal=True, window=0,
     return consmax_attention_cuda(q, k, v, beta, gamma, causal=causal,
                                   window=window, softcap=softcap,
                                   merged=merged, scale=scale)
-
-
-consmax_attention_op.launches = 0

@@ -215,7 +215,8 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 // v_scale rows of hkv fp32 (null for bf16), row i of slot b's logical row r
 // given by rows_of; lengths (b,) int32; beta, gamma (H,) fp32; partials
 // (b, hkv, ns, g, DK) fp32 scratch; out (b, H, DK) bf16; tickets (b * hkv,)
-// int32, zeros (the kernel leaves them zero).
+// int32, zeros (the kernel leaves them zero); launches the wrapper's
+// launch counter (count_launch).
 template <class TKV, class Rows>
 struct DecodeArgs {
   const __nv_bfloat16* q;
@@ -232,6 +233,7 @@ struct DecodeArgs {
   int* tickets;        // (b * hkv,) zeros; each back to zero after a launch
   int H, hkv, L, bk, ns, window, fill_bound;
   float softcap, scale;
+  unsigned long long* launches;
 };
 
 template <int DK, bool kMerged, class TKV, class Rows>
@@ -244,6 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(kRows == 64 && kThreads == 256,
                 "8 keys of scores per warp; P fragments of 64 keys");
 
+  count_launch(a.launches);
   const int shard = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int g = a.H / a.hkv;
   const int n = a.lengths[b];              // valid rows; decode row is n - 1
@@ -566,7 +569,7 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
               const void* gamma, void* partials, void* out, void* tickets,
               int b, int H, int hkv, int L, int bk, int window,
               float softcap, float scale, int merged, int fill_bound,
-              void* stream) {
+              void* stream, void* launches) {
   auto* ks = static_cast<const float*>(k_scale);
   auto* vs = static_cast<const float*>(v_scale);
   auto st = static_cast<cudaStream_t>(stream);
@@ -582,7 +585,8 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
         static_cast<const int*>(lengths), static_cast<const float*>(beta),
         static_cast<const float*>(gamma), static_cast<float*>(partials),
         static_cast<__nv_bfloat16*>(out), static_cast<int*>(tickets), H, hkv,
-        L, bk, ns, window, fill_bound, softcap, scale};
+        L, bk, ns, window, fill_bound, softcap, scale,
+        static_cast<unsigned long long*>(launches)};
   };
   switch (kv_type) {
     case kKVBF16:
@@ -640,9 +644,10 @@ extern "C" int consmax_decode_smem_bytes(int dk, int kv_type, int paged,
 // fp8_e4m3); k_scale, v_scale (b, L, hkv) fp32 for int8 / fp8 (null for
 // bf16); lengths (b,) int32 = valid rows per slot; beta, gamma (H,) fp32;
 // partials (b, hkv, ceil(L/bk), g, dk) fp32 scratch; out (b, H, dk) bf16;
-// tickets (b * hkv,) int32 zeros, left zero (the last argument, after the
-// stream, so the arguments before it keep their places). dk in
-// {32, 64, 96, 128, 256}; 0 < bk <= kMaxBlock.
+// tickets (b * hkv,) int32 zeros, left zero (after the stream, so the
+// arguments before it keep their places); launches a uint64 device counter
+// the kernel adds one to (null: not counted). dk in {32, 64, 96, 128, 256};
+// 0 < bk <= kMaxBlock.
 extern "C" int consmax_decode_launch(const void* q, const void* k,
                                      const void* v, const void* k_scale,
                                      const void* v_scale, const void* lengths,
@@ -651,17 +656,20 @@ extern "C" int consmax_decode_launch(const void* q, const void* k,
                                      int hkv, int L, int dk, int bk,
                                      int window, float softcap, float scale,
                                      int merged, int fill_bound, int kv_type,
-                                     void* stream, void* tickets) {
+                                     void* stream, void* tickets,
+                                     void* launches) {
   return launch_kv(kv_type, dk, q, k, v, k_scale, v_scale, ContigRows{L},
                    lengths, beta, gamma, partials, out, tickets, b, H, hkv,
-                   L, bk, window, softcap, scale, merged, fill_bound, stream);
+                   L, bk, window, softcap, scale, merged, fill_bound, stream,
+                   launches);
 }
 
 // The paged twin: kp, vp (P, ps, hkv, dk) pools of kv_type; k_scale,
 // v_scale (P, ps, hkv) fp32 scale pools (null for bf16), read at the same
 // row index as the data; table (b, npg) int32 (-1 = unmapped); lengths (b,)
 // int32 = valid logical rows (index + active, 0 allowed); partials
-// (b, hkv, ceil(npg * ps / bk), g, dk) fp32 scratch; tickets as above.
+// (b, hkv, ceil(npg * ps / bk), g, dk) fp32 scratch; tickets and launches
+// as above.
 // Any page size: a paged CTA keeps its shard's page entries (bk + 1 at
 // most) in shared memory, and ps only shapes the address.
 extern "C" int consmax_decode_paged_launch(
@@ -670,10 +678,10 @@ extern "C" int consmax_decode_paged_launch(
     const void* beta, const void* gamma, void* partials, void* out, int b,
     int H, int hkv, int npg, int ps, int dk, int bk, int window,
     float softcap, float scale, int merged, int fill_bound, int kv_type,
-    void* stream, void* tickets) {
+    void* stream, void* tickets, void* launches) {
   const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
   return launch_kv(kv_type, dk, q, kp, vp, k_scale, v_scale, rows_of,
                    lengths, beta, gamma, partials, out, tickets, b, H, hkv,
                    npg * ps, bk, window, softcap, scale, merged, fill_bound,
-                   stream);
+                   stream, launches);
 }

@@ -13,7 +13,9 @@ both paths dequantize it block by block as they read it; a quantized cache
 without scales, or a bf16 cache with them, raises.
 
 ``consmax_decode_op.launches`` and ``consmax_decode_paged_op.launches``
-count kernel launches (CUDA only), each its own entry point.
+count kernel launches (CUDA only), each its own entry point: the kernel
+adds one to its wrapper's device counter (``_build.counted``), so a launch
+a CUDA graph replays counts too.
 
 ``decode_plan`` is the launch in plain Python (``kernels/launch_plan``):
 the checks, the grid, the shared memory (``decode_smem_bytes``, the twin of
@@ -53,10 +55,11 @@ def _lib():
     lib = _build.load("consmax_decode")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.consmax_decode_launch.argtypes = ([p] * 10 + [i] * 7
-                                          + [f, f, i, i, i, p, p])
+                                          + [f, f, i, i, i, p, p, p])
     lib.consmax_decode_launch.restype = i
     lib.consmax_decode_paged_launch.argtypes = ([p] * 11 + [i] * 8
-                                                + [f, f, i, i, i, p, p])
+                                                + [f, f, i, i, i, p, p,
+                                                   p])
     lib.consmax_decode_paged_launch.restype = i
     lib.consmax_decode_smem_bytes.argtypes = [i] * 4
     lib.consmax_decode_smem_bytes.restype = i
@@ -174,12 +177,13 @@ def consmax_decode_cuda(q, k, v, lengths, beta, gamma, *, window=0,
         o["beta"].data_ptr(), o["gamma"].data_ptr(), partials.data_ptr(),
         out.data_ptr(), b, H, hkv, L, dk, o["bk"], window, softcap,
         _scale(scale, dk), int(merged), int(fill_bound), o["kv_type"],
-        stream, _build.tickets(q.device, stream, b * hkv).data_ptr())
+        stream, _build.tickets(q.device, stream, b * hkv).data_ptr(),
+        _build.launch_counter("consmax_decode", q.device))
     _build.check(lib, err, "consmax_decode")
-    consmax_decode_op.launches += 1
     return out
 
 
+@_build.counted("consmax_decode")
 def consmax_decode_op(q, k, v, index, beta, gamma, *, window=0, softcap=0.0,
                       merged=True, scale=None, bk=256, fill_bound=True,
                       k_scale=None, v_scale=None):
@@ -216,8 +220,6 @@ def consmax_decode_op(q, k, v, index, beta, gamma, *, window=0, softcap=0.0,
                                k_scale=k_scale, v_scale=v_scale)[:, None]
 
 
-consmax_decode_op.launches = 0
-
 
 def consmax_decode_paged_cuda(q, kp, vp, page_table, lengths, beta, gamma, *,
                               window=0, softcap=0.0, merged=True, scale=None,
@@ -247,12 +249,13 @@ def consmax_decode_paged_cuda(q, kp, vp, page_table, lengths, beta, gamma, *,
         partials.data_ptr(), out.data_ptr(), b, H, hkv, npg, ps, dk, o["bk"],
         window, softcap, _scale(scale, dk), int(merged), int(fill_bound),
         o["kv_type"], stream,
-        _build.tickets(q.device, stream, b * hkv).data_ptr())
+        _build.tickets(q.device, stream, b * hkv).data_ptr(),
+        _build.launch_counter("consmax_decode_paged", q.device))
     _build.check(lib, err, "consmax_decode_paged")
-    consmax_decode_paged_op.launches += 1
     return out
 
 
+@_build.counted("consmax_decode_paged")
 def consmax_decode_paged_op(q, kp, vp, page_table, lengths, beta, gamma, *,
                             window=0, softcap=0.0, merged=True, scale=None,
                             bk=256, fill_bound=True, k_scale=None,
@@ -292,6 +295,3 @@ def consmax_decode_paged_op(q, kp, vp, page_table, lengths, beta, gamma, *,
                                      scale=scale, bk=bk,
                                      fill_bound=fill_bound, k_scale=k_scale,
                                      v_scale=v_scale)[:, None]
-
-
-consmax_decode_paged_op.launches = 0

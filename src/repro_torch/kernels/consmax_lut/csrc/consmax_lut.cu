@@ -48,7 +48,9 @@ __global__ void __launch_bounds__(kThreads)
                const float* __restrict__ lsb_lut,  // (16,)
                const float* __restrict__ c_ptr,    // 0-d, or null
                float c_val, float* __restrict__ out,  // (n,), 16-byte aligned
-               long long n, bool vec) {  // vec: codes 16-byte aligned
+               long long n, bool vec,  // vec: codes 16-byte aligned
+               unsigned long long* launches) {
+  count_launch(launches);
   __shared__ float tm[16], tl[16];
   __shared__ __align__(16) int8_t codes_s[kPerBlock];
   if (threadIdx.x < 16) {
@@ -86,11 +88,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // codes (n,) int8, at any address; msb_lut, lsb_lut (16,) fp32; c_ptr a
 // 0-d fp32 device tensor or null (then c_val); out (n,) fp32, 16-byte
-// aligned. n >= 1.
+// aligned; launches a uint64 device counter the kernel adds one to (null:
+// not counted). n >= 1.
 extern "C" int consmax_lut_launch(const void* codes, const void* msb_lut,
                                   const void* lsb_lut, const void* c_ptr,
                                   float c_val, void* out, long long n,
-                                  void* stream) {
+                                  void* stream, void* launches) {
   const long long blocks = (n + kPerBlock - 1) / kPerBlock;
   if (n < 1 || blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -100,6 +103,7 @@ extern "C" int consmax_lut_launch(const void* codes, const void* msb_lut,
       static_cast<const int8_t*>(codes), static_cast<const float*>(msb_lut),
       static_cast<const float*>(lsb_lut), static_cast<const float*>(c_ptr),
       c_val, static_cast<float*>(out), n,
-      reinterpret_cast<uintptr_t>(codes) % 16 == 0);
+      reinterpret_cast<uintptr_t>(codes) % 16 == 0,
+      static_cast<unsigned long long*>(launches));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@ multiply order); on a CUDA device it launches the kernel in
 ``csrc/consmax_lut.cu`` (built at first use, see ``kernels/_build.py``) or
 raises. There is no fallback.
 
-``consmax_lut_op.launches`` counts kernel launches (CUDA only).
+``consmax_lut_op.launches`` counts kernel launches (CUDA only): the kernel
+adds one to the wrapper's device counter (``_build.counted``).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def _lib():
     lib = _build.load("consmax_lut")
     p = ctypes.c_void_p
     lib.consmax_lut_launch.argtypes = [p] * 4 + [ctypes.c_float, p,
-                                                 ctypes.c_longlong, p]
+                                                 ctypes.c_longlong, p, p]
     lib.consmax_lut_launch.restype = ctypes.c_int
     return lib
 
@@ -62,12 +63,13 @@ def consmax_lut_cuda(scores_int8, c, msb_lut, lsb_lut):
     err = lib.consmax_lut_launch(
         scores_int8.data_ptr(), msb_lut.data_ptr(), lsb_lut.data_ptr(), c_ptr,
         c_val, out.data_ptr(), scores_int8.numel(),
-        torch.cuda.current_stream(scores_int8.device).cuda_stream)
+        torch.cuda.current_stream(scores_int8.device).cuda_stream,
+        _build.launch_counter("consmax_lut", scores_int8.device))
     _build.check(lib, err, "consmax_lut")
-    consmax_lut_op.launches += 1
     return out
 
 
+@_build.counted("consmax_lut")
 def consmax_lut_op(scores_int8, c, *, scale: float):
     """scores_int8: int8, any shape (contiguous on CUDA); c: the merged
     constant e^{-beta}/gamma
@@ -82,6 +84,3 @@ def consmax_lut_op(scores_int8, c, *, scale: float):
         raise NotImplementedError(
             f"consmax_lut: no kernel for device {scores_int8.device}")
     return consmax_lut_cuda(scores_int8, c, *luts)
-
-
-consmax_lut_op.launches = 0

@@ -114,7 +114,7 @@ int launch_typed(int dk, const void* q, const void* k, const void* v,
                  const void* gamma, void* out, int b, int c, int H, int hkv,
                  int L, int window, float softcap, float scale, int merged,
                  int fill_bound, int shard_rows, int ns, void* partials,
-                 void* tickets, void* stream) {
+                 void* tickets, void* stream, void* launches) {
   const WalkArgs<TKV, Rows> a{
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const float*>(k_scale),
@@ -123,7 +123,8 @@ int launch_typed(int dk, const void* q, const void* k, const void* v,
       static_cast<const float*>(beta), static_cast<const float*>(gamma),
       static_cast<__nv_bfloat16*>(out), c, H, hkv, L, /*causal=*/1, window,
       fill_bound, /*reverse=*/0, softcap, scale, shard_rows, ns,
-      static_cast<float*>(partials), static_cast<int*>(tickets)};
+      static_cast<float*>(partials), static_cast<int*>(tickets),
+      static_cast<unsigned long long*>(launches)};
   return launch_dk(dk, a, b, merged, static_cast<cudaStream_t>(stream));
 }
 
@@ -134,7 +135,8 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
               const void* beta, const void* gamma, void* out, int b, int c,
               int H, int hkv, int L, int window, float softcap, float scale,
               int merged, int fill_bound, int shard_rows, int ns,
-              void* partials, void* tickets, void* stream) {
+              void* partials, void* tickets, void* stream,
+              void* launches) {
   if (kv_type != kKVBF16 && (!k_scale || !v_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (kv_type) {
@@ -142,18 +144,18 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
       return launch_typed<__nv_bfloat16>(
           dk, q, k, v, k_scale, v_scale, rows_of, index, lengths, beta,
           gamma, out, b, c, H, hkv, L, window, softcap, scale, merged,
-          fill_bound, shard_rows, ns, partials, tickets, stream);
+          fill_bound, shard_rows, ns, partials, tickets, stream, launches);
     case kKVInt8:
       return launch_typed<int8_t>(dk, q, k, v, k_scale, v_scale, rows_of,
                                   index, lengths, beta, gamma, out, b, c, H,
                                   hkv, L, window, softcap, scale, merged,
                                   fill_bound, shard_rows, ns, partials,
-                                  tickets, stream);
+                                  tickets, stream, launches);
     case kKVFP8:
       return launch_typed<__nv_fp8_e4m3>(
           dk, q, k, v, k_scale, v_scale, rows_of, index, lengths, beta,
           gamma, out, b, c, H, hkv, L, window, softcap, scale, merged,
-          fill_bound, shard_rows, ns, partials, tickets, stream);
+          fill_bound, shard_rows, ns, partials, tickets, stream, launches);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -161,13 +163,17 @@ int launch_kv(int kv_type, int dk, const void* q, const void* k,
 
 }  // namespace
 
-// q (b, c, H, dk) bf16; k, v (b, L, hkv, dk) of kv_type (KVCode: bf16,
-// int8, fp8_e4m3); k_scale, v_scale (b, L, hkv) fp32 for int8 / fp8 (null
+// q (b, c, H, dk) bf16; k, v (B, L, hkv, dk) of kv_type (KVCode: bf16,
+// int8, fp8_e4m3); k_scale, v_scale (B, L, hkv) fp32 for int8 / fp8 (null
 // for bf16); index, lengths (b,) int32; beta, gamma (H,) fp32; out
 // (b, c, H, dk) bf16. dk in {32, 64, 96, 128, 256}. After the stream (so a
 // caller of the unsplit entry point's signature still binds): shard_rows,
 // ns, the KV-shard axis (ns = 1: none); with ns > 1, partials (b, hkv, ns,
-// c g, dk) fp32 scratch and tickets (b, hkv, ceil(c g / 64)) int32, zero.
+// c g, dk) fp32 scratch and tickets (b, hkv, ceil(c g / 64)) int32, zero;
+// then slot: null (B == b, row b reads cache slot b), or (b,) int32 on the
+// device, row b reading cache slot slot[b] (index / lengths stay row b's);
+// then launches, a uint64 device counter the kernel adds one to (null: not
+// counted).
 extern "C" int consmax_prefill_launch(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* index,
@@ -177,16 +183,19 @@ extern "C" int consmax_prefill_launch(const void* q, const void* k,
                                       int window, float softcap, float scale,
                                       int merged, int fill_bound, int kv_type,
                                       void* stream, int shard_rows, int ns,
-                                      void* partials, void* tickets) {
-  return launch_kv(kv_type, dk, q, k, v, k_scale, v_scale, ContigRows{L},
+                                      void* partials, void* tickets,
+                                      const void* slot, void* launches) {
+  const ContigRows rows_of{L, static_cast<const int*>(slot)};
+  return launch_kv(kv_type, dk, q, k, v, k_scale, v_scale, rows_of,
                    index, lengths, beta, gamma, out, b, c, H, hkv, L, window,
                    softcap, scale, merged, fill_bound, shard_rows, ns,
-                   partials, tickets, stream);
+                   partials, tickets, stream, launches);
 }
 
 // The paged twin: kp, vp (P, ps, hkv, dk) pools of kv_type; k_scale,
 // v_scale (P, ps, hkv) fp32 scale pools (null for bf16), read at the same
-// row index as the data; table (b, npg) int32 (-1 = unmapped); the slot's
+// row index as the data; table (b, npg) int32 (-1 = unmapped); launches as
+// above (after tickets: the paged kernel takes no slot); the slot's
 // logical capacity is npg * ps rows, so a chunk running past it reads no
 // row there (its column is clamped as well). Its shards are of logical rows.
 extern "C" int consmax_prefill_paged_launch(
@@ -195,10 +204,11 @@ extern "C" int consmax_prefill_paged_launch(
     const void* lengths, const void* beta, const void* gamma, void* out,
     int b, int c, int H, int hkv, int npg, int ps, int dk, int window,
     float softcap, float scale, int merged, int fill_bound, int kv_type,
-    void* stream, int shard_rows, int ns, void* partials, void* tickets) {
+    void* stream, int shard_rows, int ns, void* partials, void* tickets,
+    void* launches) {
   const PagedRows rows_of{static_cast<const int*>(table), npg, ps};
   return launch_kv(kv_type, dk, q, kp, vp, k_scale, v_scale, rows_of, index,
                    lengths, beta, gamma, out, b, c, H, hkv, npg * ps, window,
                    softcap, scale, merged, fill_bound, shard_rows, ns,
-                   partials, tickets, stream);
+                   partials, tickets, stream, launches);
 }

@@ -18,12 +18,20 @@ from repro_torch.kernels import cache_layout as CL
 def consmax_prefill_ref(q, k, v, index, lengths, beta, gamma, *,
                         window: int = 0, softcap: float = 0.0,
                         merged: bool = True, scale: float | None = None,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, slot=None):
     """q: (b, c, H, dk) chunk at per-slot positions index + [0, c);
     k, v: (b, L, hkv, dk) caches after the chunk's K/V were written;
     index, lengths: (b,); k_scale, v_scale: (b, L, hkv) fp32 row scales of
-    a quantized cache. Returns (b, c, H, dk) fp32; rows >= lengths are pad
-    rows the caller discards."""
+    a quantized cache. ``slot`` (b,) int: the caches are a (B, L, ...) slot
+    pool and row i reads slot ``slot[i]`` (gathered first). Returns
+    (b, c, H, dk) fp32; rows >= lengths are pad rows the caller
+    discards."""
+    if slot is not None:
+        sel = slot.long()
+        k, v = k.index_select(0, sel), v.index_select(0, sel)
+        if k_scale is not None:
+            k_scale = k_scale.index_select(0, sel)
+            v_scale = v_scale.index_select(0, sel)
     if k_scale is not None:
         k = CL.dequant_block(k, k_scale, q.dtype)
         v = CL.dequant_block(v, v_scale, q.dtype)

@@ -86,6 +86,7 @@ struct F32Args {
   float* out;
   int sq, skv, H, hkv, causal, window;
   float softcap, scale;
+  unsigned long long* launches;  // count_launch's counter (null: none)
 };
 
 // The CTA's shape and dynamic shared memory at head_dim DK (twin:
@@ -156,6 +157,7 @@ __global__ void __launch_bounds__(F32Layout<DK>::kThreads)
   constexpr int JG = DK == 256 ? 2 : 4;
   constexpr int NG = DK == 256 ? 1 : 2;
   extern __shared__ __align__(128) uint8_t smem[];
+  count_launch(a.launches);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   float* qs = reinterpret_cast<float*>(smem + 128);
   auto ks = [&](int s) {

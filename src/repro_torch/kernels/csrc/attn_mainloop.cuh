@@ -238,7 +238,8 @@ struct WalkLayout {
 // ---------------------------------------------------------- arguments ----
 // One launch of the walk. q, out: (b, c, H, DK) bf16 (the chunk of a slot,
 // or a whole sequence); k, v: rows of hkv * DK elements of TKV, row i of
-// slot b's logical row r given by rows_of; k_scale, v_scale: rows of hkv
+// logical row r of cache slot rows_of.cache_row(b) given by rows_of;
+// k_scale, v_scale: rows of hkv
 // fp32 (null for bf16). index, lengths: (b,) int32 — the chunk sits at
 // cache positions index + [0, c) and the slot's keys end at index +
 // lengths; null for a whole sequence (index 0, keys end at L). beta, gamma
@@ -247,7 +248,8 @@ struct WalkLayout {
 // CTAs of the last rows first (under causal masking they see the most
 // tiles). shard_rows, ns: the KV-shard axis (ns = 1: none); with ns > 1,
 // partials (b, hkv, ns, c g, DK) fp32 scratch and tickets (b, hkv, row
-// tiles) int32, zero before the launch and left zero after it.
+// tiles) int32, zero before the launch and left zero after it. launches:
+// the wrapper's launch counter (count_launch; null: not counted).
 template <class TKV, class Rows>
 struct WalkArgs {
   const __nv_bfloat16* q;
@@ -266,6 +268,7 @@ struct WalkArgs {
   int shard_rows, ns;
   float* partials;
   int* tickets;
+  unsigned long long* launches;
 };
 
 // ------------------------------------------------------------ producer ----
@@ -365,7 +368,7 @@ __device__ __forceinline__ void dequant_tile(uint8_t* smem, int pt, int t) {
 // zero-filled. With ns > 1: the row tile's live shards [s0, s1) and the
 // CTA's shard, or, for a row tile with no live shard, zero.
 struct CtaWalk {
-  int b, h, tile, r0, idx, kvl;
+  int b, kvb, h, tile, r0, idx, kvl;  // kvb: the cache row b reads
   int s0, s1, shard;
   bool zero;
   int n, begin, end;
@@ -393,7 +396,7 @@ __device__ __forceinline__ void walk_producer(const WalkArgs<TKV, Rows>& a,
   uint64_t* empty = full + S;
   const int n_tiles = it.n;
   auto issue = [&](int t) {
-    issue_tile<DK, kCons>(a, smem, pt, it.b, it.h, t,
+    issue_tile<DK, kCons>(a, smem, pt, it.kvb, it.h, t,
                           it.begin + t * kWalkBN, it.end);
   };
   if constexpr (!Lay::kScaled) {
@@ -879,6 +882,7 @@ template <int kCtaRows, class TKV, class Rows>
 __device__ __forceinline__ bool cta_walk(const WalkArgs<TKV, Rows>& a,
                                          CtaWalk* it) {
   it->b = blockIdx.z;
+  it->kvb = a.rows_of.cache_row(it->b);
   it->h = blockIdx.y;
   it->tile = blockIdx.x / a.ns;
   it->shard = blockIdx.x % a.ns;
@@ -919,6 +923,7 @@ __global__ void __launch_bounds__(128 * (kCons + 1), 1)
   extern __shared__ __align__(128) uint8_t smem[];
   CLOCK_INIT(threadIdx.x / 128, threadIdx.x < 128 * kCons);
   WALK_CLOCK(kWalkEntry);
+  count_launch(a.launches);
   CtaWalk it;
   if (!cta_walk<kCtaRows>(a, &it)) return;
   if (it.zero) {

@@ -25,6 +25,15 @@ __device__ __forceinline__ bool kv_mask(int qpos, int kpos, int kv_len,
   return m;
 }
 
+// A kernel counts its own launches: thread 0 of block (0, 0, 0) adds one to
+// the wrapper's device counter (null: not counted), so a launch a CUDA graph
+// replays counts as one made eagerly (kernels/_build.py launch_counter).
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (launches && threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0)
+    atomicAdd(launches, 1ULL);
+}
+
 // cache_layout.shard_live for a decode step (the query at row n - 1 of a
 // slot with n valid rows), over the shards of bk rows: the live shards are
 // one run [s0, s1) of the ns shards (shard_live is monotonic in the shard
@@ -67,11 +76,21 @@ __device__ __forceinline__ float consmax_weight(float s, float beta,
 // to logical row positions: a paged kernel gives the contiguous kernel's
 // bits whenever the pages hold the same rows, for any page size.
 //
-// ContigRows: a (b, L, hkv, dk) cache; row r of slot b is row b * L + r.
+// cache_row(b) is the row of the cache that query row b reads: b itself,
+// except for a contiguous cache given a slot operand.
+//
+// ContigRows: a (B, L, hkv, dk) cache; row r of slot s is row s * L + r.
+// With `slot` (b,) int32 on the device, query row b reads cache slot
+// slot[b] (the engine's static prefill step: one request's chunk against
+// the whole slot pool, its slot a value, not an address); without, slot b.
 struct ContigRows {
   int L;
-  __device__ __forceinline__ bool row(int b, int r, size_t* i) const {
-    *i = static_cast<size_t>(b) * L + r;
+  const int* slot = nullptr;
+  __device__ __forceinline__ int cache_row(int b) const {
+    return slot ? __ldg(slot + b) : b;
+  }
+  __device__ __forceinline__ bool row(int s, int r, size_t* i) const {
+    *i = static_cast<size_t>(s) * L + r;
     return true;
   }
 };
@@ -83,6 +102,7 @@ struct ContigRows {
 struct PagedRows {
   const int* table;
   int npg, ps;
+  __device__ __forceinline__ int cache_row(int b) const { return b; }
   __device__ __forceinline__ bool row(int b, int r, size_t* i) const {
     const int col = min(r / ps, npg - 1);
     const int page = __ldg(table + static_cast<size_t>(b) * npg + col);

@@ -41,7 +41,7 @@ namespace {
 template <int DK>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int H, int hkv, int causal, int window,
-           float softcap, float scale, void* stream) {
+           float softcap, float scale, void* stream, void* launches) {
   const WalkArgs<__nv_bfloat16, ContigRows> a{
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -49,7 +49,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       ContigRows{skv}, nullptr, nullptr, nullptr, nullptr,
       static_cast<__nv_bfloat16*>(out), sq, H, hkv, skv, causal, window,
       /*fill_bound=*/1, /*reverse=*/1, softcap, scale, /*shard_rows=*/skv,
-      /*ns=*/1, nullptr, nullptr};
+      /*ns=*/1, nullptr, nullptr, static_cast<unsigned long long*>(launches)};
   return static_cast<int>(launch_walk<DK, kFormSoftmax>(
       a, b, static_cast<cudaStream_t>(stream)));
 }
@@ -57,44 +57,46 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // q (b, sq, H, dk) bf16; k, v (b, skv, hkv, dk) bf16; out (b, sq, H, dk)
-// bf16. dk in {32, 64, 96, 128, 256}; H % hkv == 0.
+// bf16; launches a uint64 device counter the kernel adds one to (null:
+// not counted). dk in {32, 64, 96, 128, 256}; H % hkv == 0.
 extern "C" int softmax_attn_launch(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
                                    int skv, int H, int hkv, int dk,
                                    int causal, int window, float softcap,
-                                   float scale, void* stream) {
+                                   float scale, void* stream,
+                                   void* launches) {
   switch (dk) {
     case 32:
       return launch<32>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
-                        softcap, scale, stream);
+                        softcap, scale, stream, launches);
     case 64:
       return launch<64>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
-                        softcap, scale, stream);
+                        softcap, scale, stream, launches);
     case 96:
       return launch<96>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
-                        softcap, scale, stream);
+                        softcap, scale, stream, launches);
     case 128:
       return launch<128>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
-                         softcap, scale, stream);
+                         softcap, scale, stream, launches);
     case 256:
       return launch<256>(q, k, v, out, b, sq, skv, H, hkv, causal, window,
-                         softcap, scale, stream);
+                         softcap, scale, stream, launches);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The same on fp32 operands (attn_f32.cuh): q (b, sq, H, dk), k, v
-// (b, skv, hkv, dk), out (b, sq, H, dk) fp32.
+// (b, skv, hkv, dk), out (b, sq, H, dk) fp32; launches as above.
 extern "C" int softmax_attn_f32_launch(const void* q, const void* k,
                                        const void* v, void* out, int b,
                                        int sq, int skv, int H, int hkv,
                                        int dk, int causal, int window,
                                        float softcap, float scale,
-                                       void* stream) {
+                                       void* stream, void* launches) {
   const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), nullptr, nullptr,
                   static_cast<float*>(out), sq, skv, H, hkv, causal, window,
-                  softcap, scale};
+                  softcap, scale, static_cast<unsigned long long*>(launches)};
   return launch_f32<kF32Softmax>(a, b, dk, stream);
 }

@@ -8,7 +8,8 @@ hand-written kernel in ``csrc/softmax_attn.cu`` (built at first use, see
 ``kernels/_build.py``) or raises. There is no fallback, and no library
 attention call: the comparison with ``consmax_attn`` stays like for like.
 
-``softmax_attention_op.launches`` counts kernel launches (CUDA only).
+``softmax_attention_op.launches`` counts kernel launches (CUDA only): the
+kernel adds one to the wrapper's device counter (``_build.counted``).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ def _lib():
     lib = _build.load("softmax_attn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for entry in (lib.softmax_attn_launch, lib.softmax_attn_f32_launch):
-        entry.argtypes = [p] * 4 + [i] * 8 + [f, f, p]
+        entry.argtypes = [p] * 4 + [i] * 8 + [f, f, p, p]
         entry.restype = i
     return lib
 
@@ -66,12 +67,13 @@ def softmax_attention_cuda(q, k, v, *, causal=True, window=0, softcap=0.0,
     err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
         H, hkv, dk, int(causal), window, softcap, scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.launch_counter("softmax_attention", q.device))
     _build.check(lib, err, "softmax_attention")
-    softmax_attention_op.launches += 1
     return out
 
 
+@_build.counted("softmax_attention")
 def softmax_attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
                          scale=None):
     """q: (b, sq, nh, d); k, v: (b, skv, nkv, d) — model layout. Returns
@@ -91,6 +93,3 @@ def softmax_attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
             f"softmax_attention: no kernel for device {q.device}")
     return softmax_attention_cuda(q, k, v, causal=causal, window=window,
                                   softcap=softcap, scale=scale)
-
-
-softmax_attention_op.launches = 0

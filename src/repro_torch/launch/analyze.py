@@ -16,12 +16,15 @@ kernels on, plus ``paged_prefix`` (the prefix cache over a warm-admission
 workload), plus per quantized ``--kv-dtype`` the two fused bounded configs
 — on the smoke config of ``--arch``, the gate:
 
-* runs one prefill chunk and one decode step of a real engine with the
-  kernels captured (``kernel_contracts.capture_launches``: their launch
-  plans recorded, nothing launched), records the aten ops each
-  ``ContinuousBatchingEngine._lm`` call dispatches (``op_lint.record_ops``;
-  the host bookkeeping around it, the token drain and the page-table
-  upload, stays outside the step, as in the reference) and runs the
+* runs one prefill chunk and one decode step of a real engine (eager:
+  ``cuda_graphs=False``) with the kernels captured
+  (``kernel_contracts.capture_launches``: their launch plans recorded,
+  nothing launched), records the aten ops each static step
+  (``ContinuousBatchingEngine._prefill_step`` / ``_decode_step``, the
+  programs a graphed engine captures) dispatches (``op_lint.record_ops``;
+  the host bookkeeping around them, the staging copies, the token drain
+  and the page-table upload, stays outside the step, as in the
+  reference) and runs the
   ``op_lint`` rules: no cache-sized copies, no vocab-sized outputs under
   fused sampling, no host syncs, cache-dtype stability, the quantized
   cache's fp32 scales and no full-cache dequant;
@@ -160,9 +163,11 @@ def _cache_metas(caches):
 
 def _step_targets(cfg, scfg, eng, *, prefix=False):
     """Run one prefill chunk and one decode step of ``eng`` with the kernels
-    captured, recording each ``_lm`` call's ops: one ``StepTarget`` per
-    step. ``prefix=True`` adds the warm-admission index pin and the COW page
-    copy (they rewrite pool leaves, so the cache rules apply to them)."""
+    captured, recording the ops of each static step (``_prefill_step``,
+    ``_decode_step``) and the cache leaves before and after it: one
+    ``StepTarget`` per step. ``prefix=True`` adds the warm-admission index
+    pin and the COW page copy (they rewrite pool leaves, so the cache rules
+    apply to them)."""
     from repro_torch.analysis import op_lint as OL
     from repro_torch.analysis.kernel_contracts import capture_launches
     from repro_torch.models import transformer as T
@@ -170,21 +175,24 @@ def _step_targets(cfg, scfg, eng, *, prefix=False):
     vocab = cfg.vocab_size if scfg.fused_sampling else None
     device = eng.device.type
     targets = []
-    real = eng._lm
 
-    def lm(tokens, caches, **kw):
-        step = "prefill" if "prefill_append" in kw else "decode"
-        cache_in, scales = _cache_metas(caches)
-        with OL.record_ops() as ops:
-            out, new = real(tokens, caches, **kw)
-        targets.append(OL.StepTarget(
-            step, ops, cache_cells=_cache_threshold(cfg, scfg, step),
-            vocab_size=vocab, outputs=OL.metas(out), cache_in=cache_in,
-            cache_out=_cache_metas(new)[0], scale_leaves=scales,
-            device=device))
-        return out, new
+    def lint(step):
+        real = getattr(eng, f"_{step}_step")
 
-    eng._lm = lm
+        def run(draw):
+            cache_in, scales = _cache_metas(eng.caches)
+            with OL.record_ops() as ops:
+                out = real(draw)
+            targets.append(OL.StepTarget(
+                step, ops, cache_cells=_cache_threshold(cfg, scfg, step),
+                vocab_size=vocab, outputs=OL.metas(out), cache_in=cache_in,
+                cache_out=_cache_metas(eng.caches)[0], scale_leaves=scales,
+                device=device))
+            return out
+        setattr(eng, f"_{step}_step", run)
+
+    lint("prefill")
+    lint("decode")
     try:
         with capture_launches():
             # a sampled prompt within one chunk: the iteration prefills it
@@ -195,7 +203,7 @@ def _step_targets(cfg, scfg, eng, *, prefix=False):
                                                seed=3))
             eng.step()
     finally:
-        del eng._lm
+        del eng._prefill_step, eng._decode_step
     names = [t.name for t in targets]
     assert names == ["prefill", "decode"], names
     if prefix:
@@ -265,7 +273,8 @@ def analyze_config(label, cfg, params, scfg, *, trace_guard=True):
 
     prefix = label == "paged_prefix"
     device = params.device
-    eng = ContinuousBatchingEngine(cfg, scfg, params, device=device)
+    eng = ContinuousBatchingEngine(cfg, scfg, params, device=device,
+                                   cuda_graphs=False)
     findings = []
     entry = {"serve": {"paged_kv": scfg.paged_kv,
                        "fused_sampling": scfg.fused_sampling,

@@ -259,7 +259,8 @@ def main(argv=None):
           f"({n / dt:.1f} tok/s) with {args.max_slots} slots, "
           f"decode_kernel={args.decode_kernel}, "
           f"prefill_kernel={args.prefill_kernel}, paged={args.paged}, "
-          f"kv_dtype={args.kv_dtype}, fused_sampling={fused}")
+          f"kv_dtype={args.kv_dtype}, fused_sampling={fused}, "
+          f"graphed={eng.graphed} ({eng.graph_replays} graph replays)")
     if args.temperature > 0:
         print(f"[serve/continuous] sampling: temperature={args.temperature} "
               f"top_k={args.top_k} top_p={args.top_p} min_p={args.min_p} "

@@ -134,13 +134,14 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
                 kv_chunk=1024, decode_kernel=False, decode_kv_block=256,
                 prefill_kernel=False, prefill_kv_block=512, fill_bound=True,
                 prefill_append=None, decode_active=None, page_table=None,
-                attn_mesh=None):
+                attn_mesh=None, slot=None):
     """Returns (x, new_cache, aux): new_cache is None without a cache (the
     whole-sequence forward); aux is the MoE load-balance loss (0-d fp32),
     None for a block without experts (no device op for a zero). ``cond``
     (b, n_cond, d): the conditioning stream of a cross-attention config.
-    ``page_table``: (b, npg) int32 for paged caches and ``attn_mesh`` the
-    serving mesh's attention handle (see ``core.attention``); the MoE FFN
+    ``page_table``: (b, npg) int32 for paged caches, ``slot`` the static
+    prefill step's device slot and ``attn_mesh`` the serving mesh's
+    attention handle (see ``core.attention``); the MoE FFN
     stays replicated under it, as in the reference. Under an
     expert-parallel context (``distributed/sharding.ep_info``) whose group
     size divides ``n_experts``, the MoE FFN runs through ``models/moe_ep``.
@@ -160,7 +161,7 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, positions=None,
             prefill_kernel=prefill_kernel, prefill_kv_block=prefill_kv_block,
             fill_bound=fill_bound, prefill_append=prefill_append,
             decode_active=decode_active,
-            page_table=page_table, attn_mesh=attn_mesh)
+            page_table=page_table, attn_mesh=attn_mesh, slot=slot)
         if cfg.post_block_norm:
             h = p.attn_post_norm(h)
         x = x + h

@@ -18,7 +18,9 @@ same shape without dk, one scale per row and KV head; a bf16 cache has
 none. Recurrent blocks hold their state: ``{"mamba": {conv, h}}``,
 ``{"mlstm": {conv, C, n, m}}``, ``{"slstm": {h, c, n, m}}``. Forward
 passes update K/V (and scales) in place, rebind ``index`` and return the
-recurrent state anew; the slot utilities below update in place.
+recurrent state anew; the slot utilities below update in place
+(``store_index`` writes a pass's advanced ``index`` back into the caches'
+own leaves, so a step that ends in it leaves every leaf where it was).
 """
 from __future__ import annotations
 
@@ -108,7 +110,7 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
              decode_kernel=False, decode_kv_block=256, prefill_kernel=False,
              prefill_kv_block=512, fill_bound=True, prefill_append=None,
              decode_active=None, page_table=None, logits_epilogue=None,
-             attn_mesh=None):
+             attn_mesh=None, slot=None):
     """Forward pass over a (b, s) token batch (``tokens``) or, for the stub
     vlm / audio frontends, (b, s, d) precomputed ``embeds``; ``cond`` (b,
     n_cond, d) is the conditioning stream of a cross-attention config.
@@ -130,6 +132,10 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
     page_table: (b, npg) int32 — paged caches (``init_paged_caches``): each
     slot's logical rows live on the pool pages its table row maps; all
     layers fill in lockstep, so one table serves the whole stack.
+    slot: (b,) int32 on the device, with ``prefill_append`` — ``caches``
+    are the whole slot pool and batch row i appends to slot ``slot[i]``
+    (``core.attention.attention_apply``); the returned caches' ``index`` is
+    those slots' advanced index, for ``store_index``.
     attn_mesh: the serving mesh's ``distributed.comm.AttentionMesh``,
     threaded to every attention block (the reference's ``psum_axes``):
     ``p`` is then a rank's head slice (``distributed/serve_mesh``).
@@ -149,6 +155,8 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
         positions = torch.arange(s, device=dev)[None, :]
     elif positions is None and prefill_append is not None:
         idx = cache_index(caches)                      # per-slot fill level
+        if slot is not None:
+            idx = idx.index_select(0, slot)
         positions = idx[:, None] + torch.arange(s, device=dev)
     x = FE.frontend_apply(p.embed, cfg, tokens=tokens, embeds=embeds,
                           positions=positions)
@@ -186,7 +194,7 @@ def lm_apply(p: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
                     prefill_kv_block=prefill_kv_block, fill_bound=fill_bound,
                     prefill_append=prefill_append,
                     decode_active=decode_active, page_table=page_table,
-                    attn_mesh=attn_mesh)
+                    attn_mesh=attn_mesh, slot=slot)
                 a.append(ab)
             new_caches.append(co)
             auxes.append(_sum(a))
@@ -311,24 +319,17 @@ def cache_index(caches):
     return next(_attn_caches(caches), {}).get("index")
 
 
-def slot_view(caches, slot: int, *, paged: bool = False):
-    """Batch-1 view of slot ``slot``: K/V and recurrent state are views into
-    the pool (writes land in place), ``index`` a (1,) view. ``paged``: the
-    K/V page pools are shared by every slot and stay whole."""
-    def view(kind, key, t):
-        if paged and kind == "attn" and key != "index":
-            return t
-        return t[slot:slot + 1]
-    return [{name: {kind: {key: view(kind, key, t) for key, t in c.items()}
-                    for kind, c in blk.items()}
-             for name, blk in sup.items()} for sup in caches]
-
-
-def write_slot_index(caches, slot_caches, slot: int):
-    """Store a slot view's advanced ``index`` back into the pool (K/V were
-    written through the view already)."""
-    for pool, one in zip(_attn_caches(caches), _attn_caches(slot_caches)):
-        pool["index"][slot:slot + 1] = one["index"]
+def store_index(caches, new_caches, slot=None):
+    """Write the advanced ``index`` of a pass's returned caches into the
+    ``index`` leaves of ``caches``, in place, layer by layer (K/V were
+    written in place already): whole, or at the device ``slot`` (b,) of a
+    slot-addressed prefill pass (``index_copy_``: the reference's
+    ``dynamic_update_slice`` of the slot's index)."""
+    for pool, new in zip(_attn_caches(caches), _attn_caches(new_caches)):
+        if slot is None:
+            pool["index"].copy_(new["index"])
+        else:
+            pool["index"].index_copy_(0, slot.long(), new["index"])
 
 
 def write_slot(caches, slot_caches, slot: int, length: int):

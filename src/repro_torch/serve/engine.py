@@ -32,10 +32,29 @@ slots. Each ``step``:
    crosses to the host; or, with ``fused_sampling=False``, takes the
    logits out of the steps and samples the decoding rows after them.
 
+The two model steps are static, as the reference's ``jax.jit`` steps
+are: each reads its inputs from fixed device buffers allocated at
+construction (prefill: the slot, the chunk's length and its tokens;
+decode: the active mask, and the tokens in logits mode; both: the page
+table), which the host fills through pinned staging buffers with one
+non-blocking copy per step. The slot, lengths, page row and sampling-bank
+row are device values, never addresses or Python ints, and every cache
+leaf (``index`` included) is updated in place, so a step runs the same
+program on the same tensors every time. On one CUDA device with both
+kernel flags on, each step is captured once as a CUDA graph at its first
+use (after one eager run on a side stream, which builds the kernels) and
+replayed from then on: one graph per (step, argmax | draw) with fused
+sampling, one per step in logits mode, all in one memory pool. A capture
+that fails raises; nothing falls back to eager. Eager, by construction:
+the CPU, a mesh, a kernel flag off, or ``cuda_graphs=False``. Admission,
+the scheduler, copy-on-write page copies, index pins and slot resets, the
+token drain and logits-mode sampling stay on the host, between steps.
+
 ``prefill_cache_size`` / ``decode_cache_size`` count the distinct (shape,
 dtype) signatures of the tensors entering the prefill-chunk step and the
 decode step: 1 each for an engine's lifetime, the reference's
-one-compiled-shape rule.
+one-compiled-shape rule; ``prefill_graphs`` / ``decode_graphs`` count the
+captured graphs (at most 2 each, 0 when eager).
 
 ConSmax serving uses the merged constant C = e^{-beta}/gamma (Eq. 3).
 ``ServeConfig.decode_kernel`` / ``prefill_kernel`` route attention through
@@ -91,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -99,6 +119,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.distributed import comm as COMM
 from repro_torch.distributed import serve_mesh as SM
+from repro_torch.kernels import _build
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.models import transformer as T
 from repro_torch.models.blocks import ATTN_KINDS
@@ -169,6 +190,49 @@ def _check_kernel_flags(cfg: ModelConfig, scfg: ServeConfig):
                 f"ServeConfig.{name}=True requires score_norm='consmax' "
                 f"(got {cfg.score_norm!r} for {cfg.arch_id}): the "
                 "serving kernels have no softmax/softermax path")
+
+
+class _Staged:
+    """A step's fixed int32 device input buffer and the pinned host buffers
+    that fill it: ``put(fill)`` lets ``fill`` write a host buffer (as a
+    numpy array) and issues one non-blocking copy of it into ``dev``. Two
+    host buffers take turns, and one is rewritten only once its last copy
+    has landed (its event), so a step's inputs are never overwritten in
+    flight, and the host fills the next while the last copy runs."""
+
+    def __init__(self, shape, device):
+        self.dev = torch.zeros(shape, dtype=torch.int32, device=device)
+        self._cuda = device.type == "cuda"
+        self._host = [torch.zeros(shape, dtype=torch.int32,
+                                  pin_memory=self._cuda) for _ in range(2)]
+        self._landed = [torch.cuda.Event() if self._cuda else None
+                        for _ in range(2)]
+        self._turn = 0
+
+    def put(self, fill):
+        i = self._turn
+        self._turn = 1 - i
+        if self._cuda:
+            self._landed[i].synchronize()    # a no-op before its first copy
+        fill(self._host[i].numpy())
+        self.dev.copy_(self._host[i], non_blocking=self._cuda)
+        if self._cuda:
+            self._landed[i].record(torch.cuda.current_stream(self.dev.device))
+
+
+@dataclass
+class _StepGraph:
+    """One captured step: its CUDA graph, the output its replays write, the
+    kernels' ticket buffer its launches read (held while the graph may
+    replay), and the capture's seconds."""
+    graph: object
+    out: object
+    tickets: object
+    seconds: float
+
+    def replay(self):
+        self.graph.replay()
+        return self.out
 
 
 def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
@@ -423,11 +487,15 @@ class ContinuousBatchingEngine:
     (default cuda). With ``tp * seq_shards > 1`` the engine serves on this
     process's rank of the serving mesh, built over the initialized process
     group (``distributed/serve_mesh.plan_mesh``): ``params`` is the full
-    model, of which it keeps the head slice."""
+    model, of which it keeps the head slice.
+
+    ``graphed`` says whether the steps replay CUDA graphs: on one CUDA
+    device with both kernel flags on, unless ``cuda_graphs=False`` (the
+    same engine eager, for A/B runs and tests)."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: T.LM, *,
                  default_sampling: SamplingParams | None = None,
-                 device=None):
+                 device=None, cuda_graphs: bool = True):
         if cfg.frontend != "tokens":
             raise NotImplementedError("continuous batching: token frontends")
         if cfg.cross_attn or not _attention_only(cfg):
@@ -474,15 +542,21 @@ class ContinuousBatchingEngine:
             self.caches = T.init_caches(mcfg, scfg.max_slots, scfg.max_seq,
                                         scfg.kv_cache_dtype,
                                         device=self.device)
-        self._table_dev = None             # device page table, re-uploaded
-        self._table_version = -1           # only when the pool mutates
+        # the steps' fixed inputs: prefill [slot, length, chunk tokens],
+        # decode [active mask; tokens (logits mode)], the page table (re-
+        # uploaded only when the pool mutates)
+        self._chunk = scfg.prefill_chunk
+        self._prefill_in = _Staged((2 + self._chunk,), self.device)
+        self._decode_in = _Staged((2, scfg.max_slots), self.device)
+        self._table = (_Staged((scfg.max_slots, scfg.max_pages_per_slot),
+                               self.device) if self.paged else None)
+        self._table_version = -1
         self.results: dict[int, list[int]] = {}
         self.prefilled_tokens = 0          # chunk tokens computed: warm
                                            # admissions skip cached rows
         self.ttft: dict[int, float] = {}   # uid -> seconds submit->1st token
         self._t_submit: dict[int, float] = {}
         self._submits = 0
-        self._chunk = scfg.prefill_chunk
         self._budget = scfg.prefill_budget or self._chunk
         self.bank = S.bank_init(scfg.max_slots, device=self.device)
         self._last = torch.zeros((scfg.max_slots,), dtype=torch.int32,
@@ -502,11 +576,23 @@ class ContinuousBatchingEngine:
         # admission and finish: the fused steps learn from it whether to
         # draw, with no device read of the bank
         self._sampled_slots: set = set()
+        # the captured steps, by (step, draws): one memory pool for all;
+        # the warm-up before each capture runs on a side stream
+        self.graphed = bool(cuda_graphs and self.device.type == "cuda"
+                            and plan is None and scfg.decode_kernel
+                            and scfg.prefill_kernel)
+        self._graphs: dict = {}
+        self.iterations = 0                # step() calls
+        self.graph_replays = 0
+        self.graph_pool_bytes = 0          # reserved memory the captures took
+        if self.graphed:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
 
     def _lm(self, tokens, caches, **kw):
         """One engine step through ``lm_apply``: (out, caches); the MoE aux
-        loss is not served. Counts the step and, under a mesh, adds the
-        collectives it ran to ``collectives``."""
+        loss is not served. Under a mesh, adds the collectives it ran to
+        ``collectives``."""
         s = self.scfg
         before = COMM.counts()
         out, caches, _ = T.lm_apply(
@@ -516,7 +602,6 @@ class ContinuousBatchingEngine:
             prefill_kernel=s.prefill_kernel,
             prefill_kv_block=s.prefill_kv_block, fill_bound=s.fill_bound,
             attn_mesh=self._attn_mesh, **kw)
-        self.model_steps += 1
         for kind, c in COMM.counts().items():
             for key in c:
                 self.collectives[kind][key] += c[key] - before[kind][key]
@@ -576,6 +661,7 @@ class ContinuousBatchingEngine:
     def step(self):
         """One engine iteration: admit, prefill up to the token budget, then
         one shared decode step for the DECODING slots."""
+        self.iterations += 1
         while True:
             admitted = self.scheduler.admit()
             if admitted is None:
@@ -612,6 +698,22 @@ class ContinuousBatchingEngine:
         return len(self._decode_shapes)
 
     @property
+    def prefill_graphs(self) -> int:
+        """Prefill-chunk step graphs captured so far: at most 2 for the
+        engine's lifetime (argmax, draw; 1 in logits mode), 0 when eager."""
+        return sum(1 for step, _ in self._graphs if step == "prefill")
+
+    @property
+    def decode_graphs(self) -> int:
+        """Decode step graphs captured so far, as ``prefill_graphs``."""
+        return sum(1 for step, _ in self._graphs if step == "decode")
+
+    @property
+    def capture_seconds(self) -> dict:
+        """Host seconds of each graph's capture, by (step, draws)."""
+        return {key: g.seconds for key, g in self._graphs.items()}
+
+    @property
     def set_index_cache_size(self) -> int:
         """Distinct signatures of the warm-admission index pin (paged
         engines): 1 once a warm request was admitted, 0 before."""
@@ -637,25 +739,23 @@ class ContinuousBatchingEngine:
                 else 0.0)
 
     # ---------------------------------------------------------- internals ----
-    def _device_table(self):
-        """The pool's page table on the device, re-uploaded only when the
-        allocator mapped or released pages (``PagePool.version``): decode
-        steps between mutations reuse it, with no host transfer. The upload
+    def _upload_table(self):
+        """Copy the pool's page table into the fixed device table, only
+        when the allocator mapped or released pages (``PagePool.version``):
+        steps between mutations read it with no host transfer. The copy
         goes through pinned memory without blocking the host."""
         if self._table_version != self.pool.version:
-            table = torch.from_numpy(self.pool.table.copy())
-            if self.device.type == "cuda":
-                table = table.pin_memory()
-            self._table_dev = table.to(self.device, non_blocking=True)
+            self._table.put(lambda h: np.copyto(h, self.pool.table))
             self._table_version = self.pool.version
-        return self._table_dev
 
-    def _step_table(self, rows: slice):
-        """The page table rows a step reads: the global table's, localized
-        on the device under sequence sharding (this rank's pages become
-        local pool indices, the others -1), as the reference does in its
-        step."""
-        table = self._device_table()[rows]
+    def _step_table(self, slot=None):
+        """The page table rows a step reads, on the device: all of them, or
+        the device ``slot``'s row; localized under sequence sharding (this
+        rank's pages become local pool indices, the others -1), as the
+        reference does in its step."""
+        table = self._table.dev
+        if slot is not None:
+            table = table.index_select(0, slot)
         if self.scfg.seq_shards > 1:
             table = CL.localize_page_table(table, self.plan.seq_rank,
                                            self.pool.pages_per_shard)
@@ -676,36 +776,126 @@ class ContinuousBatchingEngine:
                                                        dst - off)))
                 T.copy_kv_page(self.caches, src - off, dst - off)
 
-    def _prefill_one(self, slot: int, start: int, n: int):
-        prompt = self.scheduler.slots[slot].request.prompt
-        chunk = prompt[start:start + n] + [0] * (self._chunk - n)
+    def _step_inputs(self, step: str):
+        """The tensors entering a step, for its signature count."""
+        buf = (self._prefill_in if step == "prefill" else self._decode_in)
+        return (self.caches, buf.dev, self.bank if self.fused else None,
+                self._table.dev if self.paged else None)
+
+    def _prefill_step(self, draw: bool):
+        """The append-chunk prefill step over the fixed inputs: chunk
+        ``tokens`` (1, chunk) of the request in device ``slot`` (1,), its
+        real ``lengths`` (1,); the slot's bank row and page row taken on
+        the device; ``index[slot]`` advanced in place. Returns the (1,)
+        token (fused; ``draw``: the bank row may sample) or the last real
+        row's (1, 1, vocab) logits."""
+        buf = self._prefill_in.dev
+        slot, lengths = buf[0:1], buf[1:2]
+        tokens = buf[2:].view(1, self._chunk)
         kw = {}
         if self.paged:
-            # a fully cached prompt's 1-token tail re-score lands in its
-            # shared last page: that page is copied before this chunk writes
-            self._write_window(slot, start, start + n)
-            kw["page_table"] = self._step_table(slice(slot, slot + 1))
-        slot_caches = T.slot_view(self.caches, slot, paged=self.paged)
-        tokens = torch.tensor([chunk], dtype=torch.int32, device=self.device)
-        lengths = torch.tensor([n], dtype=torch.int32, device=self.device)
-        row = (S.bank_take(self.bank, slice(slot, slot + 1)) if self.fused
-               else None)
-        self._prefill_shapes.add(_signature((slot_caches, tokens, lengths,
-                                             row, kw.get("page_table"))))
+            kw["page_table"] = self._step_table(slot)
         epi = None
         if self.fused:
-            sampled = slot in self._sampled_slots
+            row = S.bank_take(self.bank, slot)
 
             def epi(logits, new_caches):
                 return S.sample_tokens(logits[:, -1], row,
                                        T.cache_index(new_caches),
-                                       any_sampled=sampled)
+                                       any_sampled=draw)
 
-        out, slot_caches = self._lm(tokens, slot_caches,
-                                    prefill_append=lengths,
-                                    logits_index=n - 1, logits_epilogue=epi,
-                                    **kw)
-        T.write_slot_index(self.caches, slot_caches, slot)
+        out, new = self._lm(tokens, self.caches, slot=slot,
+                            prefill_append=lengths, logits_index=lengths - 1,
+                            logits_epilogue=epi, **kw)
+        T.store_index(self.caches, new, slot)
+        return out
+
+    def _decode_step(self, draw: bool):
+        """The masked one-token decode step over all slots: tokens
+        ``self._last`` (fused) or the staged row (logits mode), the staged
+        ``active`` mask; every index advanced in place where active.
+        Returns ``self._last`` with the active rows' next tokens written
+        (fused) or the (max_slots, 1, vocab) logits."""
+        buf = self._decode_in.dev
+        active = buf[0] != 0
+        tokens = (self._last if self.fused else buf[1])[:, None]
+        index = T.cache_index(self.caches)
+        kw = {}
+        if self.paged:
+            kw["page_table"] = self._step_table()
+        epi = None
+        if self.fused:
+            def epi(logits, new_caches):
+                return S.sample_tokens(logits[:, -1], self.bank,
+                                       T.cache_index(new_caches),
+                                       any_sampled=draw)
+
+        out, new = self._lm(tokens, self.caches, positions=index[:, None],
+                            decode_active=active, logits_epilogue=epi, **kw)
+        T.store_index(self.caches, new)
+        if not self.fused:
+            return out
+        self._last.copy_(torch.where(active, out, self._last))
+        return self._last
+
+    def _run(self, step: str, draw: bool):
+        """Run ``step`` (``"prefill"`` or ``"decode"``) once on its staged
+        inputs: eagerly, or as a replay of its graph, captured at its first
+        use."""
+        fn = getattr(self, f"_{step}_step")
+        self.model_steps += 1
+        if not self.graphed:
+            return fn(draw)
+        key = (step, draw and self.fused)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self.graph_replays += 1
+            return graph.replay()
+        out, self._graphs[key] = self._capture(fn, draw)
+        return out
+
+    def _capture(self, fn, draw: bool):
+        """Run ``fn(draw)`` once eagerly on the side stream (this is the
+        step's real run: it builds and loads the kernels and makes the
+        cuBLAS handles), then capture it into a graph in the engine's pool.
+        Returns (the eager run's output, the ``_StepGraph``). A failed
+        capture, or a host sync inside it, raises."""
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            out = fn(draw)
+        cur.wait_stream(self._side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              stream=self._side):
+            static = fn(draw)
+        seconds = time.perf_counter() - t0
+        self.graph_pool_bytes += (torch.cuda.memory_reserved(self.device)
+                                  - reserved)
+        tickets = _build.stream_tickets(self._side.device,
+                                        self._side.cuda_stream)
+        return out, _StepGraph(graph, static, tickets, seconds)
+
+    def _prefill_one(self, slot: int, start: int, n: int):
+        prompt = self.scheduler.slots[slot].request.prompt
+        if self.paged:
+            # a fully cached prompt's 1-token tail re-score lands in its
+            # shared last page: that page is copied before this chunk writes
+            self._write_window(slot, start, start + n)
+            self._upload_table()
+
+        def fill(h):
+            h[0], h[1] = slot, n
+            h[2:2 + n] = prompt[start:start + n]
+            h[2 + n:] = 0
+
+        self._prefill_in.put(fill)
+        self._prefill_shapes.add(_signature(self._step_inputs("prefill")))
+        out = self._run("prefill", slot in self._sampled_slots)
         self.prefilled_tokens += n
         done = self.scheduler.record_prefill(slot, n)
         if self.paged:
@@ -734,49 +924,33 @@ class ContinuousBatchingEngine:
 
     def _decode_once(self):
         decoding = self.scheduler.decoding()
-        active = np.zeros((self.scfg.max_slots,), bool)
-        kw = {}
-        for slot, state in decoding:
-            active[slot] = True
-            if self.paged:
+        if self.paged:
+            for slot, state in decoding:
                 # this step writes the last token's row: a page the slot
                 # owns alone (prefill privatized the shared tail already,
                 # so this never copies; the invariant is enforced, not
                 # assumed)
                 rows = state.filled + len(state.generated)
                 self._write_window(slot, rows - 1, rows)
-        if self.paged:
-            kw["page_table"] = self._step_table(slice(None))
-        active = torch.from_numpy(active).to(self.device)
-        index = T.cache_index(self.caches)
+            self._upload_table()
+
+        def fill(h):
+            h[:] = 0
+            for slot, state in decoding:
+                h[0, slot] = 1
+                h[1, slot] = state.last_token
+
+        self._decode_in.put(fill)
+        self._decode_shapes.add(_signature(self._step_inputs("decode")))
+        draw = any(slot in self._sampled_slots for slot, _ in decoding)
+        out = self._run("decode", draw)
         if self.fused:
             # device-side feedback: last tokens in, next tokens out; only
             # the (max_slots,) token vector reaches the host
-            tokens, bank = self._last[:, None], self.bank
-            sampled = any(slot in self._sampled_slots
-                          for slot, _ in decoding)
-
-            def epi(logits, new_caches):
-                return S.sample_tokens(logits[:, -1], bank,
-                                       T.cache_index(new_caches),
-                                       any_sampled=sampled)
+            sampled = out.cpu().numpy()
         else:
             # the A/B baseline: (max_slots, vocab) logits out of the step,
             # the decoding rows sampled after it through the same schedule
-            toks = np.zeros((self.scfg.max_slots, 1), np.int32)
-            for slot, state in decoding:
-                toks[slot, 0] = state.last_token
-            tokens = torch.from_numpy(toks).to(self.device)
-            bank = epi = None
-        self._decode_shapes.add(_signature((self.caches, tokens, active, bank,
-                                            kw.get("page_table"))))
-        out, self.caches = self._lm(
-            tokens, self.caches, positions=index[:, None],
-            decode_active=active, logits_epilogue=epi, **kw)
-        if self.fused:
-            self._last = torch.where(active, out, self._last)
-            sampled = self._last.cpu().numpy()
-        else:
             rows = [slot for slot, _ in decoding]
             pos = torch.tensor([st.filled + len(st.generated)
                                 for _, st in decoding], dtype=torch.int32,

@@ -107,7 +107,12 @@ def bank_of(sp, n: int, device=None) -> dict:
 
 
 def bank_take(bank: dict, rows) -> dict:
-    """Gather bank rows (host-path sampling over a slot subset)."""
+    """Gather bank rows: ``rows`` a slice or list (host-path sampling over
+    a slot subset), or a device tensor of slots (the engine's static
+    prefill step, whose slot is a value: ``index_select``)."""
+    if isinstance(rows, torch.Tensor):
+        return {name: bank[name].index_select(0, rows)
+                for name, _ in _FIELDS}
     return {name: bank[name][rows] for name, _ in _FIELDS}
 
 

@@ -311,7 +311,9 @@ def test_real_serving_kernel_launches_pass_all_contracts(paged):
         assert not check_launch(launch), label
     dec, pre = launches[f"decode_{kind}"], launches[f"prefill_{kind}"]
     assert dec.n_index == (2 if paged else 1)
-    assert pre.n_index == (3 if paged else 2)
+    # the reference's (page table,) index, lengths; the contiguous step
+    # adds its slot operand where the reference dynamic-slices the slot
+    assert pre.n_index == 3
     assert dec.election == "tickets"
     assert dec.outputs[-1].elected_over == (0,) and dec.grid[0] == 16
     _assert_prefill_sharded(pre, 512)

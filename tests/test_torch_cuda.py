@@ -974,7 +974,8 @@ def test_decode_ptxas_report(cuda):
 def test_decode_launch_replays_in_a_cuda_graph(cuda, shape):
     """The kernel reads the lengths on the device and leaves its tickets
     zero, so one captured launch replays with new lengths and gives an
-    eager launch's bits each time."""
+    eager launch's bits each time; the kernel counts each replay as a
+    launch, as it counts an eager one, and the capture as none."""
     b, L, H, hkv, dk, bk = DECODE[shape]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk,
                                    seed=19)
@@ -985,6 +986,7 @@ def test_decode_launch_replays_in_a_cuda_graph(cuda, shape):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = consmax_decode_cuda(q, k, v, lengths, beta, gamma, **kw)
+    consmax_decode_op.launches = 0
     for fills in ([3, 130, 300, 512], [0, 1, bk - 1, bk + 1],
                   [1, bk, bk + 7, L]):
         lengths.copy_(torch.tensor(fills, dtype=torch.int32))
@@ -993,6 +995,7 @@ def test_decode_launch_replays_in_a_cuda_graph(cuda, shape):
                                     **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, eager), fills
+    assert consmax_decode_op.launches == 6       # 3 replays + 3 eager
 
 
 # ------------------------------------------- fp32 full-sequence kernels ----
@@ -1148,7 +1151,7 @@ def test_prefill_split_launch_replays_in_a_cuda_graph(cuda):
     """The split launch reads index / lengths on the device and leaves its
     tickets zero: one captured launch replays with new fills and gives an
     eager launch's bits each time, and the eager stream's tickets are all
-    zero after."""
+    zero after. Each replay counts as one launch."""
     b, c, L, H, hkv, dk = SPLIT["qwen2-gqa"]
     q, k, v, beta, gamma = _inputs(cuda, b=b, L=L, H=H, hkv=hkv, dk=dk, c=c,
                                    seed=23)
@@ -1159,6 +1162,7 @@ def test_prefill_split_launch_replays_in_a_cuda_graph(cuda):
     with torch.cuda.graph(graph):
         out = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
                                    **kw)
+    consmax_prefill_op.launches = 0
     for idx, n in (([0, 500], [64, 30]), ([130, L - c], [0, c]),
                    ([200, L - c], [c - 3, c])):
         index.copy_(torch.tensor(idx, dtype=torch.int32))
@@ -1168,6 +1172,7 @@ def test_prefill_split_launch_replays_in_a_cuda_graph(cuda):
                                      beta, gamma, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, eager), (idx, n)
+    assert consmax_prefill_op.launches == 6      # 3 replays + 3 eager
     stream = torch.cuda.current_stream(q.device).cuda_stream
     assert not _build.tickets(q.device, stream, 1).any()
 
@@ -1356,3 +1361,113 @@ def test_shard_grid_at_mostly_dead_fills(cuda, dk, variant):
         outs[0], consmax_prefill_ref(q, k, v, index, lengths, beta, gamma,
                                      **kw), ref_absv)
     _assert_within_bound(outs[0], one.float(), ref_absv)
+
+
+# ------------------------------------------ the engine's static steps ----
+@pytest.mark.parametrize("bk", [64, 4096])
+@pytest.mark.parametrize("name", ["bfloat16", "int8"])
+def test_prefill_slot_operand_equals_slot_view(cuda, name, bk):
+    """The contiguous prefill kernel with a ``slot`` operand over the whole
+    slot pool (the engine's static step) gives, for every slot, the bits
+    of its launch on the slot's view (max |diff| 0), split into KV shards
+    and unsplit, bf16 and int8, and stays within the plain version's
+    bounds."""
+    B, c, L, H, hkv, dk = 4, 64, 4096, 12, 2, 128
+    q, k, v, beta, gamma = _inputs(cuda, b=B, L=L, H=H, hkv=hkv, dk=dk,
+                                   c=c, seed=36)
+    q = q[:1].contiguous()
+    scales = {}
+    if name == "int8":
+        k, ks = CL.quantize_kv(k, torch.int8)
+        v, vs = CL.quantize_kv(v, torch.int8)
+        scales = dict(k_scale=ks, v_scale=vs)
+    kw = dict(window=0, softcap=0.0, merged=True, scale=1.0, bk=bk)
+    for s, fill in enumerate((0, 100, 2000, L - c)):
+        index = torch.tensor([fill], dtype=torch.int32, device=cuda)
+        lengths = torch.tensor([c - s], dtype=torch.int32, device=cuda)
+        slot = torch.tensor([s], dtype=torch.int32, device=cuda)
+        view = {n: t[s:s + 1] for n, t in scales.items()}
+        got = consmax_prefill_cuda(q, k, v, index, lengths, beta, gamma,
+                                   slot=slot, **kw, **scales)
+        one = consmax_prefill_cuda(q, k[s:s + 1], v[s:s + 1], index,
+                                   lengths, beta, gamma, **kw, **view)
+        torch.cuda.synchronize()
+        assert float((got.float() - one.float()).abs().max()) == 0.0, s
+        plain = {n: t for n, t in kw.items() if n != "bk"}
+        ref = consmax_prefill_ref(q, k, v, index, lengths, beta, gamma,
+                                  slot=slot, **plain, **scales)
+        kd = CL.dequant_block(k, scales["k_scale"], torch.bfloat16) if (
+            scales) else k
+        vd = CL.dequant_block(v, scales["v_scale"], torch.bfloat16) if (
+            scales) else v
+        ref_absv = consmax_prefill_ref(q, kd, vd.abs(), index, lengths, beta,
+                                       gamma, slot=slot, **plain)
+        _assert_within_bound(got, ref, ref_absv)
+
+
+def _engine_traffic(vocab, seed):
+    """Twelve requests of 5-60 prompt tokens and 10-16 new ones, every
+    other one sampled."""
+    r = np.random.default_rng(seed)
+    from repro_torch.serve.sampling import SamplingParams
+    return [(r.integers(0, vocab, int(n)).tolist(), int(m),
+             SamplingParams(temperature=0.8, top_k=40, seed=50 + i)
+             if i % 2 else None)
+            for i, (n, m) in enumerate(zip(r.integers(5, 61, 12),
+                                           r.integers(10, 17, 12)))]
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_graphed_engine_equals_eager(cuda, paged, kv):
+    """The continuous engine with both kernels replays its steps as CUDA
+    graphs and gives the ``cuda_graphs=False`` engine's tokens, greedy and
+    sampled, over 40+ iterations with slots recycled: at most 2 graphs per
+    step, one replay per chunk and per decode step after each graph's
+    first (eager) run, one signature per step, and the same kernel
+    launches counted as the eager engine's."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b", smoke=True)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device=cuda)
+    extra = dict(paged_kv=True, page_size=16, num_pages=20) if paged else {}
+    scfg = ServeConfig(max_slots=3, max_seq=128, prefill_chunk=32,
+                       decode_kernel=True, prefill_kernel=True,
+                       kv_cache_dtype=kv, **extra)
+    traffic = _engine_traffic(cfg.vocab_size, 37)
+    ops = (consmax_decode_op, consmax_decode_paged_op, consmax_prefill_op,
+           consmax_prefill_paged_op)
+    runs = {}
+    for graphs in (True, False):
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device=cuda,
+                                       cuda_graphs=graphs)
+        assert eng.graphed == graphs
+        uids = [eng.submit(p, m, sampling=sp) for p, m, sp in traffic]
+        for op in ops:
+            op.launches = 0
+        iters = 0
+        while eng.scheduler.has_work():
+            eng.step()
+            iters += 1
+        torch.cuda.synchronize()
+        runs[graphs] = dict(tokens=[eng.results[u] for u in uids],
+                            launches=[op.launches for op in ops], eng=eng,
+                            iters=iters)
+    g, e = runs[True]["eng"], runs[False]["eng"]
+    assert runs[True]["iters"] >= 40
+    assert runs[True]["tokens"] == runs[False]["tokens"]
+    assert [len(t) for t in runs[True]["tokens"]] == [m for _, m, _ in
+                                                       traffic]
+    assert runs[True]["launches"] == runs[False]["launches"]
+    assert 1 <= g.prefill_graphs <= 2 and 1 <= g.decode_graphs <= 2
+    assert g.model_steps == e.model_steps
+    assert g.graph_replays + g.prefill_graphs + g.decode_graphs == (
+        g.model_steps)
+    assert g.prefill_cache_size == g.decode_cache_size == 1
+    assert e.prefill_graphs == e.decode_graphs == e.graph_replays == 0
+    assert g.graph_pool_bytes >= 0 and len(g.capture_seconds) == (
+        g.prefill_graphs + g.decode_graphs)
