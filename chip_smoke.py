@@ -54,12 +54,15 @@ Phases, in order; any failure exits non-zero before the result line:
    served by ``ContinuousBatchingEngine`` with both kernels, 12 greedy
    requests; every request finishes, both kernels ran, and one request
    served alone equals its tokens served among the others;
-   Every single-device engine with both kernels replays its prefill and
-   decode steps as CUDA graphs; each engine's ``[graphs]`` line gives
-   ``graphed``, its captures (seconds each), replays per iteration and
-   graph pool, and the run fails unless it was graphed with at most 2
-   graphs and one signature per step (the plain-walk engines of 14, the
-   mesh and the MoE trace run eagerly and say so);
+   Every single-device engine replays its prefill and decode steps as
+   CUDA graphs, whatever its score norm and kernel flags; each engine's
+   ``[graphs]`` line gives ``graphed``, its captures (seconds each),
+   replays per iteration and graph pool, and the run fails unless it was
+   graphed with at most 2 graphs and one signature per step (the mesh,
+   the MoE trace and each ``cuda_graphs=False`` twin run eagerly and say
+   so); every ``ServeSession`` replays its decode step as one graph per
+   (b, mode), its ``[graphs]`` line giving the held caches' and the
+   pool's MiB per batch size;
 5b. graphs: qwen2-1.5b contiguous, paged bf16 and paged int8 and
    gemma2-2b contiguous, each graphed and with ``cuda_graphs=False`` on
    the same greedy and sampled requests: the same tokens;
@@ -88,10 +91,21 @@ Phases, in order; any failure exits non-zero before the result line:
    and a sampled request), one prefill and one decode signature; launches
    of the four serving kernels at dk 256 (their times come from phase 3d);
 13. ``ServeSession`` at full-width qwen2-1.5b (fp32 compute): fused ==
-   host-sampling, ragged rows == prompts served alone, greedy == the
-   continuous engine;
+   host-sampling, graphed == eager (``cuda_graphs=False``), ragged rows ==
+   prompts served alone, greedy == the continuous engine;
+13b. ``ServeSession`` graphed vs eager, b 4 x 512 prompt tokens, 32
+   steps, bf16: qwen2-1.5b at full width with the decode kernel (its
+   launches == (steps - 1) x layers either way) and with the plain decode
+   (max_seq 32,768), gpt2-consmax with softmax and softermax, jamba at
+   smoke size: graphed == eager tokens, greedy and sampled; ms per decode
+   step of each;
 14. softmax and softermax: gpt2-consmax served through the plain online
-   walks, paged == contiguous tokens;
+   walks (every block swept), paged == contiguous tokens, graphed ==
+   eager tokens; ms per iteration and tok/s of each, and wall and
+   device-busy ms per traced iteration with the idle share;
+14b. qwen2-1.5b at full width with both kernel flags off (8 x 8192,
+   ``kv_chunk`` 1024; paged on pages of 256), graphed vs eager: the same
+   tokens; ms per iteration and tok/s of each;
 15. train (no kernel runs in training: it goes through the torch
    ``blockwise_attention`` with autograd, as the reference trains through
    jnp):
@@ -128,7 +142,8 @@ Phases, in order; any failure exits non-zero before the result line:
    steps with a non-zero aux, in its own process under deterministic
    algorithms, twice (bit-equal); ms per step, peak memory vs reckoning;
    16c. xlstm-1.3b at full width (48 blocks): ``ServeSession`` ms per
-   token; fp32 decode-step logits vs one whole-sequence ``lm_apply``;
+   decode step, graphed (logits mode) and eager, the same tokens; fp32
+   decode-step logits vs one whole-sequence ``lm_apply``;
    16d. musicgen-large at full width, 8 of 48 layers: frame embeddings,
    cross-attention over 256 cond tokens, decode steps through the decode
    kernel (dk 64) vs the whole pass and vs the plain walk;
@@ -1341,9 +1356,10 @@ UNSPLIT_PREFILL_MS = {"qwen2-1.5b": 3.29, "qwen2-1.5b paged bfloat16": 1.96,
 def _graph_log(tag, eng, *, graphed=True):
     """Log whether ``eng`` replayed its steps as CUDA graphs: its captures
     (seconds each), replays per iteration and graph pool; raise unless it
-    ran as ``graphed`` says (every single-device engine with both kernels
-    is graphed), with at most 2 graphs and one signature per step, and one
-    replay for every model step but each graph's first (eager) run."""
+    ran as ``graphed`` says (every single-device engine is graphed unless
+    built with ``cuda_graphs=False``), with at most 2 graphs and one
+    signature per step, and one replay for every model step but each
+    graph's first (eager) run."""
     caps = ", ".join(f"{step}{' draw' if draw else ''} {sec:.3f} s"
                      for (step, draw), sec in eng.capture_seconds.items())
     it = max(eng.iterations, 1)
@@ -1362,6 +1378,47 @@ def _graph_log(tag, eng, *, graphed=True):
           == (eng.model_steps if graphed else 0))
     if not ok:
         raise AssertionError(f"{tag}: the engine's graph contract failed")
+
+
+def _session_log(tag, sess, *, graphed=True):
+    """Log whether the static ``sess`` replayed its decode step as CUDA
+    graphs: its captures by (b, mode) (seconds each), replays, and per
+    batch size the graph pool's and the held cache trees' MiB; raise
+    unless it ran as ``graphed`` says, with at most one graph per (b,
+    mode) and one replay for every decode step but each graph's first
+    (eager) run."""
+    caps = ", ".join(f"b {b} {mode} {sec:.3f} s"
+                     for (b, mode), sec in sess.capture_seconds.items())
+    per_b = "; ".join(
+        f"b {b}: held caches {nbytes / 2**20:.1f} MiB, graph pool "
+        f"{sess.graph_pool_bytes_of(b) / 2**20:.1f} MiB"
+        for b, nbytes in sorted(sess.held_cache_bytes.items()))
+    _log(f"[graphs] {tag}: graphed {sess.graphed}; decode graphs "
+         f"{sess.decode_graphs}" + (f" ({caps})" if caps else "")
+         + f"; {sess.graph_replays} replays over {sess.decode_steps} decode "
+         f"steps; {per_b}")
+    keys = list(sess.capture_seconds)
+    ok = (sess.graphed == graphed and len(set(keys)) == len(keys)
+          == sess.decode_graphs
+          and sess.graph_replays + sess.decode_graphs
+          == (sess.decode_steps if graphed else 0))
+    if not ok:
+        raise AssertionError(f"{tag}: the session's graph contract failed")
+
+
+def _session_ms(sess, prompts, steps, **kw):
+    """(tokens, ms per decode step, tok/s) of ``sess.generate(prompts,
+    steps=steps)``: the step's ms is the wall time of that call less a
+    one-token (prefill-only) call's, over ``steps - 1``; tok/s is the
+    whole call's generated tokens over its wall."""
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.generate(prompts, steps=n, **kw).cpu()
+        return out, time.perf_counter() - t0
+    _, t1 = timed(1)
+    out, tn = timed(steps)
+    return out, 1e3 * (tn - t1) / (steps - 1), out.numel() / tn
 
 
 def trace_steps(eng, arch, *, skip, steps):
@@ -1412,6 +1469,8 @@ def trace_steps(eng, arch, *, skip, steps):
          f"{eng.graph_pool_bytes / 2**20:.1f} MiB; device "
          f"time by kernel: "
          + ", ".join(f"{n} {t / 1e3 / steps:.2f} ms" for n, t in top))
+    return dict(wall_ms=wall * 1e3 / steps, busy_ms=busy_ms / steps,
+                idle=1 - busy_ms / (wall * 1e3))
 
 
 def engine_phase(arch, *, max_seq, chunk, prompt_lens, new_tokens, seed,
@@ -1992,6 +2051,10 @@ def session_phase(*, seed=7, steps=16):
     (lengths 512, 200, 377, 64; sampled) == prompt r served alone (a batch
     of one, its length given, seed + r); the session's greedy tokens
     (ragged path) == the continuous engine's (4 slots) on the same prompts.
+    The sessions replay their decode step as CUDA graphs (one per (b,
+    mode): b 4 and b 1 take turns) and the engine its steps; the fused
+    session's tokens == the same session run eagerly
+    (``cuda_graphs=False``), and the graph contracts hold.
 
     Why the ragged path for "alone", and fp32: whole-prompt prefill attends
     the unrounded K/V and only writes the bf16 cache, while the ragged and
@@ -2017,14 +2080,18 @@ def session_phase(*, seed=7, steps=16):
                            dtype=torch.int32, device="cuda")
     sp = SamplingParams(**HOT, seed=seed)
     out, walls = {}, {}
-    for kind, fused in (("fused", True), ("host", False)):
+    for kind, fused, graphs in (("fused", True, True), ("host", False, True),
+                                ("fused eager", True, False)):
         sess = ServeSession(cfg, dataclasses.replace(
-            scfg, fused_sampling=fused), model, device="cuda")
+            scfg, fused_sampling=fused), model, device="cuda",
+            cuda_graphs=graphs)
         sess.generate(prompts[:, :8], steps=2, sampling=sp)      # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[kind] = sess.generate(prompts, steps=steps, sampling=sp).cpu()
         walls[kind] = time.perf_counter() - t0
+        _session_log(f"[session] qwen2-1.5b fp32 {kind}", sess,
+                     graphed=graphs)
     sess = ServeSession(cfg, scfg, model, device="cuda")
     lens = [512, 200, 377, 64]
     ragged = sess.generate(prompts, steps=steps, sampling=sp,
@@ -2041,20 +2108,25 @@ def session_phase(*, seed=7, steps=16):
          f"(unrounded K/V) vs ragged row r (bf16 cache): first differing "
          f"step per row {first} (None = equal)")
     greedy = sess.generate(prompts, steps=steps, lengths=[512] * 4).cpu()
+    _session_log("[session] qwen2-1.5b fp32, b 4 and b 1 in turn", sess)
     eng = ContinuousBatchingEngine(cfg, dataclasses.replace(
         scfg, max_slots=4, prefill_chunk=512), model, device="cuda")
     uids = [eng.submit(p.tolist(), steps) for p in prompts]
     results = eng.run()
+    _graph_log("[session] qwen2-1.5b fp32 continuous engine (plain walks)",
+               eng)
     n = 4 * steps
     _log(f"[session] qwen2-1.5b ServeSession (fp32 compute), b 4 x 512 "
-         f"prompt tokens, {steps} steps: fused {walls['fused']:.3f} s "
-         f"({n / walls['fused']:.1f} tok/s), host-sampling "
-         f"{walls['host']:.3f} s ({n / walls['host']:.1f} tok/s); continuous "
-         f"engine signatures {eng.prefill_cache_size} / "
+         f"prompt tokens, {steps} steps (graphed unless eager): "
+         + ", ".join(f"{kind} {w:.3f} s ({n / w:.1f} tok/s)"
+                     for kind, w in walls.items())
+         + f"; continuous engine signatures {eng.prefill_cache_size} / "
          f"{eng.decode_cache_size}")
     checks = {
         "fused == host-sampling tokens": torch.equal(out["fused"],
                                                      out["host"]),
+        "graphed fused == eager fused tokens": torch.equal(
+            out["fused"], out["fused eager"]),
         "ragged row r == prompt r served alone (all 4)": all(
             torch.equal(ragged[i], a) for i, a in enumerate(alone)),
         "greedy session tokens == continuous engine tokens": (
@@ -2069,17 +2141,157 @@ def session_phase(*, seed=7, steps=16):
             n for n, ok in checks.items() if not ok))
 
 
-def softmax_engine_phase(*, seed=8, new_tokens=16):
+SESSION_CELLS = (
+    # (tag, arch, config overrides, ServeConfig overrides, b, prompt, steps)
+    ("qwen2-1.5b decode kernel", "qwen2-1.5b", {},
+     dict(decode_kernel=True), 4, 512, 32),
+    ("qwen2-1.5b plain decode", "qwen2-1.5b", {}, {}, 4, 512, 32),
+    ("gpt2-consmax softmax", "gpt2-consmax", dict(score_norm="softmax"),
+     dict(max_seq=1024), 4, 512, 32),
+    ("gpt2-consmax softermax", "gpt2-consmax", dict(score_norm="softermax"),
+     dict(max_seq=1024), 4, 512, 32),
+    ("jamba (smoke)", "jamba-1.5-large-398b", dict(smoke=True), {}, 4, 64,
+     16),
+)
+
+
+def session_graph_phase(smi, *, seed=15):
+    """13b: ``ServeSession`` graphed against the same session run eagerly
+    (``cuda_graphs=False``), b 4, bf16, random weights from ``seed``:
+    qwen2-1.5b at full width with the decode kernel (row 1) and with the
+    plain decode (``decode_attention``), both at the default max_seq of
+    32,768 (the held cache tree's MiB printed); gpt2-consmax at full width
+    with ``score_norm`` softmax and softermax (max_seq 1024); jamba at its
+    smoke size (Mamba, MoE and attention leaves in one graph; the
+    published model's MoE layers do not fit one card). Each session
+    generates greedy and sampled tokens from the same prompts. Checked:
+    graphed == eager tokens, at most one decode graph per (b, mode), one
+    replay per decode step after each capture; the decode kernel's
+    launches == (steps - 1) x layers in both runs. Printed: ms per decode
+    step and tok/s, graphed and eager; capture seconds; the graph pool's
+    and the held caches' MiB. Returns the decode kernel's launches of the
+    graphed greedy run."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.consmax_decode.ops import consmax_decode_op
+    from repro_torch.serve.engine import ServeSession
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    checks, launches = {}, None
+    for tag, arch, over, serve, b, prompt, steps in SESSION_CELLS:
+        cfg = get_config(arch, **over)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            seed), device="cuda")
+        scfg = ServeConfig(score_norm=cfg.score_norm, **serve)
+        prompts = torch.tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (b, prompt)), dtype=torch.int32,
+            device="cuda")
+        sp = SamplingParams(**HOT, seed=seed)
+        toks, ms, tps, counts = {}, {}, {}, {}
+        for graphs in (True, False):
+            sess = ServeSession(cfg, scfg, model, device="cuda",
+                                cuda_graphs=graphs)
+            sess.generate(prompts[:, :16], steps=3)           # warm-up
+            consmax_decode_op.launches = 0
+            greedy, ms[graphs], tps[graphs] = _session_ms(sess, prompts,
+                                                          steps)
+            counts[graphs] = consmax_decode_op.launches
+            sampled = sess.generate(prompts, steps=steps, sampling=sp).cpu()
+            toks[graphs] = (greedy, sampled)
+            _session_log(f"[session-graph] {tag} "
+                         f"({'graphed' if graphs else 'cuda_graphs=False'})",
+                         sess, graphed=graphs)
+            del sess
+            torch.cuda.empty_cache()
+        same = all(torch.equal(a, e) for a, e in zip(toks[True],
+                                                     toks[False]))
+        checks[f"{tag}: graphed tokens == eager tokens"] = same
+        if serve.get("decode_kernel"):
+            want = (steps - 1) * cfg.n_layers
+            checks[f"{tag}: decode kernel launches == (steps - 1) x "
+                   "layers, graphed and eager"] = (
+                counts[True] == counts[False] == want)
+            launches = counts[True]
+        _log(f"[session-graph] {tag}: b {b} x {prompt} prompt tokens, "
+             f"{steps} steps: graphed {ms[True]:.3f} ms per decode step "
+             f"({tps[True]:.1f} tok/s), eager {ms[False]:.3f} ms "
+             f"({tps[False]:.1f} tok/s), x{ms[False] / ms[True]:.2f}; "
+             f"decode kernel launches {counts}; tokens equal {same}; on "
+             f"{smi}")
+        del model
+        torch.cuda.empty_cache()
+    for name, ok in checks.items():
+        _log(f"[session-graph] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("session graph checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
+    return launches
+
+
+def _engine_ab(tag, cfg, scfg, model, reqs, new_tokens, smi, *, skip=4,
+               steps=3, trace=True):
+    """Serve ``reqs`` ((prompt, sampling) pairs) on ``scfg``'s engine
+    graphed and with ``cuda_graphs=False``. The graphed engine serves them
+    twice (the first pass captures its graphs; the second, timed, only
+    replays) and the eager one once. Returns {graphed: tokens of each
+    pass}; logs each engine's graph contract and the timed pass's
+    generated tok/s and wall ms per iteration; with ``trace``, then
+    ``steps`` traced iterations (after ``skip``) of the same requests on
+    the same engine: wall and device-busy ms per iteration, the idle
+    share."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    toks = {}
+    for graphs in (True, False):
+        mode = "graphed" if graphs else "cuda_graphs=False"
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda",
+                                       cuda_graphs=graphs)
+        toks[graphs] = []
+        for _ in range(2 if graphs else 1):
+            uids = [eng.submit(p, new_tokens, sampling=sp) for p, sp in reqs]
+            iters = eng.iterations
+            t0 = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            toks[graphs].append([res.get(u) for u in uids])
+        iters = eng.iterations - iters
+        gen = sum(len(t or ()) for t in toks[graphs][-1])
+        _graph_log(f"{tag} ({mode})", eng, graphed=graphs)
+        line = (f"{tag} ({mode}): {len(reqs)} requests, {gen} generated "
+                f"tokens in {wall:.3f} s over {iters} iterations"
+                + (" (the second pass: graphs captured)" if graphs else "")
+                + f": {gen / wall:.1f} generated tok/s, "
+                f"{1e3 * wall / iters:.2f} ms/iteration")
+        if trace:
+            for p, sp in reqs:
+                eng.submit(p, new_tokens, sampling=sp)
+            t = trace_steps(eng, f"{tag} ({mode})", skip=skip, steps=steps)
+            line += (f"; traced wall {t['wall_ms']:.2f} ms/iteration, "
+                     f"device busy {t['busy_ms']:.2f} ms/iteration, idle "
+                     f"share {t['idle']:.3f}")
+        del eng
+        _log(f"{line}; on {smi}")
+        torch.cuda.empty_cache()
+    return toks
+
+
+def softmax_engine_phase(smi, *, seed=8, new_tokens=16):
     """gpt2-consmax at full width served with ``score_norm`` softmax and
     softermax through the plain online walks (the kernels are ConSmax only),
     compute in fp32 (the contiguous decode materializes its score row, the
     paged one walks pages, so bf16 rounding would differ): 6 requests of
-    20-999 prompt tokens on the contiguous engine (8 x 1024 rows, chunk 128)
-    and the paged engine (pages of 128). Gate: paged == contiguous
-    tokens."""
+    20-999 prompt tokens (greedy) on the contiguous
+    engine (8 x 1024 rows, chunk 128, ``kv_chunk`` 128) and the paged
+    engine (pages of 128, no prefix cache, so a second pass is cold too),
+    each graphed (every walk sweeps all its blocks,
+    ``core/attention._kv_walk``) and with ``cuda_graphs=False``
+    (``_engine_ab``); softmax's engines then trace 3 iterations each.
+    Gates: paged == contiguous tokens, graphed == eager tokens (both
+    graphed passes), the graph contract."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.serve.engine import ContinuousBatchingEngine
     from repro_torch.weights import init_params
 
     checks = {}
@@ -2089,32 +2301,24 @@ def softmax_engine_phase(*, seed=8, new_tokens=16):
         model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
             seed), device="cuda")
         r = np.random.default_rng(seed)
-        prompts = [r.integers(0, cfg.vocab_size, n).tolist()
-                   for n in (20, 700, 131, 256, 999, 64)]
+        reqs = [(r.integers(0, cfg.vocab_size, n).tolist(), None)
+                for n in (20, 700, 131, 256, 999, 64)]
         common = dict(max_slots=8, max_seq=1024, prefill_chunk=128,
                       kv_chunk=128, score_norm=norm)
         toks = {}
         for kind, scfg in (("contiguous", ServeConfig(**common)),
                            ("paged", ServeConfig(**common, paged_kv=True,
                                                  page_size=128,
-                                                 num_pages=64))):
-            eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda")
-            uids = [eng.submit(p, new_tokens) for p in prompts]
-            t0 = time.perf_counter()
-            results = eng.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            toks[kind] = [results.get(u) for u in uids]
-            _graph_log(f"[softmax] {norm} {kind} engine (plain walks)", eng,
-                       graphed=False)
-            _log(f"[softmax] gpt2-consmax score_norm={norm} {kind}: "
-                 f"{len(prompts)} requests in {wall:.3f} s, signatures "
-                 f"{eng.prefill_cache_size} / {eng.decode_cache_size}")
-            checks[f"{norm} {kind}: every request finished, one shape "
-                   "each"] = (all(t is not None and len(t) == new_tokens
-                                  for t in toks[kind])
-                              and eng.prefill_cache_size
-                              == eng.decode_cache_size == 1)
+                                                 num_pages=64,
+                                                 prefix_cache=False))):
+            both = _engine_ab(f"[softmax] gpt2-consmax {norm} {kind}",
+                              cfg, scfg, model, reqs, new_tokens, smi,
+                              trace=norm == "softmax")
+            toks[kind] = both[False][0]
+            checks[f"{norm} {kind}: every request finished"] = all(
+                t is not None and len(t) == new_tokens for t in toks[kind])
+            checks[f"{norm} {kind}: graphed tokens == eager tokens"] = all(
+                t == toks[kind] for t in both[True])
         checks[f"{norm}: paged tokens == contiguous tokens"] = (
             toks["paged"] == toks["contiguous"])
     for name, ok in checks.items():
@@ -2123,6 +2327,53 @@ def softmax_engine_phase(*, seed=8, new_tokens=16):
         raise AssertionError("softmax / softermax engine checks failed: "
                              + ", ".join(n for n, ok in checks.items()
                                          if not ok))
+
+
+def plain_engine_phase(smi, *, seed=16, new_tokens=6):
+    """14b: full-width qwen2-1.5b (28 layers, random weights from
+    ``seed``, bf16) on the continuous engine with both kernel flags off,
+    the plain walks sweeping every block: 8 slots x 8192 rows, chunk 512,
+    contiguous (``kv_chunk`` 1024) and paged (128 pages of 256, no prefix
+    cache); two requests of 300-500 prompt tokens, the second sampled;
+    each engine graphed and with ``cuda_graphs=False`` (``_engine_ab``),
+    untraced (a traced paged iteration holds ~56,000 device ops;
+    ``tools/engine_ab.py --rows plain`` traces these engines). Gates:
+    graphed == eager tokens (both graphed passes), every request
+    finished, the graph contract."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    r = np.random.default_rng(seed)
+    reqs = [(r.integers(0, cfg.vocab_size, int(n)).tolist(),
+             SamplingParams(**HOT, seed=500 + i) if i % 2 else None)
+            for i, n in enumerate(r.integers(300, 501, 2))]
+    common = dict(max_slots=8, max_seq=8192, prefill_chunk=512,
+                  kv_chunk=1024, score_norm=cfg.score_norm)
+    checks = {}
+    for kind, scfg in (("contiguous", ServeConfig(**common)),
+                       ("paged", ServeConfig(**common, paged_kv=True,
+                                             page_size=256, num_pages=128,
+                                             prefix_cache=False))):
+        both = _engine_ab(f"[plain] qwen2-1.5b kernel flags off {kind}",
+                          cfg, scfg, model, reqs, new_tokens, smi,
+                          trace=False)
+        eager = both[False][0]
+        checks[f"{kind}: every request finished"] = all(
+            t is not None and len(t) == new_tokens for t in eager)
+        checks[f"{kind}: graphed tokens == eager tokens"] = all(
+            t == eager for t in both[True])
+    del model
+    torch.cuda.empty_cache()
+    for name, ok in checks.items():
+        _log(f"[plain] check {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("plain-walk engine checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
 
 
 # Random123's threefry2x32_20 known answers: (key, counter) -> output
@@ -3421,9 +3672,11 @@ XLSTM_LOGIT_TOL = 1e-3
 def xlstm_phase(smi, *, seed=10, prompt=256, steps=32, held=8):
     """16c: xlstm-1.3b at full width, all 48 blocks (42 mLSTM, 6 sLSTM; d
     2048, 4 heads, vocab 50,304), random weights from ``seed``.
-    ``ServeSession`` (host sampling: the arch has no attention cache)
-    generates ``steps`` greedy tokens for 2 prompts of ``prompt`` tokens at
-    bf16; ms per token. Then at fp32 compute (TF32 off) the decode steps'
+    ``ServeSession`` (host sampling: the arch has no attention cache, so
+    its decode graph is the logits mode's) generates ``steps`` greedy
+    tokens for 2 prompts of ``prompt`` tokens at bf16, graphed and with
+    ``cuda_graphs=False``: the same tokens, ms per decode step of each.
+    Then at fp32 compute (TF32 off) the decode steps'
     logits (``make_serve_fns``: whole-prompt prefill, ``held`` one-token
     steps on the generated tokens) are held against one whole-sequence
     ``lm_apply`` of the same tokens, within ``XLSTM_LOGIT_TOL`` of the
@@ -3437,26 +3690,36 @@ def xlstm_phase(smi, *, seed=10, prompt=256, steps=32, held=8):
     from repro_torch.weights import init_params
 
     cfg = get_config("xlstm-1.3b")
-    t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
                         device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
     toks = torch.tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (2, prompt)), dtype=torch.int32, device="cuda")
-    sess = ServeSession(cfg, ServeConfig(max_seq=prompt + steps), model,
-                        device="cuda")
-    sess.generate(toks, steps=2)                       # warm-up
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out = sess.generate(toks, steps=steps)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
-    _log(f"[xlstm] xlstm-1.3b full width, 48 blocks, {n_params / 1e9:.3f} B "
-         f"parameters (drawn in {t1 - t0:.1f} s with the warm-up): "
-         f"ServeSession b 2 x {prompt} prompt tokens, {steps} greedy tokens "
-         f"in {dt:.3f} s = {1e3 * dt / steps:.1f} ms per token step "
-         f"(fused={sess.fused}); allocated "
-         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; on {smi}")
+    outs, ms = {}, {}
+    for graphs in (True, False):
+        sess = ServeSession(cfg, ServeConfig(max_seq=prompt + steps), model,
+                            device="cuda", cuda_graphs=graphs)
+        sess.generate(toks, steps=3)                   # warm-up
+        outs[graphs], ms[graphs], tps = _session_ms(sess, toks, steps)
+        _session_log(f"[xlstm] xlstm-1.3b session "
+                     f"({'graphed' if graphs else 'cuda_graphs=False'})",
+                     sess, graphed=graphs)
+        _log(f"[xlstm] xlstm-1.3b full width, 48 blocks, "
+             f"{n_params / 1e9:.3f} B parameters: ServeSession b 2 x "
+             f"{prompt} prompt tokens, {steps} greedy tokens, "
+             f"{'graphed' if graphs else 'cuda_graphs=False'}: "
+             f"{ms[graphs]:.2f} ms per decode step ({tps:.1f} tok/s; "
+             f"fused={sess.fused}); allocated "
+             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; on {smi}")
+        del sess
+    out = outs[True]
+    same = torch.equal(outs[True], outs[False])
+    _log(f"[xlstm] graphed {ms[True]:.2f} ms vs eager {ms[False]:.2f} ms "
+         f"per decode step (x{ms[False] / ms[True]:.2f}); graphed tokens == "
+         f"eager tokens: {same}")
+    if not same:
+        raise AssertionError("xlstm: graphed and eager session tokens "
+                             "differ")
 
     f32 = cfg.replace(compute_dtype="float32")
     _, prefill, decode, _ = make_serve_fns(
@@ -3465,7 +3728,7 @@ def xlstm_phase(smi, *, seed=10, prompt=256, steps=32, held=8):
     caches = T.init_caches(f32, 2, prompt + steps, device="cuda")
     logits, caches = prefill(model, caches, {"tokens": toks})
     got = [logits]
-    gen = out[:, :held].to(torch.int32)
+    gen = out[:, :held].to(device="cuda", dtype=torch.int32)
     for t in range(held - 1):
         logits, caches = decode(model, caches, {"tokens": gen[:, t:t + 1]})
         got.append(logits)
@@ -3476,14 +3739,14 @@ def xlstm_phase(smi, *, seed=10, prompt=256, steps=32, held=8):
     whole = whole[:, prompt - 1:].float()
     err = float((got - whole).abs().max() / whole.abs().max())
     f32_tokens = got.argmax(-1)
-    agree = float((f32_tokens == out[:, :held]).float().mean())
+    agree = float((f32_tokens == gen).float().mean())
     ok = err <= XLSTM_LOGIT_TOL and bool(torch.isfinite(got).all())
     _log(f"[xlstm] fp32: {held} decode-step logits vs one whole-sequence "
          f"lm_apply: max |diff| / max |logit| {err:.3e} (gate "
          f"{XLSTM_LOGIT_TOL:g}) {'ok' if ok else 'FAIL'}; fp32 argmax == "
          f"the bf16 session's greedy tokens on {agree:.3f} of them "
          f"(printed, not gated: bf16 and fp32 round differently)")
-    del sess, model, caches
+    del model, caches
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("xlstm decode steps disagree with the whole "
@@ -5424,9 +5687,17 @@ def main():
     _log(f"[session] ServeSession phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    softmax_engine_phase()
+    session_graph_phase(smi)
+    _log(f"[session-graph] phase 13b {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    softmax_engine_phase(smi)
     _log(f"[softmax] softmax / softermax phase "
          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain_engine_phase(smi)
+    _log(f"[plain] phase 14b {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     t15 = t0 = time.perf_counter()

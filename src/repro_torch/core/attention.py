@@ -17,6 +17,8 @@
   itself. For consmax each KV block's ``p @ v`` partial is final (no
   running max, no denominator), so the walk's carry is the fp32 output
   accumulator alone; softmax and softermax carry the online (m, l) state.
+  It walks every block of the cache, each masked past the fill, with no
+  host read: one program per step, eager or in a CUDA graph.
 * ``decode_attention`` — one-token decode against the cache, the score row
   materialized.
 * ``paged_attention`` — the same append walk over a shared page pool: block
@@ -308,14 +310,23 @@ def _quantized_write(write, cache, k, v, *args):
 def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
              norm_params, window=0, softcap=0.0, merged=True,
              block_valid=None):
-    """A (b, c) chunk at per-slot positions index + [0, c) attends cache
-    blocks j = 0..hi of ``kc`` rows, hi bounded by the batch's highest fill
-    and by the ``n_blocks`` blocks the cache holds;
-    ``gather(j) -> (k_blk, v_blk)`` yields the (b, <= kc, hkv, dk) block of
-    logical rows [j*kc, (j+1)*kc) — a slice of a contiguous cache, or one
-    page per slot gathered through a page table. ``block_valid(j) -> (b,)``
-    (optional) masks a slot's whole block (a -1 page: the gather clamped it
-    onto page 0). Products in fp32 of the compute-dtype operands, weights
+    """A (b, c) chunk at per-slot positions index + [0, c) attends every
+    one of the ``n_blocks`` cache blocks of ``kc`` rows, each masked by
+    ``kv_mask``: a fixed trip count, with no read of the fill on the host,
+    so a step runs one program whatever the fills (what a CUDA graph
+    captures). A block past a slot's fill changes nothing, bit for bit, as
+    long as its rows are finite: its ConSmax weights are exact zeros, and
+    for softmax / softermax its scores are the finite ``NEG_INF``, so ``m``
+    stays, ``alpha`` is exactly 1 and its weights are 0 (the reference's
+    fill-bounded walk, which stops at the batch's highest fill, gives the
+    same bits). ``gather(j) -> (k_blk, v_blk)`` yields the (b, <= kc, hkv,
+    dk) block of logical rows [j*kc, (j+1)*kc) — a slice of a contiguous
+    cache, or one page per slot gathered through a page table.
+    ``block_valid`` (b, n_blocks) bool (optional) masks a slot's whole
+    block (a -1 page: the gather clamped it onto page 0). The masks of all
+    blocks are made once, before the walk (each block's is a slice: the
+    same elementwise compares, one pass). Products in fp32 of the
+    compute-dtype operands, weights
     cast to the compute dtype before ``p @ v``, fp32 accumulator: the
     reference's ``preferred_element_type=float32`` einsums.
 
@@ -330,7 +341,12 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
     qg = q.reshape(b, c, hkv, g, dk).float()
     qpos = index[:, None] + torch.arange(c, device=q.device)    # (b, c)
     kv_len = index + lengths
-    hi = min(int(((kv_len + kc - 1) // kc).max()), n_blocks)    # host bound
+    kpos = torch.arange(n_blocks * kc, device=q.device)
+    masks = kv_mask(qpos[:, :, None], kpos[None, None, :],
+                    kv_len[:, None, None], window)     # (b, c, n_blocks kc)
+    if block_valid is not None:
+        masks = (masks.view(b, c, n_blocks, kc)
+                 & block_valid[:, None, :, None]).view(b, c, n_blocks * kc)
     consmax = norm_kind == "consmax"
     expf = torch.exp2 if norm_kind == "softermax" else torch.exp
     acc = torch.zeros((b, c, hkv, g, dk) if consmax else (b, hkv, g, c, dk),
@@ -338,18 +354,14 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
     m = torch.full((b, hkv, g, c), normalizers.NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
-    for j in range(hi):
+    for j in range(n_blocks):
         k_blk, v_blk = gather(j)
         k_blk, v_blk = k_blk.to(cdt).float(), v_blk.to(cdt).float()
         n = k_blk.shape[1]
         s = torch.einsum("bqhgd,bchd->bhgqc", qg, k_blk)
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
-        kpos = j * kc + torch.arange(n, device=q.device)
-        msk = kv_mask(qpos[:, :, None], kpos[None, None, :],
-                      kv_len[:, None, None], window)           # (b, c, n)
-        if block_valid is not None:
-            msk = msk & block_valid(j)[:, None, None]
+        msk = masks[:, :, j * kc:j * kc + n]                  # (b, c, n)
         if consmax:
             p = normalizers.apply_norm(
                 "consmax", norm_params, s.reshape(b, H, c, n), msk[:, None],
@@ -414,9 +426,10 @@ def paged_attention(q, kp, vp, page_table, index, lengths, *, norm_kind,
     ``v_scale`` (P, ps, hkv): the scale pools of a quantized pool, gathered
     with each page and applied to it (``dequant_block``)."""
     ps = kp.shape[1]
+    pids = page_table.clamp(min=0).long()
 
     def gather(j):
-        pid = page_table[:, j].clamp(min=0).long()
+        pid = pids[:, j]
         if k_scale is None:
             return kp[pid], vp[pid]
         return (CL.dequant_block(kp[pid], k_scale[pid], q.dtype),
@@ -425,7 +438,7 @@ def paged_attention(q, kp, vp, page_table, index, lengths, *, norm_kind,
     return _kv_walk(q, index, lengths, gather, ps, page_table.shape[1],
                     kp.shape[2], norm_kind=norm_kind,
                     norm_params=norm_params, window=window, softcap=softcap,
-                    merged=merged, block_valid=lambda j: page_table[:, j] >= 0)
+                    merged=merged, block_valid=page_table >= 0)
 
 
 def decode_attention(q, k, v, index, *, norm_kind, norm_params, window=0,

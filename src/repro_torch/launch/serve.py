@@ -40,6 +40,12 @@ random, so they rarely share a prefix). ``--kv-dtype int8`` / ``fp8_e4m3``
 stores the KV cache as codes with one fp32 scale per row and KV head (a
 stats line reports the cache's bytes).
 
+On one card both engines replay their steps as CUDA graphs (the static
+engine its decode step, the continuous engine its prefill-chunk and decode
+steps), whatever the score norm and kernel flags; each report line says
+``graphed`` and counts the replays. On the CPU and on a mesh they run
+eagerly.
+
 ``--tp`` / ``--seq-shards`` (or ``--mesh TPxNS``) serve the continuous
 engine on a ``(tp, seq_shards)`` mesh (``distributed/serve_mesh``), one
 process per rank under ``torchrun --nproc-per-node tp*seq_shards``, over
@@ -223,7 +229,9 @@ def main(argv=None):
         # host whatever --host-sampling says
         print(f"[serve] {cfg.arch_id} (smoke) on {where}: {n} tokens in "
               f"{dt:.2f}s ({n / dt:.1f} tok/s), sampling={sp}, "
-              f"fused={sess.fused}")
+              f"fused={sess.fused}, graphed={sess.graphed} "
+              f"({sess.decode_graphs} decode graphs, {sess.graph_replays} "
+              f"graph replays)")
         print("[serve] sample:", out[0].tolist())
         return
 

@@ -20,7 +20,9 @@ none. Recurrent blocks hold their state: ``{"mamba": {conv, h}}``,
 passes update K/V (and scales) in place, rebind ``index`` and return the
 recurrent state anew; the slot utilities below update in place
 (``store_index`` writes a pass's advanced ``index`` back into the caches'
-own leaves, so a step that ends in it leaves every leaf where it was).
+own leaves, ``store_state`` every leaf a pass returns anew, so a step that
+ends in one leaves every leaf where it was; ``reset_caches`` puts a tree
+back to its initial state).
 """
 from __future__ import annotations
 
@@ -330,6 +332,36 @@ def store_index(caches, new_caches, slot=None):
             pool["index"].copy_(new["index"])
         else:
             pool["index"].index_copy_(0, slot.long(), new["index"])
+
+
+def store_state(caches, new_caches):
+    """Write every leaf of a pass's returned caches that is not already
+    the leaf of ``caches`` into that leaf, in place: the advanced ``index``
+    and the recurrent state (Mamba ``conv`` / ``h``, mLSTM ``conv`` / ``C``
+    / ``n`` / ``m``, sLSTM ``h`` / ``c`` / ``n`` / ``m``). K/V and their
+    scales, which the pass wrote in place, are the leaves themselves and
+    are left alone."""
+    for sup, new_sup in zip(caches, new_caches):
+        for name, blk in sup.items():
+            for kind, leaves in blk.items():
+                new = new_sup[name][kind]
+                for key, t in leaves.items():
+                    if new[key] is not t:
+                        t.copy_(new[key])
+
+
+def reset_caches(caches):
+    """Put a cache tree back to the state ``init_caches`` makes, in place:
+    K/V, ``index`` and recurrent state zero, a quantized cache's scales
+    one."""
+    for sup in caches:
+        for blk in sup.values():
+            for c in blk.values():
+                for key, t in c.items():
+                    if key in ("k_scale", "v_scale"):
+                        t.fill_(1.0)
+                    else:
+                        t.zero_()
 
 
 def write_slot(caches, slot_caches, slot: int, length: int):

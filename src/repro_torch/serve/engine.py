@@ -15,7 +15,13 @@ callers sample outside the step through the same ``sample_tokens``.
 
 ``ServeSession`` runs a static batch in lockstep: one prefill (whole
 prompts, or right-padded ragged prompts through ``prefill_ragged``), then
-``steps - 1`` decode steps over all rows.
+``steps - 1`` decode steps over all rows. It keeps, per batch size, one
+cache tree and fixed decode inputs (the last tokens, the sampling bank,
+``cond``), reset in place by each ``generate``; the decode step reads and
+writes only those tensors (``models/transformer.store_state``), so on one
+CUDA device it is captured once per (batch size, argmax | draw | logits)
+as a CUDA graph and replayed, as the reference jits it. The prefill stays
+eager: its shape follows the prompt.
 
 ``ContinuousBatchingEngine`` holds a fixed pool of ``max_slots`` cache
 slots. Each ``step``:
@@ -40,15 +46,17 @@ table), which the host fills through pinned staging buffers with one
 non-blocking copy per step. The slot, lengths, page row and sampling-bank
 row are device values, never addresses or Python ints, and every cache
 leaf (``index`` included) is updated in place, so a step runs the same
-program on the same tensors every time. On one CUDA device with both
-kernel flags on, each step is captured once as a CUDA graph at its first
-use (after one eager run on a side stream, which builds the kernels) and
-replayed from then on: one graph per (step, argmax | draw) with fused
-sampling, one per step in logits mode, all in one memory pool. A capture
-that fails raises; nothing falls back to eager. Eager, by construction:
-the CPU, a mesh, a kernel flag off, or ``cuda_graphs=False``. Admission,
-the scheduler, copy-on-write page copies, index pins and slot resets, the
-token drain and logits-mode sampling stay on the host, between steps.
+program on the same tensors every time. On one CUDA device each step is
+captured once as a CUDA graph at its first use (after one eager run on a
+side stream, which builds the kernels) and replayed from then on: one
+graph per (step, argmax | draw) with fused sampling, one per step in
+logits mode, all in one memory pool, whatever the score norm and the
+kernel flags (the plain walks read no fill on the host:
+``core/attention._kv_walk``). A capture that fails raises; nothing falls
+back to eager. Eager, by construction: the CPU, a mesh, or
+``cuda_graphs=False``. Admission, the scheduler, copy-on-write page
+copies, index pins and slot resets, the token drain and logits-mode
+sampling stay on the host, between steps.
 
 ``prefill_cache_size`` / ``decode_cache_size`` count the distinct (shape,
 dtype) signatures of the tensors entering the prefill-chunk step and the
@@ -224,15 +232,86 @@ class _Staged:
 class _StepGraph:
     """One captured step: its CUDA graph, the output its replays write, the
     kernels' ticket buffer its launches read (held while the graph may
-    replay), and the capture's seconds."""
+    replay), the capture's seconds and the reserved bytes it added."""
     graph: object
     out: object
     tickets: object
     seconds: float
+    pool_bytes: int
 
     def replay(self):
         self.graph.replay()
         return self.out
+
+
+class _Graphs:
+    """Steps captured as CUDA graphs at their first use and replayed from
+    then on, by key, all in one memory pool; the run before each capture,
+    and the capture, go on one side stream (the decode kernel's shard
+    tickets are per stream)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.side = torch.cuda.Stream(device)
+        self.steps: dict = {}
+        self.replays = 0
+
+    def run(self, key, fn):
+        """``fn()``'s output: a replay of ``key``'s graph, or, at its first
+        use, ``fn()`` run eagerly and then captured."""
+        graph = self.steps.get(key)
+        if graph is not None:
+            self.replays += 1
+            return graph.replay()
+        out, self.steps[key] = self._capture(fn)
+        return out
+
+    def _capture(self, fn):
+        """Run ``fn()`` once eagerly on the side stream (this is the step's
+        real run: it builds and loads the kernels, makes the cuBLAS handles
+        and the parameters' compute-dtype copies), then capture it into a
+        graph in the pool. Returns (the eager run's output, the
+        ``_StepGraph``). A failed capture, or a host sync inside it,
+        raises."""
+        cur = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            out = fn()
+        cur.wait_stream(self.side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.side):
+            static = fn()
+        seconds = time.perf_counter() - t0
+        tickets = _build.stream_tickets(self.side.device,
+                                        self.side.cuda_stream)
+        return out, _StepGraph(graph, static, tickets, seconds,
+                               torch.cuda.memory_reserved(self.device)
+                               - reserved)
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(g.pool_bytes for g in self.steps.values())
+
+
+def _tree_bytes(caches) -> int:
+    """Bytes of every leaf of a cache tree."""
+    return sum(t.numel() * t.element_size() for sup in caches
+               for blk in sup.values() for c in blk.values()
+               for t in c.values())
+
+
+def _draws(sampling) -> bool:
+    """Whether a row of ``sampling`` (one ``SamplingParams`` or a per-row
+    sequence, as ``bank_of`` takes it) samples, from the host's values: a
+    step's ``any_sampled``, with no read of the bank."""
+    if sampling is None or isinstance(sampling, SamplingParams):
+        sampling = [sampling or S.GREEDY]
+    return any(sp.temperature > 0 for sp in sampling)
 
 
 def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
@@ -255,7 +334,10 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
     step). ``decode_step`` also takes an optional
     ``batch_inputs["page_table"]`` for paged caches. Each step runs under
     ``torch.no_grad``, updates the KV caches in place and returns the
-    caches with the new recurrent state. Fused sampling needs a token
+    caches with the new recurrent state. A fused step's ``any_sampled``
+    (keyword) is the caller's host-side answer to whether a row samples
+    (``sample_tokens``): given, the step reads nothing back to the host;
+    left None, the epilogue reads the bank. Fused sampling needs a token
     frontend and an attention block (the sample positions come from its
     cache index): otherwise ValueError, as in the reference."""
     _check_kernel_flags(cfg, scfg)
@@ -279,7 +361,7 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
         return T.init_caches(cfg, batch, scfg.max_seq, kv_dtype,
                              device=device)
 
-    def _epilogue(sampling):
+    def _epilogue(sampling, any_sampled):
         """Fused logits -> token tail: sample the last kept row with per-slot
         keys folded on the POST-step cache index (= prompt + generated so
         far, a pure function of the request's own stream)."""
@@ -288,11 +370,13 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
 
         def epi(logits, new_caches):
             return S.sample_tokens(logits[:, -1], sampling,
-                                   T.cache_index(new_caches))
+                                   T.cache_index(new_caches),
+                                   any_sampled=any_sampled)
         return epi
 
     @torch.no_grad()
-    def prefill_step(params, caches, batch_inputs, sampling=None):
+    def prefill_step(params, caches, batch_inputs, sampling=None, *,
+                     any_sampled=None):
         """Whole-prompt prefill into fresh caches; returns (first tokens |
         last-position logits, caches)."""
         kw = _model_inputs(cfg, batch_inputs)
@@ -301,13 +385,15 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
         out, caches, _ = T.lm_apply(
             params, cfg, caches=caches, merged=True,
             positions=torch.arange(s, device=src.device)[None, :],
-            logits_index=s - 1, logits_epilogue=_epilogue(sampling),
+            logits_index=s - 1,
+            logits_epilogue=_epilogue(sampling, any_sampled),
             q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk,
             attn_mesh=attn_mesh, **kw)
         return (out if fused else out[:, -1]), caches
 
     @torch.no_grad()
-    def prefill_ragged(params, caches, batch_inputs, lengths, sampling=None):
+    def prefill_ragged(params, caches, batch_inputs, lengths, sampling=None,
+                       *, any_sampled=None):
         """Right-padded ragged batch prefill through the append-at-index
         path: pad K/V never enters the cache, each slot's index lands on its
         real length, and the output is taken at ``lengths - 1``."""
@@ -315,13 +401,15 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
             params, cfg, caches=caches, merged=True, prefill_append=lengths,
             logits_index=lengths - 1, prefill_kernel=scfg.prefill_kernel,
             prefill_kv_block=scfg.prefill_kv_block,
-            fill_bound=scfg.fill_bound, logits_epilogue=_epilogue(sampling),
+            fill_bound=scfg.fill_bound,
+            logits_epilogue=_epilogue(sampling, any_sampled),
             q_chunk=scfg.q_chunk, kv_chunk=scfg.kv_chunk, attn_mesh=attn_mesh,
             **_model_inputs(cfg, batch_inputs))
         return (out if fused else out[:, 0]), caches
 
     @torch.no_grad()
-    def decode_step(params, caches, batch_inputs, sampling=None):
+    def decode_step(params, caches, batch_inputs, sampling=None, *,
+                    any_sampled=None):
         """One-token decode. Fused: ``tokens`` (b,) -> the next (b,) tokens,
         rows where ``active`` is False passed through (their cache rows and
         index stay untouched). Legacy: ``tokens`` (b, 1) -> (b, vocab)
@@ -337,8 +425,8 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
             decode_kv_block=scfg.decode_kv_block, fill_bound=scfg.fill_bound,
             decode_active=batch_inputs.get("active"),
             page_table=batch_inputs.get("page_table"),
-            logits_epilogue=_epilogue(sampling), attn_mesh=attn_mesh,
-            **_model_inputs(cfg, batch_inputs))
+            logits_epilogue=_epilogue(sampling, any_sampled),
+            attn_mesh=attn_mesh, **_model_inputs(cfg, batch_inputs))
         if not fused:
             return out[:, -1], caches
         active = batch_inputs.get("active")
@@ -347,6 +435,18 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, *, device=None,
         return out, caches
 
     return init_caches, prefill_step, decode_step, prefill_ragged
+
+
+@dataclass
+class _Held:
+    """A batch shape's fixed tensors: its cache tree (``init_caches``,
+    made once) and the decode step's inputs: the last tokens ((b,) fused,
+    (b, 1) in logits mode), the sampling bank and ``cond`` (None without
+    one)."""
+    caches: list
+    tok: torch.Tensor
+    bank: dict
+    cond: torch.Tensor | None
 
 
 class ServeSession:
@@ -359,10 +459,19 @@ class ServeSession:
     whatever ``fused_sampling`` says, as in the reference.
 
     ``params`` is the port's ``LM``, already on ``device`` (default
-    cuda)."""
+    cuda).
+
+    The session keeps one ``_Held`` per batch shape (b, and ``cond``'s
+    shape), made at its first ``generate`` and reset in place by each
+    later one. The decode step reads and writes only those tensors, so
+    ``graphed`` (one CUDA device, unless ``cuda_graphs=False``) replays it
+    as a CUDA graph, captured at its first use per (batch shape, argmax |
+    draw | logits): argmax or draw from the host's ``SamplingParams``,
+    logits when sampling runs after the step. A capture that fails
+    raises. The prefill runs eagerly into the held tree."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: T.LM, *,
-                 device=None):
+                 device=None, cuda_graphs: bool = True):
         if scfg.paged_kv:
             raise NotImplementedError(
                 "ServeSession is the static contiguous baseline; paged KV "
@@ -388,7 +497,51 @@ class ServeSession:
         (self._init_caches, self._prefill, self._decode,
          self._prefill_ragged) = make_serve_fns(cfg, fns_scfg,
                                                 device=self.device)
+        self._held: dict = {}
+        self.graphed = bool(cuda_graphs and self.device.type == "cuda")
+        self._graphs = _Graphs(self.device) if self.graphed else None
+        self.decode_steps = 0              # decode steps run, any mode
 
+    # ------------------------------------------------------- counters ----
+    @property
+    def decode_graphs(self) -> int:
+        """Decode step graphs captured so far: at most one per (batch
+        shape, mode); 0 when eager."""
+        return len(self._graphs.steps) if self.graphed else 0
+
+    @property
+    def graph_replays(self) -> int:
+        return self._graphs.replays if self.graphed else 0
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Reserved device bytes the captures took."""
+        return self._graphs.pool_bytes if self.graphed else 0
+
+    @property
+    def capture_seconds(self) -> dict:
+        """Host seconds of each graph's capture, by (b, mode)."""
+        if not self.graphed:
+            return {}
+        return {(key[0], mode): g.seconds
+                for (key, mode), g in self._graphs.steps.items()}
+
+    def graph_pool_bytes_of(self, b: int) -> int:
+        """Reserved bytes the captures of batch size ``b`` took."""
+        if not self.graphed:
+            return 0
+        return sum(g.pool_bytes for (key, _), g in self._graphs.steps.items()
+                   if key[0] == b)
+
+    @property
+    def held_cache_bytes(self) -> dict:
+        """{b: bytes of the cache trees held for batch size b}."""
+        out: dict = {}
+        for (b, _), held in self._held.items():
+            out[b] = out.get(b, 0) + _tree_bytes(held.caches)
+        return out
+
+    # --------------------------------------------------------- generate ----
     def generate(self, prompts, *, steps: int, sampling=None,
                  temperature: float = 0.0, seed: int = 0, cond=None,
                  lengths=None):
@@ -416,10 +569,6 @@ class ServeSession:
             sampling = SamplingParams(temperature=float(temperature),
                                       seed=seed)
         bank = S.bank_of(sampling, b, device=self.device)
-        caches = self._init_caches(b)
-        inputs = {"tokens": prompts}
-        if cond is not None:
-            inputs["cond"] = cond
         if self.cfg.frontend != "tokens":
             raise NotImplementedError("embedding-frontend generation")
         if lengths is not None:
@@ -429,52 +578,103 @@ class ServeSession:
                     f"block pattern (got {self.cfg.block_pattern})")
             lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                       device=self.device)
-        if self.fused:
-            return self._generate_fused(caches, inputs, bank, steps, cond,
-                                        lengths)
-        return self._generate_host(caches, inputs, bank, steps, s, cond,
-                                   lengths)
-
-    @staticmethod
-    def _step_inputs(tok, cond):
-        step_in = {"tokens": tok}
+        key, held = self._hold(b, cond)
+        # a fresh session's state, in the held tensors
+        T.reset_caches(held.caches)
+        for name, t in bank.items():
+            held.bank[name].copy_(t)
+        inputs = {"tokens": prompts}
         if cond is not None:
-            step_in["cond"] = cond
-        return step_in
+            held.cond.copy_(cond)
+            inputs["cond"] = held.cond
+        draw = _draws(sampling)
+        if self.fused:
+            return self._generate_fused(key, held, inputs, steps, lengths,
+                                        draw)
+        return self._generate_host(key, held, inputs, steps, s, lengths,
+                                   draw)
 
-    def _generate_fused(self, caches, inputs, bank, steps, cond, lengths):
-        """The steps emit (b,) tokens and the loop feeds them straight
-        back."""
+    def _hold(self, b: int, cond):
+        """The ``_Held`` of batch size ``b`` (and ``cond``'s shape), made
+        at its first use."""
+        key = (b, None if cond is None else (tuple(cond.shape), cond.dtype))
+        held = self._held.get(key)
+        if held is None:
+            held = _Held(
+                self._init_caches(b),
+                torch.zeros((b,) if self.fused else (b, 1),
+                            dtype=torch.int32, device=self.device),
+                S.bank_init(b, device=self.device),
+                None if cond is None else torch.empty(
+                    cond.shape, dtype=cond.dtype, device=self.device))
+            self._held[key] = held
+        return key, held
+
+    def _decode_step(self, held: _Held, draw: bool):
+        """The one-token decode over ``held``'s fixed tensors: the last
+        tokens in, every cache leaf updated in place. Fused: the next
+        tokens written into ``held.tok`` (the next step's input), which it
+        returns; logits mode: the (b, vocab) logits."""
+        inputs = {"tokens": held.tok}
+        if held.cond is not None:
+            inputs["cond"] = held.cond
+        if not self.fused:
+            logits, new = self._decode(self.params, held.caches, inputs)
+            T.store_state(held.caches, new)
+            return logits
+        tok, new = self._decode(self.params, held.caches, inputs, held.bank,
+                                any_sampled=draw)
+        T.store_state(held.caches, new)
+        held.tok.copy_(tok)
+        return held.tok
+
+    def _decode_once(self, key, held: _Held, draw: bool):
+        """One decode step: eagerly, or a replay of its graph (captured at
+        its first use per (batch shape, mode))."""
+        self.decode_steps += 1
+        if not self.graphed:
+            return self._decode_step(held, draw)
+        mode = ("logits" if not self.fused else "draw" if draw
+                else "argmax")
+        return self._graphs.run((key, mode),
+                                lambda: self._decode_step(held, draw))
+
+    def _generate_fused(self, key, held, inputs, steps, lengths, draw):
+        """The steps emit (b,) tokens; each decode step's tokens stay in
+        ``held.tok`` as the next one's input, and the loop keeps a copy."""
         if lengths is None:
-            tok, caches = self._prefill(self.params, caches, inputs, bank)
+            tok, new = self._prefill(self.params, held.caches, inputs,
+                                     held.bank, any_sampled=draw)
         else:
-            tok, caches = self._prefill_ragged(self.params, caches, inputs,
-                                               lengths, bank)
+            tok, new = self._prefill_ragged(self.params, held.caches, inputs,
+                                            lengths, held.bank,
+                                            any_sampled=draw)
+        T.store_state(held.caches, new)
+        held.tok.copy_(tok)
         outs = [tok]
         for _ in range(steps - 1):
-            tok, caches = self._decode(self.params, caches,
-                                       self._step_inputs(tok, cond), bank)
-            outs.append(tok)
+            outs.append(self._decode_once(key, held, draw).clone())
         return torch.stack(outs, dim=1)
 
-    def _generate_host(self, caches, inputs, bank, steps, s, cond, lengths):
+    def _generate_host(self, key, held, inputs, steps, s, lengths, draw):
         """Logits out of each step, sampled after it: row r at step t folds
         (seed_r, prompt_len_r + t), so the streams match the fused path."""
-        b = bank["seed"].shape[0]
+        b = held.tok.shape[0]
         if lengths is None:
-            logits, caches = self._prefill(self.params, caches, inputs)
+            logits, new = self._prefill(self.params, held.caches, inputs)
             pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
         else:
-            logits, caches = self._prefill_ragged(self.params, caches,
-                                                  inputs, lengths)
+            logits, new = self._prefill_ragged(self.params, held.caches,
+                                               inputs, lengths)
             pos = lengths
-        tok = S.sample_tokens(logits, bank, pos)
+        T.store_state(held.caches, new)
+        tok = S.sample_tokens(logits, held.bank, pos, any_sampled=draw)
         outs = [tok]
         for _ in range(steps - 1):
-            logits, caches = self._decode(
-                self.params, caches, self._step_inputs(tok[:, None], cond))
+            held.tok.copy_(tok[:, None])
+            logits = self._decode_once(key, held, draw)
             pos = pos + 1
-            tok = S.sample_tokens(logits, bank, pos)
+            tok = S.sample_tokens(logits, held.bank, pos, any_sampled=draw)
             outs.append(tok)
         return torch.stack(outs, dim=1)
 
@@ -490,8 +690,9 @@ class ContinuousBatchingEngine:
     model, of which it keeps the head slice.
 
     ``graphed`` says whether the steps replay CUDA graphs: on one CUDA
-    device with both kernel flags on, unless ``cuda_graphs=False`` (the
-    same engine eager, for A/B runs and tests)."""
+    device (not a mesh), whatever the score norm and kernel flags, unless
+    ``cuda_graphs=False`` (the same engine eager, for A/B runs and
+    tests)."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: T.LM, *,
                  default_sampling: SamplingParams | None = None,
@@ -579,15 +780,9 @@ class ContinuousBatchingEngine:
         # the captured steps, by (step, draws): one memory pool for all;
         # the warm-up before each capture runs on a side stream
         self.graphed = bool(cuda_graphs and self.device.type == "cuda"
-                            and plan is None and scfg.decode_kernel
-                            and scfg.prefill_kernel)
-        self._graphs: dict = {}
+                            and plan is None)
+        self._graphs = _Graphs(self.device) if self.graphed else None
         self.iterations = 0                # step() calls
-        self.graph_replays = 0
-        self.graph_pool_bytes = 0          # reserved memory the captures took
-        if self.graphed:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-            self._side = torch.cuda.Stream(self.device)
 
     def _lm(self, tokens, caches, **kw):
         """One engine step through ``lm_apply``: (out, caches); the MoE aux
@@ -698,20 +893,33 @@ class ContinuousBatchingEngine:
         return len(self._decode_shapes)
 
     @property
+    def _graph_steps(self) -> dict:
+        return self._graphs.steps if self.graphed else {}
+
+    @property
     def prefill_graphs(self) -> int:
         """Prefill-chunk step graphs captured so far: at most 2 for the
         engine's lifetime (argmax, draw; 1 in logits mode), 0 when eager."""
-        return sum(1 for step, _ in self._graphs if step == "prefill")
+        return sum(1 for step, _ in self._graph_steps if step == "prefill")
 
     @property
     def decode_graphs(self) -> int:
         """Decode step graphs captured so far, as ``prefill_graphs``."""
-        return sum(1 for step, _ in self._graphs if step == "decode")
+        return sum(1 for step, _ in self._graph_steps if step == "decode")
 
     @property
     def capture_seconds(self) -> dict:
         """Host seconds of each graph's capture, by (step, draws)."""
-        return {key: g.seconds for key, g in self._graphs.items()}
+        return {key: g.seconds for key, g in self._graph_steps.items()}
+
+    @property
+    def graph_replays(self) -> int:
+        return self._graphs.replays if self.graphed else 0
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Reserved device bytes the captures took."""
+        return self._graphs.pool_bytes if self.graphed else 0
 
     @property
     def set_index_cache_size(self) -> int:
@@ -841,44 +1049,13 @@ class ContinuousBatchingEngine:
     def _run(self, step: str, draw: bool):
         """Run ``step`` (``"prefill"`` or ``"decode"``) once on its staged
         inputs: eagerly, or as a replay of its graph, captured at its first
-        use."""
+        use (``_Graphs``)."""
         fn = getattr(self, f"_{step}_step")
         self.model_steps += 1
         if not self.graphed:
             return fn(draw)
-        key = (step, draw and self.fused)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            self.graph_replays += 1
-            return graph.replay()
-        out, self._graphs[key] = self._capture(fn, draw)
-        return out
-
-    def _capture(self, fn, draw: bool):
-        """Run ``fn(draw)`` once eagerly on the side stream (this is the
-        step's real run: it builds and loads the kernels and makes the
-        cuBLAS handles), then capture it into a graph in the engine's pool.
-        Returns (the eager run's output, the ``_StepGraph``). A failed
-        capture, or a host sync inside it, raises."""
-        cur = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            out = fn(draw)
-        cur.wait_stream(self._side)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              stream=self._side):
-            static = fn(draw)
-        seconds = time.perf_counter() - t0
-        self.graph_pool_bytes += (torch.cuda.memory_reserved(self.device)
-                                  - reserved)
-        tickets = _build.stream_tickets(self._side.device,
-                                        self._side.cuda_stream)
-        return out, _StepGraph(graph, static, tickets, seconds)
+        return self._graphs.run((step, draw and self.fused),
+                                lambda: fn(draw))
 
     def _prefill_one(self, slot: int, start: int, n: int):
         prompt = self.scheduler.slots[slot].request.prompt

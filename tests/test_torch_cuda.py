@@ -1471,3 +1471,89 @@ def test_graphed_engine_equals_eager(cuda, paged, kv):
     assert e.prefill_graphs == e.decode_graphs == e.graph_replays == 0
     assert g.graph_pool_bytes >= 0 and len(g.capture_seconds) == (
         g.prefill_graphs + g.decode_graphs)
+
+
+@pytest.mark.parametrize("norm", ["consmax", "softmax"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_graphed_plain_walk_engine_equals_eager(cuda, paged, norm):
+    """With both kernel flags off the engine still replays its steps as
+    CUDA graphs (the plain walks sweep every block, no host read) and
+    gives the ``cuda_graphs=False`` engine's tokens, greedy and sampled,
+    with slots recycled: at most 2 graphs per step, one replay per model
+    step after each graph's first run."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.weights import init_params
+
+    cfg = get_config("qwen2-1.5b", smoke=True, score_norm=norm)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                        device=cuda)
+    extra = dict(paged_kv=True, page_size=16, num_pages=20) if paged else {}
+    scfg = ServeConfig(max_slots=3, max_seq=128, prefill_chunk=32,
+                       kv_chunk=32, score_norm=norm, **extra)
+    traffic = _engine_traffic(cfg.vocab_size, 41)
+    runs = {}
+    for graphs in (True, False):
+        eng = ContinuousBatchingEngine(cfg, scfg, model, device=cuda,
+                                       cuda_graphs=graphs)
+        assert eng.graphed == graphs
+        uids = [eng.submit(p, m, sampling=sp) for p, m, sp in traffic]
+        eng.run()
+        torch.cuda.synchronize()
+        runs[graphs] = ([eng.results[u] for u in uids], eng)
+    (tg, g), (te, e) = runs[True], runs[False]
+    assert tg == te
+    assert 1 <= g.prefill_graphs <= 2 and 1 <= g.decode_graphs <= 2
+    assert g.graph_replays + g.prefill_graphs + g.decode_graphs == (
+        g.model_steps)
+    assert g.prefill_cache_size == g.decode_cache_size == 1
+    assert e.graph_replays == 0
+
+
+@pytest.mark.parametrize("case", ["decode_kernel", "plain", "softmax",
+                                  "logits", "xlstm", "jamba"])
+def test_graphed_session_equals_eager(cuda, case):
+    """``ServeSession`` replays its decode step as one CUDA graph per (b,
+    mode) and gives the ``cuda_graphs=False`` session's tokens, greedy and
+    sampled, over calls with b 3 and b 1 in turn; the decode kernel's
+    launches equal the eager session's."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ServeSession
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.weights import init_params
+
+    arch = {"xlstm": "xlstm-1.3b", "jamba": "jamba-1.5-large-398b"}.get(
+        case, "gpt2-consmax")
+    cfg = get_config(arch, smoke=True, **(
+        dict(score_norm="softmax") if case == "softmax" else {}))
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                        device=cuda)
+    scfg = ServeConfig(max_seq=48, score_norm=cfg.score_norm,
+                       decode_kernel=case == "decode_kernel",
+                       fused_sampling=case != "logits")
+    r = np.random.default_rng(3)
+    calls = [(r.integers(0, cfg.vocab_size, (b, 16)), sp)
+             for b, sp in ((3, None), (1, None), (3, SamplingParams(
+                 temperature=0.9, top_k=20, seed=5)), (3, None))]
+    runs = {}
+    for graphs in (True, False):
+        sess = ServeSession(cfg, scfg, model, device=cuda,
+                            cuda_graphs=graphs)
+        consmax_decode_op.launches = 0
+        toks = [sess.generate(p, steps=8, sampling=sp).cpu()
+                for p, sp in calls]
+        runs[graphs] = (toks, consmax_decode_op.launches, sess)
+    (tg, lg, g), (te, le, e) = runs[True], runs[False]
+    assert all(torch.equal(a, b) for a, b in zip(tg, te))
+    assert lg == le
+    if case == "decode_kernel":
+        assert lg == 7 * cfg.n_layers * len(calls)
+    assert g.graphed and not e.graphed
+    # (b 3, b 1) x logits, or (b 3, b 1) x argmax and b 3 x draw
+    assert g.decode_graphs == (2 if case in ("logits", "xlstm") else 3)
+    assert g.graph_replays + g.decode_graphs == g.decode_steps == (
+        7 * len(calls))
+    assert set(g.held_cache_bytes) == {1, 3}
+    assert e.graph_replays == e.decode_graphs == 0
