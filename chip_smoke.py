@@ -99,13 +99,23 @@ Phases, in order; any failure exits non-zero before the result line:
    (max_seq 32,768), gpt2-consmax with softmax and softermax, jamba at
    smoke size: graphed == eager tokens, greedy and sampled; ms per decode
    step of each;
-14. softmax and softermax: gpt2-consmax served through the plain online
-   walks (every block swept), paged == contiguous tokens, graphed ==
-   eager tokens; ms per iteration and tok/s of each, and wall and
-   device-busy ms per traced iteration with the idle share;
+14. the plain walks bounded on the device: ``append_attention`` and
+   ``paged_attention`` at qwen2-1.5b's heads (8 x 8192 rows, blocks of
+   1024 or pages of 256), consmax / softmax / softermax over bf16 and int8
+   K/V, each captured once with each block an IF node on ``j < hi``
+   (``kernels/graph_cond``) and replayed at fills from one block to every
+   block: each replay == the eager sweep bit for bit, one conditional
+   node per block, a one-block replay runs one block's walk kernels;
+   then softmax and softermax: gpt2-consmax served through the plain
+   online walks, paged == contiguous tokens, graphed (bounded walks) ==
+   eager (the sweep) tokens; ms per iteration and tok/s of each, and wall
+   and device-busy ms per traced iteration with the idle share; each
+   ``[graphs]`` line gives every graph's nodes and conditional nodes (one
+   per walk block and layer: a gate);
 14b. qwen2-1.5b at full width with both kernel flags off (8 x 8192,
    ``kv_chunk`` 1024; paged on pages of 256), graphed vs eager: the same
-   tokens; ms per iteration and tok/s of each;
+   tokens, the conditional nodes; ms per iteration and tok/s of each, the
+   graphed engines traced;
 15. train (no kernel runs in training: it goes through the torch
    ``blockwise_attention`` with autograd, as the reference trains through
    jnp):
@@ -1360,8 +1370,12 @@ def _graph_log(tag, eng, *, graphed=True):
     built with ``cuda_graphs=False``), with at most 2 graphs and one
     signature per step, and one replay for every model step but each
     graph's first (eager) run."""
-    caps = ", ".join(f"{step}{' draw' if draw else ''} {sec:.3f} s"
-                     for (step, draw), sec in eng.capture_seconds.items())
+    nodes = getattr(eng, "graph_nodes", {})
+    caps = ", ".join(
+        f"{step}{' draw' if draw else ''} {sec:.3f} s"
+        + (f", {nodes[step, draw][0]:,} nodes, {nodes[step, draw][1]} "
+           f"conditional" if (step, draw) in nodes else "")
+        for (step, draw), sec in eng.capture_seconds.items())
     it = max(eng.iterations, 1)
     _log(f"[graphs] {tag}: graphed {eng.graphed}; captures prefill "
          f"{eng.prefill_graphs}, decode {eng.decode_graphs}"
@@ -1387,8 +1401,12 @@ def _session_log(tag, sess, *, graphed=True):
     unless it ran as ``graphed`` says, with at most one graph per (b,
     mode) and one replay for every decode step but each graph's first
     (eager) run."""
-    caps = ", ".join(f"b {b} {mode} {sec:.3f} s"
-                     for (b, mode), sec in sess.capture_seconds.items())
+    nodes = getattr(sess, "graph_nodes", {})
+    caps = ", ".join(
+        f"b {b} {mode} {sec:.3f} s"
+        + (f", {nodes[b, mode][0]:,} nodes, {nodes[b, mode][1]} conditional"
+           if (b, mode) in nodes else "")
+        for (b, mode), sec in sess.capture_seconds.items())
     per_b = "; ".join(
         f"b {b}: held caches {nbytes / 2**20:.1f} MiB, graph pool "
         f"{sess.graph_pool_bytes_of(b) / 2**20:.1f} MiB"
@@ -2230,19 +2248,20 @@ def session_graph_phase(smi, *, seed=15):
 
 
 def _engine_ab(tag, cfg, scfg, model, reqs, new_tokens, smi, *, skip=4,
-               steps=3, trace=True):
+               steps=3, trace=True, trace_eager=True):
     """Serve ``reqs`` ((prompt, sampling) pairs) on ``scfg``'s engine
     graphed and with ``cuda_graphs=False``. The graphed engine serves them
     twice (the first pass captures its graphs; the second, timed, only
-    replays) and the eager one once. Returns {graphed: tokens of each
-    pass}; logs each engine's graph contract and the timed pass's
-    generated tok/s and wall ms per iteration; with ``trace``, then
+    replays) and the eager one once. Returns ({graphed: tokens of each
+    pass}, the graphed engine's ``graph_nodes``: (nodes, conditional
+    nodes) per graph); logs each engine's graph contract and the timed
+    pass's generated tok/s and wall ms per iteration; with ``trace``, then
     ``steps`` traced iterations (after ``skip``) of the same requests on
-    the same engine: wall and device-busy ms per iteration, the idle
-    share."""
+    the same engine (the eager one too unless ``trace_eager`` is False):
+    wall and device-busy ms per iteration, the idle share."""
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
-    toks = {}
+    toks, nodes = {}, {}
     for graphs in (True, False):
         mode = "graphed" if graphs else "cuda_graphs=False"
         eng = ContinuousBatchingEngine(cfg, scfg, model, device="cuda",
@@ -2259,12 +2278,14 @@ def _engine_ab(tag, cfg, scfg, model, reqs, new_tokens, smi, *, skip=4,
         iters = eng.iterations - iters
         gen = sum(len(t or ()) for t in toks[graphs][-1])
         _graph_log(f"{tag} ({mode})", eng, graphed=graphs)
+        if graphs:
+            nodes = eng.graph_nodes
         line = (f"{tag} ({mode}): {len(reqs)} requests, {gen} generated "
                 f"tokens in {wall:.3f} s over {iters} iterations"
                 + (" (the second pass: graphs captured)" if graphs else "")
                 + f": {gen / wall:.1f} generated tok/s, "
                 f"{1e3 * wall / iters:.2f} ms/iteration")
-        if trace:
+        if trace and (graphs or trace_eager):
             for p, sp in reqs:
                 eng.submit(p, new_tokens, sampling=sp)
             t = trace_steps(eng, f"{tag} ({mode})", skip=skip, steps=steps)
@@ -2274,7 +2295,188 @@ def _engine_ab(tag, cfg, scfg, model, reqs, new_tokens, smi, *, skip=4,
         del eng
         _log(f"{line}; on {smi}")
         torch.cuda.empty_cache()
-    return toks
+    return toks, nodes
+
+
+def _walk_nodes_ok(nodes, layers, blocks):
+    """Whether every graph in ``nodes`` (``graph_nodes``) holds one
+    conditional node per walk block and layer: ``blocks[step]`` blocks per
+    layer (0 where the step does not walk)."""
+    return bool(nodes) and all(cond == layers * blocks[step]
+                               for (step, _), (_, cond) in nodes.items())
+
+
+def _replay_kernels(graph, tries=5):
+    """Device kernels of one replay of ``graph`` (``torch.profiler``): a
+    trace holds a warm-up replay, a marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``) and the replay counted, whose kernels are the device
+    events after the marker; the median of ``tries`` traces that hold the
+    marker (a trace now and then misses some of its device records: at
+    its start, or the marker too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for _ in range(3 * tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda._sleep(1000)
+            graph.replay()
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
+        if marks:
+            counts.append(len(dev) - marks[-1] - 1)
+        if len(counts) == tries:
+            return sorted(counts)[tries // 2]
+    raise AssertionError(f"{len(counts)} of {3 * tries} traces hold the "
+                         "marker kernel")
+
+
+def walk_graph_phase(smi, *, seed=18):
+    """14's first gate: the plain walks alone, each block an IF node on the
+    device's bound (``core/attention._walk_blocks``). ``append_attention``
+    (8 slots x 8192 rows, ``kv_chunk`` 1024: 8 blocks) and
+    ``paged_attention`` (pages of 256, 32 per slot) on qwen2-1.5b's heads
+    (12 / 2, dk 128), a 16-row chunk, for consmax, softmax and softermax
+    over bf16 and int8 K/V, each captured once (``graph_cond.graph``) and
+    replayed after ``index``, ``lengths`` and the page table are rewritten
+    in place at fills from one block to every block. Gates: each replay ==
+    the eager sweep on the same inputs, bit for bit; one conditional node
+    per block; the kernels a replay runs grow by one block's per filled
+    block (a one-block replay runs one block's walk kernels). Logs each
+    walk's replay ms at one block and at every block."""
+    from repro_torch.configs.base import ConSmaxConfig
+    from repro_torch.core import attention as TA
+    from repro_torch.core.consmax import ConSmaxParams
+    from repro_torch.kernels import cache_layout as CL
+    from repro_torch.kernels.graph_cond import ops as GC
+
+    b, L, hkv, g, dk, c = 8, 8192, 2, 6, 128, 16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = np.random.default_rng(seed)
+    q = _rand(gen, (b, c, hkv * g, dk), dk ** -0.5)
+    kf, vf = _rand(gen, (b, L, hkv, dk)), _rand(gen, (b, L, hkv, dk))
+    index = torch.zeros(b, dtype=torch.int32, device=dev)
+    lengths = torch.zeros(b, dtype=torch.int32, device=dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    checks, notes = {}, {}
+    rt, drv = GC.versions()
+    _log(f"[walk] conditional nodes: library CUDA runtime {rt}, driver "
+         f"{drv} (need {GC.MIN_CUDA}); torch {torch.__version__}, CUDA "
+         f"{torch.version.cuda}")
+    for kv in ("bfloat16", "int8"):
+        if kv == "int8":
+            k, ks = CL.quantize_kv(kf.float(), torch.int8)
+            v, vs = CL.quantize_kv(vf.float(), torch.int8)
+            scales = dict(k_scale=ks, v_scale=vs)
+        else:
+            k, v, scales = kf, vf, {}
+        for ps, kc in ((None, 1024), (256, 256)):
+            n_blocks = L // kc
+            table = full = None
+            if ps:
+                full = torch.tensor(r.permutation(b * n_blocks).astype(
+                    np.int32), device=dev).view(b, n_blocks)
+                table = full.clone()
+
+                def pool(t):
+                    out = torch.zeros((b * n_blocks + 1, ps) + t.shape[2:],
+                                      dtype=t.dtype, device=dev)
+                    out[full.long().flatten()] = t.reshape(
+                        (b * n_blocks, ps) + t.shape[2:])
+                    return out
+                kk, vv = pool(k), pool(v)
+                sc = {n: pool(t) for n, t in scales.items()}
+            else:
+                kk, vv, sc = k, v, scales
+            for norm in ("consmax", "softmax", "softermax"):
+                params = None
+                if norm == "consmax":
+                    params = ConSmaxParams(hkv * g, ConSmaxConfig(),
+                                           device=dev)
+                    with torch.no_grad():
+                        params.beta.copy_(torch.tensor(
+                            r.uniform(0.5, 2.5, hkv * g)))
+                        params.gamma.copy_(torch.tensor(
+                            r.uniform(20.0, 80.0, hkv * g)))
+                common = dict(norm_kind=norm, norm_params=params, **sc)
+                if ps:
+                    def fn():
+                        return TA.paged_attention(q, kk, vv, table, index,
+                                                  lengths, **common)
+                else:
+                    def fn():
+                        return TA.append_attention(q, kk, vv, index, lengths,
+                                                   kv_chunk=kc, **common)
+
+                def set_fill(f):
+                    top = (f - 1) * kc + int(r.integers(1, kc + 1))
+                    fills = np.minimum(r.integers(0, top + 1, b), top)
+                    fills[-1] = top
+                    n = np.minimum(r.integers(0, c + 1, b), fills)
+                    n[1] = 0                              # inactive slot
+                    index.copy_(torch.tensor(fills - n, dtype=torch.int32))
+                    lengths.copy_(torch.tensor(n, dtype=torch.int32))
+                    if ps:
+                        t = full.clone()
+                        for i, fill in enumerate(fills):
+                            t[i, -(-int(fill) // ps):] = -1
+                        table.copy_(t)
+
+                tag = (f"{'paged' if ps else 'append'} {norm} {kv}, "
+                       f"{n_blocks} blocks")
+                side = torch.cuda.Stream()
+                set_fill(n_blocks)
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side), torch.no_grad():
+                    fn()                                  # the warm-up sweep
+                torch.cuda.synchronize()
+                with torch.no_grad(), GC.graph(
+                        pool=torch.cuda.graph_pool_handle(),
+                        stream=side) as cap:
+                    out = fn()
+                same, kernels, ms, bad = True, {}, {}, []
+                for f in range(1, n_blocks + 1):
+                    set_fill(f)
+                    cap.graph.replay()
+                    torch.cuda.synchronize()
+                    with torch.no_grad():
+                        ref = fn()
+                    if not torch.equal(out, ref):
+                        same = False
+                        bad.append(f)
+                    if f in (1, 2, n_blocks):
+                        kernels[f] = _replay_kernels(cap.graph)
+                        ms[f] = _time_ms(cap.graph.replay, flush, 20)
+                per_block = kernels[2] - kernels[1]
+                notes[f"{tag}: replays == the eager sweep"] = (
+                    f"fills {bad}")
+                notes[f"{tag}: kernels grow by one block's per block"] = (
+                    f"kernels by fill {kernels}")
+                checks[f"{tag}: replays == the eager sweep"] = same
+                checks[f"{tag}: one conditional node per block"] = (
+                    cap.conditional == n_blocks)
+                checks[f"{tag}: kernels grow by one block's per block"] = (
+                    per_block > 0 and kernels[n_blocks]
+                    == kernels[1] + (n_blocks - 1) * per_block)
+                _log(f"[walk] {tag}: {cap.conditional} conditional of "
+                     f"{cap.nodes} nodes; a replay runs {kernels[1]} device "
+                     f"kernels at one block ({per_block} per further "
+                     f"block), {kernels[n_blocks]} at {n_blocks}; "
+                     f"{ms[1]:.4f} ms at one block, {ms[n_blocks]:.4f} ms "
+                     f"at {n_blocks}; on {smi}")
+                del cap, out
+    for name, ok in checks.items():
+        if not ok:
+            _log(f"[walk] check {name}: False ({notes.get(name, '')})")
+    _log(f"[walk] {sum(checks.values())} of {len(checks)} checks passed")
+    if not all(checks.values()):
+        raise AssertionError("bounded-walk replay checks failed: " + ", ".join(
+            n for n, ok in checks.items() if not ok))
 
 
 def softmax_engine_phase(smi, *, seed=8, new_tokens=16):
@@ -2285,11 +2487,12 @@ def softmax_engine_phase(smi, *, seed=8, new_tokens=16):
     20-999 prompt tokens (greedy) on the contiguous
     engine (8 x 1024 rows, chunk 128, ``kv_chunk`` 128) and the paged
     engine (pages of 128, no prefix cache, so a second pass is cold too),
-    each graphed (every walk sweeps all its blocks,
-    ``core/attention._kv_walk``) and with ``cuda_graphs=False``
-    (``_engine_ab``); softmax's engines then trace 3 iterations each.
-    Gates: paged == contiguous tokens, graphed == eager tokens (both
-    graphed passes), the graph contract."""
+    each graphed (each block of the plain walks an IF node on the
+    device's bound, ``core/attention._walk_blocks``) and with
+    ``cuda_graphs=False`` (the sweep) (``_engine_ab``); softmax's engines
+    then trace 3 iterations each. Gates: paged == contiguous tokens,
+    graphed == eager tokens (both graphed passes), the graph contract, one
+    conditional node per walk block and layer in every graph."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.weights import init_params
@@ -2311,9 +2514,14 @@ def softmax_engine_phase(smi, *, seed=8, new_tokens=16):
                                                  page_size=128,
                                                  num_pages=64,
                                                  prefix_cache=False))):
-            both = _engine_ab(f"[softmax] gpt2-consmax {norm} {kind}",
-                              cfg, scfg, model, reqs, new_tokens, smi,
-                              trace=norm == "softmax")
+            both, nodes = _engine_ab(
+                f"[softmax] gpt2-consmax {norm} {kind}", cfg, scfg, model,
+                reqs, new_tokens, smi, trace=norm == "softmax")
+            # 8 blocks of 128 rows; the contiguous decode step
+            # materializes its score row (decode_attention)
+            checks[f"{norm} {kind}: a conditional node per walk block"] = (
+                _walk_nodes_ok(nodes, cfg.n_layers, dict(
+                    prefill=8, decode=8 if kind == "paged" else 0)))
             toks[kind] = both[False][0]
             checks[f"{norm} {kind}: every request finished"] = all(
                 t is not None and len(t) == new_tokens for t in toks[kind])
@@ -2332,14 +2540,16 @@ def softmax_engine_phase(smi, *, seed=8, new_tokens=16):
 def plain_engine_phase(smi, *, seed=16, new_tokens=6):
     """14b: full-width qwen2-1.5b (28 layers, random weights from
     ``seed``, bf16) on the continuous engine with both kernel flags off,
-    the plain walks sweeping every block: 8 slots x 8192 rows, chunk 512,
-    contiguous (``kv_chunk`` 1024) and paged (128 pages of 256, no prefix
-    cache); two requests of 300-500 prompt tokens, the second sampled;
-    each engine graphed and with ``cuda_graphs=False`` (``_engine_ab``),
-    untraced (a traced paged iteration holds ~56,000 device ops;
-    ``tools/engine_ab.py --rows plain`` traces these engines). Gates:
-    graphed == eager tokens (both graphed passes), every request
-    finished, the graph contract."""
+    graphed, each block of the plain walks an IF node on the device's
+    bound; eager, the walks sweep every block: 8 slots x 8192 rows, chunk
+    512, contiguous (``kv_chunk`` 1024) and paged (128 pages of 256, no
+    prefix cache); two requests of 300-500 prompt tokens, the second
+    sampled; each engine graphed and with ``cuda_graphs=False``
+    (``_engine_ab``), the graphed one traced (3 iterations after 4; the
+    eager sweep's trace is ``tools/engine_ab.py``'s). Gates: graphed
+    == eager tokens (both graphed passes), every request finished, the
+    graph contract, one conditional node per walk block and layer in every
+    graph."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.sampling import SamplingParams
@@ -2359,9 +2569,15 @@ def plain_engine_phase(smi, *, seed=16, new_tokens=6):
                        ("paged", ServeConfig(**common, paged_kv=True,
                                              page_size=256, num_pages=128,
                                              prefix_cache=False))):
-        both = _engine_ab(f"[plain] qwen2-1.5b kernel flags off {kind}",
-                          cfg, scfg, model, reqs, new_tokens, smi,
-                          trace=False)
+        both, nodes = _engine_ab(
+            f"[plain] qwen2-1.5b kernel flags off {kind}", cfg, scfg, model,
+            reqs, new_tokens, smi, trace_eager=False)
+        # 8 blocks of 1024 rows, or 32 pages of 256; the contiguous decode
+        # step materializes its score row (decode_attention)
+        checks[f"{kind}: a conditional node per walk block"] = (
+            _walk_nodes_ok(nodes, cfg.n_layers, dict(
+                prefill=32 if kind == "paged" else 8,
+                decode=32 if kind == "paged" else 0)))
         eager = both[False][0]
         checks[f"{kind}: every request finished"] = all(
             t is not None and len(t) == new_tokens for t in eager)
@@ -5689,6 +5905,10 @@ def main():
     t0 = time.perf_counter()
     session_graph_phase(smi)
     _log(f"[session-graph] phase 13b {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    walk_graph_phase(smi)
+    _log(f"[walk] bounded-walk replays {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     softmax_engine_phase(smi)

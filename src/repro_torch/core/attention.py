@@ -17,8 +17,12 @@
   itself. For consmax each KV block's ``p @ v`` partial is final (no
   running max, no denominator), so the walk's carry is the fp32 output
   accumulator alone; softmax and softermax carry the online (m, l) state.
-  It walks every block of the cache, each masked past the fill, with no
-  host read: one program per step, eager or in a CUDA graph.
+  The KV loop runs only up to the highest filled chunk, so cost tracks the
+  fill level, not the cache capacity: inside a CUDA graph capture each
+  block is an IF node on ``j < hi``, ``hi`` computed on the device as the
+  reference computes it (``kernels/graph_cond``); eager, the walk sweeps
+  every block, each masked past the fill, with the same bits. Neither
+  reads the fill on the host.
 * ``decode_attention`` — one-token decode against the cache, the score row
   materialized.
 * ``paged_attention`` — the same append walk over a shared page pool: block
@@ -62,6 +66,7 @@ from repro_torch.core.consmax import ConSmaxParams
 from repro_torch.distributed.sharding import attention_on_shards, shard
 from repro_torch.kernels import cache_layout as CL
 from repro_torch.kernels.cache_layout import kv_mask
+from repro_torch.kernels.graph_cond.ops import if_node
 from repro_torch.nn import layers as L
 from repro_torch.nn import rope as R
 
@@ -307,32 +312,61 @@ def _quantized_write(write, cache, k, v, *args):
 
 
 # ------------------------------------------------------------ plain walks ----
+def _live_blocks(kv_len, kc, n_blocks):
+    """(n_blocks,) bool on ``kv_len``'s device: block j is below the walk's
+    bound ``hi``, the reference's ``max(-(-kv_len // kc))`` over the batch
+    (inactive slots included), capped at ``n_blocks``."""
+    hi = (-(-kv_len // kc)).amax().clamp(max=n_blocks)
+    return torch.arange(n_blocks, device=kv_len.device) < hi
+
+
+def _walk_blocks(body, n_blocks, live, device):
+    """Run the walk's ``body(j)`` for j < ``n_blocks``. Inside a CUDA graph
+    capture on ``device`` each block's body is captured into an IF node on
+    ``live()[j]`` (``kernels/graph_cond``), so a replay runs blocks j < hi
+    only, with no read of the fill on the host: the reference's
+    ``fori_loop(0, hi)``. Everywhere else (the CPU, an eager CUDA run, the
+    warm-up run before a capture, DTensors) every block runs: the sweep,
+    whose blocks past the fill change nothing."""
+    if not (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        for j in range(n_blocks):
+            body(j)
+        return
+    live = live()
+    for j in range(n_blocks):
+        with if_node(live[j]):
+            body(j)
+
+
 def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
              norm_params, window=0, softcap=0.0, merged=True,
              block_valid=None):
-    """A (b, c) chunk at per-slot positions index + [0, c) attends every
-    one of the ``n_blocks`` cache blocks of ``kc`` rows, each masked by
-    ``kv_mask``: a fixed trip count, with no read of the fill on the host,
-    so a step runs one program whatever the fills (what a CUDA graph
-    captures). A block past a slot's fill changes nothing, bit for bit, as
-    long as its rows are finite: its ConSmax weights are exact zeros, and
-    for softmax / softermax its scores are the finite ``NEG_INF``, so ``m``
-    stays, ``alpha`` is exactly 1 and its weights are 0 (the reference's
-    fill-bounded walk, which stops at the batch's highest fill, gives the
-    same bits). ``gather(j) -> (k_blk, v_blk)`` yields the (b, <= kc, hkv,
-    dk) block of logical rows [j*kc, (j+1)*kc) — a slice of a contiguous
-    cache, or one page per slot gathered through a page table.
-    ``block_valid`` (b, n_blocks) bool (optional) masks a slot's whole
-    block (a -1 page: the gather clamped it onto page 0). The masks of all
-    blocks are made once, before the walk (each block's is a slice: the
-    same elementwise compares, one pass). Products in fp32 of the
-    compute-dtype operands, weights
-    cast to the compute dtype before ``p @ v``, fp32 accumulator: the
-    reference's ``preferred_element_type=float32`` einsums.
+    """A (b, c) chunk at per-slot positions index + [0, c) attends the
+    cache's ``n_blocks`` blocks of ``kc`` rows, each masked by ``kv_mask``
+    (``_walk_blocks``): under a CUDA graph capture blocks j < hi run, hi
+    the batch's highest filled block computed on the device
+    (``_live_blocks``), as the reference's ``fori_loop(0, hi)``; eager,
+    every block runs. A block past a slot's fill changes nothing, bit for
+    bit, as long as its rows are finite: its ConSmax weights are exact
+    zeros, and for softmax / softermax its scores are the finite
+    ``NEG_INF``, so ``m`` stays, ``alpha`` is exactly 1 and its weights are
+    0. So the bounded walk and the sweep give the same bits. ``gather(j) ->
+    (k_blk, v_blk)`` yields the (b, <= kc, hkv, dk) block of logical rows
+    [j*kc, (j+1)*kc) — a slice of a contiguous cache, or one page per slot
+    gathered through a page table. ``block_valid`` (b, n_blocks) bool
+    (optional) masks a slot's whole block (a -1 page: the gather clamped it
+    onto page 0). The masks of all blocks are made once, before the walk
+    (each block's is a slice: the same elementwise compares, one pass).
+    Products in fp32 of the compute-dtype operands, weights cast to the
+    compute dtype before ``p @ v``, fp32 accumulator: the reference's
+    ``preferred_element_type=float32`` einsums.
 
     For consmax the carry is the accumulator alone (each block's partial is
     final); softmax and softermax (base 2) carry the online (m, l, acc)
-    state across blocks and divide by ``max(l, 1e-30)`` at the end."""
+    state across blocks and divide by ``max(l, 1e-30)`` at the end. Each
+    block updates the carry, allocated before the walk, in place: a block
+    a replay skips leaves it as it was."""
     if norm_kind not in ("consmax", "softmax", "softermax"):
         raise ValueError(f"unknown score_norm {norm_kind!r}")
     b, c, H, dk = q.shape
@@ -354,7 +388,8 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
     m = torch.full((b, hkv, g, c), normalizers.NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
-    for j in range(n_blocks):
+
+    def body(j):
         k_blk, v_blk = gather(j)
         k_blk, v_blk = k_blk.to(cdt).float(), v_blk.to(cdt).float()
         n = k_blk.shape[1]
@@ -366,18 +401,21 @@ def _kv_walk(q, index, lengths, gather, kc, n_blocks, hkv, *, norm_kind,
             p = normalizers.apply_norm(
                 "consmax", norm_params, s.reshape(b, H, c, n), msk[:, None],
                 head_axis=1, merged=merged).reshape(b, hkv, g, c, n)
-            acc += torch.einsum("bhgqc,bchd->bqhgd", p.to(cdt).float(),
-                                v_blk)
-            continue
+            acc.add_(torch.einsum("bhgqc,bchd->bqhgd", p.to(cdt).float(),
+                                  v_blk))
+            return
         msk = msk[:, None, None]                              # (b,1,1,c,n)
         s = torch.where(msk, s, normalizers.NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = expf(m - m_new)
         e = torch.where(msk, expf(s - m_new[..., None]), 0.0)
-        l = l * alpha + e.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqc,bchd->bhgqd", e.to(cdt).float(), v_blk)
-        m = m_new
+        l.mul_(alpha).add_(e.sum(dim=-1))
+        acc.mul_(alpha[..., None]).add_(torch.einsum(
+            "bhgqc,bchd->bhgqd", e.to(cdt).float(), v_blk))
+        m.copy_(m_new)
+
+    _walk_blocks(body, n_blocks, lambda: _live_blocks(kv_len, kc, n_blocks),
+                 q.device)
     if not consmax:
         acc = (acc / l.clamp(min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     return acc.reshape(b, c, H, dk).to(cdt)

@@ -31,7 +31,7 @@ REPO_ROOT = _KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 COMMON_INCLUDE = _KERNELS_DIR / "csrc"
 KERNELS = ("consmax_decode", "consmax_prefill", "consmax_attn",
-           "softmax_attn", "consmax_lut")
+           "softmax_attn", "consmax_lut", "graph_cond")
 HEAD_DIMS = (32, 64, 96, 128, 256)      # the head_dims the kernels compile
 # K/V element types of the serving kernels -> their kv_type code (KVCode in
 # csrc/consmax_common.cuh); int8 / fp8_e4m3 caches come with fp32 scales

@@ -51,12 +51,14 @@ captured once as a CUDA graph at its first use (after one eager run on a
 side stream, which builds the kernels) and replayed from then on: one
 graph per (step, argmax | draw) with fused sampling, one per step in
 logits mode, all in one memory pool, whatever the score norm and the
-kernel flags (the plain walks read no fill on the host:
-``core/attention._kv_walk``). A capture that fails raises; nothing falls
-back to eager. Eager, by construction: the CPU, a mesh, or
-``cuda_graphs=False``. Admission, the scheduler, copy-on-write page
-copies, index pins and slot resets, the token drain and logits-mode
-sampling stay on the host, between steps.
+kernel flags: the plain walks read no fill on the host, and in a graph
+each of their blocks is a conditional node on the bound the device
+computes (``core/attention._walk_blocks``, ``kernels/graph_cond``), so a
+replay walks only the filled blocks, as the reference's ``fori_loop``
+does. A capture that fails raises; nothing falls back to eager. Eager,
+by construction: the CPU, a mesh, or ``cuda_graphs=False``. Admission,
+the scheduler, copy-on-write page copies, index pins and slot resets, the
+token drain and logits-mode sampling stay on the host, between steps.
 
 ``prefill_cache_size`` / ``decode_cache_size`` count the distinct (shape,
 dtype) signatures of the tensors entering the prefill-chunk step and the
@@ -129,6 +131,7 @@ from repro_torch.distributed import comm as COMM
 from repro_torch.distributed import serve_mesh as SM
 from repro_torch.kernels import _build
 from repro_torch.kernels import cache_layout as CL
+from repro_torch.kernels.graph_cond import ops as graph_cond
 from repro_torch.models import transformer as T
 from repro_torch.models.blocks import ATTN_KINDS
 from repro_torch.serve import sampling as S
@@ -232,12 +235,16 @@ class _Staged:
 class _StepGraph:
     """One captured step: its CUDA graph, the output its replays write, the
     kernels' ticket buffer its launches read (held while the graph may
-    replay), the capture's seconds and the reserved bytes it added."""
+    replay), the capture's seconds, the reserved bytes it added, and the
+    graph's top-level nodes and conditional nodes (the plain walks' blocks,
+    ``kernels/graph_cond``)."""
     graph: object
     out: object
     tickets: object
     seconds: float
     pool_bytes: int
+    nodes: int
+    conditional: int
 
     def replay(self):
         self.graph.replay()
@@ -270,8 +277,10 @@ class _Graphs:
     def _capture(self, fn):
         """Run ``fn()`` once eagerly on the side stream (this is the step's
         real run: it builds and loads the kernels, makes the cuBLAS handles
-        and the parameters' compute-dtype copies), then capture it into a
-        graph in the pool. Returns (the eager run's output, the
+        and the parameters' compute-dtype copies; its plain walks sweep
+        every block, so every block's ops are warm), then capture it into a
+        graph in the pool (``graph_cond.graph``: each plain-walk block an IF
+        node on the device's bound). Returns (the eager run's output, the
         ``_StepGraph``). A failed capture, or a host sync inside it,
         raises."""
         cur = torch.cuda.current_stream(self.device)
@@ -283,19 +292,25 @@ class _Graphs:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.side):
+        with graph_cond.graph(pool=self.pool, stream=self.side) as cap:
             static = fn()
         seconds = time.perf_counter() - t0
         tickets = _build.stream_tickets(self.side.device,
                                         self.side.cuda_stream)
-        return out, _StepGraph(graph, static, tickets, seconds,
+        return out, _StepGraph(cap.graph, static, tickets, seconds,
                                torch.cuda.memory_reserved(self.device)
-                               - reserved)
+                               - reserved, cap.nodes, cap.conditional)
 
     @property
     def pool_bytes(self) -> int:
         return sum(g.pool_bytes for g in self.steps.values())
+
+    @property
+    def nodes(self) -> dict:
+        """(top-level nodes, conditional nodes) of each captured graph, by
+        key."""
+        return {key: (g.nodes, g.conditional)
+                for key, g in self.steps.items()}
 
 
 def _tree_bytes(caches) -> int:
@@ -525,6 +540,15 @@ class ServeSession:
             return {}
         return {(key[0], mode): g.seconds
                 for (key, mode), g in self._graphs.steps.items()}
+
+    @property
+    def graph_nodes(self) -> dict:
+        """(top-level nodes, conditional nodes) of each captured graph, by
+        (b, mode)."""
+        if not self.graphed:
+            return {}
+        return {(key[0], mode): n for (key, mode), n in
+                self._graphs.nodes.items()}
 
     def graph_pool_bytes_of(self, b: int) -> int:
         """Reserved bytes the captures of batch size ``b`` took."""
@@ -911,6 +935,13 @@ class ContinuousBatchingEngine:
     def capture_seconds(self) -> dict:
         """Host seconds of each graph's capture, by (step, draws)."""
         return {key: g.seconds for key, g in self._graph_steps.items()}
+
+    @property
+    def graph_nodes(self) -> dict:
+        """(top-level nodes, conditional nodes) of each captured graph, by
+        (step, draws): a plain walk of n blocks adds n conditional nodes per
+        attention layer."""
+        return self._graphs.nodes if self.graphed else {}
 
     @property
     def graph_replays(self) -> int:

@@ -1477,10 +1477,11 @@ def test_graphed_engine_equals_eager(cuda, paged, kv):
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
 def test_graphed_plain_walk_engine_equals_eager(cuda, paged, norm):
     """With both kernel flags off the engine still replays its steps as
-    CUDA graphs (the plain walks sweep every block, no host read) and
-    gives the ``cuda_graphs=False`` engine's tokens, greedy and sampled,
-    with slots recycled: at most 2 graphs per step, one replay per model
-    step after each graph's first run."""
+    CUDA graphs (each block of the plain walks an IF node on the device's
+    bound, no host read) and gives the ``cuda_graphs=False`` engine's
+    tokens, greedy and sampled, with slots recycled: at most 2 graphs per
+    step, one replay per model step after each graph's first run, one
+    conditional node per walk block and layer in every graph."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.serve.engine import ContinuousBatchingEngine
@@ -1509,6 +1510,12 @@ def test_graphed_plain_walk_engine_equals_eager(cuda, paged, norm):
         g.model_steps)
     assert g.prefill_cache_size == g.decode_cache_size == 1
     assert e.graph_replays == 0
+    # every walk's blocks: pages of 16, or kv_chunk 32 (the contiguous
+    # decode step materializes its score row, as the reference's does)
+    want = ({"prefill": 128 // 16, "decode": 128 // 16} if paged
+            else {"prefill": 128 // 32, "decode": 0})
+    assert all(cond == cfg.n_layers * want[step]
+               for (step, _), (_, cond) in g.graph_nodes.items())
 
 
 @pytest.mark.parametrize("case", ["decode_kernel", "plain", "softmax",
@@ -1557,3 +1564,139 @@ def test_graphed_session_equals_eager(cuda, case):
         7 * len(calls))
     assert set(g.held_cache_bytes) == {1, 3}
     assert e.graph_replays == e.decode_graphs == 0
+
+
+def _walk_fills(n_blocks, kc, c, f, r):
+    """(index, lengths) of four slots whose highest fill ends in block
+    ``f - 1`` (fills from 1 to f blocks' rows; slot 1 inactive)."""
+    top = (f - 1) * kc + int(r.integers(1, kc + 1))
+    fills = np.minimum(r.integers(0, top + 1, 4), top)
+    fills[3] = top
+    lengths = np.array([c, 0, c // 2, c], np.int32)
+    lengths = np.minimum(lengths, fills).astype(np.int32)
+    return (fills - lengths).astype(np.int32), lengths
+
+
+def _replay_kernels(graph, tries=5):
+    """Device kernels of one replay of ``graph`` (``torch.profiler``): a
+    trace holds a warm-up replay, a marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``) and the replay counted, whose kernels are the device
+    events after the marker; the median of ``tries`` traces that hold the
+    marker (a trace now and then misses some of its device records: at
+    its start, or the marker too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for _ in range(3 * tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda._sleep(1000)
+            graph.replay()
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
+        if marks:
+            counts.append(len(dev) - marks[-1] - 1)
+        if len(counts) == tries:
+            return sorted(counts)[tries // 2]
+    raise AssertionError(f"{len(counts)} of {3 * tries} traces hold the "
+                         "marker kernel")
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("norm", ["consmax", "softmax", "softermax"])
+def test_bounded_plain_walk_replays_equal_the_sweep(cuda, norm, kv):
+    """``append_attention`` and ``paged_attention`` captured once as CUDA
+    graphs, each block of their walks an IF node on ``j < hi`` (``hi`` on
+    the device, ``core/attention._live_blocks``), then replayed after
+    ``index``, ``lengths`` and the page table are rewritten in place, at
+    fills from one block to every block: each replay equals the eager
+    sweep bit for bit, each graph holds one conditional node per block,
+    and a replay at a one-block fill runs one block's walk kernels (the
+    kernels a replay runs grow by one block's per filled block)."""
+    from repro_torch.core import attention as TA
+    from repro_torch.core.consmax import ConSmaxParams
+    from repro_torch.configs.base import ConSmaxConfig
+    from repro_torch.kernels.graph_cond import ops as GC
+
+    b, L, hkv, g, dk, c, kc = 4, 512, 2, 3, 64, 16, 64
+    n_blocks = L // kc
+    r = np.random.default_rng(7)
+    q = torch.tensor(r.standard_normal((b, c, hkv * g, dk)) * 0.3,
+                     dtype=torch.bfloat16, device=cuda)
+    kf = torch.tensor(r.standard_normal((b, L, hkv, dk)), device=cuda)
+    vf = torch.tensor(r.standard_normal((b, L, hkv, dk)), device=cuda)
+    if kv == "int8":
+        k, ks = CL.quantize_kv(kf, torch.int8)
+        v, vs = CL.quantize_kv(vf, torch.int8)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v, scales = kf.bfloat16(), vf.bfloat16(), {}
+    params = None
+    if norm == "consmax":
+        params = ConSmaxParams(hkv * g, ConSmaxConfig(), device=cuda)
+        with torch.no_grad():
+            params.beta.copy_(torch.tensor(r.uniform(0.5, 2.5, hkv * g)))
+            params.gamma.copy_(torch.tensor(r.uniform(20.0, 80.0, hkv * g)))
+    # a pool of every slot's pages in random order, plus the spare page
+    perm = torch.tensor(r.permutation(b * n_blocks).astype(np.int32),
+                        device=cuda)
+    full_table = perm.view(b, n_blocks)
+
+    def pool(t):
+        out = torch.zeros((b * n_blocks + 1, kc) + t.shape[2:],
+                          dtype=t.dtype, device=cuda)
+        out[full_table.long().flatten()] = t.reshape(
+            (b * n_blocks, kc) + t.shape[2:])
+        return out
+    kp, vp = pool(k), pool(v)
+    sp = {n: pool(t) for n, t in scales.items()}
+    index = torch.zeros(b, dtype=torch.int32, device=cuda)
+    lengths = torch.zeros(b, dtype=torch.int32, device=cuda)
+    table = full_table.clone()
+    common = dict(norm_kind=norm, norm_params=params)
+    walks = {
+        "append": lambda: TA.append_attention(
+            q, k, v, index, lengths, kv_chunk=kc, **common, **scales),
+        "paged": lambda: TA.paged_attention(
+            q, kp, vp, table, index, lengths, **common, **sp),
+    }
+
+    def set_fill(f):
+        i, n = _walk_fills(n_blocks, kc, c, f, r)
+        index.copy_(torch.tensor(i, device=cuda))
+        lengths.copy_(torch.tensor(n, device=cuda))
+        t = full_table.clone()
+        for s, fill in enumerate(i + n):
+            t[s, -(-int(fill) // kc):] = -1
+        table.copy_(t)
+
+    side = torch.cuda.Stream()
+    for name, fn in walks.items():
+        set_fill(n_blocks)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.no_grad():
+            fn()                                  # the warm-up sweep
+        torch.cuda.synchronize()
+        with torch.no_grad(), GC.graph(pool=torch.cuda.graph_pool_handle(),
+                                       stream=side) as cap:
+            out = fn()
+        graph = cap.graph
+        assert cap.conditional == n_blocks, name
+        kernels = {}
+        for f in list(range(1, n_blocks + 1)) + [1]:
+            set_fill(f)
+            graph.replay()
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                ref = fn()
+            assert torch.isfinite(ref[lengths > 0].float()).all()
+            assert torch.equal(out, ref), (name, f)
+            if f <= 2 or f == n_blocks:
+                kernels[f] = _replay_kernels(graph)
+        per_block = kernels[2] - kernels[1]
+        assert per_block > 0, (name, kernels)
+        assert kernels[n_blocks] == kernels[1] + (n_blocks - 1) * per_block

@@ -1,8 +1,8 @@
 """Serve ``chip_smoke.py``'s engine phases from several source trees, one
 process per run, in turns: the trees in the order given, then reversed.
 
-    python3 tools/engine_ab.py [--rows kernel|plain|all] PARENT_ROOT \
-        CHANGE_ROOT [...]
+    python3 tools/engine_ab.py [--rows kernel|plain|engines|all] \
+        PARENT_ROOT CHANGE_ROOT [...]
 
 ``--rows kernel`` (part of the default ``all``) runs each tree's own
 qwen2-1.5b phases with both ConSmax kernels: phase 5's contiguous bf16
@@ -23,16 +23,19 @@ before the static session and the graph-safe plain walks runs too):
   and tok/s, for the tree's default session and, where the tree's session
   takes ``cuda_graphs``, with ``cuda_graphs=False``;
 * continuous engines with both kernel flags off (``[ab-engine]`` and
-  ``[trace]``): qwen2-1.5b at full width, 8 slots x 8192 rows, chunk 512,
-  contiguous (``kv_chunk`` 1024) and paged (128 pages of 256), and
-  gpt2-consmax with softmax at full width, 8 x 1024 rows, chunk 128,
-  ``kv_chunk`` 128, contiguous and paged (64 pages of 128); six requests,
+  ``[trace]``; ``--rows engines`` runs these alone): qwen2-1.5b at full
+  width, 8 slots x 8192 rows, chunk 512, contiguous (``kv_chunk`` 1024)
+  and paged (128 pages of 256), and gpt2-consmax with softmax and with
+  softermax at full width, 8 x 1024 rows, chunk 128, ``kv_chunk`` 128,
+  contiguous and paged (64 pages of 128); six requests,
   16 new tokens each, every other one sampled, served twice by one engine
   (no prefix cache; the first pass captures any graphs): the second
-  pass's generated tok/s on one wall clock, then 3 traced iterations
-  (after 4) of the same requests on the same engine: wall
-  and device-busy ms per iteration and the idle share; for the tree's
-  default engine and, where it is graphed, with ``cuda_graphs=False``.
+  pass's generated tok/s on one wall clock, each graph's capture seconds
+  (with its nodes and conditional nodes where the tree counts them) and
+  the graph pool's MiB, then 3 traced iterations (after 4) of the same
+  requests on the same engine: wall and device-busy ms per iteration and
+  the idle share; for the tree's default engine and, where it is graphed,
+  with ``cuda_graphs=False``.
 
 Each argument is a checkout of this repository (for example a ``git
 archive`` of the parent commit unpacked into a directory that
@@ -72,7 +75,7 @@ C.engine_phase("qwen2-1.5b", max_seq=8192, chunk=512,
 C.paged_engine_phase()
 C.paged_engine_phase(kv_dtype="int8")
 """
-PLAIN_RUN = PRELUDE + """
+PLAIN_COMMON = PRELUDE + """
 import inspect, time, torch
 from repro_torch.configs.base import ServeConfig
 from repro_torch.configs.registry import get_config
@@ -83,15 +86,17 @@ from repro_torch.weights import init_params
 torch.backends.cuda.matmul.allow_tf32 = False
 SEED = 17
 HOT = dict(temperature=0.8, top_k=50, top_p=0.95, min_p=0.05)
-session_modes = [{}]
-if "cuda_graphs" in inspect.signature(ServeSession).parameters:
-    session_modes.append(dict(cuda_graphs=False))
 
 
 def model_of(arch, **over):
     cfg = get_config(arch, **over)
     return cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), device="cuda")
+"""
+SESSION_RUN = PLAIN_COMMON + """
+session_modes = [{}]
+if "cuda_graphs" in inspect.signature(ServeSession).parameters:
+    session_modes.append(dict(cuda_graphs=False))
 
 
 def session_rows(tag, arch, over, serve, b, prompt, steps):
@@ -116,6 +121,14 @@ def session_rows(tag, arch, over, serve, b, prompt, steps):
         torch.cuda.empty_cache()
 
 
+session_rows("qwen2-1.5b decode kernel", "qwen2-1.5b", {},
+             dict(decode_kernel=True), 4, 512, 32)
+session_rows("qwen2-1.5b plain decode", "qwen2-1.5b", {}, {}, 4, 512, 32)
+session_rows("gpt2-consmax softmax", "gpt2-consmax",
+             dict(score_norm="softmax"), dict(max_seq=1024), 4, 512, 32)
+session_rows("xlstm-1.3b", "xlstm-1.3b", {}, dict(max_seq=512), 2, 256, 32)
+"""
+ENGINE_RUN = PLAIN_COMMON + """
 def engine_rows(tag, cfg, model, scfg, new_tokens=16):
     r = np.random.default_rng(SEED)
     reqs = [(r.integers(0, cfg.vocab_size, int(n)).tolist(),
@@ -137,9 +150,19 @@ def engine_rows(tag, cfg, model, scfg, new_tokens=16):
             wall = time.perf_counter() - t0
         gen = sum(len(res[u]) for u in uids)
         name = f"{tag} {mode or 'default'}"
+        caps = "; ".join(
+            f"{step}{' draw' if draw else ''} {sec:.3f} s" + (
+                ", {:,} nodes, {} conditional".format(
+                    *eng.graph_nodes[step, draw])
+                if hasattr(eng, "graph_nodes") else "")
+            for (step, draw), sec in getattr(eng, "capture_seconds",
+                                             {}).items())
         print(f"[ab-engine] {name}: graphed "
               f"{getattr(eng, 'graphed', False)}, {gen} generated tokens "
-              f"in {wall:.3f} s ({gen / wall:.1f} tok/s)", flush=True)
+              f"in {wall:.3f} s ({gen / wall:.1f} tok/s)"
+              + (f"; captures: {caps}; graph pool "
+                 f"{eng.graph_pool_bytes / 2**20:.1f} MiB" if caps else ""),
+              flush=True)
         for p, sp in reqs:
             eng.submit(p, new_tokens, sampling=sp)
         C.trace_steps(eng, name, skip=4, steps=3)
@@ -147,18 +170,14 @@ def engine_rows(tag, cfg, model, scfg, new_tokens=16):
         torch.cuda.empty_cache()
 
 
-session_rows("qwen2-1.5b decode kernel", "qwen2-1.5b", {},
-             dict(decode_kernel=True), 4, 512, 32)
-session_rows("qwen2-1.5b plain decode", "qwen2-1.5b", {}, {}, 4, 512, 32)
-session_rows("gpt2-consmax softmax", "gpt2-consmax",
-             dict(score_norm="softmax"), dict(max_seq=1024), 4, 512, 32)
-session_rows("xlstm-1.3b", "xlstm-1.3b", {}, dict(max_seq=512), 2, 256, 32)
-torch.cuda.empty_cache()
 for arch, over, common, pages in (
         ("qwen2-1.5b", {}, dict(max_seq=8192, prefill_chunk=512,
                                 kv_chunk=1024), dict(page_size=256,
                                                      num_pages=128)),
         ("gpt2-consmax", dict(score_norm="softmax"),
+         dict(max_seq=1024, prefill_chunk=128, kv_chunk=128),
+         dict(page_size=128, num_pages=64)),
+        ("gpt2-consmax", dict(score_norm="softermax"),
          dict(max_seq=1024, prefill_chunk=128, kv_chunk=128),
          dict(page_size=128, num_pages=64))):
     cfg, model = model_of(arch, **over)
@@ -177,12 +196,13 @@ KEEP = ("[engine] qwen2-1.5b: 12", "[paged bfloat16] qwen2-1.5b",
 
 def main(argv):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rows", choices=("kernel", "plain", "all"),
+    ap.add_argument("--rows", choices=("kernel", "plain", "engines", "all"),
                     default="all")
     ap.add_argument("roots", nargs="+")
     args = ap.parse_args(argv)
-    runs = {"kernel": [KERNEL_RUN], "plain": [PLAIN_RUN],
-            "all": [KERNEL_RUN, PLAIN_RUN]}[args.rows]
+    runs = {"kernel": [KERNEL_RUN], "plain": [SESSION_RUN, ENGINE_RUN],
+            "engines": [ENGINE_RUN],
+            "all": [KERNEL_RUN, SESSION_RUN, ENGINE_RUN]}[args.rows]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
